@@ -1,0 +1,45 @@
+"""Device selection and float-reference precision."""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Iterator, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the card.  Without one this raises: an entry point
+    never carries on quietly on the CPU, where only the plain versions run.
+    Pass ``device="cpu"`` to ask for those explicitly."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device is available; pass device='cpu' to run the "
+                "plain PyTorch versions on the CPU"
+            )
+        return torch.device("cuda")
+    return torch.device(device)
+
+
+@contextlib.contextmanager
+def fp32_reference() -> Iterator[None]:
+    """Full-float32 convolutions and matmuls inside the block.
+
+    cuDNN runs float32 convolutions in TF32 by default (about three decimal
+    digits).  Calibration takes the absmax of every conv input from the
+    float forward, and the int8 scales are fixed from it, so a TF32 drift
+    would move every activation scale of the served model; the float
+    reference that the int8 path is held against must be float32 too."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+

@@ -1,0 +1,91 @@
+"""Kernel A: int8 SAME conv + fused serving epilogue, NHWC.
+
+Counterpart: what XLA generated on the TPU for ``serve/quant.py``:
+``_conv3x3(..., preferred=int32)`` + ``_requant_epilogue`` (int8 out) or the
+final layer's ``acc * scale + qbias`` (float32 out).  The CUDA source is
+``csrc/conv_int8.cu``.
+
+    y = f32(conv(x, w)) * s + b ;  relu ;  int8: clip(round(y), +-127)
+
+:func:`conv2d_int8` launches the kernel for a CUDA tensor and runs
+:func:`conv2d_int8_plain` for a CPU tensor; it never falls back.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from mrisr_tpu_torch import _build
+
+
+def pack_conv(w_int8: torch.Tensor) -> torch.Tensor:
+    """HWIO ``(kh, kw, Ci, Co)`` int8 table -> ``(Co, kh, kw, Ci)``
+    K-contiguous, the kernel's weight layout."""
+    return w_int8.permute(3, 0, 1, 2).contiguous()
+
+
+def epilogue_plain(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor, *,
+                   relu: bool, out_float: bool) -> torch.Tensor:
+    """The shared float32 epilogue of the plain versions.  ``acc`` holds
+    exact integer sums (float64); its float32 cast rounds like the kernel's
+    int32 -> float32 conversion."""
+    y = acc.float() * s + b
+    if relu:
+        y = torch.clamp_min(y, 0.0)
+    if out_float:
+        return y
+    return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
+
+
+def conv2d_int8_plain(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
+                      b: torch.Tensor, *, relu: bool = True,
+                      out_float: bool = False) -> torch.Tensor:
+    """Plain version of kernel A.  The conv runs on float64 copies of the
+    codes: exact, since |acc| <= 127 * 127 * 9 * 1024 ~ 1.5e8 is past
+    float32's 2^24 but far inside float64's 2^53."""
+    k = wp.shape[1]
+    acc = F.conv2d(x.permute(0, 3, 1, 2).double(),
+                   wp.permute(0, 3, 1, 2).double(), padding=k // 2)
+    return epilogue_plain(acc.permute(0, 2, 3, 1), s, b, relu=relu,
+                          out_float=out_float).contiguous()
+
+
+def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
+                b: torch.Tensor, *, relu: bool = True,
+                out_float: bool = False) -> torch.Tensor:
+    """x ``(N, H, W, Ci)`` int8 codes, wp ``(Co, k, k, Ci)`` int8 from
+    :func:`pack_conv` (k = 1 or 3), s/b ``(Co,)`` float32.  Returns
+    ``(N, H, W, Co)`` int8 codes, or float32 with ``out_float``."""
+    if x.device.type == "cpu":
+        return conv2d_int8_plain(x, wp, s, b, relu=relu, out_float=out_float)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv2d_int8: unsupported device {x.device}")
+    n, h, w, ci = x.shape
+    co, k, k2, wci = wp.shape
+    if k != k2 or k not in (1, 3) or wci != ci:
+        raise ValueError(f"conv2d_int8: weight {tuple(wp.shape)} does not "
+                         f"fit input {tuple(x.shape)}")
+    for name, t, dt in (("x", x, torch.int8), ("w", wp, torch.int8),
+                        ("s", s, torch.float32), ("b", b, torch.float32)):
+        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"conv2d_int8: {name} must be a contiguous "
+                             f"{dt} tensor on {x.device}")
+    if s.numel() != co or b.numel() != co:
+        raise ValueError("conv2d_int8: s and b need one value per channel")
+    out = torch.empty((n, h, w, co), device=x.device,
+                      dtype=torch.float32 if out_float else torch.int8)
+    lib = _build.library("conv_int8")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.conv_int8_launch(
+            x.data_ptr(), wp.data_ptr(), s.data_ptr(), b.data_ptr(),
+            out.data_ptr(), n, h, w, ci, co, k, int(relu), int(out_float),
+            stream,
+        )
+    _build.check(err, "conv2d_int8")
+    conv2d_int8.launches += 1
+    return out
+
+
+conv2d_int8.launches = 0

@@ -1,0 +1,122 @@
+"""Bundles cross between the packages, and the port's engine serves them
+(CPU): a bundle mrisr_tpu writes serves in the port within rel-L2 0.02 of
+mrisr_tpu's own forward; a bundle the port writes loads in mrisr_tpu."""
+
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from mrisr_tpu.ckpt.fold_bn import fold_unet_batchnorm as jax_fold
+from mrisr_tpu.serve import bundle as jb
+from mrisr_tpu.serve import quant as jq
+from mrisr_tpu_torch.serve import (
+    engine_from_bundle,
+    load_bundle,
+    make_bundle_apply,
+    quantize_unet,
+    save_bundle,
+)
+from torch_port_util import jax_unet_variables, noise, port_unet, rel_l2
+
+F = 4
+HW = 16
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def tables():
+    v = jax_unet_variables(F, HW, seed=21)
+    folded = jax.tree.map(np.asarray, jax_fold(v["params"], v["batch_stats"]))
+    x = noise((4, HW, HW, 2), seed=22)
+    calib = jq.calibrate_unet(folded, [jnp.asarray(x)], dtype=jnp.float32)
+    return {"folded": folded, "x": x, "calib": calib,
+            "q": jq.quantize_unet(folded, calib)}
+
+
+def test_jax_bundle_serves_in_port(tables, tmp_path):
+    path = jb.save_bundle(str(tmp_path / "b"), tables["q"], model_name="unet",
+                          quant="int8_fused", base_features=F,
+                          image_size=(HW, HW), calibration="1 batch, absmax")
+    x = tables["x"]
+    want = np.asarray(jb.make_bundle_apply(*jb.load_bundle(path))(
+        jnp.asarray(x)))
+    params, meta = load_bundle(path)
+    assert params["upconv1"]["kernel"].dtype == torch.bfloat16
+    assert params["enc1"]["Conv_0"]["w_int8"].dtype == torch.int8
+    with engine_from_bundle(path, batch_size=3, device="cpu",
+                            max_delay_ms=50) as eng:
+        got = np.stack(eng.predict_many(list(x)))
+    assert got.shape == (4, HW, HW, 1)
+    assert rel_l2(got, want) < 0.02
+    # 4 requests over batch 3: one full batch and one wrap-padded one
+    assert eng.stats.requests == 4
+    assert eng.stats.batches == 2 and eng.stats.padded_slots == 2
+
+
+def test_port_bundle_loads_in_jax(tables, tmp_path):
+    model = port_unet(tables["folded"], F)
+    q = quantize_unet(model, tables["calib"])
+    path = save_bundle(str(tmp_path / "b"), q, model_name="unet",
+                       quant="int8_fused", base_features=F,
+                       image_size=(HW, HW))
+    params, meta = jb.load_bundle(path)
+    assert meta["quant"] == "int8_fused" and meta["base_features"] == F
+    for name in ("enc1", "dec1"):
+        np.testing.assert_array_equal(
+            np.asarray(params[name]["Conv_0"]["w_int8"]),
+            q[name]["Conv_0"]["w_int8"].numpy())
+    assert params["final"]["kernel"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(
+        np.asarray(params["final"]["kernel"], np.float32),
+        q["final"]["kernel"].float().numpy())
+    x = tables["x"]
+    jax_y = np.asarray(jb.make_bundle_apply(params, meta)(jnp.asarray(x)))
+    port_y = make_bundle_apply(*load_bundle(path), device="cpu")(
+        torch.from_numpy(x)).numpy()
+    assert rel_l2(port_y, jax_y) < 0.02
+
+
+def test_unported_modes_raise(tables):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        make_bundle_apply({}, {"quant": "none"}, device="cpu")
+    with pytest.raises(NotImplementedError, match="diffusion"):
+        make_bundle_apply({}, {"quant": "int8", "kind": "diffusion"},
+                          device="cpu")
+
+
+def test_engine_threads_and_close(tables, tmp_path):
+    path = jb.save_bundle(str(tmp_path / "b"), tables["q"], model_name="unet",
+                          quant="int8_fused", base_features=F,
+                          image_size=(HW, HW))
+    x = tables["x"]
+    ref = make_bundle_apply(*load_bundle(path), device="cpu")(
+        torch.from_numpy(x)).numpy()
+    eng = engine_from_bundle(path, batch_size=2, device="cpu")
+    results = {}
+
+    def client(k):
+        results[k] = [eng.submit(x[i]) for i in range(4)]
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    for k in range(2):
+        for i, fut in enumerate(results[k]):
+            np.testing.assert_allclose(fut.result(timeout=60), ref[i],
+                                       atol=1e-6)
+    eng.close()
+    assert not eng._thread.is_alive()
+    assert eng.stats.requests == 8
+    with pytest.raises(RuntimeError, match="closed"):
+        eng.submit(x[0])
+    with engine_from_bundle(path, batch_size=2, device="cpu") as eng2:
+        with pytest.raises(ValueError, match="shape"):
+            eng2.submit(np.zeros((3, 3, 2), np.float32))

@@ -1,0 +1,123 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: every test takes the ``cuda`` fixture, which skips where
+there is no card (decided when the test runs, not at import).  This file
+imports neither jax nor mrisr_tpu, so it runs on a machine with the card
+and no JAX:  python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from mrisr_tpu_torch.ops.conv_int8 import (
+    conv2d_int8,
+    conv2d_int8_plain,
+    pack_conv,
+)
+from mrisr_tpu_torch.ops.upconv import (
+    pack_upconv,
+    upconv2x2_int8,
+    upconv2x2_int8_plain,
+)
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+def assert_codes_close(got, want):
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff == 1).float().mean()) < 0.01
+
+
+def _codes(g, shape, device):
+    return torch.randint(-127, 128, shape, generator=g,
+                         dtype=torch.int8).to(device)
+
+
+# (N, H, W, Ci, Co, k): enc1's Ci=2, a tile-ragged M and Co, the 1x1 final
+CONV_CASES = [(2, 16, 16, 2, 64, 3), (1, 9, 7, 48, 40, 3),
+              (2, 16, 16, 64, 64, 3), (2, 8, 8, 64, 1, 1)]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,k", CONV_CASES)
+@pytest.mark.parametrize("out_float", [False, True])
+def test_conv_int8_kernel_matches_plain(cuda, n, h, w, ci, co, k, out_float):
+    g = torch.Generator().manual_seed(n * 1000 + ci * 10 + co)
+    x = _codes(g, (n, h, w, ci), cuda)
+    wp = pack_conv(_codes(g, (k, k, ci, co), "cpu")).to(cuda)
+    acc_std = 127 * 127 / 3 * (k * k * ci) ** 0.5
+    s = (torch.rand(co, generator=g) * 2 + 0.3) * 60 / acc_std
+    b = torch.rand(co, generator=g) * 4 - 2
+    s, b = s.to(cuda), b.to(cuda)
+    before = conv2d_int8.launches
+    got = conv2d_int8(x, wp, s, b, relu=True, out_float=out_float)
+    torch.cuda.synchronize()
+    assert conv2d_int8.launches == before + 1
+    want = conv2d_int8_plain(x, wp, s, b, relu=True, out_float=out_float)
+    if out_float:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("h,w,c,co,cs", [(4, 4, 64, 32, 32),
+                                         (8, 8, 32, 16, 0),
+                                         (5, 3, 16, 6, 6)])
+def test_upconv_kernel_matches_plain(cuda, h, w, c, co, cs):
+    g = torch.Generator().manual_seed(h * 100 + c)
+    x = _codes(g, (2, h, w, c), cuda)
+    w2, s4, b4 = pack_upconv(_codes(g, (2, 2, c, co), "cpu"),
+                             torch.rand(co, generator=g) * 0.2 + 0.03,
+                             torch.rand(co, generator=g) * 20 - 10)
+    w2 = w2.t().to(cuda).t()
+    s4, b4 = s4.to(cuda), b4.to(cuda)
+    skip = _codes(g, (2, 2 * h, 2 * w, cs), cuda) if cs else None
+    before = upconv2x2_int8.launches
+    got = upconv2x2_int8(x, w2, s4, b4, skip=skip)
+    torch.cuda.synchronize()
+    assert upconv2x2_int8.launches == before + 1
+    want = upconv2x2_int8_plain(x, w2, s4, b4, skip=skip)
+    assert got.shape == want.shape
+    assert_codes_close(got[..., :co], want[..., :co])
+    if cs:
+        assert torch.equal(got[..., co:], skip)
+
+
+def test_engine_on_card(cuda):
+    from mrisr_tpu_torch.serve import InferenceEngine
+
+    with InferenceEngine(lambda x: x[..., :1] * 2, batch_size=4,
+                         input_shape=(8, 8, 2), device=cuda) as eng:
+        xs = [np.full((8, 8, 2), i, np.float32) for i in range(6)]
+        ys = eng.predict_many(xs)
+    for i, y in enumerate(ys):
+        np.testing.assert_array_equal(y, np.full((8, 8, 1), 2 * i))
+    assert eng.stats.requests == 6
+
+
+@pytest.mark.parametrize("skip_emit", ["shared", "dual"])
+def test_fused_unet_on_card_equals_plain(cuda, skip_emit):
+    """The kernels round their epilogue as the plain versions do, so the
+    whole int8_fused forward on the card equals the plain one exactly."""
+    from mrisr_tpu_torch.ckpt import fold_unet_batchnorm
+    from mrisr_tpu_torch.models import UNet
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet, calibrate_unet, quantize_unet)
+
+    torch.manual_seed(0)
+    folded = fold_unet_batchnorm(UNet(features=8).eval().to(cuda))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn((4, 32, 32, 2), generator=g).to(cuda)
+    q = quantize_unet(folded, calibrate_unet(folded, [x]))
+    got = Int8FusedUNet(q, skip_emit, device=cuda)(x)
+    want = Int8FusedUNet(q, skip_emit, device=cuda, plain=True)(x)
+    assert got.shape == (4, 32, 32, 1)
+    assert torch.equal(got, want)

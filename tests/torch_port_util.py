@@ -1,0 +1,68 @@
+"""Shared helpers of the port's parity tests (tests/test_torch_port_*.py):
+seeded flax UNet variables with non-trivial BatchNorm statistics, and the
+numpy/bf16 bridge from jax trees to torch tensors."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from mrisr_tpu.models import UNet as JaxUNet
+from mrisr_tpu_torch.ckpt import unet_state_dict_from_flax
+from mrisr_tpu_torch.models import UNet
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / (np.linalg.norm(b) + 1e-12))
+
+
+def jax_unet_variables(features: int, hw: int, seed: int = 0,
+                       use_bias: bool = True) -> dict:
+    """flax UNet variables with seeded, non-trivial BN scale/bias/stats
+    (flax's init leaves them at 1/0/0/1, which would hide a BN mix-up)."""
+    model = JaxUNet(features=features, use_bias=use_bias)
+    v = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 2)),
+                   train=False)
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(np.asarray, v["params"])
+    stats = jax.tree.map(np.asarray, v["batch_stats"])
+    for name, sub in params.items():
+        for bn in ("BatchNorm_0", "BatchNorm_1"):
+            if bn not in sub:
+                continue
+            c = sub[bn]["scale"].shape[0]
+            sub[bn]["scale"] = (1 + 0.2 * rng.standard_normal(c)).astype(
+                np.float32)
+            sub[bn]["bias"] = (0.1 * rng.standard_normal(c)).astype(np.float32)
+            stats[name][bn]["mean"] = (0.1 * rng.standard_normal(c)).astype(
+                np.float32)
+            stats[name][bn]["var"] = (0.5 + rng.random(c)).astype(np.float32)
+        for cn in ("Conv_0", "Conv_1"):
+            if cn in sub and "bias" in sub[cn]:
+                sub[cn]["bias"] = (0.05 * rng.standard_normal(
+                    sub[cn]["bias"].shape)).astype(np.float32)
+    return {"params": params, "batch_stats": stats}
+
+
+def port_unet(variables: dict, features: int, use_bias: bool = True):
+    """The port UNet carrying ``variables`` (unfolded or folded), eval."""
+    folded = "BatchNorm_0" not in variables["params"]["enc1"]
+    model = UNet(features=features, use_bias=use_bias, use_bn=not folded)
+    model.load_state_dict(unet_state_dict_from_flax(variables))
+    return model.eval()
+
+
+def to_torch_tree(tree):
+    """jax/numpy tree -> torch tensors, bf16 kept as bf16."""
+    if isinstance(tree, dict):
+        return {k: to_torch_tree(v) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def noise(shape, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
