@@ -20,6 +20,23 @@
    0.15 of the folded float forward (fp32) and 0.02 of the same tables run
    through the plain versions on the card, and both kernels must have been
    launched by that run.  Then the steady-state engine throughput.
+4. K1 phase: the fused SSIM kernel against its plain version on the card
+   (atol 3e-5, the JAX package's contract) at (1|8|64|174, 256, 256),
+   (3, 37, 53), (2, 7, 7) and (1, 512, 512); an identical pair must give 1
+   within 1e-6.  Then its time at N = 64 and 174 beside its bound and the
+   plain version's.
+5. Eval phase, full width: the port's CLI synthesizes a store of 12
+   patients x 60 slices x 256^2 (test split: 3 patients, 174 3 mm and 168
+   6 mm triplets); the seeded UNet is saved as a reference-layout
+   unet_best.pt; the CLI runs eval (batch 8), predict-volume and
+   predict-volume --hierarchical on it; then the runner evaluates the same
+   store through the float model and through the int8 bundle's forward,
+   keeping the predictions.  Both spacings must hold 174 and 168 samples,
+   every SSIM must be finite in [-1, 1], K1's per-spacing SSIM must equal
+   the plain SSIM of the same predictions within 3e-5, and K1 (and, for the
+   bundle, kernels A and B) must have been launched.  Prints float vs int8
+   SSIM/PSNR per spacing and the eval wall time per phase.  The weights are
+   seeded, not trained: these numbers test the plumbing, not accuracy.
 
 Prints the kernels' JSON line and the card's name and power limit before
 the last line, which is {"ok": true, "device": {...}}.  With
@@ -48,7 +65,12 @@ HW = 256
 FEATURES = 64
 # H100 SXM peaks (NVIDIA data sheet, dense, at 700 W)
 PEAK_INT8_OPS = 1979e12
+PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+SSIM_ATOL = 3e-5   # tests/test_ssim.py's kernel-vs-XLA contract
+EVAL_PATIENTS, EVAL_SLICES = 12, 60
+# test split of 12 patients = 3 patients x (60 - 2) d2 / (60 - 4) d4
+EVAL_SAMPLES = {"3mm": 174, "6mm": 168}
 
 
 def card_line() -> str:
@@ -59,15 +81,18 @@ def card_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+def cuda_ms(fn, reps: int, warmup: int = 2, flush=None) -> float:
     """Median device time of one call of ``fn`` over ``reps`` back-to-back
-    calls, each between two CUDA events, after warm-up."""
+    calls, each between two CUDA events, after warm-up.  ``flush`` runs
+    before each call, outside the events (to evict the L2)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
     for start, end in events:
+        if flush is not None:
+            flush()
         start.record()
         fn()
         end.record()
@@ -329,12 +354,203 @@ def slice_phase(dev, card: str):
     print(f"engine steady-state slices/s {steady.slices_per_sec:.2f} "
           f"(batch {BATCH}, {steady.requests} requests, int8_fused, "
           f"features {FEATURES}, {HW}x{HW}; {card})")
-    return launches, {"rel_l2_float": rel_fp, "rel_l2_plain": rel_plain,
-                      "slices_per_sec": steady.slices_per_sec,
-                      "fetch_time_s": steady.fetch_time_s,
-                      "assemble_time_s": steady.assemble_time_s,
-                      "total_batch_time_s": steady.total_batch_time_s,
-                      "requests": steady.requests}
+    return launches, q, {"rel_l2_float": rel_fp, "rel_l2_plain": rel_plain,
+                         "slices_per_sec": steady.slices_per_sec,
+                         "fetch_time_s": steady.fetch_time_s,
+                         "assemble_time_s": steady.assemble_time_s,
+                         "total_batch_time_s": steady.total_batch_time_s,
+                         "requests": steady.requests}
+
+
+def ssim_bound(n: int, h: int, w: int, win: int = 7):
+    """(bound ms, ops ms, bytes ms) of mean SSIM on n (h, w) pairs: x and y
+    read once, one float written per image; 3 products per input pixel and
+    86 fp32 operations per output pixel (5 x 2 (win - 1) window adds, 5
+    scalings, the moments and the quotient)."""
+    vh, vw = h - win + 1, w - win + 1
+    ops = n * (3.0 * h * w + 86.0 * vh * vw)
+    nbytes = 8.0 * n * h * w + 4.0 * n
+    t_ops, t_bytes = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def ssim_phase(dev):
+    """K1 against its plain version on the card, then its timings."""
+    from mrisr_tpu_torch.ops.ssim_fused import ssim_fused, ssim_fused_plain
+
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def pair(shape):
+        x = torch.rand(shape, generator=g, device=dev)
+        noisy = x + 0.2 * torch.randn(shape, generator=g, device=dev)
+        return x, noisy.clamp(0.0, 1.0)
+
+    errs = []
+    for shape in ((1, 256, 256), (8, 256, 256), (64, 256, 256),
+                  (174, 256, 256), (3, 37, 53), (2, 7, 7), (1, 512, 512)):
+        x, y = pair(shape)
+        got = ssim_fused(x, y)
+        torch.cuda.synchronize()
+        want = ssim_fused_plain(x, y)
+        err = float((got - want).abs().max())
+        print(f"ssim {str(shape):16s} max |kernel - plain| {err:.3g}")
+        if not err <= SSIM_ATOL:
+            raise AssertionError(f"K1 at {shape}: max error {err}")
+        if not torch.equal(ssim_fused(x, y), got):
+            raise AssertionError(f"K1 at {shape}: two launches differ")
+        errs.append(err)
+    x, _ = pair((8, 256, 256))
+    one_err = float((ssim_fused(x, x) - 1.0).abs().max())
+    if not one_err <= 1e-6:
+        raise AssertionError(f"K1 of an identical pair is off 1 by {one_err}")
+
+    # 64 MiB write between launches: the eval hands K1 fresh predictions,
+    # and N = 64 (34 MB) would otherwise sit in the 50 MB L2
+    scrub = torch.empty(16 * 2 ** 20, device=dev)
+    rows = []
+    for n in (64, 174):
+        x, y = pair((n, 256, 256))
+        ms = cuda_ms(lambda: ssim_fused(x, y), reps=20, flush=scrub.zero_)
+        plain_ms = cuda_ms(lambda: ssim_fused_plain(x, y), reps=5,
+                           flush=scrub.zero_)
+        bound, t_ops, t_bytes = ssim_bound(n, 256, 256)
+        rows.append({"kernel": "ssim", "site": f"N={n}", "N": n, "H": 256,
+                     "W": 256, "max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes})
+        print(f"ssim N={n:<4d} ms {ms:.4f} bound {bound:.4f} "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}) "
+              f"plain {plain_ms:.3f}")
+    return rows
+
+
+def eval_phase(dev, qparams, card: str):
+    """The port's eval path at full width, float and int8 (see the module
+    docstring, item 5).  Returns (launches, results)."""
+    import dataclasses
+
+    from mrisr_tpu_torch import cli, fp32_reference
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.ckpt.torch_ckpt import reference_checkpoint
+    from mrisr_tpu_torch.config import DataConfig, ModelConfig
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.eval.runner import evaluate_pair_model_test_set
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
+    from mrisr_tpu_torch.ops.ssim import ssim
+    from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
+    from mrisr_tpu_torch.ops.stats import minmax_normalize
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.serve import make_bundle_apply
+
+    def check_spacings(metrics, what):
+        for label, want_n in EVAL_SAMPLES.items():
+            m = metrics[label]
+            if m["num_samples"] != want_n:
+                raise AssertionError(f"{what} {label}: {m['num_samples']} "
+                                     f"samples, want {want_n}")
+            for k in ("ssim_mean", "ssim_min", "ssim_max"):
+                if not (np.isfinite(m[k]) and -1.0 <= m[k] <= 1.0):
+                    raise AssertionError(f"{what} {label} {k} = {m[k]}")
+
+    def capture(fn, kept):
+        def wrapped(x):
+            y = fn(x)
+            kept.append(y[..., 0])
+            return y
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as work:
+        store_dir = os.path.join(work, "store")
+        models_dir = os.path.join(work, "models")
+        results_dir = os.path.join(work, "results")
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(EVAL_PATIENTS),
+                  "--slices", str(EVAL_SLICES), "--size", str(HW)])
+        os.makedirs(models_dir)
+        torch.save(reference_checkpoint(seeded_unet(0), "unet", epoch=0,
+                                        val_loss=1.0),
+                   os.path.join(models_dir, "unet_best.pt"))
+        print(f"eval set-up (synth + checkpoint) "
+              f"{time.perf_counter() - t0:.2f} s")
+        common = ["--model", "unet", "--data", store_dir, "--checkpoint-dir",
+                  models_dir, "--features", str(FEATURES), "--image-size",
+                  str(HW), "--device", str(dev)]
+
+        # --- the main path: counts from 0, the user's entry points
+        ssim_fused.launches = 0
+        conv2d_int8.launches = 0
+        upconv2x2_int8.launches = 0
+        walls = {}
+        with fp32_reference():
+            t0 = time.perf_counter()
+            cli.main(["eval", *common, "--results-dir", results_dir,
+                      "--batch-size", str(BATCH)])
+            walls["cli eval"] = time.perf_counter() - t0
+            for flag in ([], ["--hierarchical"]):
+                t0 = time.perf_counter()
+                cli.main(["predict-volume", *common, *flag])
+                walls[" ".join(["cli predict-volume", *flag])] = (
+                    time.perf_counter() - t0)
+        with open(os.path.join(results_dir, "unet_test_metrics.json")) as f:
+            cli_metrics = json.load(f)
+        check_spacings(cli_metrics, "cli eval")
+
+        store = VolumeStore.open(store_dir)
+        cfg = DataConfig(batch_size=BATCH, image_size=(HW, HW))
+        model = load_model("unet", models_dir, checkpoint="required",
+                           cfg=ModelConfig(base_features=FEATURES),
+                           device=dev)
+        runs = {}
+        for what, fn in (("float", model.predict_nhwc),
+                         ("int8", make_bundle_apply(
+                             qparams, {"quant": "int8_fused"}, dev))):
+            kept, timings = [], {}
+            t0 = time.perf_counter()
+            metrics = evaluate_pair_model_test_set(
+                capture(fn, kept), store, cfg, device=dev, timings=timings)
+            walls[f"runner {what}"] = time.perf_counter() - t0
+            check_spacings(metrics, what)
+            runs[what] = (metrics, kept, timings)
+        launches = {"ssim": ssim_fused.launches,
+                    "conv_int8": conv2d_int8.launches,
+                    "upconv_int8": upconv2x2_int8.launches}
+        # the targets, per spacing, in the runner's order (eval splits are
+        # not shuffled)
+        gts, bank = {}, None
+        for dist, label in ((2, "3mm"), (4, "6mm")):
+            loader = build_loader(
+                store, "test", dataclasses.replace(cfg, distance_filter=dist),
+                device=dev, bank=bank)
+            bank = loader.bank
+            gts[label] = torch.cat([b[..., 2] for b in loader])
+    print(f"eval main path launches {launches}")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel was not launched: {launches}")
+
+    # K1 against the plain SSIM of the same predictions, per spacing (the
+    # runner ran the 3 mm batches, then the 6 mm ones)
+    results = {"launches": launches, "wall_s": walls}
+    for what, (metrics, kept, timings) in runs.items():
+        preds = torch.cat(kept)
+        n3 = EVAL_SAMPLES["3mm"]
+        for label, pred in (("3mm", preds[:n3]), ("6mm", preds[n3:])):
+            plain = float(ssim(minmax_normalize(gts[label]),
+                               minmax_normalize(pred),
+                               use_kernel=False).mean())
+            diff = abs(plain - metrics[label]["ssim_mean"])
+            print(f"{what} {label}: SSIM {metrics[label]['ssim_mean']:.6f} "
+                  f"(plain {plain:.6f}, diff {diff:.2g}) PSNR "
+                  f"{metrics[label]['psnr_mean']:.4f} dB")
+            if not diff <= SSIM_ATOL:
+                raise AssertionError(f"{what} {label}: K1 vs plain {diff}")
+        print(f"{what} runner wall per phase (s): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in timings.items()))
+        results[what] = {"metrics": metrics, "timings_s": timings}
+    print("eval wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in walls.items())
+          + f" ({card})")
+    return launches, results
 
 
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
@@ -345,6 +561,8 @@ SOURCES = {
                   "mrisr_tpu/serve/quant.py:66"),
     "upconv_int8": ("mrisr_tpu_torch/csrc/upconv_int8.cu",
                     "mrisr_tpu/ops/upconv_pallas.py:130"),
+    "ssim": ("mrisr_tpu_torch/csrc/ssim.cu",
+             "mrisr_tpu/ops/ssim_pallas.py:91"),
 }
 
 
@@ -372,19 +590,26 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
 
     rows = kernel_phase(dev)
-    launches, slice_result = slice_phase(dev, card)
+    serve_launches, qparams, slice_result = slice_phase(dev, card)
+    ssim_rows = ssim_phase(dev)
+    eval_launches, eval_result = eval_phase(dev, qparams, card)
 
     kernels = []
-    for name in ("conv_int8", "upconv_int8"):
-        sel = [r for r in rows if r["kernel"] == name]
+    for name in ("conv_int8", "upconv_int8", "ssim"):
+        # A and B: all sites of one batch-8 forward, summed; K1: one call
+        # at N = 174, the eval's 3 mm test split
+        sel = ([r for r in rows if r["kernel"] == name] if name != "ssim"
+               else [r for r in ssim_rows if r["N"] == 174])
         ops_ms = sum(r["ops_ms"] for r in sel)
         bytes_ms = sum(r["bytes_ms"] for r in sel)
         libs = [r["library_ms"] for r in sel]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1], "launches": launches[name],
+            "replaces": SOURCES[name][1],
+            # the serving path's and the eval path's runs, each counted
+            # from 0 just before it
+            "launches": serve_launches.get(name, 0) + eval_launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in sel),
-            # times and bounds: all sites of one batch-8 forward, summed
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": sum(r["bound_ms"] for r in sel),
@@ -395,7 +620,8 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.sites_json)),
                     exist_ok=True)
         with open(args.sites_json, "w") as f:
-            json.dump({"card": card, "sites": rows, "slice": slice_result,
+            json.dump({"card": card, "sites": rows + ssim_rows,
+                       "slice": slice_result, "eval": eval_result,
                        "kernels": kernels}, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

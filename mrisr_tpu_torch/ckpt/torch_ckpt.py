@@ -1,0 +1,53 @@
+"""The reference's torch checkpoint layout for the pair UNets.
+
+The reference saves ``{'epoch', 'model_state_dict', 'val_loss', ...}``,
+``{'generator_state_dict', ...}`` (GAN) or a raw state dict
+(reference ``src/ModelLoader.py:693-705``).  Its UNet has the port's keys
+(``enc1.conv.0.weight`` ...) except the 1x1 head, which the reference names
+``final_conv`` in the MSE/combined UNet and ``final`` in the GAN generator
+(``mrisr_tpu/ckpt/torch_convert.py:_convert_unet``).  BatchNorm's
+``num_batches_tracked`` is not read by an eval forward; a state dict that
+lacks it loads with zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+from torch import nn
+
+# model name -> the reference's name of the UNet's 1x1 head
+REFERENCE_HEAD = {"unet": "final_conv", "unet_combined": "final_conv",
+                  "unet_distilled": "final_conv", "unet_gan": "final"}
+
+
+def unwrap_state_dict(checkpoint: Any) -> Dict[str, torch.Tensor]:
+    """The state dict inside any of the reference's three layouts."""
+    if isinstance(checkpoint, dict):
+        for key in ("generator_state_dict", "model_state_dict"):
+            if key in checkpoint:
+                return checkpoint[key]
+    return checkpoint
+
+
+def load_reference_state_dict(model: nn.Module, checkpoint: Any) -> None:
+    """Load a reference-layout checkpoint (any of the three) into a port
+    UNet, strictly: every other missing or unexpected key raises."""
+    sd = {("final." + k[len("final_conv."):] if k.startswith("final_conv.")
+           else k): v for k, v in unwrap_state_dict(checkpoint).items()}
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd.setdefault(k, torch.zeros_like(v))
+    model.load_state_dict(sd, strict=True)
+
+
+def reference_checkpoint(model: nn.Module, model_name: str, epoch: int = 0,
+                         val_loss: float = 0.0) -> Dict[str, Any]:
+    """A port UNet as the reference saves it:
+    ``{'epoch', 'model_state_dict', 'val_loss'}`` with its head name."""
+    head = REFERENCE_HEAD[model_name]
+    sd = {(head + k[len("final"):] if k.startswith("final.") else k):
+          v.detach().cpu() for k, v in model.state_dict().items()}
+    return {"epoch": int(epoch), "model_state_dict": sd,
+            "val_loss": float(val_loss)}

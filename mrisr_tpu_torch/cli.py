@@ -1,0 +1,204 @@
+"""Command-line interface of the port (counterpart: ``mrisr_tpu/cli.py``):
+
+  python -m mrisr_tpu_torch synth <out_store> [--patients 8]
+  python -m mrisr_tpu_torch eval --model unet --data <store> [...]
+  python -m mrisr_tpu_torch predict-volume --model unet --data <store> [...]
+
+The arguments are the JAX CLI's, plus ``--device`` (default: the card;
+``--device cpu`` runs the plain versions on the CPU).  Training, the other
+commands, ``--figure`` and ``--export-dicom`` come with later slices
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import random
+import re
+import sys
+
+from mrisr_tpu_torch.config import PRESETS
+
+
+def _add_common_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--data", required=True, help="packed VolumeStore dir")
+    p.add_argument("--batch-size", type=int, default=None)
+    # None = "not passed": the preset's value is kept
+    p.add_argument("--image-size", type=int, default=None)
+    p.add_argument("--distance", type=int, default=None, choices=(2, 4))
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--results-dir", default=None)
+    p.add_argument("--bf16", action="store_true",
+                   help="bfloat16 forward (not ported yet: raises)")
+    p.add_argument("--backend", default="host", choices=("host", "device"),
+                   help="slice bank in host RAM or on the device")
+    p.add_argument("--features", type=int, default=None,
+                   help="base feature width override (default 64)")
+    p.add_argument("--allow-fresh", action="store_true",
+                   help="permit eval/predict with freshly initialized "
+                        "weights when no checkpoint exists (default: the "
+                        "CLI refuses; random-weight metrics are noise)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs "
+                        "the plain versions)")
+
+
+def _build_config(args, preset_name: str):
+    """The preset with the flags that were passed applied; reflects the
+    effective checkpoint/results dirs and image size back onto ``args``."""
+    if args.bf16:
+        raise NotImplementedError(
+            "the bf16 eval forward is not ported yet (ROADMAP.md, Queue 1 "
+            "item 3); the port evaluates in float32")
+    cfg = PRESETS[preset_name]
+    data = dataclasses.replace(
+        cfg.data,
+        root=args.data,
+        **({"image_size": (args.image_size, args.image_size)}
+           if args.image_size else {}),
+        **({"batch_size": args.batch_size} if args.batch_size else {}),
+        **({"distance_filter": args.distance} if args.distance else {}),
+    )
+    train = dataclasses.replace(
+        cfg.train,
+        **({"checkpoint_dir": args.checkpoint_dir}
+           if args.checkpoint_dir else {}),
+        **({"results_dir": args.results_dir} if args.results_dir else {}),
+    )
+    model = cfg.model
+    if args.features:
+        model = dataclasses.replace(model, base_features=args.features)
+    cfg = dataclasses.replace(cfg, data=data, train=train, model=model)
+    args.checkpoint_dir = cfg.train.checkpoint_dir
+    args.results_dir = cfg.train.results_dir
+    args.image_size = cfg.data.image_size[0]
+    return cfg
+
+
+def _preset_for(name: str) -> str:
+    """Preset key for a model name: a step-distilled student
+    ('fastddpm_steps5') takes its base's; a name with no preset, 'unet's."""
+    base = re.sub(r"_steps\d+$", "", name)
+    return base if base in PRESETS else "unet"
+
+
+def cmd_synth(args) -> None:
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_store
+
+    store = make_synthetic_store(
+        args.out, num_patients=args.patients,
+        slices_per_volume=args.slices, height=args.size, width=args.size,
+        seed=args.seed,
+    )
+    print(f"packed {len(store)} synthetic series -> {args.out}")
+
+
+def cmd_eval(args) -> None:
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.eval.runner import evaluate_and_save
+
+    cfg = _build_config(args, _preset_for(args.model))
+    store = VolumeStore.open(args.data)
+    model = load_model(args.model, models_dir=args.checkpoint_dir,
+                       cfg=cfg.model, device=args.device,
+                       checkpoint=None if args.allow_fresh else "required")
+    out = os.path.join(args.results_dir, f"{args.model}_test_metrics.json")
+    metrics = evaluate_and_save(
+        model.predict_nhwc, store, cfg.data, out_json=out,
+        mode=args.metric_mode, max_batches=args.max_batches,
+        backend=args.backend, device=model.device,
+    )
+    print(json.dumps(metrics, indent=2))
+
+
+def cmd_predict_volume(args) -> None:
+    import numpy as np
+
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.data.split import split_for
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.eval.volume_eval import (
+        predict_volume,
+        predict_volume_hierarchical,
+    )
+
+    if args.figure or args.export_dicom:
+        raise NotImplementedError(
+            "--figure and --export-dicom are not ported yet: they need "
+            "matplotlib and pydicom (ROADMAP.md, Queue 1 item 10 and the "
+            "DICOM item)")
+    cfg = _build_config(args, "unet")
+    store = VolumeStore.open(args.data)
+    # V1 semantics: a (seeded) random valid test-set volume
+    candidates = store.series_for_patients(
+        split_for(store.patient_ids, "test"))
+    random.Random(args.seed).shuffle(candidates)
+    if not candidates:
+        print("no test-set series found", file=sys.stderr)
+        sys.exit(1)
+    volume = np.asarray(store.load_series(candidates[0]))
+    hw = cfg.data.image_size
+    for name in args.model:
+        # per-model config: unet_distilled's width lives in its preset
+        mcfg = _build_config(args, _preset_for(name)).model
+        model = load_model(name, models_dir=args.checkpoint_dir, cfg=mcfg,
+                           device=args.device,
+                           checkpoint=None if args.allow_fresh else "required")
+        predict = (predict_volume_hierarchical if args.hierarchical
+                   else predict_volume)
+        res = predict(model.predict_nhwc, volume, image_size=hw,
+                      device=model.device)
+        m = res["metrics"]
+        print(
+            f"{name}: SSIM {m['ssim_mean']:.4f}±{m['ssim_std']:.3f} "
+            f"PSNR {m['psnr_mean']:.2f}±{m['psnr_std']:.2f} MAE {m['mae']:.4f}"
+        )
+        mp = res["metrics_predicted_only"]
+        print(
+            f"  predicted slices only: SSIM {mp['ssim_mean']:.4f} "
+            f"PSNR {mp['psnr_mean']:.2f} MAE {mp['mae']:.4f}"
+        )
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(prog="mrisr_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    q = sub.add_parser("synth")
+    q.add_argument("out")
+    q.add_argument("--patients", type=int, default=8)
+    q.add_argument("--slices", type=int, default=60)
+    q.add_argument("--size", type=int, default=256)
+    q.add_argument("--seed", type=int, default=0,
+                   help="base phantom seed (patient p uses seed+p)")
+    q.set_defaults(fn=cmd_synth)
+
+    q = sub.add_parser("eval")
+    q.add_argument("--model", required=True)
+    q.add_argument("--metric-mode", default="minmax-each",
+                   choices=("minmax-each", "denorm-11", "raw"))
+    q.add_argument("--max-batches", type=int, default=None)
+    _add_common_args(q)
+    q.set_defaults(fn=cmd_eval)
+
+    q = sub.add_parser("predict-volume")
+    q.add_argument("--model", nargs="+", required=True)
+    q.add_argument("--seed", type=int, default=42)
+    q.add_argument("--hierarchical", action="store_true")
+    q.add_argument("--figure", default=None,
+                   help="not ported yet (needs matplotlib): raises")
+    q.add_argument("--export-dicom", default=None, metavar="DIR",
+                   help="not ported yet (needs pydicom): raises")
+    _add_common_args(q)
+    q.set_defaults(fn=cmd_predict_volume)
+
+    args = p.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,13 @@
+"""Evaluation layer: metrics (V6/V11), volume-level prediction (V7-V9) and
+the per-spacing test-set runner."""
+
+from mrisr_tpu_torch.eval.metrics import (  # noqa: F401
+    compute_metrics,
+    per_sample_metrics,
+    spacing_metrics,
+)
+from mrisr_tpu_torch.eval.volume_eval import (  # noqa: F401
+    predict_volume,
+    predict_volume_hierarchical,
+    predict_volume_progressive,
+)

@@ -1,0 +1,192 @@
+"""Port API and CLI against mrisr_tpu's (CPU): load_model on the
+reference's three torch checkpoint layouts, its refusals, and the
+synth / eval / predict-volume commands on the same store and checkpoint."""
+
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from mrisr_tpu import cli as jax_cli
+from mrisr_tpu.api import load_model as jax_load_model
+from mrisr_tpu.config import ModelConfig as JaxModelConfig
+from mrisr_tpu_torch import cli
+from mrisr_tpu_torch.api import load_model
+from mrisr_tpu_torch.ckpt.torch_ckpt import reference_checkpoint
+from mrisr_tpu_torch.config import ModelConfig
+from mrisr_tpu_torch.models import UNet
+from torch_port_util import noise
+
+torch.set_num_threads(2)
+
+ROOT = Path(__file__).resolve().parent.parent
+F = 4
+HW = 32
+
+
+def seeded_port_unet(use_bias: bool, seed: int = 0) -> UNet:
+    """A port UNet: torch's default conv init from ``seed``, then non-trivial
+    BN statistics and biases (flax-style 1/0/0/1 would hide a BN mix-up)."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = UNet(features=F, use_bias=use_bias)
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.weight.copy_(1 + 0.2 * torch.randn_like(m.weight))
+                    m.bias.copy_(0.1 * torch.randn_like(m.bias))
+                    m.running_mean.copy_(0.1 * torch.randn_like(m.bias))
+                    m.running_var.copy_(0.5 + torch.rand_like(m.bias))
+                elif isinstance(m, torch.nn.Conv2d) and m.bias is not None:
+                    m.bias.copy_(0.05 * torch.randn_like(m.bias))
+    return model.eval()
+
+
+def write_checkpoint(path, name, layout, seed=0):
+    """The reference's file for ``name`` in one of its three layouts."""
+    ckpt = reference_checkpoint(seeded_port_unet(name != "unet_gan", seed),
+                                name, epoch=3, val_loss=0.25)
+    if layout == "generator_state_dict":
+        ckpt = {"epoch": 3, "generator_state_dict": ckpt["model_state_dict"]}
+    elif layout == "raw":
+        ckpt = ckpt["model_state_dict"]
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(ckpt, path)
+    return path
+
+
+@pytest.mark.parametrize("name,layout", [
+    ("unet", "model_state_dict"), ("unet_combined", "raw"),
+    ("unet_gan", "generator_state_dict")])
+def test_load_model_reads_reference_layouts(tmp_path, name, layout):
+    """The port and the JAX package load the same file and agree."""
+    fname = {"unet": "unet_best.pt", "unet_combined": "unet_combined_best.pt",
+             "unet_gan": "unet_gan_best.pt"}[name]
+    write_checkpoint(str(tmp_path / fname), name, layout)
+    mcfg = ModelConfig(name=name, base_features=F)
+    got_model = load_model(name, str(tmp_path), checkpoint="required",
+                           cfg=mcfg, device="cpu")
+    want_model = jax_load_model(name, str(tmp_path), checkpoint="required",
+                                cfg=JaxModelConfig(name=name,
+                                                   base_features=F),
+                                image_size=(HW, HW))
+    x = noise((2, HW, HW, 2), seed=1)
+    got = got_model.predict_nhwc(torch.from_numpy(x)).numpy()
+    want = np.asarray(want_model.predict_nhwc(x))
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    # the NCHW contract and the BN-folded model give the same answer
+    nchw = got_model(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    np.testing.assert_allclose(nchw.transpose(0, 2, 3, 1), got, atol=0)
+    folded = load_model(name, str(tmp_path), cfg=mcfg, fold_bn=True,
+                        device="cpu")
+    assert not folded.module.use_bn
+    np.testing.assert_allclose(
+        folded.predict_nhwc(torch.from_numpy(x)).numpy(), got, atol=1e-4)
+
+
+def test_load_model_refusals(tmp_path):
+    mcfg = ModelConfig(base_features=F)
+    with pytest.raises(FileNotFoundError, match="Checkpoint not found"):
+        load_model("unet", str(tmp_path), checkpoint="required", cfg=mcfg,
+                   device="cpu")
+    with pytest.raises(FileNotFoundError, match="not found"):
+        load_model("unet", str(tmp_path), checkpoint=str(tmp_path / "x.pt"),
+                   cfg=mcfg, device="cpu")
+    # an Orbax dir is found first and cannot be read: never fresh weights
+    write_checkpoint(str(tmp_path / "unet_best.pt"), "unet", "raw")
+    (tmp_path / "unet_best").mkdir()
+    for kw in ({}, {"checkpoint": "required"},
+               {"checkpoint": str(tmp_path / "unet_best")}):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+            load_model("unet", str(tmp_path), cfg=mcfg, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        load_model("progressive_unet", str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        load_model("fastddpm_steps5", str(tmp_path), device="cpu")
+    with pytest.raises(ValueError, match="Unknown model"):
+        load_model("nope", str(tmp_path), device="cpu")
+    # no checkpoint anywhere: seeded fresh weights, the same each time
+    a = load_model("unet", str(tmp_path / "empty"), cfg=mcfg, device="cpu")
+    b = load_model("unet", str(tmp_path / "empty"), cfg=mcfg, device="cpu")
+    for (k, va), vb in zip(a.module.state_dict().items(),
+                           b.module.state_dict().values()):
+        assert torch.equal(va, vb), k
+
+
+@pytest.fixture(scope="module")
+def workdir(tmp_path_factory):
+    """A store made by the port's CLI in a subprocess (python -m), equal
+    to the JAX CLI's, and a reference-layout unet_best.pt."""
+    w = tmp_path_factory.mktemp("cli")
+    r = subprocess.run(
+        [sys.executable, "-m", "mrisr_tpu_torch", "synth", str(w / "store"),
+         "--patients", "8", "--slices", "8", "--size", str(HW)],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "packed 8 synthetic series" in r.stdout
+    jax_cli.main(["synth", str(w / "jax_store"), "--patients", "8",
+                  "--slices", "8", "--size", str(HW)])
+    for f in sorted(os.listdir(w / "jax_store")):
+        assert (w / "store" / f).read_bytes() == (
+            w / "jax_store" / f).read_bytes(), f
+    write_checkpoint(str(w / "models" / "unet_best.pt"), "unet",
+                     "model_state_dict", seed=5)
+    return w
+
+
+def common(w, results):
+    return ["--model", "unet", "--data", str(w / "store"), "--image-size",
+            str(HW), "--features", str(F), "--batch-size", "4",
+            "--checkpoint-dir", str(w / "models"), "--results-dir",
+            str(w / results)]
+
+
+def test_cli_eval_matches_jax(workdir, capsys):
+    jax_cli.main(["eval", *common(workdir, "jax_results")])
+    cli.main(["eval", *common(workdir, "results"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    got = json.loads((workdir / "results" / "unet_test_metrics.json")
+                     .read_text())
+    want = json.loads((workdir / "jax_results" / "unet_test_metrics.json")
+                      .read_text())
+    assert '"3mm"' in out and set(got) == set(want) == {"3mm", "6mm"}
+    for label in want:
+        for k, w in want[label].items():
+            tol = 3e-5 if k.startswith("ssim") else 1e-3
+            assert got[label][k] == pytest.approx(w, abs=tol), (label, k)
+
+
+def _predicted_only(out):
+    """(SSIM, PSNR, MAE) of predict-volume's 'predicted slices only' line."""
+    m = re.search(r"predicted slices only: SSIM (\S+) PSNR (\S+) MAE (\S+)",
+                  out)
+    return np.array([float(v) for v in m.groups()])
+
+
+@pytest.mark.parametrize("hierarchical", [False, True])
+def test_cli_predict_volume_matches_jax(workdir, capsys, hierarchical):
+    flag = ["--hierarchical"] if hierarchical else []
+    args = ["predict-volume", *common(workdir, "r"), *flag]
+    jax_cli.main(args)
+    want = _predicted_only(capsys.readouterr().out)
+    cli.main([*args, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.startswith("unet: SSIM ")
+    # printed to 4, 2 and 4 decimals: one unit in the last place apart
+    assert np.all(np.abs(_predicted_only(out) - want)
+                  <= np.array([1.1e-4, 1.1e-2, 1.1e-4])), (out, want)
+
+
+def test_cli_unported_flags_raise(workdir):
+    with pytest.raises(NotImplementedError, match="matplotlib"):
+        cli.main(["predict-volume", *common(workdir, "r"), "--device", "cpu",
+                  "--figure", str(workdir / "f.png")])
+    with pytest.raises(NotImplementedError, match="bf16"):
+        cli.main(["eval", *common(workdir, "r"), "--device", "cpu", "--bf16"])

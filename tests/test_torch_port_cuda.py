@@ -15,6 +15,8 @@ from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8_plain,
     pack_conv,
 )
+from mrisr_tpu_torch.ops.ssim import ssim
+from mrisr_tpu_torch.ops.ssim_fused import ssim_fused, ssim_fused_plain
 from mrisr_tpu_torch.ops.upconv import (
     pack_upconv,
     upconv2x2_int8,
@@ -121,3 +123,63 @@ def test_fused_unet_on_card_equals_plain(cuda, skip_emit):
     want = Int8FusedUNet(q, skip_emit, device=cuda, plain=True)(x)
     assert got.shape == (4, 32, 32, 1)
     assert torch.equal(got, want)
+
+
+# K1: the eval shapes at 256^2 (test split of 3 patients: 174 3 mm
+# triplets), ragged tiles, a 1x1 map, a 512^2 image
+SSIM_SHAPES = [(1, 256, 256), (8, 256, 256), (64, 256, 256),
+               (174, 256, 256), (3, 37, 53), (2, 7, 7), (1, 512, 512)]
+
+
+def _ssim_pair(shape, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand(shape, generator=g, device=device)
+    y = (x + 0.2 * torch.randn(shape, generator=g, device=device)).clamp(0, 1)
+    return x, y
+
+
+@pytest.mark.parametrize("shape", SSIM_SHAPES, ids=str)
+def test_ssim_kernel_matches_plain(cuda, shape):
+    """atol 3e-5: the JAX package's own contract (tests/test_ssim.py)."""
+    x, y = _ssim_pair(shape, cuda, seed=shape[0])
+    before = ssim_fused.launches
+    got = ssim_fused(x, y)
+    torch.cuda.synchronize()
+    assert ssim_fused.launches == before + 1
+    want = ssim_fused_plain(x, y)
+    assert got.shape == (shape[0],)
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+    # deterministic: no float atomics, the same bits on every launch
+    assert torch.equal(ssim_fused(x, y), got)
+
+
+@pytest.mark.parametrize("win,data_range", [(3, 1.0), (11, 255.0)])
+def test_ssim_kernel_window_and_range(cuda, win, data_range):
+    x, y = _ssim_pair((4, 40, 70), cuda, seed=win)
+    got = ssim_fused(x * data_range, y * data_range, data_range=data_range,
+                     win_size=win)
+    want = ssim_fused_plain(x * data_range, y * data_range,
+                            data_range=data_range, win_size=win)
+    torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+def test_ssim_kernel_identical_pair_is_one(cuda):
+    x, _ = _ssim_pair((8, 256, 256), cuda)
+    torch.testing.assert_close(ssim_fused(x, x), torch.ones(8, device=cuda),
+                               rtol=0, atol=1e-6)
+
+
+def test_ssim_kernel_refuses_what_it_does_not_take(cuda):
+    x, y = _ssim_pair((2, 16, 16), cuda)
+    with pytest.raises(ValueError, match="odd"):
+        ssim_fused(x, y, win_size=4)
+    with pytest.raises(ValueError, match="smaller"):
+        ssim_fused(x[:, :6], y[:, :6])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        ssim_fused(x, y.cpu())
+
+
+def test_ssim_use_kernel_raises_on_cpu_tensor():
+    x = torch.rand(2, 16, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssim(x, x, use_kernel=True)

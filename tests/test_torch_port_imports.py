@@ -1,5 +1,5 @@
 """The port package stands alone: it imports neither jax/flax/optax nor
-anything of mrisr_tpu, and its entry points refuse to run without a card
+scikit-learn nor anything of mrisr_tpu, and its entry points refuse to run without a card
 unless the caller asks for the CPU."""
 
 import ast
@@ -24,17 +24,22 @@ from mrisr_tpu_torch.serve import (
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mrisr_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "flax", "optax", "mrisr_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "sklearn", "mrisr_tpu")
 
 
 def test_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax'):\n"
+        "for m in ('jax', 'flax', 'optax', 'sklearn'):\n"
         "    sys.modules[m] = None\n"
         "import mrisr_tpu_torch, mrisr_tpu_torch.models, mrisr_tpu_torch.ckpt\n"
         "import mrisr_tpu_torch.ops.conv_int8, mrisr_tpu_torch.ops.upconv\n"
         "import mrisr_tpu_torch.serve, mrisr_tpu_torch._build\n"
+        "import mrisr_tpu_torch.ops.ssim_fused, mrisr_tpu_torch.data.pipeline\n"
+        "import mrisr_tpu_torch.eval.runner, mrisr_tpu_torch.api\n"
+        "import mrisr_tpu_torch.cli, mrisr_tpu_torch.ckpt.torch_ckpt\n"
+        "from mrisr_tpu_torch.data.split import split_for\n"
+        "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
         "assert not any(m == 'mrisr_tpu' or m.startswith('mrisr_tpu.')\n"
         "               for m in sys.modules)\n"
     )
@@ -94,3 +99,33 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with engine_from_bundle(path, batch_size=2, device="cpu") as eng:
         y = eng.predict(np.zeros((16, 16, 2), np.float32))
     assert y.shape == (16, 16, 1) and np.isfinite(y).all()
+
+
+def test_eval_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.config import DataConfig
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_store
+    from mrisr_tpu_torch.eval.metrics import per_sample_metrics
+    from mrisr_tpu_torch.eval.runner import evaluate_pair_model_test_set
+    from mrisr_tpu_torch.eval.volume_eval import predict_volume
+
+    store = make_synthetic_store(str(tmp_path / "s"), num_patients=8,
+                                 slices_per_volume=5, height=16, width=16)
+    cfg = DataConfig(image_size=(16, 16))
+    x = np.zeros((2, 16, 16), np.float32)
+    for call in (
+        lambda: build_loader(store, "test", cfg),
+        lambda: per_sample_metrics(x, x),
+        lambda: predict_volume(lambda b: b[..., :1], np.zeros((5, 16, 16))),
+        lambda: evaluate_pair_model_test_set(lambda b: b[..., :1], store, cfg),
+        lambda: load_model("unet", str(tmp_path)),
+        lambda: cli.main(["eval", "--model", "unet", "--data", store.root,
+                          "--allow-fresh", "--checkpoint-dir",
+                          str(tmp_path)]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # explicit CPU works
+    assert per_sample_metrics(x + 1, x, device="cpu")["num_samples"] == 2

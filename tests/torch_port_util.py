@@ -22,8 +22,9 @@ def jax_unet_variables(features: int, hw: int, seed: int = 0,
     """flax UNet variables with seeded, non-trivial BN scale/bias/stats
     (flax's init leaves them at 1/0/0/1, which would hide a BN mix-up)."""
     model = JaxUNet(features=features, use_bias=use_bias)
-    v = model.init(jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 2)),
-                   train=False)
+    # jitted: the same variables as the eager init, in a quarter of the time
+    v = jax.jit(lambda key, x: model.init(key, x, train=False))(
+        jax.random.PRNGKey(seed), jnp.zeros((1, hw, hw, 2)))
     rng = np.random.default_rng(seed)
     params = jax.tree.map(np.asarray, v["params"])
     stats = jax.tree.map(np.asarray, v["batch_stats"])
