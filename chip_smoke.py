@@ -37,6 +37,30 @@
    bundle, kernels A and B) must have been launched.  Prints float vs int8
    SSIM/PSNR per spacing and the eval wall time per phase.  The weights are
    seeded, not trained: these numbers test the plumbing, not accuracy.
+6. K3 phase: the fused GroupNorm+SiLU+int8 kernel at the 10 sites of one
+   full-width int8_deep Fast-DDPM forward (base 64, 256^2; C 128-768 at
+   128^2, 64^2 and 32^2), bf16 in, at batch 2 against its plain version
+   (int8: no code more than 1 off and under 0.1 % off by one; bf16 out:
+   atol 0.03 below |y| = 8 and 2^-8 |y| above, one bf16 rounding step; two
+   launches give the same bits), then timed at batch 8 after
+   a 64 MiB L2 scrub beside the plain version, F.group_norm (the yardstick:
+   GroupNorm alone) and its bytes bound.  Kernel A at the 14 diffusion
+   sites (float epilogue, no ReLU) and kernel B's float mode at upconv3 and
+   upconv2, against their plain versions (rtol 1e-5), and timed.
+7. Diffusion phase: a seeded full-width FastDDPMUNet (13,899,905
+   parameters) saved as a reference-layout fastddpm_best.pt; a 12 x 60 x
+   256^2 store from the CLI's synth; the CLI's export-serving makes an
+   int8_deep bundle (calibrated on 2 val batches of 8) and a bf16 one;
+   engine_from_bundle (batch 8, gn_impl 'fused') answers 10 test-split
+   [pre, post] requests from two threads with the 10-step ancestral
+   sampler.  The samples must be finite (256, 256, 1), within rel-RMSE 0.35
+   of the bf16 float sampler and rel-L2 0.02 of the same tables through the
+   plain versions, on the batches the engine formed (same noise: every
+   call seeds its generator with 0), and K3, A and B must have been
+   launched 100, 140 and 20 times a batch.  Then the steady-state slices/s,
+   the engine's fetch/assemble split, one sampler call's time on the card
+   and a profiled call for int8_deep 'fused', int8_deep 'chain' and the
+   bf16 bundle.
 
 Prints the kernels' JSON line and the card's name and power limit before
 the last line, which is {"ok": true, "device": {...}}.  With
@@ -71,6 +95,14 @@ SSIM_ATOL = 3e-5   # tests/test_ssim.py's kernel-vs-XLA contract
 EVAL_PATIENTS, EVAL_SLICES = 12, 60
 # test split of 12 patients = 3 patients x (60 - 2) d2 / (60 - 4) d4
 EVAL_SAMPLES = {"3mm": 174, "6mm": 168}
+# Fast-DDPM at the fastddpm preset (base 64, time_dim 128, 10 steps)
+FASTDDPM_PARAMS = 13_899_905
+DIFF_REQUESTS = 10  # served from two threads at batch 8: one batch padded
+STEADY_BATCHES = 6  # per serving setup
+GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
+# fp32 operations per element of K3: 3 for the sums, 2 for the affine,
+# 5 for SiLU (exp counted as one), 3 for the quantizer
+GN_OPS_PER_ELEM = 13
 
 
 def card_line() -> str:
@@ -553,6 +585,424 @@ def eval_phase(dev, qparams, card: str):
     return launches, results
 
 
+def diffusion_gn_sites():
+    """(name, H, C) of the 10 K3 launches of one full-width int8_deep
+    Fast-DDPM forward: the GroupNorms that feed a quantized conv."""
+    f, h1, h2, h3 = FEATURES, HW // 2, HW // 4, HW // 8
+    return [("enc2/norm1", h1, 2 * f), ("enc2/norm2", h1, 4 * f),
+            ("enc3/norm1", h2, 4 * f), ("enc3/norm2", h2, 8 * f),
+            ("bottleneck/norm1", h3, 8 * f), ("bottleneck/norm2", h3, 8 * f),
+            ("dec3/norm1", h2, 12 * f), ("dec3/norm2", h2, 4 * f),
+            ("dec2/norm1", h1, 6 * f), ("dec2/norm2", h1, 2 * f)]
+
+
+def diffusion_conv_sites():
+    """(name, H, Ci, Co, k) of the 14 kernel-A launches of one int8_deep
+    forward (10 3x3, 4 1x1 skip)."""
+    f, h1, h2, h3 = FEATURES, HW // 2, HW // 4, HW // 8
+    sites = []
+    for blk, h, ci, co in (("enc2", h1, 2 * f, 4 * f),
+                           ("enc3", h2, 4 * f, 8 * f),
+                           ("bottleneck", h3, 8 * f, 8 * f),
+                           ("dec3", h2, 12 * f, 4 * f),
+                           ("dec2", h1, 6 * f, 2 * f)):
+        sites += [(f"{blk}/conv1", h, ci, co, 3), (f"{blk}/conv2", h, co, co, 3)]
+        if ci != co:
+            sites.append((f"{blk}/skip", h, ci, co, 1))
+    return sites
+
+
+def diffusion_upconv_sites():
+    """(name, H_in, C, Co) of kernel B's float-mode launches."""
+    f = FEATURES
+    return [("upconv3", HW // 8, 8 * f, 4 * f), ("upconv2", HW // 4, 4 * f, 2 * f)]
+
+
+def k3_phase(dev):
+    """K3 at the 10 fused sites, kernel A at the 14 diffusion sites
+    (float epilogue, no ReLU) and kernel B's float mode at upconv3 and
+    upconv2: each against its plain version on the card, then timed at the
+    serving batch."""
+    import torch.nn.functional as F
+
+    from mrisr_tpu_torch.ops.conv_int8 import (
+        conv2d_int8, conv2d_int8_plain, pack_conv)
+    from mrisr_tpu_torch.ops.groupnorm import (
+        groupnorm_silu, groupnorm_silu_plain)
+    from mrisr_tpu_torch.ops.upconv import (
+        pack_upconv, upconv2x2_int8, upconv2x2_int8_plain)
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+
+    def codes(shape):
+        return torch.randint(-127, 128, shape, generator=g, device=dev,
+                             dtype=torch.int8)
+
+    def uniform(n, lo, hi):
+        return torch.rand(n, generator=g, device=dev) * (hi - lo) + lo
+
+    # 64 MiB write between K3 launches: a site's input was written by the
+    # conv before it, but most of it no longer sits in the 50 MB L2
+    scrub = torch.empty(16 * 2 ** 20, device=dev)
+    rows = []
+    for name, h, c in diffusion_gn_sites():
+        groups = c // 4
+        gamma, beta = 1 + 0.5 * torch.randn(c, generator=g, device=dev), (
+            0.2 * torch.randn(c, generator=g, device=dev))
+
+        def act(n):
+            return (3 * torch.randn((n, h, h, c), generator=g, device=dev)
+                    + 0.5).to(torch.bfloat16)
+
+        x = act(CHECK_BATCH)
+        ref = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                                   out_dtype=torch.float32)
+        scale = (ref.abs().amax() / 127).reshape(1)
+        q = groupnorm_silu(x, gamma, beta, num_groups=groups, quant_scale=scale)
+        torch.cuda.synchronize()
+        want = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                                    quant_scale=scale)
+        diff = (q.int() - want.int()).abs()
+        worst, off1 = int(diff.max()), float((diff == 1).float().mean())
+        if worst > 1 or off1 >= 1e-3:
+            raise AssertionError(f"K3 {name}: codes differ: max {worst}, "
+                                 f"{off1:.4%} off by 1")
+        if not torch.equal(groupnorm_silu(x, gamma, beta, num_groups=groups,
+                                          quant_scale=scale), q):
+            raise AssertionError(f"K3 {name}: two launches differ")
+        y16 = groupnorm_silu(x, gamma, beta, num_groups=groups)
+        err = (y16.float() - ref).abs()
+        err16 = float(err.max())
+        # one bf16 rounding step: 0.03 below |y| = 8 (the JAX package's
+        # contract, whose shapes stay below 8), half a bf16 step (2^-9 |y|,
+        # with a factor 2 of margin) above, where full-width tails reach
+        tol = torch.clamp_min(ref.abs() * 2.0 ** -8, GN_BF16_ATOL)
+        if bool((err > tol).any()):
+            raise AssertionError(f"K3 {name}: bf16 output off by {err16} "
+                                 f"(worst {float((err / tol).max()):.3f} of "
+                                 "its tolerance)")
+
+        x = act(BATCH)
+        ms = cuda_ms(lambda: groupnorm_silu(x, gamma, beta, num_groups=groups,
+                                            quant_scale=scale),
+                     reps=20, flush=scrub.zero_)
+        plain_ms = cuda_ms(lambda: groupnorm_silu_plain(
+            x, gamma, beta, num_groups=groups, quant_scale=scale), reps=3,
+            warmup=1, flush=scrub.zero_)
+        # yardstick: PyTorch's GroupNorm alone (no SiLU, no quantize) on the
+        # channels_last view, bf16 in and out
+        xl, gb, bb = x.permute(0, 3, 1, 2), gamma.bfloat16(), beta.bfloat16()
+        lib_ms = cuda_ms(lambda: F.group_norm(xl, groups, gb, bb, 1e-5),
+                         reps=20, flush=scrub.zero_)
+        elems = BATCH * h * h * c
+        t_ops = GN_OPS_PER_ELEM * elems / PEAK_FP32_OPS * 1e3
+        t_bytes = (3 * elems + 8 * c + 4) / PEAK_BYTES * 1e3
+        rows.append({"kernel": "groupnorm_silu", "site": name, "H": h, "C": c,
+                     "batch": BATCH, "max_abs_err": float(worst),
+                     "off_by_one": off1, "bf16_err": err16, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+                     "bytes_ms": t_bytes})
+
+    for name, h, ci, co, k in diffusion_conv_sites():
+        wp = pack_conv(codes((k, k, ci, co)))
+        s = uniform(co, 0.3, 2.3) / (127 * 127 / 3 * (k * k * ci) ** 0.5)
+        b = uniform(co, -0.5, 0.5)
+        x = codes((CHECK_BATCH, h, h, ci))
+        got = conv2d_int8(x, wp, s, b, relu=False, out_float=True)
+        torch.cuda.synchronize()
+        want = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        x = codes((BATCH, h, h, ci))
+        ms = cuda_ms(lambda: conv2d_int8(x, wp, s, b, relu=False,
+                                         out_float=True), reps=20)
+        plain_ms = cuda_ms(lambda: conv2d_int8_plain(
+            x, wp, s, b, relu=False, out_float=True), reps=3, warmup=1)
+        xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
+        wb = wp.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        lib_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2), reps=20)
+        m = BATCH * h * h
+        bound, t_ops, t_bytes = bound_ms(
+            2.0 * m * co * k * k * ci, m * ci + co * k * k * ci + 8 * co
+            + 4 * m * co)
+        rows.append({"kernel": "conv_int8", "site": f"diffusion {name}",
+                     "H": h, "Ci": ci, "Co": co, "k": k, "batch": BATCH,
+                     "max_abs_err": float((got - want).abs().max()),
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes})
+
+    for name, h, c, co in diffusion_upconv_sites():
+        w2, s4, b4 = pack_upconv(codes((2, 2, c, co)),
+                                 uniform(co, 0.3, 2.3) / (127 * 127 / 3
+                                                          * c ** 0.5),
+                                 uniform(co, -0.5, 0.5))
+        x = codes((CHECK_BATCH, h, h, c))
+        got = upconv2x2_int8(x, w2, s4, b4, out_float=True)
+        torch.cuda.synchronize()
+        want = upconv2x2_int8_plain(x, w2, s4, b4, out_float=True)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        x = codes((BATCH, h, h, c))
+        ms = cuda_ms(lambda: upconv2x2_int8(x, w2, s4, b4, out_float=True),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: upconv2x2_int8_plain(
+            x, w2, s4, b4, out_float=True), reps=3, warmup=1)
+        x2 = x.reshape(-1, c)
+        try:
+            lib_ms = cuda_ms(lambda: torch._int_mm(x2, w2), reps=20)
+        except RuntimeError as e:
+            print(f"{name}: torch._int_mm yardstick unavailable: {e}")
+            lib_ms = None
+        m = BATCH * h * h
+        bound, t_ops, t_bytes = bound_ms(2.0 * m * c * 4 * co,
+                                         m * c + 4 * co * c + 32 * co
+                                         + 16 * m * co)
+        rows.append({"kernel": "upconv_int8", "site": f"diffusion {name}",
+                     "H": h, "C": c, "Co": co, "batch": BATCH,
+                     "max_abs_err": float((got - want).abs().max()),
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes})
+
+    for r in rows:
+        print(f"{r['kernel']:14s} {r['site']:26s} err {r['max_abs_err']:.3g} "
+              f"ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
+              f"plain {r['plain_ms']:.3f} lib {r['library_ms']}")
+    for kernel in ("groupnorm_silu", "conv_int8", "upconv_int8"):
+        sel = [r for r in rows if r["kernel"] == kernel]
+        print(f"{kernel}: {len(sel)} launches per int8_deep forward (batch "
+              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f}, bound "
+              f"{sum(r['bound_ms'] for r in sel):.4f}, plain "
+              f"{sum(r['plain_ms'] for r in sel):.3f}")
+    return rows
+
+
+def seeded_fastddpm(seed: int):
+    """FastDDPMUNet at the fastddpm preset's width (base 64, time_dim 128),
+    PyTorch's default init under ``seed`` and non-trivial GroupNorm
+    scales and shifts."""
+    from torch import nn
+
+    from mrisr_tpu_torch.models.diffusion import FastDDPMUNet
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = FastDDPMUNet(base_features=FEATURES, time_dim=128)
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.GroupNorm):
+                m.weight.copy_(1 + 0.2 * torch.randn(m.weight.shape,
+                                                     generator=g))
+                m.bias.copy_(0.05 * torch.randn(m.bias.shape, generator=g))
+    return model.eval()
+
+
+def rel_rmse(a: np.ndarray, ref: np.ndarray) -> float:
+    """RMS difference over the reference's spread
+    (``tests/test_quant_diffusion.py``'s sampler metric)."""
+    a, ref = a.astype(np.float64), ref.astype(np.float64)
+    return float(np.sqrt(np.mean((a - ref) ** 2)) / (ref.std() + 1e-8))
+
+
+def profile_batch(apply, x, label: str):
+    """Device time by kernel over one sampler call (``torch.profiler``);
+    returns (device busy ms, wall ms) or None when the profiler shows no
+    device time.  A measurement, not a check."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            apply(x)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = [e for e in prof.key_averages()
+                  if getattr(e, "device_time_total", 0) > 0
+                  and e.device_type == torch.autograd.DeviceType.CUDA]
+    except Exception as e:  # the profiler is untried on this machine
+        print(f"profile {label}: unavailable ({type(e).__name__}: {e})")
+        return None
+    busy = sum(e.device_time_total for e in events) / 1e3
+    if busy <= 0:
+        print(f"profile {label}: no device time recorded")
+        return None
+    print(f"profile {label}: device busy {busy:.3f} ms of {wall:.3f} ms "
+          f"wall ({busy / wall:.1%}); top kernels:")
+    for e in sorted(events, key=lambda e: -e.device_time_total)[:10]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}")
+    return {"busy_ms": busy, "wall_ms": wall,
+            "top": [(e.key[:90], e.device_time_total / 1e3, e.count)
+                    for e in sorted(events,
+                                    key=lambda e: -e.device_time_total)[:10]]}
+
+
+def diffusion_phase(dev, card: str):
+    """The port's Fast-DDPM serving path at full width (see the module
+    docstring, item 7).  Returns (launches, results)."""
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.ckpt.torch_ckpt import reference_checkpoint
+    from mrisr_tpu_torch.config import DataConfig
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
+    from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.serve import (
+        engine_from_bundle, load_bundle, make_bundle_apply)
+
+    walls, results = {}, {}
+    with tempfile.TemporaryDirectory() as work:
+        store_dir = os.path.join(work, "store")
+        models_dir = os.path.join(work, "models")
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(EVAL_PATIENTS),
+                  "--slices", str(EVAL_SLICES), "--size", str(HW)])
+        model = seeded_fastddpm(0)
+        n_params = sum(p.numel() for p in model.parameters())
+        if n_params != FASTDDPM_PARAMS:
+            raise AssertionError(f"FastDDPMUNet has {n_params} parameters")
+        os.makedirs(models_dir)
+        torch.save(reference_checkpoint(model, "fastddpm", epoch=0,
+                                        val_loss=1.0),
+                   os.path.join(models_dir, "fastddpm_best.pt"))
+        walls["set-up (synth + checkpoint)"] = time.perf_counter() - t0
+        common = ["--model", "fastddpm", "--data", store_dir,
+                  "--checkpoint-dir", models_dir, "--features", str(FEATURES),
+                  "--image-size", str(HW), "--batch-size", str(BATCH),
+                  "--device", str(dev)]
+        bundles = {}
+        for quant in ("int8_deep", "none"):
+            bundles[quant] = os.path.join(work, f"bundle_{quant}")
+            t0 = time.perf_counter()
+            cli.main(["export-serving", *common, "--quant", quant,
+                      "--calib-batches", "2", "--out", bundles[quant]])
+            walls[f"export-serving {quant}"] = time.perf_counter() - t0
+        # requests: [pre, post] of the first test-split triplets
+        loader = build_loader(VolumeStore.open(store_dir), "test",
+                              DataConfig(batch_size=BATCH,
+                                         image_size=(HW, HW)), device=dev)
+        conds = []
+        for batch in loader:
+            conds += list(batch[..., :2].cpu().numpy())
+            if len(conds) >= DIFF_REQUESTS:
+                break
+        requests = np.stack(conds[:DIFF_REQUESTS])
+
+        # --- the main path: counts from 0, two client threads
+        with engine_from_bundle(bundles["int8_deep"], batch_size=BATCH,
+                                device=dev, gn_impl="fused") as eng:
+            eng.predict(requests[0])  # warm-up: allocator, pinned buffers
+            eng.reset_stats()
+            inner, kept = eng._apply, []
+
+            def capture(x):  # the batches as the engine formed them
+                y = inner(x)
+                kept.append((x.clone(), y.clone()))
+                return y
+
+            eng._apply = capture
+            groupnorm_silu.launches = 0
+            conv2d_int8.launches = 0
+            upconv2x2_int8.launches = 0
+            futures = [[], []]
+
+            def client(k):
+                futures[k] = [eng.submit(r) for r in requests[k::2]]
+
+            threads = [threading.Thread(target=client, args=(k,))
+                       for k in range(2)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            served = [None] * len(requests)
+            for k in range(2):
+                for j, fut in enumerate(futures[k]):
+                    served[k + 2 * j] = fut.result(timeout=600)
+            launches = {"groupnorm_silu": groupnorm_silu.launches,
+                        "conv_int8": conv2d_int8.launches,
+                        "upconv_int8": upconv2x2_int8.launches}
+            main_stats = eng.stats
+            eng._apply = inner
+        print(f"diffusion main path: {main_stats}; launches {launches}")
+        served = np.stack(served)
+        if served.shape != (len(requests), HW, HW, 1):
+            raise AssertionError(f"served shape {served.shape}")
+        if not np.isfinite(served).all():
+            raise AssertionError("served samples are not finite")
+        if main_stats.padded_slots == 0:
+            raise AssertionError("no batch was wrap-padded")
+        per_batch = {"groupnorm_silu": 100, "conv_int8": 140,
+                     "upconv_int8": 20}  # 10 steps x (10, 14, 2)
+        for name, n in per_batch.items():
+            if launches[name] != n * main_stats.batches:
+                raise AssertionError(
+                    f"{name}: {launches[name]} launches for "
+                    f"{main_stats.batches} batches, want {n} a batch")
+
+        # the served batches against the bf16 float sampler and against the
+        # same tables through the plain versions (same conds, same noise:
+        # each call seeds its generator with 0)
+        float_apply = make_bundle_apply(*load_bundle(bundles["none"]), dev)
+        plain_apply = make_bundle_apply(*load_bundle(bundles["int8_deep"]),
+                                        dev, gn_impl="fused", plain=True)
+        got = np.concatenate([y.cpu().numpy() for _, y in kept])
+        y_float = np.concatenate([float_apply(x).cpu().numpy()
+                                  for x, _ in kept])
+        y_plain = np.concatenate([plain_apply(x).cpu().numpy()
+                                  for x, _ in kept])
+        rel_float, rel_plain = rel_rmse(got, y_float), rel_l2(got, y_plain)
+        print(f"int8_deep sampler vs bf16 float sampler rel-RMSE "
+              f"{rel_float:.6f} (bound 0.35); vs plain versions rel-L2 "
+              f"{rel_plain:.6f} (bound 0.02); |sample| max "
+              f"{np.abs(got).max():.4g}, std {got.std():.4g}")
+        if not rel_float < 0.35:
+            raise AssertionError(f"int8 vs float sampler rel-RMSE {rel_float}")
+        if not rel_plain < 0.02:
+            raise AssertionError(f"int8 vs plain versions rel-L2 {rel_plain}")
+        results.update(rel_rmse_float=rel_float, rel_l2_plain=rel_plain,
+                       batches=main_stats.batches, launches=launches)
+
+        # --- steady state of the three setups, and one profiled batch each
+        x8 = torch.from_numpy(requests[np.arange(BATCH) % len(requests)]).to(
+            dev)
+        for setup, path, gn in (("int8_deep fused", bundles["int8_deep"],
+                                 "fused"),
+                                ("int8_deep chain", bundles["int8_deep"],
+                                 "chain"),
+                                ("none (bf16)", bundles["none"], None)):
+            with engine_from_bundle(path, batch_size=BATCH, device=dev,
+                                    gn_impl=gn) as eng:
+                eng.predict(requests[0])
+                eng.reset_stats()
+                burst = [eng.submit(requests[i % len(requests)])
+                         for i in range(STEADY_BATCHES * BATCH)]
+                for fut in burst:
+                    fut.result(timeout=600)
+                st = eng.stats
+                batch_ms = cuda_ms(lambda: eng._apply(x8), reps=3, warmup=1)
+                prof = profile_batch(eng._apply, x8, setup)
+            print(f"{setup}: steady-state slices/s {st.slices_per_sec:.2f} "
+                  f"({st.requests} requests, {st.batches} batches of "
+                  f"{BATCH}); batch wall {st.total_batch_time_s:.3f} s, "
+                  f"fetch wait {st.fetch_time_s:.3f} s, assemble "
+                  f"{st.assemble_time_s:.4f} s; one sampler call (10 steps, "
+                  f"batch {BATCH}) {batch_ms:.2f} ms on the card ({card})")
+            results[setup] = {"slices_per_sec": st.slices_per_sec,
+                              "requests": st.requests,
+                              "total_batch_time_s": st.total_batch_time_s,
+                              "fetch_time_s": st.fetch_time_s,
+                              "assemble_time_s": st.assemble_time_s,
+                              "batch_ms": batch_ms, "profile": prof}
+    print("diffusion wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in walls.items()))
+    results["wall_s"] = walls
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -563,6 +1013,8 @@ SOURCES = {
                     "mrisr_tpu/ops/upconv_pallas.py:130"),
     "ssim": ("mrisr_tpu_torch/csrc/ssim.cu",
              "mrisr_tpu/ops/ssim_pallas.py:91"),
+    "groupnorm_silu": ("mrisr_tpu_torch/csrc/groupnorm_silu.cu",
+                       "mrisr_tpu/ops/groupnorm_pallas.py:205"),
 }
 
 
@@ -593,23 +1045,31 @@ def main() -> int:
     serve_launches, qparams, slice_result = slice_phase(dev, card)
     ssim_rows = ssim_phase(dev)
     eval_launches, eval_result = eval_phase(dev, qparams, card)
+    k3_rows = k3_phase(dev)
+    diff_launches, diff_result = diffusion_phase(dev, card)
 
     kernels = []
-    for name in ("conv_int8", "upconv_int8", "ssim"):
-        # A and B: all sites of one batch-8 forward, summed; K1: one call
-        # at N = 174, the eval's 3 mm test split
-        sel = ([r for r in rows if r["kernel"] == name] if name != "ssim"
-               else [r for r in ssim_rows if r["N"] == 174])
+    for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
+        # A and B: all sites of one batch-8 UNet forward, summed; K1: one
+        # call at N = 174, the eval's 3 mm test split; K3: the 10 sites of
+        # one batch-8 int8_deep Fast-DDPM forward, summed
+        sel = ([r for r in rows if r["kernel"] == name] if name in
+               ("conv_int8", "upconv_int8") else
+               [r for r in ssim_rows if r["N"] == 174] if name == "ssim" else
+               [r for r in k3_rows if r["kernel"] == name])
+        checked = sel + [r for r in k3_rows if r["kernel"] == name]
         ops_ms = sum(r["ops_ms"] for r in sel)
         bytes_ms = sum(r["bytes_ms"] for r in sel)
         libs = [r["library_ms"] for r in sel]
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name][0],
             "replaces": SOURCES[name][1],
-            # the serving path's and the eval path's runs, each counted
+            # the serving, eval and diffusion paths' runs, each counted
             # from 0 just before it
-            "launches": serve_launches.get(name, 0) + eval_launches[name],
-            "max_abs_err": max(r["max_abs_err"] for r in sel),
+            "launches": (serve_launches.get(name, 0)
+                         + eval_launches.get(name, 0)
+                         + diff_launches.get(name, 0)),
+            "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": sum(r["bound_ms"] for r in sel),
@@ -620,9 +1080,10 @@ def main() -> int:
         os.makedirs(os.path.dirname(os.path.abspath(args.sites_json)),
                     exist_ok=True)
         with open(args.sites_json, "w") as f:
-            json.dump({"card": card, "sites": rows + ssim_rows,
+            json.dump({"card": card, "sites": rows + ssim_rows + k3_rows,
                        "slice": slice_result, "eval": eval_result,
-                       "kernels": kernels}, f, indent=1)
+                       "diffusion": diff_result, "kernels": kernels}, f,
+                      indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("conv_int8", "upconv_int8", "ssim")
+KERNELS = ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -37,9 +37,12 @@ _F = ctypes.c_float
 # their int-valued helpers
 SIGNATURES = {
     "conv_int8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "upconv_int8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "upconv_int8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
     "ssim_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "ssim_tiles": [_I, _I, _I],
+    "groupnorm_silu_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _F, _P],
 }
 
 

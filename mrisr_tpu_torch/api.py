@@ -4,8 +4,9 @@
 ``load_model(name)`` searches checkpoints as ``mrisr_tpu.api.load_model``
 does and returns a :class:`LoadedModel` with the reference's NCHW call
 contract, ``(B, 2, H, W) -> (B, 1, H, W)``, and the NHWC fast path the
-eval code uses.  This slice ports the pair UNets; the other families raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+eval code uses.  The pair UNets and ``fastddpm`` (the Fast-DDPM UNet,
+sampled by the 10-step ancestral chain) are ported; the other families
+raise ``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -23,15 +24,20 @@ from mrisr_tpu_torch.ckpt.torch_ckpt import load_reference_state_dict
 from mrisr_tpu_torch.config import PRESETS, ModelConfig
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
 from mrisr_tpu_torch.models import UNet
+from mrisr_tpu_torch.models.diffusion import (
+    DiffusionSchedule,
+    FastDDPMUNet,
+    sample_ancestral,
+)
 
 # pair UNets of the registry (mrisr_tpu/models/registry.py): the GAN
 # generator's convs are bias-free
 PAIR_UNETS = ("unet", "unet_combined", "unet_gan", "unet_distilled")
+DIFFUSION = ("fastddpm",)
 NOT_PORTED = {
     "deepcnn": "ROADMAP.md, Queue 1 item 11",
     "progressive_unet": "ROADMAP.md, Queue 1 item 11",
     "patchgan": "ROADMAP.md, Queue 1 item 11",
-    "fastddpm": "ROADMAP.md, Queue 1 item 12",
     "fastddpm_simple": "ROADMAP.md, Queue 1 item 12",
 }
 
@@ -49,25 +55,39 @@ _TORCH_CKPT_FILES = {
 
 @dataclass
 class LoadedModel:
-    """An eval-ready pair model on ``device``."""
+    """An eval-ready model on ``device``: a pair UNet, or a diffusion model
+    with its sampling ``schedule``."""
 
     name: str
     module: nn.Module
-    kind: str  # 'pair'
+    kind: str  # 'pair' | 'diffusion'
     device: torch.device
+    schedule: Optional[DiffusionSchedule] = None
 
     @torch.no_grad()
-    def predict_nhwc(self, x: torch.Tensor) -> torch.Tensor:
+    def predict_nhwc(self, x: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
         """``(B, H, W, 2) -> (B, H, W, 1)`` float32 on the model's device.
         The forward runs in full float32 (TF32 off): the metric it feeds
-        is the reference's float model's."""
+        is the reference's float model's.  A diffusion model samples the
+        ancestral chain from ``x`` = [pre, post], with ``generator`` (None:
+        seeded 0, the JAX package's ``PRNGKey(0)``)."""
+        x = x.to(self.device, torch.float32)
         with fp32_reference():
-            return self.module(x.to(self.device, torch.float32))
+            if self.kind != "diffusion":
+                return self.module(x)
+            if generator is None:
+                generator = torch.Generator(self.device).manual_seed(0)
+            return sample_ancestral(self.module, x, generator, self.schedule,
+                                    combine="first")
 
-    def __call__(self, x_nchw) -> torch.Tensor:
-        """``(B, 2, H, W) -> (B, 1, H, W)``."""
+    def __call__(self, x_nchw, generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """``(B, 2, H, W) -> (B, 1, H, W)`` (a diffusion model: the sample
+        conditioned on the two slices)."""
         x = torch.as_tensor(x_nchw, dtype=torch.float32).permute(0, 2, 3, 1)
-        return self.predict_nhwc(x).permute(0, 3, 1, 2)
+        return self.predict_nhwc(x, generator).permute(0, 3, 1, 2)
 
 
 def _orbax_error(path: str) -> NotImplementedError:
@@ -92,23 +112,37 @@ def load_model(
     the Orbax dir ``<models_dir>/<name>_best`` (raises: it needs JAX); the
     reference torch file ``<models_dir>/<torch name>``.  With none found,
     fresh weights (seeded), unless ``checkpoint='required'``, which raises.
-    ``fold_bn`` folds BatchNorm into the convs (exact in eval)."""
+    ``fold_bn`` folds a pair UNet's BatchNorm into the convs (exact in
+    eval).  A diffusion model's schedule is built from ``cfg``."""
     name = model_name.lower()
     base = re.sub(r"_steps\d+$", "", name)
+    if base != name and base in DIFFUSION:
+        raise NotImplementedError(
+            f"step-distilled model {model_name!r} is not ported yet "
+            "(ROADMAP.md, Queue 1 item 12: sample_ddim_grid)")
     if base in NOT_PORTED:
         raise NotImplementedError(
             f"model {model_name!r} is not ported yet ({NOT_PORTED[base]})")
-    if name not in PAIR_UNETS:
+    if name not in PAIR_UNETS + DIFFUSION:
         raise ValueError(f"Unknown model: {model_name}. Choose from: "
-                         f"{sorted(PAIR_UNETS + tuple(NOT_PORTED))}")
+                         f"{sorted(PAIR_UNETS + DIFFUSION + tuple(NOT_PORTED))}")
     device = resolve_device(device)
     if cfg is None:
         cfg = PRESETS[name].model if name in PRESETS else ModelConfig(name=name)
+    kind = "diffusion" if name in DIFFUSION else "pair"
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        module = UNet(features=cfg.base_features, use_bias=name != "unet_gan",
-                      in_channels=cfg.in_channels,
-                      out_channels=cfg.out_channels)
+        if kind == "diffusion":
+            # in = [pre, post, x_noisy], whatever cfg.in_channels says, as
+            # the JAX registry builds it
+            module = FastDDPMUNet(base_features=cfg.base_features,
+                                  time_dim=cfg.time_dim,
+                                  out_channels=cfg.out_channels)
+        else:
+            module = UNet(features=cfg.base_features,
+                          use_bias=name != "unet_gan",
+                          in_channels=cfg.in_channels,
+                          out_channels=cfg.out_channels)
 
     require = checkpoint == "required"
     if require:
@@ -135,7 +169,16 @@ def load_model(
         load_reference_state_dict(
             module, torch.load(path, map_location="cpu", weights_only=True))
     module = module.eval()
-    if fold_bn:
+    schedule = None
+    if kind == "diffusion":
+        # the sampling schedule comes from the model's config: the trained
+        # fastddpm presets use cosine beta
+        schedule = DiffusionSchedule.create(
+            num_timesteps=cfg.num_timesteps,
+            num_inference_steps=cfg.num_inference_steps,
+            beta_schedule=cfg.beta_schedule,
+            selection=cfg.timestep_selection)
+    elif fold_bn:
         module = fold_unet_batchnorm(module)
-    return LoadedModel(name=name, module=module.to(device), kind="pair",
-                       device=device)
+    return LoadedModel(name=name, module=module.to(device), kind=kind,
+                       device=device, schedule=schedule)

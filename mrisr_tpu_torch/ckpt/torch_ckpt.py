@@ -1,11 +1,13 @@
-"""The reference's torch checkpoint layout for the pair UNets.
+"""The reference's torch checkpoint layout for the pair UNets and the
+Fast-DDPM UNet.
 
 The reference saves ``{'epoch', 'model_state_dict', 'val_loss', ...}``,
 ``{'generator_state_dict', ...}`` (GAN) or a raw state dict
 (reference ``src/ModelLoader.py:693-705``).  Its UNet has the port's keys
 (``enc1.conv.0.weight`` ...) except the 1x1 head, which the reference names
 ``final_conv`` in the MSE/combined UNet and ``final`` in the GAN generator
-(``mrisr_tpu/ckpt/torch_convert.py:_convert_unet``).  BatchNorm's
+(``mrisr_tpu/ckpt/torch_convert.py:_convert_unet``); the Fast-DDPM UNet
+has the port's keys throughout.  BatchNorm's
 ``num_batches_tracked`` is not read by an eval forward; a state dict that
 lacks it loads with zeros.
 """
@@ -44,9 +46,10 @@ def load_reference_state_dict(model: nn.Module, checkpoint: Any) -> None:
 
 def reference_checkpoint(model: nn.Module, model_name: str, epoch: int = 0,
                          val_loss: float = 0.0) -> Dict[str, Any]:
-    """A port UNet as the reference saves it:
-    ``{'epoch', 'model_state_dict', 'val_loss'}`` with its head name."""
-    head = REFERENCE_HEAD[model_name]
+    """A port model as the reference saves it:
+    ``{'epoch', 'model_state_dict', 'val_loss'}``, a pair UNet's head under
+    the reference's name."""
+    head = REFERENCE_HEAD.get(model_name, "final")
     sd = {(head + k[len("final"):] if k.startswith("final.") else k):
           v.detach().cpu() for k, v in model.state_dict().items()}
     return {"epoch": int(epoch), "model_state_dict": sd,

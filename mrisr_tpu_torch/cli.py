@@ -3,6 +3,8 @@
   python -m mrisr_tpu_torch synth <out_store> [--patients 8]
   python -m mrisr_tpu_torch eval --model unet --data <store> [...]
   python -m mrisr_tpu_torch predict-volume --model unet --data <store> [...]
+  python -m mrisr_tpu_torch export-serving --model fastddpm \
+      --quant int8_deep --data <store> --out <bundle> [...]
 
 The arguments are the JAX CLI's, plus ``--device`` (default: the card;
 ``--device cpu`` runs the plain versions on the CPU).  Training, the other
@@ -23,7 +25,7 @@ import sys
 from mrisr_tpu_torch.config import PRESETS
 
 
-def _add_common_args(p: argparse.ArgumentParser) -> None:
+def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True) -> None:
     p.add_argument("--data", required=True, help="packed VolumeStore dir")
     p.add_argument("--batch-size", type=int, default=None)
     # None = "not passed": the preset's value is kept
@@ -37,10 +39,12 @@ def _add_common_args(p: argparse.ArgumentParser) -> None:
                    help="slice bank in host RAM or on the device")
     p.add_argument("--features", type=int, default=None,
                    help="base feature width override (default 64)")
-    p.add_argument("--allow-fresh", action="store_true",
-                   help="permit eval/predict with freshly initialized "
-                        "weights when no checkpoint exists (default: the "
-                        "CLI refuses; random-weight metrics are noise)")
+    if fresh:
+        p.add_argument("--allow-fresh", action="store_true",
+                       help="permit eval/predict with freshly initialized "
+                            "weights when no checkpoint exists (default: "
+                            "the CLI refuses; random-weight metrics are "
+                            "noise)")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain versions)")
@@ -164,6 +168,36 @@ def cmd_predict_volume(args) -> None:
         )
 
 
+def cmd_export_serving(args) -> None:
+    """Export a checkpoint as a one-artifact serving bundle
+    (``serve/bundle.py``): the int8_fused pair UNet, or the fastddpm T-step
+    sampler (quant none, int8 or int8_deep), calibrated on
+    ``--calib-batches`` batches of the val split."""
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.device import resolve_device
+    from mrisr_tpu_torch.serve.bundle import export_serving_bundle
+
+    cfg = _build_config(args, _preset_for(args.model))
+    device = resolve_device(args.device)
+    calib = None
+    if args.quant != "none":
+        loader = build_loader(VolumeStore.open(args.data), "val", cfg.data,
+                              backend=args.backend, device=device)
+        calib = []
+        for i, batch in enumerate(loader):
+            if i >= args.calib_batches:
+                break
+            calib.append(batch[..., :2])
+    path = export_serving_bundle(
+        args.out, model_name=args.model, models_dir=args.checkpoint_dir,
+        quant=args.quant, calibration_batches=calib,
+        percentile=args.percentile, cfg=cfg.model,
+        image_size=cfg.data.image_size, device=device,
+    )
+    print(f"serving bundle -> {path}")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="mrisr_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -195,6 +229,20 @@ def main(argv=None) -> None:
                    help="not ported yet (needs pydicom): raises")
     _add_common_args(q)
     q.set_defaults(fn=cmd_predict_volume)
+
+    q = sub.add_parser("export-serving")
+    q.add_argument("--model", default="unet")
+    q.add_argument("--out", required=True, help="bundle output directory")
+    q.add_argument("--quant", default="int8_fused",
+                   choices=("none", "int8", "int8_fused", "int8_deep"),
+                   help="pair models: int8_fused (none/int8 not ported yet); "
+                        "fastddpm: none/int8/int8_deep")
+    q.add_argument("--calib-batches", type=int, default=4)
+    q.add_argument("--percentile", type=float, default=None,
+                   help="activation calibration |x| percentile "
+                        "(default absmax)")
+    _add_common_args(q, fresh=False)  # a bundle needs a checkpoint
+    q.set_defaults(fn=cmd_export_serving)
 
     args = p.parse_args(argv)
     args.fn(args)

@@ -22,18 +22,24 @@
 // Weights: w2t is (4*Co, C) int8, K-contiguous (ops/upconv.py:pack_upconv
 // returns its (C, 4*Co) transpose view, the reference's layout).
 // s4, b4: (4*Co,) float32, the per-channel factors tiled over the phases.
+//
+// Float mode (OUT_FLOAT): the epilogue stops at acc * s4 + b4 and writes
+// float32, with no requant and no skip, as kernel A's float mode does.  The
+// Fast-DDPM int8 sampler dequantizes its upconv3/upconv2 outputs into the
+// float decoder this way (mrisr_tpu/serve/quant_diffusion.py:545-550).
 
 #include "igemm_int8.cuh"
 
 using namespace igemm;
 
+template <bool OUT_FLOAT>
 __global__ void __launch_bounds__(THREADS)
     upconv_int8_kernel(const int8_t* __restrict__ x,
                        const int8_t* __restrict__ w2t,
                        const float* __restrict__ s4,
                        const float* __restrict__ b4,
                        const int8_t* __restrict__ skip,
-                       int8_t* __restrict__ out, int N, int H, int W, int C,
+                       void* __restrict__ out, int N, int H, int W, int C,
                        int Co, int Cs) {
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   int acc[4][4];
@@ -52,10 +58,16 @@ __global__ void __launch_bounds__(THREADS)
       const int ph = col / Co, co = col - ph * Co;
       const size_t op =
           ((size_t)img * 2 * H + 2 * h + (ph >> 1)) * 2 * W + 2 * w + (ph & 1);
-      out[op * Ct + co] = requant(dequant(acc[i][j], s4[col], b4[col]));
+      const float y = dequant(acc[i][j], s4[col], b4[col]);
+      if constexpr (OUT_FLOAT)
+        static_cast<float*>(out)[op * Ct + co] = y;
+      else
+        static_cast<int8_t*>(out)[op * Ct + co] = requant(y);
     }
   }
+  if constexpr (OUT_FLOAT) return;
   if (Cs == 0 || blockIdx.y != 0) return;
+  int8_t* out8 = static_cast<int8_t*>(out);
   // fused concat: the column-0 blocks copy skip for the 4 output pixels of
   // each of their input pixels, 4 bytes at a time where alignment allows
   const bool vec = (Co % 4 == 0) && (Cs % 4 == 0);
@@ -68,26 +80,35 @@ __global__ void __launch_bounds__(THREADS)
     const size_t op =
         ((size_t)img * 2 * H + 2 * h + (ph >> 1)) * 2 * W + 2 * w + (ph & 1);
     if (vec)
-      *reinterpret_cast<int*>(out + op * Ct + Co + 4 * u) =
+      *reinterpret_cast<int*>(out8 + op * Ct + Co + 4 * u) =
           __ldg(reinterpret_cast<const int*>(skip + op * Cs + 4 * u));
     else
-      out[op * Ct + Co + u] = skip[op * Cs + u];
+      out8[op * Ct + Co + u] = skip[op * Cs + u];
   }
 }
 
 // Returns cudaGetLastError() after the launch (0 = launched).  skip may be
-// null (Cs = 0).
+// null (Cs = 0); out_float writes float32 and takes no skip.
 extern "C" int upconv_int8_launch(const void* x, const void* w2t,
                                   const void* s4, const void* b4,
                                   const void* skip, void* out, int N, int H,
-                                  int W, int C, int Co, int Cs, void* stream) {
+                                  int W, int C, int Co, int Cs, int out_float,
+                                  void* stream) {
+  if (out_float && Cs != 0) return (int)cudaErrorInvalidValue;
   const long long M = (long long)N * H * W;
   const dim3 grid((unsigned)((M + BM - 1) / BM),
                   (unsigned)((4 * Co + BN - 1) / BN));
-  upconv_int8_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(x), static_cast<const int8_t*>(w2t),
-      static_cast<const float*>(s4), static_cast<const float*>(b4),
-      static_cast<const int8_t*>(skip), static_cast<int8_t*>(out), N, H, W, C,
-      Co, Cs);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto xi = static_cast<const int8_t*>(x);
+  const auto wi = static_cast<const int8_t*>(w2t);
+  const auto sf = static_cast<const float*>(s4);
+  const auto bf = static_cast<const float*>(b4);
+  const auto sk = static_cast<const int8_t*>(skip);
+  if (out_float)
+    upconv_int8_kernel<true><<<grid, THREADS, 0, st>>>(xi, wi, sf, bf, sk, out,
+                                                       N, H, W, C, Co, Cs);
+  else
+    upconv_int8_kernel<false><<<grid, THREADS, 0, st>>>(
+        xi, wi, sf, bf, sk, out, N, H, W, C, Co, Cs);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Kernel B: int8 ConvTranspose(k=2, s=2) + requant epilogue + fused concat.
+"""Kernel B: int8 ConvTranspose(k=2, s=2) + requant epilogue + fused concat,
+or, in its float mode, the dequantized float32 output.
 
 Counterpart: the Pallas TPU kernel ``mrisr_tpu/ops/upconv_pallas.py``
 (``pack_upconv``, ``upconv2x2_int8``), which computes the same function as
@@ -42,28 +43,34 @@ def pack_upconv(w_int8: torch.Tensor, scale: torch.Tensor,
 
 def upconv2x2_int8_plain(x: torch.Tensor, w2: torch.Tensor,
                          scale4: torch.Tensor, bias4: torch.Tensor,
-                         skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         skip: Optional[torch.Tensor] = None,
+                         out_float: bool = False) -> torch.Tensor:
     """Plain version of kernel B: the product in float64 (exact for int8
     codes), the float32 epilogue, then the phase reshape and the concat."""
     n, h, w, c = x.shape
     co = w2.shape[1] // 4
+    if out_float and skip is not None:
+        raise ValueError("upconv2x2_int8: out_float takes no skip")
     acc = x.reshape(-1, c).double() @ w2.double()
-    y = epilogue_plain(acc, scale4, bias4, relu=False, out_float=False)
+    y = epilogue_plain(acc, scale4, bias4, relu=False, out_float=out_float)
     y = y.reshape(n, h, w, 2, 2, co).permute(0, 1, 3, 2, 4, 5)
     y = y.reshape(n, 2 * h, 2 * w, co)
     return y if skip is None else torch.cat([y, skip], dim=-1)
 
 
 def upconv2x2_int8(x: torch.Tensor, w2: torch.Tensor, scale4: torch.Tensor,
-                   bias4: torch.Tensor,
-                   skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   bias4: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                   out_float: bool = False) -> torch.Tensor:
     """x ``(N, H, W, C)`` int8 codes; w2/scale4/bias4 from
     :func:`pack_upconv`, where scale4 already folds the next conv's
     activation scale.  skip: optional ``(N, 2H, 2W, Cs)`` int8, written
     into the output's trailing channels.  Returns ``(N, 2H, 2W, Co[+Cs])``
-    int8."""
+    int8, or with ``out_float`` (no skip) the float32 ``acc * scale4 +
+    bias4`` of ``(N, 2H, 2W, Co)``."""
+    if out_float and skip is not None:
+        raise ValueError("upconv2x2_int8: out_float takes no skip")
     if x.device.type == "cpu":
-        return upconv2x2_int8_plain(x, w2, scale4, bias4, skip)
+        return upconv2x2_int8_plain(x, w2, scale4, bias4, skip, out_float)
     if x.device.type != "cuda":
         raise ValueError(f"upconv2x2_int8: unsupported device {x.device}")
     n, h, w, c = x.shape
@@ -92,14 +99,14 @@ def upconv2x2_int8(x: torch.Tensor, w2: torch.Tensor, scale4: torch.Tensor,
     if scale4.numel() != 4 * co or bias4.numel() != 4 * co:
         raise ValueError("upconv2x2_int8: scale4/bias4 need 4*Co values")
     out = torch.empty((n, 2 * h, 2 * w, co + cs), device=x.device,
-                      dtype=torch.int8)
+                      dtype=torch.float32 if out_float else torch.int8)
     lib = _build.library("upconv_int8")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.upconv_int8_launch(
             x.data_ptr(), w2t.data_ptr(), scale4.data_ptr(), bias4.data_ptr(),
             None if skip is None else skip.data_ptr(), out.data_ptr(),
-            n, h, w, c, co, cs, stream,
+            n, h, w, c, co, cs, int(out_float), stream,
         )
     _build.check(err, "upconv2x2_int8")
     upconv2x2_int8.launches += 1

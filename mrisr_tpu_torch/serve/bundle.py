@@ -96,36 +96,207 @@ def load_bundle(path: str) -> Tuple[Dict, Dict]:
     return _unflatten(flat), meta
 
 
-def make_bundle_apply(params: Dict, meta: Dict, device: DeviceLike = None):
+def _reflatten_int8_sites(nested: Dict) -> Dict[str, Dict]:
+    """Undo :func:`_unflatten`'s split of '/'-bearing conv-site names
+    ("enc2/conv1"): a site is the dict that holds ``w_int8``, re-keyed by
+    its joined path."""
+    sites: Dict[str, Dict] = {}
+
+    def walk(node, path):
+        if "w_int8" in node:
+            sites[_SEP.join(path)] = node
+            return
+        for k, v in node.items():
+            walk(v, path + [k])
+
+    walk(nested, [])
+    return sites
+
+
+def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
+                     gn_impl: Optional[str], plain: bool = False):
+    """The T-step sampler of a Fast-DDPM bundle: ``cond (B, H, W, 2) ->
+    (B, H, W, 1)``, the ancestral chain with a generator seeded 0 on every
+    call (the counterpart of the JAX package's ``PRNGKey(0)``: serving is
+    deterministic per input)."""
+    from mrisr_tpu_torch.models.diffusion import (
+        DiffusionSchedule,
+        sample_ancestral,
+    )
+    from mrisr_tpu_torch.serve.quant_diffusion import FastDDPMForward
+
+    if meta.get("sampler") == "ddim_grid":
+        raise NotImplementedError(
+            "ddim_grid (step-distilled) diffusion bundles are not ported yet: "
+            "they need serve/distill_diffusion.py (ROADMAP.md, Queue 1 item "
+            "14)")
+    sched = params["schedule"]
+    schedule = DiffusionSchedule(
+        betas=sched["betas"].float(), alphas=sched["alphas"].float(),
+        alphas_cumprod=sched["alphas_cumprod"].float(),
+        timesteps=sched["timesteps"].to(torch.int32))
+    time_dim = int(meta["time_dim"])
+    combine = meta.get("combine", "first")
+    quant = meta["quant"]
+    if quant in ("int8", "int8_deep"):
+        eps_fn = FastDDPMForward(
+            params["params"], _reflatten_int8_sites(params["int8"]),
+            params.get("timesteps"), time_dim=time_dim, gn_impl=gn_impl,
+            device=device, plain=plain)
+    elif quant == "none":
+        eps_fn = FastDDPMForward(params["params"], time_dim=time_dim,
+                                 device=device)
+    else:
+        raise ValueError(f"diffusion bundles carry quant none/int8/int8_deep, "
+                         f"got {quant!r}")
+
+    @torch.no_grad()
+    def apply(cond: torch.Tensor) -> torch.Tensor:
+        gen = torch.Generator(device=device).manual_seed(0)
+        return sample_ancestral(eps_fn, cond.to(device, torch.float32), gen,
+                                schedule, combine=combine)
+
+    return apply
+
+
+def make_bundle_apply(params: Dict, meta: Dict, device: DeviceLike = None,
+                      gn_impl: Optional[str] = None, plain: bool = False):
     """The serving forward of a loaded bundle on ``device`` (``None``: the
     card): ``(B, H, W, 2) -> (B, H, W, 1)`` tensors on that device.
 
-    Only ``quant='int8_fused'`` pair-UNet bundles are ported so far; the
-    other modes raise (ROADMAP.md, Queue 1 items 8 and 12-13)."""
+    Pair bundles: the one-shot forward; only ``quant='int8_fused'`` is
+    ported so far.  Diffusion bundles (quant none, int8 or int8_deep): the
+    call runs the whole T-step ancestral chain; ``gn_impl`` picks the int8
+    forward's GroupNorm path ('chain' or 'fused', see
+    ``serve/quant_diffusion.py``).  ``plain=True`` runs the kernels' plain
+    versions on the card: the reference the kernels are held against."""
     device = resolve_device(device)
     if meta.get("kind") == "diffusion":
-        raise NotImplementedError(
-            "diffusion bundles are not ported yet (ROADMAP.md, Queue 1 "
-            "items 12-13)")
+        return _diffusion_apply(params, meta, device, gn_impl, plain)
     if meta["quant"] != "int8_fused":
         raise NotImplementedError(
             f"bundle quant {meta['quant']!r} is not ported yet; the port "
             "serves 'int8_fused' (ROADMAP.md, Queue 1 item 8)")
     from mrisr_tpu_torch.serve.quant import Int8FusedUNet
 
-    return Int8FusedUNet(params, device=device)
+    return Int8FusedUNet(params, device=device, plain=plain)
+
+
+def export_serving_bundle(
+    out_path: str,
+    model_name: str = "unet",
+    models_dir: str = "models",
+    quant: str = "int8_fused",
+    calibration_batches=None,
+    percentile: Optional[float] = None,
+    cfg=None,
+    image_size: Tuple[int, int] = (256, 256),
+    device: DeviceLike = None,
+) -> str:
+    """Checkpoint -> (BN-fold) -> calibrate and quantize -> bundle on disk,
+    computed on ``device`` (``None``: the card).  A checkpoint is required,
+    as in the JAX package.  Pair models export ``int8_fused``; the
+    ``fastddpm`` family exports its sampler with quant none, int8 or
+    int8_deep."""
+    from mrisr_tpu_torch.api import load_model
+
+    loaded = load_model(model_name, models_dir=models_dir,
+                        checkpoint="required", cfg=cfg, fold_bn=True,
+                        device=device)
+    if loaded.kind == "diffusion":
+        return _export_diffusion_bundle(
+            out_path, loaded, quant=quant,
+            calibration_batches=calibration_batches, image_size=image_size,
+            percentile=percentile)
+    if quant in ("none", "int8"):
+        raise NotImplementedError(
+            f"pair-model bundles with quant {quant!r} are not ported yet; "
+            "the port exports 'int8_fused' (ROADMAP.md, Queue 1 item 8)")
+    if quant != "int8_fused":
+        raise ValueError(
+            f"pair-model bundles support quant none/int8/int8_fused, got "
+            f"{quant!r} (int8_deep is the diffusion-sampler path)")
+    from mrisr_tpu_torch.serve.quant import calibrate_unet, quantize_unet
+
+    if not calibration_batches:
+        raise ValueError("int8 bundles need calibration_batches")
+    calib = calibrate_unet(loaded.module, calibration_batches,
+                           percentile=percentile)
+    return save_bundle(
+        out_path, quantize_unet(loaded.module, calib), model_name=model_name,
+        quant=quant, base_features=loaded.module.features,
+        image_size=image_size,
+        calibration=f"{len(calibration_batches)} batches, "
+        + _stat_name(percentile))
+
+
+def _stat_name(percentile: Optional[float]) -> str:
+    return "absmax" if percentile is None else f"p{percentile}"
+
+
+def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
+                             calibration_batches,
+                             image_size: Tuple[int, int],
+                             percentile: Optional[float] = None) -> str:
+    """Fast-DDPM serving bundle: the T-step ancestral sampler as one
+    artifact, quant 'none' (bf16), 'int8' (every conv) or 'int8_deep' (the
+    <= 128^2 ``DEEP_SITES``)."""
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        DEEP_SITES,
+        bf16_params,
+        calibrate_fastddpm,
+        quantize_fastddpm,
+    )
+
+    if quant not in ("none", "int8", "int8_deep"):
+        raise ValueError(
+            f"diffusion bundles support quant none/int8/int8_deep, got "
+            f"{quant!r} (int8_fused is the pair-UNet path)")
+    params = fastddpm_flax_params(loaded.module)
+    time_dim = int(params["time_emb"]["Dense_1"]["kernel"].shape[-1])
+    if quant == "none":
+        tree = {"params": bf16_params(params)}
+        calib_desc = None
+    else:
+        if not calibration_batches:
+            raise ValueError("int8 bundles need calibration_batches")
+        gen = torch.Generator(device=loaded.device).manual_seed(0)
+        ranges = calibrate_fastddpm(
+            {"params": params}, loaded.schedule, calibration_batches, gen,
+            time_dim=time_dim, percentile=percentile)
+        tree = quantize_fastddpm(
+            {"params": params}, ranges,
+            only=DEEP_SITES if quant == "int8_deep" else None)
+        calib_desc = (f"{len(calibration_batches)} cond batches, trajectory "
+                      + _stat_name(percentile))
+    # ship the exact sampling tables: rebuilding them from a config at load
+    # time could drift from what the model was evaluated with
+    sched = loaded.schedule
+    tree["schedule"] = {"betas": sched.betas, "alphas": sched.alphas,
+                        "alphas_cumprod": sched.alphas_cumprod,
+                        "timesteps": sched.timesteps}
+    return save_bundle(
+        out_path, tree, model_name=loaded.name, quant=quant,
+        base_features=int(params["init_conv"]["kernel"].shape[-1]),
+        image_size=image_size, calibration=calib_desc,
+        extra={"kind": "diffusion", "time_dim": time_dim, "combine": "first",
+               "sampler": "ancestral"})
 
 
 def engine_from_bundle(path: str, batch_size: int = 128,
-                       device: DeviceLike = None, **engine_kwargs):
+                       device: DeviceLike = None,
+                       gn_impl: Optional[str] = None, **engine_kwargs):
     """One call serving: bundle dir -> running InferenceEngine on
-    ``device`` (``None``: the card)."""
+    ``device`` (``None``: the card); ``gn_impl`` goes to
+    :func:`make_bundle_apply`."""
     from mrisr_tpu_torch.serve.engine import InferenceEngine
 
     device = resolve_device(device)
     params, meta = load_bundle(path)
     h, w = meta["image_size"]
     return InferenceEngine(
-        make_bundle_apply(params, meta, device), batch_size=batch_size,
-        input_shape=(h, w, 2), device=device, **engine_kwargs,
+        make_bundle_apply(params, meta, device, gn_impl=gn_impl),
+        batch_size=batch_size, input_shape=(h, w, 2), device=device,
+        **engine_kwargs,
     )

@@ -85,9 +85,11 @@ def test_port_bundle_loads_in_jax(tables, tmp_path):
 def test_unported_modes_raise(tables):
     with pytest.raises(NotImplementedError, match="not ported"):
         make_bundle_apply({}, {"quant": "none"}, device="cpu")
+    # diffusion bundles serve (tests/test_torch_port_quant_diffusion.py),
+    # but not the step-distilled students' ddim_grid sampler yet
     with pytest.raises(NotImplementedError, match="diffusion"):
-        make_bundle_apply({}, {"quant": "int8", "kind": "diffusion"},
-                          device="cpu")
+        make_bundle_apply({}, {"quant": "int8", "kind": "diffusion",
+                               "sampler": "ddim_grid"}, device="cpu")
 
 
 def test_engine_threads_and_close(tables, tmp_path):

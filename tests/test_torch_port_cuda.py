@@ -15,6 +15,10 @@ from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8_plain,
     pack_conv,
 )
+from mrisr_tpu_torch.ops.groupnorm import (
+    groupnorm_silu,
+    groupnorm_silu_plain,
+)
 from mrisr_tpu_torch.ops.ssim import ssim
 from mrisr_tpu_torch.ops.ssim_fused import ssim_fused, ssim_fused_plain
 from mrisr_tpu_torch.ops.upconv import (
@@ -68,6 +72,137 @@ def test_conv_int8_kernel_matches_plain(cuda, n, h, w, ci, co, k, out_float):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         assert_codes_close(got, want)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_conv_int8_float_epilogue_without_relu(cuda, k):
+    """The diffusion sites' mode: relu=False, float32 out, s = a * w_scale
+    and b = the conv bias."""
+    g = torch.Generator().manual_seed(40 + k)
+    x = _codes(g, (2, 16, 16, 96), cuda)
+    wp = pack_conv(_codes(g, (k, k, 96, 80), "cpu")).to(cuda)
+    s = (torch.rand(80, generator=g) * 1e-4).to(cuda)
+    b = (torch.randn(80, generator=g) * 0.1).to(cuda)
+    got = conv2d_int8(x, wp, s, b, relu=False, out_float=True)
+    torch.cuda.synchronize()
+    want = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
+    assert bool((got < 0).any())
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("h,w,c,co", [(8, 8, 512, 256), (5, 3, 16, 6)])
+def test_upconv_kernel_float_mode(cuda, h, w, c, co):
+    g = torch.Generator().manual_seed(h * 10 + co)
+    x = _codes(g, (2, h, w, c), cuda)
+    w2, s4, b4 = pack_upconv(_codes(g, (2, 2, c, co), "cpu"),
+                             torch.rand(co, generator=g) * 1e-4,
+                             torch.randn(co, generator=g) * 0.1)
+    w2 = w2.t().to(cuda).t()
+    s4, b4 = s4.to(cuda), b4.to(cuda)
+    before = upconv2x2_int8.launches
+    got = upconv2x2_int8(x, w2, s4, b4, out_float=True)
+    torch.cuda.synchronize()
+    assert upconv2x2_int8.launches == before + 1
+    want = upconv2x2_int8_plain(x, w2, s4, b4, out_float=True)
+    assert got.dtype == torch.float32 and got.shape == (2, 2 * h, 2 * w, co)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="skip"):
+        upconv2x2_int8(x, w2, s4, b4, skip=_codes(g, (2, 2 * h, 2 * w, 4),
+                                                  cuda), out_float=True)
+
+
+# K3: the diffusion sites' widths, an odd H*W, a tile-ragged C
+GN_CASES = [(2, 16, 16, 128), (2, 9, 7, 768), (1, 33, 5, 48), (3, 8, 8, 20)]
+
+
+def _gn_case(shape, device, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 3.0 + 0.5
+    c = shape[-1]
+    gamma = torch.randn(c, generator=g) * 0.5 + 1.0
+    beta = torch.randn(c, generator=g) * 0.2
+    return x.to(device, dtype), gamma.to(device), beta.to(device)
+
+
+@pytest.mark.parametrize("shape", GN_CASES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_groupnorm_kernel_matches_plain(cuda, shape, dtype):
+    """int8: no code more than 1 off and under 0.1 % off by one (the
+    Pallas kernel's contract); bf16 out atol 0.03; float32 out 1e-5."""
+    x, gamma, beta = _gn_case(shape, cuda, dtype, seed=shape[-1])
+    groups = shape[-1] // 4
+    ref = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                               out_dtype=torch.float32)
+    scale = (ref.abs().amax() / 127.0).reshape(1)
+    before = groupnorm_silu.launches
+    q = groupnorm_silu(x, gamma, beta, num_groups=groups, quant_scale=scale)
+    torch.cuda.synchronize()
+    assert groupnorm_silu.launches == before + 1
+    assert q.dtype == torch.int8 and q.shape == shape
+    want = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                                quant_scale=scale)
+    diff = (q.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-3
+    assert torch.equal(groupnorm_silu(x, gamma, beta, num_groups=groups,
+                                      quant_scale=scale), q)  # deterministic
+    y16 = groupnorm_silu(x, gamma, beta, num_groups=groups)
+    assert y16.dtype == torch.bfloat16
+    torch.testing.assert_close(y16.float(), ref, rtol=0, atol=0.03)
+    y32 = groupnorm_silu(x, gamma, beta, num_groups=groups,
+                         out_dtype=torch.float32)
+    torch.testing.assert_close(y32, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_groupnorm_kernel_refuses_what_it_does_not_take(cuda):
+    x, gamma, beta = _gn_case((1, 4, 4, 16), cuda, torch.float32)
+    with pytest.raises(ValueError, match="groups of 4"):
+        groupnorm_silu(x, gamma, beta, num_groups=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        groupnorm_silu(x.transpose(1, 2), gamma, beta, num_groups=4)
+    with pytest.raises(ValueError, match="one value"):
+        groupnorm_silu(x, gamma, beta, num_groups=4,
+                       quant_scale=torch.ones(2, device=cuda))
+
+
+@pytest.mark.parametrize("only", ["deep", "all"])
+def test_diffusion_int8_forward_on_card_equals_plain(cuda, only):
+    """The int8 Fast-DDPM forward through kernels A, B and K3 against the
+    same tables through their plain versions, on the card."""
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.diffusion import (
+        DiffusionSchedule,
+        FastDDPMUNet,
+    )
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        DEEP_SITES,
+        calibrate_fastddpm,
+        int8_forward,
+        quantize_fastddpm,
+    )
+
+    torch.manual_seed(0)
+    params = fastddpm_flax_params(FastDDPMUNet(base_features=16,
+                                               time_dim=32).to(cuda))
+    sched = DiffusionSchedule.create(50, 4, "linear", "linspace")
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((2, 32, 32, 2), generator=g).to(cuda)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond],
+                               time_dim=32)
+    q = quantize_fastddpm({"params": params}, calib,
+                          only=DEEP_SITES if only == "deep" else None)
+    x = torch.randn((2, 32, 32, 3), generator=g).to(cuda)
+    t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
+    counts = (conv2d_int8.launches, upconv2x2_int8.launches,
+              groupnorm_silu.launches)
+    got = int8_forward(q, time_dim=32, device=cuda)(x, t)
+    assert (conv2d_int8.launches - counts[0], upconv2x2_int8.launches
+            - counts[1], groupnorm_silu.launches - counts[2]) == (
+        (14, 2, 10) if only == "deep" else (22, 3, 15))
+    want = int8_forward(q, time_dim=32, device=cuda, plain=True)(x, t)
+    assert got.shape == (2, 32, 32, 1) and bool(torch.isfinite(got).all())
+    rel = float((got - want).norm() / want.norm())
+    assert rel < 0.02, rel
 
 
 @pytest.mark.parametrize("h,w,c,co,cs", [(4, 4, 64, 32, 32),

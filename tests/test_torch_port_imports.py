@@ -38,6 +38,8 @@ def test_import_with_jax_blocked():
         "import mrisr_tpu_torch.ops.ssim_fused, mrisr_tpu_torch.data.pipeline\n"
         "import mrisr_tpu_torch.eval.runner, mrisr_tpu_torch.api\n"
         "import mrisr_tpu_torch.cli, mrisr_tpu_torch.ckpt.torch_ckpt\n"
+        "import mrisr_tpu_torch.models.diffusion, mrisr_tpu_torch.ops.groupnorm\n"
+        "import mrisr_tpu_torch.serve.quant_diffusion\n"
         "from mrisr_tpu_torch.data.split import split_for\n"
         "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
         "assert not any(m == 'mrisr_tpu' or m.startswith('mrisr_tpu.')\n"
@@ -129,3 +131,30 @@ def test_eval_entry_points_raise_without_cuda(no_cuda, tmp_path):
             call()
     # explicit CPU works
     assert per_sample_metrics(x + 1, x, device="cpu")["num_samples"] == 2
+
+
+def test_diffusion_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.config import ModelConfig
+    from mrisr_tpu_torch.models.diffusion import FastDDPMUNet
+    from mrisr_tpu_torch.serve.bundle import export_serving_bundle
+    from mrisr_tpu_torch.serve.quant_diffusion import FastDDPMForward
+
+    torch.manual_seed(0)
+    params = fastddpm_flax_params(FastDDPMUNet(base_features=4, time_dim=8))
+    mcfg = ModelConfig(name="fastddpm", base_features=4, time_dim=8)
+    for call in (
+        lambda: load_model("fastddpm", str(tmp_path), cfg=mcfg),
+        lambda: FastDDPMForward(params, time_dim=8),
+        lambda: export_serving_bundle(str(tmp_path / "b"), "fastddpm",
+                                      str(tmp_path), quant="none", cfg=mcfg),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # explicit CPU works: fresh seeded weights, the 10-step chain
+    loaded = load_model("fastddpm", str(tmp_path), cfg=mcfg, device="cpu")
+    assert loaded.kind == "diffusion"
+    assert loaded.schedule.num_inference_steps == 10
+    y = loaded(np.zeros((1, 2, 8, 8), np.float32))
+    assert y.shape == (1, 1, 8, 8) and torch.isfinite(y).all()

@@ -67,3 +67,39 @@ def to_torch_tree(tree):
 def noise(shape, seed: int) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal(shape).astype(
         np.float32)
+
+
+def jax_fastddpm_variables(base: int, time_dim: int, hw: int,
+                           seed: int = 0) -> dict:
+    """flax FastDDPMUNet variables with seeded, non-trivial GroupNorm
+    scale/bias and conv/dense biases (flax's init leaves them at 1/0)."""
+    from mrisr_tpu.models.diffusion import FastDDPMUNet as JaxFastDDPM
+
+    model = JaxFastDDPM(base_features=base, time_dim=time_dim)
+    v = jax.jit(model.init)(jax.random.PRNGKey(seed),
+                            jnp.zeros((1, hw, hw, 3)), jnp.zeros((1,),
+                                                                 jnp.int32))
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        a = np.asarray(a)
+        name = path[-1].key
+        if name == "scale":
+            return (1 + 0.2 * rng.standard_normal(a.shape)).astype(np.float32)
+        if name == "bias":
+            return (0.05 * rng.standard_normal(a.shape)).astype(np.float32)
+        return a
+
+    return {"params": jax.tree_util.tree_map_with_path(perturb, v["params"])}
+
+
+def jax_chain_noise(key, shape, schedule):
+    """The draws of one chain of ``mrisr_tpu``'s ``sample_ancestral`` under
+    ``key`` (its ``one_chain``): x_T and z for every step but the last, in
+    iteration order, as numpy."""
+    k_init, k_loop = jax.random.split(key)
+    x_t = np.array(jax.random.normal(k_init, shape, jnp.float32))
+    ts = np.asarray(schedule.timesteps)[::-1][:-1]
+    zs = [np.array(jax.random.normal(jax.random.fold_in(k_loop, int(t)),
+                                       shape, jnp.float32)) for t in ts]
+    return x_t, zs
