@@ -8,18 +8,25 @@
 2. Kernel phase: kernel A (int8 conv + fused epilogue) at all 19 conv sites
    of the full-width M2 UNet (features 64, 256^2) and kernel B (int8 2x2
    upconv + fused concat) at its 4 sites, with and without skip, at batch 2,
-   each held against its plain PyTorch version on the card (int8: no code
-   off by more than 1 and under 1 % off by 1; float: rtol 1e-5).  Then each
-   site is timed at the serving batch (8) beside its plain version, a
-   library call for the same product (a yardstick the port never calls)
-   and its bound on an H100 SXM.
+   each held against its plain PyTorch version on the card (int8: the same
+   codes, since both paths sum exactly; float: rtol 1e-5; two launches the
+   same bits).  Each site names its path (conv_path / upconv_path: "tc",
+   wgmma on the tensor cores, or "dp4a").  Then each site is timed at the
+   serving batch (8), L2 warm and after a 64 MiB L2 scrub, beside its plain
+   version, a library call for the same product (a yardstick the port
+   never calls), its bound on an H100 SXM, the achieved TOP/s and the
+   host's microseconds a launch.  Device times queue their launches behind
+   a device-side sleep (cuda_ms), so they are the card's, not the host's
+   enqueue rate.
 3. Slice phase: seeded UNet(features=64) -> BN fold -> calibrate on two
    noise batches -> int8 quantize -> bundle on disk -> engine_from_bundle
    (batch 8) answering 21 requests from two threads (so one batch is
    wrap-padded).  The answers must be finite (256, 256, 1), within rel-L2
-   0.15 of the folded float forward (fp32) and 0.02 of the same tables run
-   through the plain versions on the card, and both kernels must have been
-   launched by that run.  Then the steady-state engine throughput.
+   0.15 of the folded float forward (fp32) and equal (rel-L2 0) to the same
+   tables run through the plain versions on the card, and every site must
+   have launched the path conv_path / upconv_path gives it, no other.  Then
+   the steady-state engine throughput beside the dp4a design's, one
+   forward's device time and enqueue time, and its profile.
 4. K1 phase: the fused SSIM kernel against its plain version on the card
    (atol 3e-5, the JAX package's contract) at (1|8|64|174, 256, 256),
    (3, 37, 53), (2, 7, 7) and (1, 512, 512); an identical pair must give 1
@@ -46,7 +53,8 @@
    a 64 MiB L2 scrub beside the plain version, F.group_norm (the yardstick:
    GroupNorm alone) and its bytes bound.  Kernel A at the 14 diffusion
    sites (float epilogue, no ReLU) and kernel B's float mode at upconv3 and
-   upconv2, against their plain versions (rtol 1e-5), and timed.
+   upconv2, against their plain versions (rtol 1e-5, two launches the same
+   bits), and timed as in 2.
 7. Diffusion phase: a seeded full-width FastDDPMUNet (13,899,905
    parameters) saved as a reference-layout fastddpm_best.pt; a 12 x 60 x
    256^2 store from the CLI's synth; the CLI's export-serving makes an
@@ -54,16 +62,19 @@
    engine_from_bundle (batch 8, gn_impl 'fused') answers 10 test-split
    [pre, post] requests from two threads with the 10-step ancestral
    sampler.  The samples must be finite (256, 256, 1), within rel-RMSE 0.35
-   of the bf16 float sampler and rel-L2 0.02 of the same tables through the
-   plain versions, on the batches the engine formed (same noise: every
-   call seeds its generator with 0), and K3, A and B must have been
-   launched 100, 140 and 20 times a batch.  Then the steady-state slices/s,
-   the engine's fetch/assemble split, one sampler call's time on the card
-   and a profiled call for int8_deep 'fused', int8_deep 'chain' and the
-   bf16 bundle.
+   of the bf16 float sampler and equal (rel-L2 0) to the same tables
+   through the plain versions, on the batches the engine formed (same
+   noise: every call seeds its generator with 0), K3, A and B must have
+   been launched 100, 140 and 20 times a batch, A and B all on the tensor
+   cores.  Then the steady-state slices/s beside the dp4a design's, the
+   engine's
+   fetch/assemble split, one sampler call's time on the card and a
+   profiled call for int8_deep 'fused', int8_deep 'chain' and the bf16
+   bundle.
 
-Prints the kernels' JSON line and the card's name and power limit before
-the last line, which is {"ok": true, "device": {...}}.  With
+Prints the kernels' JSON line (A and B with their launches by path) and
+the card's name and power limit before the last line, which is
+{"ok": true, "device": {...}}.  With
 ``--sites-json PATH`` the per-site numbers also go to PATH.  Exits non-zero
 on any failure.
 """
@@ -92,6 +103,12 @@ PEAK_INT8_OPS = 1979e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 SSIM_ATOL = 3e-5   # tests/test_ssim.py's kernel-vs-XLA contract
+# the same measurements with the __dp4a kernels of the previous design
+# (PERF.md; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
+DP4A_MS = {"conv_int8": 9.988, "upconv_int8": 0.710,
+          "diffusion conv_int8": 11.315, "diffusion upconv_int8": 0.292}
+DP4A_SLICES = {"unet": 710.05, "int8_deep fused": 31.57,
+              "int8_deep chain": 24.79, "none (bf16)": 45.20}
 EVAL_PATIENTS, EVAL_SLICES = 12, 60
 # test split of 12 patients = 3 patients x (60 - 2) d2 / (60 - 4) d4
 EVAL_SAMPLES = {"3mm": 174, "6mm": 168}
@@ -100,6 +117,7 @@ FASTDDPM_PARAMS = 13_899_905
 DIFF_REQUESTS = 10  # served from two threads at batch 8: one batch padded
 STEADY_BATCHES = 6  # per serving setup
 GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
+SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
 # fp32 operations per element of K3: 3 for the sums, 2 for the affine,
 # 5 for SiLU (exp counted as one), 3 for the quantizer
 GN_OPS_PER_ELEM = 13
@@ -114,14 +132,18 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2, flush=None) -> float:
-    """Median device time of one call of ``fn`` over ``reps`` back-to-back
-    calls, each between two CUDA events, after warm-up.  ``flush`` runs
-    before each call, outside the events (to evict the L2)."""
+    """Median device time of one call of ``fn`` over ``reps`` calls, each
+    between two CUDA events, after warm-up.  The calls are queued behind a
+    device-side sleep (about 10 ms), so the events bracket the card's work
+    and not the host's enqueue rate: a kernel of tens of microseconds
+    launched through a Python wrapper would otherwise wait for the host.
+    ``flush`` runs before each call, outside the events (to evict the L2)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
     for start, end in events:
         if flush is not None:
             flush()
@@ -132,19 +154,60 @@ def cuda_ms(fn, reps: int, warmup: int = 2, flush=None) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
+def host_us(fn, calls: int = 50) -> float:
+    """Host time of one call of ``fn``, enqueue only (no synchronize inside
+    the loop): the wrapper's cost that a forward pays per launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def bound_ms(ops: float, nbytes: float):
     t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), t_ops, t_bytes
 
 
-def code_diff(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Max code difference; raises past the +-1 / <1 % contract."""
-    diff = (got.int() - want.int()).abs()
-    worst = int(diff.max())
-    off1 = float((diff == 1).float().mean())
-    if worst > 1 or off1 >= 0.01:
-        raise AssertionError(f"codes differ: max {worst}, {off1:.4%} off by 1")
-    return float(worst)
+def check_exact(got: torch.Tensor, want: torch.Tensor, again: torch.Tensor,
+                what: str) -> float:
+    """Kernels A and B sum exactly and round as their plain versions do:
+    int8 codes must be equal, float32 within rtol 1e-5 (max |diff| is
+    returned), and a second launch must give the same bits."""
+    if not torch.equal(again, got):
+        raise AssertionError(f"{what}: two launches differ")
+    if got.dtype == torch.int8:
+        if not torch.equal(got, want):
+            diff = (got.int() - want.int()).abs()
+            raise AssertionError(f"{what}: codes differ: max {int(diff.max())}"
+                                 f", {int((diff > 0).sum())} off")
+        return 0.0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return float((got - want).abs().max())
+
+
+def site_timing(row, fn, scrub):
+    """The site's device ms with the L2 warm (20 launches on the same
+    inputs) and after a 64 MiB L2 scrub, the host's
+    microseconds a launch, the achieved TOP/s and the share of its bound."""
+    row["ms"] = cuda_ms(fn, reps=20)
+    row["ms_cold"] = cuda_ms(fn, reps=20, flush=scrub.zero_)
+    row["host_us"] = host_us(fn)
+    row["bound_ms"], row["ops_ms"], row["bytes_ms"] = bound_ms(row["ops"],
+                                                               row["bytes"])
+    row["tops"] = row["ops"] / row["ms"] / 1e9
+    row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+
+
+def print_site(r):
+    print(f"{r['kernel']:12s} {r['site']:26s} {r['path']:4s} err "
+          f"{r['max_abs_err']:.3g} ms {r['ms']:.4f} cold {r['ms_cold']:.4f} "
+          f"bound {r['bound_ms']:.4f} ({r['pct_of_bound']:.1f} %, "
+          f"{r['tops']:.1f} TOP/s) plain {r['plain_ms']:.3f} lib "
+          f"{r['library_ms']} host {r['host_us']:.1f} us")
 
 
 def conv_sites():
@@ -175,11 +238,12 @@ def upconv_sites():
 
 def kernel_phase(dev):
     from mrisr_tpu_torch.ops.conv_int8 import (
-        conv2d_int8, conv2d_int8_plain, pack_conv)
+        conv2d_int8, conv2d_int8_plain, conv_path, pack_conv)
     from mrisr_tpu_torch.ops.upconv import (
-        pack_upconv, upconv2x2_int8, upconv2x2_int8_plain)
+        pack_upconv, upconv2x2_int8, upconv2x2_int8_plain, upconv_path)
 
     g = torch.Generator(device=dev).manual_seed(1234)
+    scrub = torch.empty(16 * 2 ** 20, device=dev)
 
     def codes(shape):
         return torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -195,18 +259,16 @@ def kernel_phase(dev):
         s = uniform(co, 0.3, 2.3) * 60 / (127 * 127 / 3 * (k * k * ci) ** 0.5)
         b = uniform(co, -2, 2)
         relu = not out_float
+
+        def run(x):
+            return conv2d_int8(x, wp, s, b, relu=relu, out_float=out_float)
+
         x = codes((CHECK_BATCH, h, h, ci))
-        got = conv2d_int8(x, wp, s, b, relu=relu, out_float=out_float)
+        got = run(x)
         torch.cuda.synchronize()
         want = conv2d_int8_plain(x, wp, s, b, relu=relu, out_float=out_float)
-        if out_float:
-            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-            err = float((got - want).abs().max())
-        else:
-            err = code_diff(got, want)
+        err = check_exact(got, want, run(x), name)
         x = codes((BATCH, h, h, ci))
-        ms = cuda_ms(lambda: conv2d_int8(x, wp, s, b, relu=relu,
-                                         out_float=out_float), reps=20)
         plain_ms = cuda_ms(lambda: conv2d_int8_plain(
             x, wp, s, b, relu=relu, out_float=out_float), reps=3, warmup=1)
         # yardstick: cuDNN's bf16 conv of the same codes (products exact,
@@ -220,10 +282,13 @@ def kernel_phase(dev):
         ops = 2.0 * m * co * k * k * ci
         nbytes = m * ci + co * k * k * ci + 8 * co + m * co * (4 if out_float
                                                                else 1)
-        rows.append({"kernel": "conv_int8", "site": name, "H": h, "Ci": ci,
-                     "Co": co, "k": k, "batch": BATCH, "max_abs_err": err,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "ops": ops, "bytes": nbytes})
+        row = {"kernel": "conv_int8", "site": name, "H": h, "Ci": ci,
+               "Co": co, "k": k, "batch": BATCH,
+               "path": conv_path(ci, co, k), "max_abs_err": err,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "ops": ops,
+               "bytes": nbytes}
+        site_timing(row, lambda: run(x), scrub)
+        rows.append(row)
 
     for name, h, c, co in upconv_sites():
         w2, s4, b4 = pack_upconv(codes((2, 2, c, co)), uniform(co, 0.03, 0.23),
@@ -235,12 +300,10 @@ def kernel_phase(dev):
             got = upconv2x2_int8(x, w2, s4, b4, skip=skip)
             torch.cuda.synchronize()
             want = upconv2x2_int8_plain(x, w2, s4, b4, skip=skip)
-            errs.append(code_diff(got[..., :co], want[..., :co]))
-            if with_skip and not torch.equal(got[..., co:], skip):
-                raise AssertionError(f"{name}: fused skip concat differs")
+            errs.append(check_exact(got, want, upconv2x2_int8(
+                x, w2, s4, b4, skip=skip), f"{name} skip={with_skip}"))
         x = codes((BATCH, h, h, c))
         skip = codes((BATCH, 2 * h, 2 * h, co))
-        ms = cuda_ms(lambda: upconv2x2_int8(x, w2, s4, b4, skip=skip), reps=20)
         plain_ms = cuda_ms(lambda: upconv2x2_int8_plain(
             x, w2, s4, b4, skip=skip), reps=3, warmup=1)
         # yardstick: cuBLASLt's int8 matmul of the same product (int32 out,
@@ -254,17 +317,54 @@ def kernel_phase(dev):
         m = BATCH * h * h
         ops = 2.0 * m * c * 4 * co
         nbytes = m * c + 4 * co * c + 32 * co + 4 * m * co + 4 * m * 2 * co
-        rows.append({"kernel": "upconv_int8", "site": name, "H": h, "C": c,
-                     "Co": co, "Cs": co, "batch": BATCH,
-                     "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                     "library_ms": lib_ms, "ops": ops, "bytes": nbytes})
+        row = {"kernel": "upconv_int8", "site": name, "H": h, "C": c,
+               "Co": co, "Cs": co, "batch": BATCH,
+               "path": upconv_path(c, co), "max_abs_err": max(errs),
+               "plain_ms": plain_ms, "library_ms": lib_ms, "ops": ops,
+               "bytes": nbytes}
+        site_timing(row, lambda: upconv2x2_int8(x, w2, s4, b4, skip=skip),
+                    scrub)
+        rows.append(row)
     for r in rows:
-        r["bound_ms"], r["ops_ms"], r["bytes_ms"] = bound_ms(r["ops"],
-                                                             r["bytes"])
-        print(f"{r['kernel']:12s} {r['site']:18s} err {r['max_abs_err']:.3g} "
-              f"ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
-              f"plain {r['plain_ms']:.3f} lib {r['library_ms']}")
+        print_site(r)
+    for kernel in ("conv_int8", "upconv_int8"):
+        sel = [r for r in rows if r["kernel"] == kernel]
+        print(f"{kernel}: {len(sel)} sites of one UNet forward (batch "
+              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f} (dp4a design: "
+              f"{DP4A_MS[kernel]}), cold {sum(r['ms_cold'] for r in sel):.4f}"
+              f", bound {sum(r['bound_ms'] for r in sel):.4f}, library "
+              f"{sum(r['library_ms'] or 0 for r in sel):.4f}")
     return rows
+
+
+def path_counts(sites, path_of):
+    """{path: launches of one forward} over ``sites``."""
+    counts = {"tc": 0, "dp4a": 0}
+    for site in sites:
+        counts[path_of(site)] += 1
+    return counts
+
+
+def launch_counts(conv, up):
+    """Launches of kernels A (``conv``) and B (``up``) since their counts
+    were last reset: all, and by path (``"conv_int8/tc"``, ...)."""
+    out = {}
+    for name, fn in (("conv_int8", conv), ("upconv_int8", up)):
+        out[name] = fn.launches
+        for p in ("tc", "dp4a"):
+            out[f"{name}/{p}"] = getattr(fn, f"launches_{p}")
+    return out
+
+
+def check_paths(launches, per_forward, forwards, what):
+    """Every site that conv_path / upconv_path gives a path launched it,
+    and no other path moved: ``per_forward`` is {kernel: {path: n}}."""
+    for kernel, want in per_forward.items():
+        got = {p: launches[f"{kernel}/{p}"] for p in want}
+        if got != {p: n * forwards for p, n in want.items()}:
+            raise AssertionError(
+                f"{what} {kernel}: launches by path {got} for {forwards} "
+                f"forwards, want {want} a forward")
 
 
 def seeded_unet(seed: int):
@@ -304,8 +404,9 @@ def rel_l2(a: np.ndarray, b: np.ndarray) -> float:
 def slice_phase(dev, card: str):
     from mrisr_tpu_torch import fp32_reference
     from mrisr_tpu_torch.ckpt import fold_unet_batchnorm
-    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
-    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.ops.conv_int8 import (
+        conv2d_int8, conv_path, reset_launches)
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8, upconv_path
     from mrisr_tpu_torch.serve import (
         Int8FusedUNet, calibrate_unet, engine_from_bundle, quantize_unet,
         save_bundle)
@@ -330,8 +431,7 @@ def slice_phase(dev, card: str):
             eng.predict(requests[0])  # warm-up: allocator, pinned buffers
             eng.reset_stats()
             # --- the main path: counts from 0, two client threads
-            conv2d_int8.launches = 0
-            upconv2x2_int8.launches = 0
+            reset_launches(conv2d_int8, upconv2x2_int8)
             futures = [[], []]
 
             def client(k):
@@ -347,8 +447,7 @@ def slice_phase(dev, card: str):
             for k in range(2):
                 for j, fut in enumerate(futures[k]):
                     results[k + 2 * j] = fut.result(timeout=600)
-            launches = {"conv_int8": conv2d_int8.launches,
-                        "upconv_int8": upconv2x2_int8.launches}
+            launches = launch_counts(conv2d_int8, upconv2x2_int8)
             main_stats = eng.stats
             # --- steady-state throughput
             eng.reset_stats()
@@ -357,6 +456,11 @@ def slice_phase(dev, card: str):
             for fut in burst:
                 fut.result(timeout=600)
             steady = eng.stats
+            # one forward's device time and profile, beside the engine's
+            x8 = torch.from_numpy(requests[:BATCH]).to(dev)
+            forward_ms = cuda_ms(lambda: eng._apply(x8), reps=10)
+            forward_host_us = host_us(lambda: eng._apply(x8), calls=10)
+            prof = profile_batch(eng._apply, x8, "unet int8_fused forward")
 
     print(f"main path: {main_stats}; launches {launches}")
     served = np.stack(results)
@@ -366,8 +470,14 @@ def slice_phase(dev, card: str):
         raise AssertionError("served outputs are not finite")
     if main_stats.padded_slots == 0:
         raise AssertionError("no batch was wrap-padded")
-    if min(launches.values()) <= 0:
+    if min(launches["conv_int8"], launches["upconv_int8"]) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
+    check_paths(launches, {
+        "conv_int8": path_counts(conv_sites(),
+                                 lambda st: conv_path(st[2], st[3], st[4])),
+        "upconv_int8": path_counts(upconv_sites(),
+                                   lambda st: upconv_path(st[2], st[3]))},
+        main_stats.batches, "serving")
 
     x = torch.from_numpy(requests).to(dev)
     with torch.no_grad(), fp32_reference():
@@ -378,20 +488,28 @@ def slice_phase(dev, card: str):
                          for i in range(0, len(x), BATCH)]).cpu().numpy()
     rel_fp, rel_plain = rel_l2(served, y_fp), rel_l2(served, y_plain)
     print(f"served vs float fp32 rel-L2 {rel_fp:.6f} (bound 0.15); "
-          f"vs plain versions rel-L2 {rel_plain:.6f} (bound 0.02)")
+          f"vs plain versions rel-L2 {rel_plain:.6f} (must be 0: the "
+          f"kernels' codes are exact)")
     if not rel_fp < 0.15:
         raise AssertionError(f"served vs float rel-L2 {rel_fp}")
-    if not rel_plain < 0.02:
+    if rel_plain != 0.0:
         raise AssertionError(f"served vs plain rel-L2 {rel_plain}")
     print(f"engine steady-state slices/s {steady.slices_per_sec:.2f} "
-          f"(batch {BATCH}, {steady.requests} requests, int8_fused, "
-          f"features {FEATURES}, {HW}x{HW}; {card})")
+          f"(dp4a design: {DP4A_SLICES['unet']}; batch {BATCH}, "
+          f"{steady.requests} "
+          f"requests, int8_fused, features {FEATURES}, {HW}x{HW}; {card}); "
+          f"batch wall {steady.total_batch_time_s:.4f} s, fetch wait "
+          f"{steady.fetch_time_s:.4f} s, assemble "
+          f"{steady.assemble_time_s:.4f} s; one forward {forward_ms:.3f} ms "
+          f"on the card, {forward_host_us / 1e3:.3f} ms to enqueue")
     return launches, q, {"rel_l2_float": rel_fp, "rel_l2_plain": rel_plain,
                          "slices_per_sec": steady.slices_per_sec,
                          "fetch_time_s": steady.fetch_time_s,
                          "assemble_time_s": steady.assemble_time_s,
                          "total_batch_time_s": steady.total_batch_time_s,
-                         "requests": steady.requests}
+                         "requests": steady.requests,
+                         "forward_ms": forward_ms,
+                         "forward_host_us": forward_host_us, "profile": prof}
 
 
 def ssim_bound(n: int, h: int, w: int, win: int = 7):
@@ -468,7 +586,7 @@ def eval_phase(dev, qparams, card: str):
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.eval.runner import evaluate_pair_model_test_set
-    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8, reset_launches
     from mrisr_tpu_torch.ops.ssim import ssim
     from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
     from mrisr_tpu_torch.ops.stats import minmax_normalize
@@ -511,8 +629,7 @@ def eval_phase(dev, qparams, card: str):
 
         # --- the main path: counts from 0, the user's entry points
         ssim_fused.launches = 0
-        conv2d_int8.launches = 0
-        upconv2x2_int8.launches = 0
+        reset_launches(conv2d_int8, upconv2x2_int8)
         walls = {}
         with fp32_reference():
             t0 = time.perf_counter()
@@ -545,8 +662,7 @@ def eval_phase(dev, qparams, card: str):
             check_spacings(metrics, what)
             runs[what] = (metrics, kept, timings)
         launches = {"ssim": ssim_fused.launches,
-                    "conv_int8": conv2d_int8.launches,
-                    "upconv_int8": upconv2x2_int8.launches}
+                    **launch_counts(conv2d_int8, upconv2x2_int8)}
         # the targets, per spacing, in the runner's order (eval splits are
         # not shuffled)
         gts, bank = {}, None
@@ -557,7 +673,7 @@ def eval_phase(dev, qparams, card: str):
             bank = loader.bank
             gts[label] = torch.cat([b[..., 2] for b in loader])
     print(f"eval main path launches {launches}")
-    if min(launches.values()) <= 0:
+    if min(launches[k] for k in ("ssim", "conv_int8", "upconv_int8")) <= 0:
         raise AssertionError(f"a kernel was not launched: {launches}")
 
     # K1 against the plain SSIM of the same predictions, per spacing (the
@@ -626,11 +742,11 @@ def k3_phase(dev):
     import torch.nn.functional as F
 
     from mrisr_tpu_torch.ops.conv_int8 import (
-        conv2d_int8, conv2d_int8_plain, pack_conv)
+        conv2d_int8, conv2d_int8_plain, conv_path, pack_conv)
     from mrisr_tpu_torch.ops.groupnorm import (
         groupnorm_silu, groupnorm_silu_plain)
     from mrisr_tpu_torch.ops.upconv import (
-        pack_upconv, upconv2x2_int8, upconv2x2_int8_plain)
+        pack_upconv, upconv2x2_int8, upconv2x2_int8_plain, upconv_path)
 
     g = torch.Generator(device=dev).manual_seed(4321)
 
@@ -708,14 +824,16 @@ def k3_phase(dev):
         wp = pack_conv(codes((k, k, ci, co)))
         s = uniform(co, 0.3, 2.3) / (127 * 127 / 3 * (k * k * ci) ** 0.5)
         b = uniform(co, -0.5, 0.5)
+
+        def run(x):
+            return conv2d_int8(x, wp, s, b, relu=False, out_float=True)
+
         x = codes((CHECK_BATCH, h, h, ci))
-        got = conv2d_int8(x, wp, s, b, relu=False, out_float=True)
+        got = run(x)
         torch.cuda.synchronize()
         want = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        err = check_exact(got, want, run(x), f"diffusion {name}")
         x = codes((BATCH, h, h, ci))
-        ms = cuda_ms(lambda: conv2d_int8(x, wp, s, b, relu=False,
-                                         out_float=True), reps=20)
         plain_ms = cuda_ms(lambda: conv2d_int8_plain(
             x, wp, s, b, relu=False, out_float=True), reps=3, warmup=1)
         xb = x.permute(0, 3, 1, 2).to(torch.bfloat16)
@@ -723,28 +841,30 @@ def k3_phase(dev):
             memory_format=torch.channels_last)
         lib_ms = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2), reps=20)
         m = BATCH * h * h
-        bound, t_ops, t_bytes = bound_ms(
-            2.0 * m * co * k * k * ci, m * ci + co * k * k * ci + 8 * co
-            + 4 * m * co)
-        rows.append({"kernel": "conv_int8", "site": f"diffusion {name}",
-                     "H": h, "Ci": ci, "Co": co, "k": k, "batch": BATCH,
-                     "max_abs_err": float((got - want).abs().max()),
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes})
+        row = {"kernel": "conv_int8", "site": f"diffusion {name}", "H": h,
+               "Ci": ci, "Co": co, "k": k, "batch": BATCH,
+               "path": conv_path(ci, co, k), "max_abs_err": err,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ops": 2.0 * m * co * k * k * ci,
+               "bytes": m * ci + co * k * k * ci + 8 * co + 4 * m * co}
+        site_timing(row, lambda: run(x), scrub)
+        rows.append(row)
 
     for name, h, c, co in diffusion_upconv_sites():
         w2, s4, b4 = pack_upconv(codes((2, 2, c, co)),
                                  uniform(co, 0.3, 2.3) / (127 * 127 / 3
                                                           * c ** 0.5),
                                  uniform(co, -0.5, 0.5))
+
+        def run(x):
+            return upconv2x2_int8(x, w2, s4, b4, out_float=True)
+
         x = codes((CHECK_BATCH, h, h, c))
-        got = upconv2x2_int8(x, w2, s4, b4, out_float=True)
+        got = run(x)
         torch.cuda.synchronize()
         want = upconv2x2_int8_plain(x, w2, s4, b4, out_float=True)
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+        err = check_exact(got, want, run(x), f"diffusion {name}")
         x = codes((BATCH, h, h, c))
-        ms = cuda_ms(lambda: upconv2x2_int8(x, w2, s4, b4, out_float=True),
-                     reps=20)
         plain_ms = cuda_ms(lambda: upconv2x2_int8_plain(
             x, w2, s4, b4, out_float=True), reps=3, warmup=1)
         x2 = x.reshape(-1, c)
@@ -754,24 +874,29 @@ def k3_phase(dev):
             print(f"{name}: torch._int_mm yardstick unavailable: {e}")
             lib_ms = None
         m = BATCH * h * h
-        bound, t_ops, t_bytes = bound_ms(2.0 * m * c * 4 * co,
-                                         m * c + 4 * co * c + 32 * co
-                                         + 16 * m * co)
-        rows.append({"kernel": "upconv_int8", "site": f"diffusion {name}",
-                     "H": h, "C": c, "Co": co, "batch": BATCH,
-                     "max_abs_err": float((got - want).abs().max()),
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bound, "ops_ms": t_ops, "bytes_ms": t_bytes})
+        row = {"kernel": "upconv_int8", "site": f"diffusion {name}", "H": h,
+               "C": c, "Co": co, "batch": BATCH, "path": upconv_path(c, co),
+               "max_abs_err": err, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "ops": 2.0 * m * c * 4 * co,
+               "bytes": m * c + 4 * co * c + 32 * co + 16 * m * co}
+        site_timing(row, lambda: run(x), scrub)
+        rows.append(row)
 
     for r in rows:
-        print(f"{r['kernel']:14s} {r['site']:26s} err {r['max_abs_err']:.3g} "
-              f"ms {r['ms']:.4f} bound {r['bound_ms']:.4f} "
-              f"plain {r['plain_ms']:.3f} lib {r['library_ms']}")
+        if r["kernel"] == "groupnorm_silu":
+            print(f"{r['kernel']:14s} {r['site']:26s} err "
+                  f"{r['max_abs_err']:.3g} ms {r['ms']:.4f} bound "
+                  f"{r['bound_ms']:.4f} plain {r['plain_ms']:.3f} lib "
+                  f"{r['library_ms']}")
+        else:
+            print_site(r)
     for kernel in ("groupnorm_silu", "conv_int8", "upconv_int8"):
         sel = [r for r in rows if r["kernel"] == kernel]
+        before = DP4A_MS.get(f"diffusion {kernel}")
         print(f"{kernel}: {len(sel)} launches per int8_deep forward (batch "
-              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f}, bound "
-              f"{sum(r['bound_ms'] for r in sel):.4f}, plain "
+              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f}"
+              + (f" (dp4a design: {before})" if before else "")
+              + f", bound {sum(r['bound_ms'] for r in sel):.4f}, plain "
               f"{sum(r['plain_ms'] for r in sel):.3f}")
     return rows
 
@@ -847,9 +972,10 @@ def diffusion_phase(dev, card: str):
     from mrisr_tpu_torch.config import DataConfig
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
-    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
+    from mrisr_tpu_torch.ops.conv_int8 import (
+        conv2d_int8, conv_path, reset_launches)
     from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
-    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8, upconv_path
     from mrisr_tpu_torch.serve import (
         engine_from_bundle, load_bundle, make_bundle_apply)
 
@@ -905,8 +1031,7 @@ def diffusion_phase(dev, card: str):
 
             eng._apply = capture
             groupnorm_silu.launches = 0
-            conv2d_int8.launches = 0
-            upconv2x2_int8.launches = 0
+            reset_launches(conv2d_int8, upconv2x2_int8)
             futures = [[], []]
 
             def client(k):
@@ -923,8 +1048,7 @@ def diffusion_phase(dev, card: str):
                 for j, fut in enumerate(futures[k]):
                     served[k + 2 * j] = fut.result(timeout=600)
             launches = {"groupnorm_silu": groupnorm_silu.launches,
-                        "conv_int8": conv2d_int8.launches,
-                        "upconv_int8": upconv2x2_int8.launches}
+                        **launch_counts(conv2d_int8, upconv2x2_int8)}
             main_stats = eng.stats
             eng._apply = inner
         print(f"diffusion main path: {main_stats}; launches {launches}")
@@ -942,6 +1066,15 @@ def diffusion_phase(dev, card: str):
                 raise AssertionError(
                     f"{name}: {launches[name]} launches for "
                     f"{main_stats.batches} batches, want {n} a batch")
+        steps = 10  # one forward a sampler step
+        check_paths(launches, {
+            "conv_int8": path_counts(
+                diffusion_conv_sites(),
+                lambda st: conv_path(st[2], st[3], st[4])),
+            "upconv_int8": path_counts(
+                diffusion_upconv_sites(),
+                lambda st: upconv_path(st[2], st[3]))},
+            steps * main_stats.batches, "diffusion")
 
         # the served batches against the bf16 float sampler and against the
         # same tables through the plain versions (same conds, same noise:
@@ -957,11 +1090,11 @@ def diffusion_phase(dev, card: str):
         rel_float, rel_plain = rel_rmse(got, y_float), rel_l2(got, y_plain)
         print(f"int8_deep sampler vs bf16 float sampler rel-RMSE "
               f"{rel_float:.6f} (bound 0.35); vs plain versions rel-L2 "
-              f"{rel_plain:.6f} (bound 0.02); |sample| max "
+              f"{rel_plain:.6f} (must be 0); |sample| max "
               f"{np.abs(got).max():.4g}, std {got.std():.4g}")
         if not rel_float < 0.35:
             raise AssertionError(f"int8 vs float sampler rel-RMSE {rel_float}")
-        if not rel_plain < 0.02:
+        if rel_plain != 0.0:
             raise AssertionError(f"int8 vs plain versions rel-L2 {rel_plain}")
         results.update(rel_rmse_float=rel_float, rel_l2_plain=rel_plain,
                        batches=main_stats.batches, launches=launches)
@@ -986,7 +1119,8 @@ def diffusion_phase(dev, card: str):
                 batch_ms = cuda_ms(lambda: eng._apply(x8), reps=3, warmup=1)
                 prof = profile_batch(eng._apply, x8, setup)
             print(f"{setup}: steady-state slices/s {st.slices_per_sec:.2f} "
-                  f"({st.requests} requests, {st.batches} batches of "
+                  f"(dp4a design: {DP4A_SLICES[setup]}; {st.requests} "
+                  f"requests, {st.batches} batches of "
                   f"{BATCH}); batch wall {st.total_batch_time_s:.3f} s, "
                   f"fetch wait {st.fetch_time_s:.3f} s, assemble "
                   f"{st.assemble_time_s:.4f} s; one sampler call (10 steps, "
@@ -1061,21 +1195,28 @@ def main() -> int:
         ops_ms = sum(r["ops_ms"] for r in sel)
         bytes_ms = sum(r["bytes_ms"] for r in sel)
         libs = [r["library_ms"] for r in sel]
-        kernels.append({
-            "name": name, "route": "cuda", "source": SOURCES[name][0],
-            "replaces": SOURCES[name][1],
+
+        def main_path(key):
             # the serving, eval and diffusion paths' runs, each counted
             # from 0 just before it
-            "launches": (serve_launches.get(name, 0)
-                         + eval_launches.get(name, 0)
-                         + diff_launches.get(name, 0)),
+            return sum(launches.get(key, 0) for launches in (
+                serve_launches, eval_launches, diff_launches))
+
+        entry = {
+            "name": name, "route": "cuda", "source": SOURCES[name][0],
+            "replaces": SOURCES[name][1],
+            "launches": main_path(name),
             "max_abs_err": max(r["max_abs_err"] for r in checked),
             "ms": sum(r["ms"] for r in sel),
             "plain_ms": sum(r["plain_ms"] for r in sel),
             "bound_ms": sum(r["bound_ms"] for r in sel),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None if None in libs else sum(libs),
-        })
+        }
+        if name in ("conv_int8", "upconv_int8"):
+            entry["launches_by_path"] = {p: main_path(f"{name}/{p}")
+                                         for p in ("tc", "dp4a")}
+        kernels.append(entry)
     if args.sites_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.sites_json)),
                     exist_ok=True)

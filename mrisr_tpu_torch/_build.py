@@ -36,9 +36,10 @@ _F = ctypes.c_float
 # C signatures of the launchers (each returns cudaGetLastError()) and of
 # their int-valued helpers
 SIGNATURES = {
-    "conv_int8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "conv_int8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P],
     "upconv_int8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _P],
+                           _I, _I, _P],
     "ssim_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
     "ssim_tiles": [_I, _I, _I],
     "groupnorm_silu_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -103,7 +104,15 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# launcher codes past the CUDA runtime's (csrc/wgmma_int8.cuh, tc::ERR_*)
+_LAUNCHER_ERRORS = {
+    10001: "cuTensorMapEncodeTiled refused a tensor map",
+    10002: "the driver has no cuTensorMapEncodeTiled",
+}
+
+
 def check(err: int, what: str) -> None:
     """Raise on a launcher's cudaGetLastError() code."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        why = _LAUNCHER_ERRORS.get(err, "CUDA launch failed")
+        raise RuntimeError(f"{what}: {why} (error {err})")

@@ -1,5 +1,6 @@
-// Shared main loop of the two int8 kernels: an implicit GEMM on int8 codes
-// with int32 accumulation, for NHWC activations.
+// Shared __dp4a main loop of the two int8 kernels, and the epilogue
+// arithmetic every path shares: an implicit GEMM on int8 codes with int32
+// accumulation, for NHWC activations.
 //
 //   acc[m][n] = sum_k A[m][k] * B[n][k],   k = (tap, c) over ksize*ksize*Ci
 //   A[m][(tap, c)] = x[img, h + dy, w + dx, c]   (zero outside the image:
@@ -8,16 +9,17 @@
 //
 // m walks the output pixels (img, h, w) of the NHWC batch.  A block owns a
 // 64-pixel x 64-column output tile; K is staged through shared memory 32
-// codes (8 words) at a time, zero-filled past Ci, so channel counts that are
-// not a multiple of 4 (enc1's Ci=2) need no padded copy.  The product is
-// __dp4a: four int8 products summed into an int32 per instruction.
+// codes (8 words) at a time.  The product is __dp4a: four int8 products
+// summed into an int32 per instruction, on the integer pipes.
 //
-// What this first design leaves on the table: __dp4a runs on the integer
-// pipes, at a small fraction of the int8 tensor-core rate (1,979 dense TOP/s
-// on H100 SXM); mma.sync.m16n8k32.s8 and then wgmma fed by TMA are the way
-// there.  The staging loads are plain 4-byte loads with no cp.async
-// pipelining, so the loads of one stage do not overlap the products of the
-// previous one.
+// The tensor-core loop (wgmma_int8.cuh) takes every shape whose Ci is a
+// multiple of 16 (its TMA rows need 16-byte strides) and whose output is at
+// least 8 columns wide (wgmma's narrowest N); this loop keeps the rest: at
+// full width, enc1/Conv_0 (Ci = 2, 1.2 G operations at batch 8) and the
+// final 1x1 conv (Co = 1, bound by the bytes of its input).  With Ci a
+// multiple of 4 a stage holds 32 codes of one tap; otherwise the joint
+// (tap, c) index is staged, so enc1/Conv_0's 18 codes of K are one 32-code
+// step instead of nine taps each padded from 2 codes to 32.
 #pragma once
 
 #include <cstddef>
@@ -33,16 +35,10 @@ constexpr int KW = BK / 4;    // 32-bit words per staged row
 constexpr int LDS = KW + 1;   // padded row: a column read hits 16 banks
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-// Codes p[c..c+3] packed little-endian into one word; zero past `limit`.
-// `vec` (limit % 4 == 0) makes the word 4-byte aligned and all-or-nothing.
-__device__ __forceinline__ int load4(const int8_t* p, int c, int limit,
-                                     bool vec) {
-  if (vec) return c < limit ? __ldg(reinterpret_cast<const int*>(p + c)) : 0;
-  unsigned v = 0;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (c + j < limit) v |= (unsigned)(uint8_t)p[c + j] << (8 * j);
-  return (int)v;
+// Codes p[c..c+3] packed little-endian into one 4-byte-aligned word (Ci a
+// multiple of 4), zero past `limit`.
+__device__ __forceinline__ int load4(const int8_t* p, int c, int limit) {
+  return c < limit ? __ldg(reinterpret_cast<const int*>(p + c)) : 0;
 }
 
 // acc[i][j] is output (m0 + ty + 16 i, n0 + tx + 16 j) of this thread.
@@ -73,6 +69,63 @@ __device__ __forceinline__ void mainloop(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
+  auto product = [&]() {
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      int a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  };
+
+  if (!vec) {  // joint (tap, c) staging, one code at a time
+    // (dy, dx, c) of each code of the step, worked out once a block:
+    // c | (dy + 8) << 16 | (dx + 8) << 24 (c < 2^16), or -1 past K
+    __shared__ int kinfo[BK];
+    for (int k0 = 0; k0 < K; k0 += BK) {
+      if (tid < BK) {
+        const int k = k0 + tid;
+        int v = -1;
+        if (k < K) {
+          const int tap = k / Ci;
+          v = (k - tap * Ci) | (tap / ksize - pad + 8) << 16 |
+              (tap % ksize - pad + 8) << 24;
+        }
+        kinfo[tid] = v;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row0 + 32 * r, n = n0 + row;
+        unsigned a = 0, bw = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int v = kinfo[4 * word + j];
+          if (v < 0) break;
+          const int hh = ph[r] + ((v >> 16) & 0xFF) - 8;
+          const int ww = pw[r] + (v >> 24) - 8;
+          if (pok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W)
+            a |= (unsigned)(uint8_t)x[((size_t)(pimg[r] * H + hh) * W + ww) *
+                                          Ci + (v & 0xFFFF)] << (8 * j);
+          if (n < ncols)
+            bw |= (unsigned)(uint8_t)w[(size_t)n * K + k0 + 4 * word + j]
+                  << (8 * j);
+        }
+        As[row][word] = (int)a;
+        Bs[row][word] = (int)bw;
+      }
+      product();
+    }
+    return;
+  }
   for (int tap = 0; tap < ksize * ksize; ++tap) {
     const int dy = tap / ksize - pad, dx = tap % ksize - pad;
     for (int c0 = 0; c0 < Ci; c0 += BK) {
@@ -83,28 +136,13 @@ __device__ __forceinline__ void mainloop(
         const int hh = ph[r] + dy, ww = pw[r] + dx;
         int a = 0;
         if (pok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W)
-          a = load4(x + ((size_t)(pimg[r] * H + hh) * W + ww) * Ci, c, Ci,
-                    vec);
+          a = load4(x + ((size_t)(pimg[r] * H + hh) * W + ww) * Ci, c, Ci);
         As[row][word] = a;
         const int n = n0 + row;
         Bs[row][word] =
-            n < ncols ? load4(w + (size_t)n * K + (size_t)tap * Ci, c, Ci, vec)
-                      : 0;
+            n < ncols ? load4(w + (size_t)n * K + (size_t)tap * Ci, c, Ci) : 0;
       }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KW; ++kk) {
-        int a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[ty + 16 * i][kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = Bs[tx + 16 * j][kk];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
-      }
-      __syncthreads();
+      product();
     }
   }
 }

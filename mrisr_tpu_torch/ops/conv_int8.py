@@ -8,7 +8,11 @@ final layer's ``acc * scale + qbias`` (float32 out).  The CUDA source is
     y = f32(conv(x, w)) * s + b ;  relu ;  int8: clip(round(y), +-127)
 
 :func:`conv2d_int8` launches the kernel for a CUDA tensor and runs
-:func:`conv2d_int8_plain` for a CPU tensor; it never falls back.
+:func:`conv2d_int8_plain` for a CPU tensor; it never falls back.  The
+kernel has two main loops, picked by :func:`conv_path` from the shape
+alone: ``"tc"`` (wgmma on the tensor cores, fed by TMA) and ``"dp4a"``.
+Each launch adds one to ``conv2d_int8.launches`` and to the count of its
+path, ``conv2d_int8.launches_tc`` or ``conv2d_int8.launches_dp4a``.
 """
 
 from __future__ import annotations
@@ -17,6 +21,46 @@ import torch
 import torch.nn.functional as F
 
 from mrisr_tpu_torch import _build
+
+
+PATHS = ("tc", "dp4a")
+# wgmma's narrowest output tile is 8 columns; TMA rows need 16-byte strides
+TC_MIN_COLS = 8
+TC_CI_MULTIPLE = 16
+
+
+def conv_path(ci: int, co: int, k: int) -> str:
+    """The main loop kernel A runs for a ``k``x``k`` conv of ``ci`` -> ``co``
+    channels: ``"tc"`` (tensor cores) when ``ci`` is a multiple of 16 and
+    ``co >= 8``, else ``"dp4a"`` (at full width: enc1/Conv_0's ``ci = 2``
+    and the final 1x1 conv's ``co = 1``)."""
+    if k not in (1, 3):
+        raise ValueError(f"conv_path: kernel size {k} is not 1 or 3")
+    if ci % TC_CI_MULTIPLE == 0 and co >= TC_MIN_COLS:
+        return "tc"
+    return "dp4a"
+
+
+def count_launch(fn, path: str) -> None:
+    """One launch of ``fn``'s kernel through ``path``."""
+    fn.launches += 1
+    setattr(fn, f"launches_{path}", getattr(fn, f"launches_{path}") + 1)
+
+
+def reset_launches(*fns) -> None:
+    """Set the launch counts of the given wrappers, every path's, to 0."""
+    for fn in fns:
+        fn.launches = 0
+        for path in PATHS:
+            setattr(fn, f"launches_{path}", 0)
+
+
+def check_tc_aligned(what: str, *tensors: torch.Tensor) -> None:
+    """TMA reads from 16-byte-aligned base addresses."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: the tensor-core path needs 16-byte "
+                             f"aligned tensors")
 
 
 def pack_conv(w_int8: torch.Tensor) -> torch.Tensor:
@@ -73,6 +117,9 @@ def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
                              f"{dt} tensor on {x.device}")
     if s.numel() != co or b.numel() != co:
         raise ValueError("conv2d_int8: s and b need one value per channel")
+    path = conv_path(ci, co, k)
+    if path == "tc":
+        check_tc_aligned("conv2d_int8", x, wp)
     out = torch.empty((n, h, w, co), device=x.device,
                       dtype=torch.float32 if out_float else torch.int8)
     lib = _build.library("conv_int8")
@@ -81,11 +128,11 @@ def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
         err = lib.conv_int8_launch(
             x.data_ptr(), wp.data_ptr(), s.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, w, ci, co, k, int(relu), int(out_float),
-            stream,
+            int(path == "tc"), stream,
         )
     _build.check(err, "conv2d_int8")
-    conv2d_int8.launches += 1
+    count_launch(conv2d_int8, path)
     return out
 
 
-conv2d_int8.launches = 0
+reset_launches(conv2d_int8)

@@ -9,7 +9,10 @@ Counterpart: the Pallas TPU kernel ``mrisr_tpu/ops/upconv_pallas.py``
 (h, w) lands at output (2h + a, 2w + b).
 
 :func:`upconv2x2_int8` launches the kernel for a CUDA tensor and runs
-:func:`upconv2x2_int8_plain` for a CPU tensor; it never falls back.
+:func:`upconv2x2_int8_plain` for a CPU tensor; it never falls back.  Its
+main loop is kernel A's, picked by :func:`upconv_path` from the shape
+alone; each launch adds one to ``upconv2x2_int8.launches`` and to
+``upconv2x2_int8.launches_tc`` or ``upconv2x2_int8.launches_dp4a``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,23 @@ from typing import Optional, Tuple
 import torch
 
 from mrisr_tpu_torch import _build
-from mrisr_tpu_torch.ops.conv_int8 import epilogue_plain
+from mrisr_tpu_torch.ops.conv_int8 import (
+    TC_CI_MULTIPLE,
+    TC_MIN_COLS,
+    check_tc_aligned,
+    count_launch,
+    epilogue_plain,
+    reset_launches,
+)
+
+
+def upconv_path(c: int, co: int) -> str:
+    """The main loop kernel B runs for ``c`` input channels and ``4 * co``
+    product columns: ``"tc"`` when ``c`` is a multiple of 16 (every UNet and
+    Fast-DDPM site), else ``"dp4a"``."""
+    if c % TC_CI_MULTIPLE == 0 and 4 * co >= TC_MIN_COLS:
+        return "tc"
+    return "dp4a"
 
 
 def pack_upconv(w_int8: torch.Tensor, scale: torch.Tensor,
@@ -98,6 +117,9 @@ def upconv2x2_int8(x: torch.Tensor, w2: torch.Tensor, scale4: torch.Tensor,
                              f"{dt} tensor on {x.device}")
     if scale4.numel() != 4 * co or bias4.numel() != 4 * co:
         raise ValueError("upconv2x2_int8: scale4/bias4 need 4*Co values")
+    path = upconv_path(c, co)
+    if path == "tc":
+        check_tc_aligned("upconv2x2_int8", x, w2t)
     out = torch.empty((n, 2 * h, 2 * w, co + cs), device=x.device,
                       dtype=torch.float32 if out_float else torch.int8)
     lib = _build.library("upconv_int8")
@@ -106,11 +128,11 @@ def upconv2x2_int8(x: torch.Tensor, w2: torch.Tensor, scale4: torch.Tensor,
         err = lib.upconv_int8_launch(
             x.data_ptr(), w2t.data_ptr(), scale4.data_ptr(), bias4.data_ptr(),
             None if skip is None else skip.data_ptr(), out.data_ptr(),
-            n, h, w, c, co, cs, int(out_float), stream,
+            n, h, w, c, co, cs, int(out_float), int(path == "tc"), stream,
         )
     _build.check(err, "upconv2x2_int8")
-    upconv2x2_int8.launches += 1
+    count_launch(upconv2x2_int8, path)
     return out
 
 
-upconv2x2_int8.launches = 0
+reset_launches(upconv2x2_int8)

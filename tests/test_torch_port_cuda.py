@@ -25,6 +25,7 @@ from mrisr_tpu_torch.ops.upconv import (
     pack_upconv,
     upconv2x2_int8,
     upconv2x2_int8_plain,
+    upconv_path,
 )
 
 pytestmark = pytest.mark.gpu
@@ -37,25 +38,45 @@ def cuda():
     return torch.device("cuda")
 
 
-def assert_codes_close(got, want):
-    diff = (got.int() - want.int()).abs()
-    assert int(diff.max()) <= 1
-    assert float((diff == 1).float().mean()) < 0.01
-
-
 def _codes(g, shape, device):
     return torch.randint(-127, 128, shape, generator=g,
                          dtype=torch.int8).to(device)
 
 
-# (N, H, W, Ci, Co, k): enc1's Ci=2, a tile-ragged M and Co, the 1x1 final
-CONV_CASES = [(2, 16, 16, 2, 64, 3), (1, 9, 7, 48, 40, 3),
-              (2, 16, 16, 64, 64, 3), (2, 8, 8, 64, 1, 1)]
+def _path_counts(fn):
+    return fn.launches, fn.launches_tc, fn.launches_dp4a
 
 
-@pytest.mark.parametrize("n,h,w,ci,co,k", CONV_CASES)
+def assert_launched(fn, before, path):
+    """One launch, counted on ``path`` and on no other path."""
+    want = (before[0] + 1, before[1] + (path == "tc"),
+            before[2] + (path == "dp4a"))
+    assert _path_counts(fn) == want
+
+
+# (N, H, W, Ci, Co, k, path).  The sums are exact on both paths, so every
+# case must equal its plain version bit for bit, twice.  Tensor cores: Ci
+# 16 / 48 (a channel tail inside a 64-code step) / 64 / 128, Co 40 and 200
+# (ragged column tiles), 1x1 and 3x3, a 9x7 image (a rectangle past the
+# image edge), a 16^2 x 1024 deep K; dp4a: enc1's Ci = 2 (joint (tap, c)
+# staging) at Co 64 / 24 / 40, the final 1x1 with Co = 1 (one thread a
+# pixel) and a 3x3 with Co = 1 (the tiled loop), a Ci = 8 conv.
+CONV_CASES = [(2, 16, 16, 2, 64, 3, "dp4a"), (1, 9, 7, 48, 40, 3, "tc"),
+              (2, 16, 16, 64, 64, 3, "tc"), (2, 8, 8, 64, 1, 1, "dp4a"),
+              (2, 16, 16, 16, 64, 3, "tc"), (2, 12, 20, 128, 200, 3, "tc"),
+              (2, 12, 20, 64, 40, 1, "tc"), (1, 5, 6, 8, 16, 3, "dp4a"),
+              (2, 16, 16, 1024, 256, 3, "tc"), (3, 9, 7, 2, 24, 3, "dp4a"),
+              (2, 8, 8, 64, 1, 3, "dp4a"), (1, 5, 7, 32, 1, 1, "dp4a"),
+              (2, 6, 6, 2, 40, 3, "dp4a")]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,k,path", CONV_CASES)
 @pytest.mark.parametrize("out_float", [False, True])
-def test_conv_int8_kernel_matches_plain(cuda, n, h, w, ci, co, k, out_float):
+def test_conv_int8_kernel_matches_plain(cuda, n, h, w, ci, co, k, path,
+                                        out_float):
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+
+    assert conv_path(ci, co, k) == path
     g = torch.Generator().manual_seed(n * 1000 + ci * 10 + co)
     x = _codes(g, (n, h, w, ci), cuda)
     wp = pack_conv(_codes(g, (k, k, ci, co), "cpu")).to(cuda)
@@ -63,15 +84,15 @@ def test_conv_int8_kernel_matches_plain(cuda, n, h, w, ci, co, k, out_float):
     s = (torch.rand(co, generator=g) * 2 + 0.3) * 60 / acc_std
     b = torch.rand(co, generator=g) * 4 - 2
     s, b = s.to(cuda), b.to(cuda)
-    before = conv2d_int8.launches
+    before = _path_counts(conv2d_int8)
     got = conv2d_int8(x, wp, s, b, relu=True, out_float=out_float)
     torch.cuda.synchronize()
-    assert conv2d_int8.launches == before + 1
+    assert_launched(conv2d_int8, before, path)
     want = conv2d_int8_plain(x, wp, s, b, relu=True, out_float=out_float)
-    if out_float:
-        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    else:
-        assert_codes_close(got, want)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(conv2d_int8(x, wp, s, b, relu=True,
+                                   out_float=out_float), got)
 
 
 @pytest.mark.parametrize("k", [1, 3])
@@ -88,9 +109,11 @@ def test_conv_int8_float_epilogue_without_relu(cuda, k):
     want = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
     assert bool((got < 0).any())
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("h,w,c,co", [(8, 8, 512, 256), (5, 3, 16, 6)])
+@pytest.mark.parametrize("h,w,c,co", [(8, 8, 512, 256), (5, 3, 16, 6),
+                                      (4, 6, 8, 8)])
 def test_upconv_kernel_float_mode(cuda, h, w, c, co):
     g = torch.Generator().manual_seed(h * 10 + co)
     x = _codes(g, (2, h, w, c), cuda)
@@ -99,13 +122,15 @@ def test_upconv_kernel_float_mode(cuda, h, w, c, co):
                              torch.randn(co, generator=g) * 0.1)
     w2 = w2.t().to(cuda).t()
     s4, b4 = s4.to(cuda), b4.to(cuda)
-    before = upconv2x2_int8.launches
+    before = _path_counts(upconv2x2_int8)
     got = upconv2x2_int8(x, w2, s4, b4, out_float=True)
     torch.cuda.synchronize()
-    assert upconv2x2_int8.launches == before + 1
+    assert_launched(upconv2x2_int8, before, upconv_path(c, co))
     want = upconv2x2_int8_plain(x, w2, s4, b4, out_float=True)
     assert got.dtype == torch.float32 and got.shape == (2, 2 * h, 2 * w, co)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, want)
+    assert torch.equal(upconv2x2_int8(x, w2, s4, b4, out_float=True), got)
     with pytest.raises(ValueError, match="skip"):
         upconv2x2_int8(x, w2, s4, b4, skip=_codes(g, (2, 2 * h, 2 * w, 4),
                                                   cuda), out_float=True)
@@ -205,9 +230,14 @@ def test_diffusion_int8_forward_on_card_equals_plain(cuda, only):
     assert rel < 0.02, rel
 
 
+# (H, W, C, Co, Cs): tensor cores at the UNet's upconv1 shape, a Co = 6
+# with and without skip (ragged phases), C = 16; dp4a at C = 8
 @pytest.mark.parametrize("h,w,c,co,cs", [(4, 4, 64, 32, 32),
                                          (8, 8, 32, 16, 0),
-                                         (5, 3, 16, 6, 6)])
+                                         (5, 3, 16, 6, 6),
+                                         (5, 3, 16, 6, 0),
+                                         (16, 16, 128, 64, 64),
+                                         (3, 5, 8, 4, 4)])
 def test_upconv_kernel_matches_plain(cuda, h, w, c, co, cs):
     g = torch.Generator().manual_seed(h * 100 + c)
     x = _codes(g, (2, h, w, c), cuda)
@@ -217,15 +247,16 @@ def test_upconv_kernel_matches_plain(cuda, h, w, c, co, cs):
     w2 = w2.t().to(cuda).t()
     s4, b4 = s4.to(cuda), b4.to(cuda)
     skip = _codes(g, (2, 2 * h, 2 * w, cs), cuda) if cs else None
-    before = upconv2x2_int8.launches
+    before = _path_counts(upconv2x2_int8)
     got = upconv2x2_int8(x, w2, s4, b4, skip=skip)
     torch.cuda.synchronize()
-    assert upconv2x2_int8.launches == before + 1
+    assert_launched(upconv2x2_int8, before, upconv_path(c, co))
     want = upconv2x2_int8_plain(x, w2, s4, b4, skip=skip)
     assert got.shape == want.shape
-    assert_codes_close(got[..., :co], want[..., :co])
+    assert torch.equal(got, want)
     if cs:
         assert torch.equal(got[..., co:], skip)
+    assert torch.equal(upconv2x2_int8(x, w2, s4, b4, skip=skip), got)
 
 
 def test_engine_on_card(cuda):
