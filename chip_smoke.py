@@ -25,8 +25,9 @@
    0.15 of the folded float forward (fp32) and equal (rel-L2 0) to the same
    tables run through the plain versions on the card, and every site must
    have launched the path conv_path / upconv_path gives it, no other.  Then
-   the steady-state engine throughput beside the dp4a design's, one
-   forward's device time and enqueue time, and its profile.
+   the steady-state engine throughput beside the __dp4a design's (quoted
+   from PERF.md, not measured here), one forward's device time and enqueue
+   time, and its profile.
 4. K1 phase: the fused SSIM kernel against its plain version on the card
    (atol 3e-5, the JAX package's contract) at (1|8|64|174, 256, 256),
    (3, 37, 53), (2, 7, 7) and (1, 512, 512); an identical pair must give 1
@@ -66,11 +67,10 @@
    through the plain versions, on the batches the engine formed (same
    noise: every call seeds its generator with 0), K3, A and B must have
    been launched 100, 140 and 20 times a batch, A and B all on the tensor
-   cores.  Then the steady-state slices/s beside the dp4a design's, the
-   engine's
-   fetch/assemble split, one sampler call's time on the card and a
-   profiled call for int8_deep 'fused', int8_deep 'chain' and the bf16
-   bundle.
+   cores.  Then the steady-state slices/s beside the __dp4a design's
+   (quoted from PERF.md, not measured here), the engine's fetch/assemble
+   split, one sampler call's time on the card and a profiled call for
+   int8_deep 'fused', int8_deep 'chain' and the bf16 bundle.
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -103,12 +103,11 @@ PEAK_INT8_OPS = 1979e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 SSIM_ATOL = 3e-5   # tests/test_ssim.py's kernel-vs-XLA contract
-# the same measurements with the __dp4a kernels of the previous design
-# (PERF.md; NVIDIA H100 80GB HBM3, 700 W), printed beside this run's
-DP4A_MS = {"conv_int8": 9.988, "upconv_int8": 0.710,
-          "diffusion conv_int8": 11.315, "diffusion upconv_int8": 0.292}
-DP4A_SLICES = {"unet": 710.05, "int8_deep fused": 31.57,
-              "int8_deep chain": 24.79, "none (bf16)": 45.20}
+# steady-state slices/s of the __dp4a design of kernels A and B, quoted from
+# PERF.md (NVIDIA H100 80GB HBM3, 700 W) and printed labelled as quoted:
+# this run measures none of them
+DP4A_QUOTED_SLICES = {"unet": 710.05, "int8_deep fused": 31.57,
+                      "int8_deep chain": 24.79, "none (bf16)": 45.20}
 EVAL_PATIENTS, EVAL_SLICES = 12, 60
 # test split of 12 patients = 3 patients x (60 - 2) d2 / (60 - 4) d4
 EVAL_SAMPLES = {"3mm": 174, "6mm": 168}
@@ -330,8 +329,8 @@ def kernel_phase(dev):
     for kernel in ("conv_int8", "upconv_int8"):
         sel = [r for r in rows if r["kernel"] == kernel]
         print(f"{kernel}: {len(sel)} sites of one UNet forward (batch "
-              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f} (dp4a design: "
-              f"{DP4A_MS[kernel]}), cold {sum(r['ms_cold'] for r in sel):.4f}"
+              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f}, cold "
+              f"{sum(r['ms_cold'] for r in sel):.4f}"
               f", bound {sum(r['bound_ms'] for r in sel):.4f}, library "
               f"{sum(r['library_ms'] or 0 for r in sel):.4f}")
     return rows
@@ -495,7 +494,8 @@ def slice_phase(dev, card: str):
     if rel_plain != 0.0:
         raise AssertionError(f"served vs plain rel-L2 {rel_plain}")
     print(f"engine steady-state slices/s {steady.slices_per_sec:.2f} "
-          f"(dp4a design: {DP4A_SLICES['unet']}; batch {BATCH}, "
+          f"(dp4a design, quoted from PERF.md: "
+          f"{DP4A_QUOTED_SLICES['unet']}; batch {BATCH}, "
           f"{steady.requests} "
           f"requests, int8_fused, features {FEATURES}, {HW}x{HW}; {card}); "
           f"batch wall {steady.total_batch_time_s:.4f} s, fetch wait "
@@ -892,11 +892,9 @@ def k3_phase(dev):
             print_site(r)
     for kernel in ("groupnorm_silu", "conv_int8", "upconv_int8"):
         sel = [r for r in rows if r["kernel"] == kernel]
-        before = DP4A_MS.get(f"diffusion {kernel}")
         print(f"{kernel}: {len(sel)} launches per int8_deep forward (batch "
-              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f}"
-              + (f" (dp4a design: {before})" if before else "")
-              + f", bound {sum(r['bound_ms'] for r in sel):.4f}, plain "
+              f"{BATCH}): ms {sum(r['ms'] for r in sel):.4f}, bound "
+              f"{sum(r['bound_ms'] for r in sel):.4f}, plain "
               f"{sum(r['plain_ms'] for r in sel):.3f}")
     return rows
 
@@ -1119,7 +1117,8 @@ def diffusion_phase(dev, card: str):
                 batch_ms = cuda_ms(lambda: eng._apply(x8), reps=3, warmup=1)
                 prof = profile_batch(eng._apply, x8, setup)
             print(f"{setup}: steady-state slices/s {st.slices_per_sec:.2f} "
-                  f"(dp4a design: {DP4A_SLICES[setup]}; {st.requests} "
+                  f"(dp4a design, quoted from PERF.md: "
+                  f"{DP4A_QUOTED_SLICES[setup]}; {st.requests} "
                   f"requests, {st.batches} batches of "
                   f"{BATCH}); batch wall {st.total_batch_time_s:.3f} s, "
                   f"fetch wait {st.fetch_time_s:.3f} s, assemble "

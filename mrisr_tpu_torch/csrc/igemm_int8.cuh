@@ -16,10 +16,9 @@
 // multiple of 16 (its TMA rows need 16-byte strides) and whose output is at
 // least 8 columns wide (wgmma's narrowest N); this loop keeps the rest: at
 // full width, enc1/Conv_0 (Ci = 2, 1.2 G operations at batch 8) and the
-// final 1x1 conv (Co = 1, bound by the bytes of its input).  With Ci a
-// multiple of 4 a stage holds 32 codes of one tap; otherwise the joint
-// (tap, c) index is staged, so enc1/Conv_0's 18 codes of K are one 32-code
-// step instead of nine taps each padded from 2 codes to 32.
+// final 1x1 conv (Co = 1, bound by the bytes of its input).  A stage holds
+// 32 codes of the joint (tap, c) index, so enc1/Conv_0's 18 codes of K are
+// one step instead of nine taps each padded from 2 codes to 32.
 #pragma once
 
 #include <cstddef>
@@ -35,21 +34,17 @@ constexpr int KW = BK / 4;    // 32-bit words per staged row
 constexpr int LDS = KW + 1;   // padded row: a column read hits 16 banks
 constexpr int THREADS = 256;  // 16 x 16 threads, 4 x 4 outputs each
 
-// Codes p[c..c+3] packed little-endian into one 4-byte-aligned word (Ci a
-// multiple of 4), zero past `limit`.
-__device__ __forceinline__ int load4(const int8_t* p, int c, int limit) {
-  return c < limit ? __ldg(reinterpret_cast<const int*>(p + c)) : 0;
-}
-
 // acc[i][j] is output (m0 + ty + 16 i, n0 + tx + 16 j) of this thread.
 __device__ __forceinline__ void mainloop(
     const int8_t* __restrict__ x, const int8_t* __restrict__ w, int N, int H,
     int W, int Ci, int ncols, int ksize, int m0, int n0, int (&acc)[4][4]) {
   __shared__ int As[BM][LDS];
   __shared__ int Bs[BN][LDS];
+  // (dy, dx, c) of each code of the step, worked out once a step:
+  // c | (dy + 8) << 16 | (dx + 8) << 24 (c < 2^16), or -1 past K
+  __shared__ int kinfo[BK];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int M = N * H * W, K = ksize * ksize * Ci, pad = ksize / 2;
-  const bool vec = (Ci % 4) == 0;
   const int word = tid % KW;  // this thread stages word `word` of rows
   const int row0 = tid / KW;  // row0 and row0 + 32 of both tiles
   int pimg[2], ph[2], pw[2];
@@ -69,7 +64,39 @@ __device__ __forceinline__ void mainloop(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
-  auto product = [&]() {
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    if (tid < BK) {
+      const int k = k0 + tid;
+      int v = -1;
+      if (k < K) {
+        const int tap = k / Ci;
+        v = (k - tap * Ci) | (tap / ksize - pad + 8) << 16 |
+            (tap % ksize - pad + 8) << 24;
+      }
+      kinfo[tid] = v;
+    }
+    __syncthreads();
+    // this thread's word of rows row0 and row0 + 32, one code at a time
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 32 * r, n = n0 + row;
+      unsigned a = 0, bw = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int v = kinfo[4 * word + j];
+        if (v < 0) break;
+        const int hh = ph[r] + ((v >> 16) & 0xFF) - 8;
+        const int ww = pw[r] + (v >> 24) - 8;
+        if (pok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W)
+          a |= (unsigned)(uint8_t)x[((size_t)(pimg[r] * H + hh) * W + ww) *
+                                        Ci + (v & 0xFFFF)] << (8 * j);
+        if (n < ncols)
+          bw |= (unsigned)(uint8_t)w[(size_t)n * K + k0 + 4 * word + j]
+                << (8 * j);
+      }
+      As[row][word] = (int)a;
+      Bs[row][word] = (int)bw;
+    }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < KW; ++kk) {
@@ -84,66 +111,6 @@ __device__ __forceinline__ void mainloop(
         for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
-  };
-
-  if (!vec) {  // joint (tap, c) staging, one code at a time
-    // (dy, dx, c) of each code of the step, worked out once a block:
-    // c | (dy + 8) << 16 | (dx + 8) << 24 (c < 2^16), or -1 past K
-    __shared__ int kinfo[BK];
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      if (tid < BK) {
-        const int k = k0 + tid;
-        int v = -1;
-        if (k < K) {
-          const int tap = k / Ci;
-          v = (k - tap * Ci) | (tap / ksize - pad + 8) << 16 |
-              (tap % ksize - pad + 8) << 24;
-        }
-        kinfo[tid] = v;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 32 * r, n = n0 + row;
-        unsigned a = 0, bw = 0;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int v = kinfo[4 * word + j];
-          if (v < 0) break;
-          const int hh = ph[r] + ((v >> 16) & 0xFF) - 8;
-          const int ww = pw[r] + (v >> 24) - 8;
-          if (pok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W)
-            a |= (unsigned)(uint8_t)x[((size_t)(pimg[r] * H + hh) * W + ww) *
-                                          Ci + (v & 0xFFFF)] << (8 * j);
-          if (n < ncols)
-            bw |= (unsigned)(uint8_t)w[(size_t)n * K + k0 + 4 * word + j]
-                  << (8 * j);
-        }
-        As[row][word] = (int)a;
-        Bs[row][word] = (int)bw;
-      }
-      product();
-    }
-    return;
-  }
-  for (int tap = 0; tap < ksize * ksize; ++tap) {
-    const int dy = tap / ksize - pad, dx = tap % ksize - pad;
-    for (int c0 = 0; c0 < Ci; c0 += BK) {
-      const int c = c0 + 4 * word;
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int row = row0 + 32 * r;
-        const int hh = ph[r] + dy, ww = pw[r] + dx;
-        int a = 0;
-        if (pok[r] && hh >= 0 && hh < H && ww >= 0 && ww < W)
-          a = load4(x + ((size_t)(pimg[r] * H + hh) * W + ww) * Ci, c, Ci);
-        As[row][word] = a;
-        const int n = n0 + row;
-        Bs[row][word] =
-            n < ncols ? load4(w + (size_t)n * K + (size_t)tap * Ci, c, Ci) : 0;
-      }
-      product();
-    }
   }
 }
 

@@ -192,9 +192,10 @@ static int launch_tc(const int8_t* x, const int8_t* w2t, const float* s4,
   if (err == 0) err = tc::encode_weights(&mapB, w2t, 4 * Co, 1, C, BN);
   if (err != 0) return err;
   const int smem = tc::Layout<BN>::SMEM;
-  err = (int)cudaFuncSetAttribute(upconv_int8_tc_kernel<BN, OUT_FLOAT>,
-                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                  smem);
+  static std::atomic<uint64_t> smem_set{0};
+  err = tc::allow_smem(
+      reinterpret_cast<const void*>(upconv_int8_tc_kernel<BN, OUT_FLOAT>),
+      smem, smem_set);
   if (err != 0) return err;
   constexpr int CH = OUT_FLOAT ? 4 : 16;
   const int vec = Co % CH == 0 && (Co + Cs) % CH == 0 &&
@@ -241,6 +242,7 @@ extern "C" int upconv_int8_launch(const void* x, const void* w2t,
                      : launch_tc<128, false>(xi, wi, sf, bf, sk, out, N, H, W,
                                              C, Co, Cs, unit, st);
   }
+  if (C >= 1 << 16) return (int)cudaErrorInvalidValue;  // mainloop's c field
   const long long M = (long long)N * H * W;
   const dim3 grid((unsigned)((M + BM - 1) / BM),
                   (unsigned)((4 * Co + BN - 1) / BN));

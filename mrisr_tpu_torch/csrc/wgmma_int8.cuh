@@ -22,9 +22,10 @@
 // Warp roles: warps 0-7 are two consumer warpgroups, each owning 64 of the
 // 128 rows; warp 8 is the producer, one of whose threads keeps a ring of
 // STAGES shared-memory stages (97 KB with the barriers at BN = 128, so two
-// blocks share an SM and one's loads overlap the other's epilogue) filled with TMA loads, each stage 64 codes of
-// K (a 64-byte row, 64-byte swizzle, the layout the wgmma descriptors name)
-// for A and B, signalled through a "full" mbarrier per stage.  A consumer
+// blocks share an SM and one's loads overlap the other's epilogue) filled
+// with TMA loads, each stage 64 codes of K (a 64-byte row, 64-byte swizzle,
+// the layout the wgmma descriptors name) for A and B, signalled through a
+// "full" mbarrier per stage.  A consumer
 // warpgroup waits on a stage, issues two k32 wgmmas on it, keeps one
 // wgmma group in flight, and releases the stage before through its
 // "empty" mbarrier (one arrival per consumer warp) once that group is done.
@@ -37,6 +38,7 @@
 // are fetched again (from L2) for each of the 9 taps.
 #pragma once
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
@@ -381,6 +383,22 @@ inline EncodeTiled encoder() {
       fn = reinterpret_cast<EncodeTiled>(p);
   }
   return fn;
+}
+
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on the current
+// device.  The attribute lasts as long as the process's context, so each
+// kernel sets it once a device: `done` holds one bit a device.
+inline int allow_smem(const void* kernel, int bytes,
+                      std::atomic<uint64_t>& done) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err != 0) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return 0;
+  err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == 0) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
 }
 
 // Width of the pixel rectangle: the smallest power of two >= W, at most 16.
