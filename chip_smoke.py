@@ -28,11 +28,14 @@
    the steady-state engine throughput beside the __dp4a design's (quoted
    from PERF.md, not measured here), one forward's device time and enqueue
    time, and its profile.
-4. K1 phase: the fused SSIM kernel against its plain version on the card
-   (atol 3e-5, the JAX package's contract) at (1|8|64|174, 256, 256),
-   (3, 37, 53), (2, 7, 7) and (1, 512, 512); an identical pair must give 1
-   within 1e-6.  Then its time at N = 64 and 174 beside its bound and the
-   plain version's.
+4. K1 phase: the fused SSIM kernel (one pass of 128-column strips, a warp
+   sliding down a band of rows with the vertical window in registers and
+   the horizontal window through shuffles, so each input byte is read
+   once) against its plain version on the card (atol 3e-5, the JAX
+   package's contract) at SSIM_SHAPES: (1|8|64|174, 256, 256), (3, 37, 53),
+   (2, 7, 7) and (1, 512, 512); two launches must give the same bits and an
+   identical pair 1 within 1e-6.  Then its time at N = 64 and 174 beside
+   its bound and the plain version's.
 5. Eval phase, full width: the port's CLI synthesizes a store of 12
    patients x 60 slices x 256^2 (test split: 3 patients, 174 3 mm and 168
    6 mm triplets); the seeded UNet is saved as a reference-layout
@@ -45,17 +48,23 @@
    bundle, kernels A and B) must have been launched.  Prints float vs int8
    SSIM/PSNR per spacing and the eval wall time per phase.  The weights are
    seeded, not trained: these numbers test the plumbing, not accuracy.
-6. K3 phase: the fused GroupNorm+SiLU+int8 kernel at the 10 sites of one
-   full-width int8_deep Fast-DDPM forward (base 64, 256^2; C 128-768 at
-   128^2, 64^2 and 32^2), bf16 in, at batch 2 against its plain version
-   (int8: no code more than 1 off and under 0.1 % off by one; bf16 out:
-   atol 0.03 below |y| = 8 and 2^-8 |y| above, one bf16 rounding step; two
-   launches give the same bits), then timed at batch 8 after
-   a 64 MiB L2 scrub beside the plain version, F.group_norm (the yardstick:
-   GroupNorm alone) and its bytes bound.  Kernel A at the 14 diffusion
-   sites (float epilogue, no ReLU) and kernel B's float mode at upconv3 and
-   upconv2, against their plain versions (rtol 1e-5, two launches the same
-   bits), and timed as in 2.
+6. K3 phase: the fused GroupNorm+SiLU+int8 kernel (one cooperative launch
+   walking the batch in passes of whole samples staged in the grid's shared
+   memory, so x is read once) at the 10 sites of one full-width int8_deep
+   Fast-DDPM forward (base 64, 256^2; C 128-768 at 128^2, 64^2 and 32^2),
+   bf16 in, at batch 2 against its plain version (int8: no code more than 1
+   off and under 0.1 % off by one; bf16 out: atol 0.03 below |y| = 8 and
+   2^-8 |y| above, one bf16 rounding step; two launches give the same
+   bits), then timed at batch 8 after a 64 MiB L2 scrub beside the plain
+   version, F.group_norm (the yardstick: GroupNorm alone) and its bytes
+   bound; each site prints its plan (one-read or two-read, samples a pass,
+   passes).  A measurement only: K3's bf16 mode at the five float GroupNorm
+   sites of the same forward (256^2, C 64-192, batch 8), which the forward
+   runs through gn_silu_chain, timed beside that chain on the same input,
+   with the max |difference| of the two bf16 outputs.  Kernel A at the 14
+   diffusion sites (float epilogue, no ReLU) and kernel B's float mode at
+   upconv3 and upconv2, against their plain versions (rtol 1e-5, two
+   launches the same bits), and timed as in 2.
 7. Diffusion phase: a seeded full-width FastDDPMUNet (13,899,905
    parameters) saved as a reference-layout fastddpm_best.pt; a 12 x 60 x
    256^2 store from the CLI's synth; the CLI's export-serving makes an
@@ -103,6 +112,10 @@ PEAK_INT8_OPS = 1979e12
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 SSIM_ATOL = 3e-5   # tests/test_ssim.py's kernel-vs-XLA contract
+# K1's check shapes: the eval's (test split: 174 3 mm triplets), ragged
+# tiles, a 1x1 map, a 512^2 image
+SSIM_SHAPES = ((1, 256, 256), (8, 256, 256), (64, 256, 256), (174, 256, 256),
+               (3, 37, 53), (2, 7, 7), (1, 512, 512))
 # steady-state slices/s of the __dp4a design of kernels A and B, quoted from
 # PERF.md (NVIDIA H100 80GB HBM3, 700 W) and printed labelled as quoted:
 # this run measures none of them
@@ -536,8 +549,7 @@ def ssim_phase(dev):
         return x, noisy.clamp(0.0, 1.0)
 
     errs = []
-    for shape in ((1, 256, 256), (8, 256, 256), (64, 256, 256),
-                  (174, 256, 256), (3, 37, 53), (2, 7, 7), (1, 512, 512)):
+    for shape in SSIM_SHAPES:
         x, y = pair(shape)
         got = ssim_fused(x, y)
         torch.cuda.synchronize()
@@ -712,6 +724,15 @@ def diffusion_gn_sites():
             ("dec2/norm1", h1, 6 * f), ("dec2/norm2", h1, 2 * f)]
 
 
+def diffusion_float_gn_sites():
+    """(name, H, C) of the 5 GroupNorm+SiLU sites of one int8_deep forward
+    that feed a float conv (256^2): the forward runs gn_silu_chain there."""
+    f = FEATURES
+    return [("enc1/norm1", HW, f), ("enc1/norm2", HW, 2 * f),
+            ("dec1/norm1", HW, 3 * f), ("dec1/norm2", HW, f),
+            ("final_norm", HW, f)]
+
+
 def diffusion_conv_sites():
     """(name, H, Ci, Co, k) of the 14 kernel-A launches of one int8_deep
     forward (10 3x3, 4 1x1 skip)."""
@@ -741,14 +762,17 @@ def k3_phase(dev):
     serving batch."""
     import torch.nn.functional as F
 
+    from mrisr_tpu_torch.device import sm_count
     from mrisr_tpu_torch.ops.conv_int8 import (
         conv2d_int8, conv2d_int8_plain, conv_path, pack_conv)
     from mrisr_tpu_torch.ops.groupnorm import (
-        groupnorm_silu, groupnorm_silu_plain)
+        groupnorm_silu, groupnorm_silu_plain, plan)
     from mrisr_tpu_torch.ops.upconv import (
         pack_upconv, upconv2x2_int8, upconv2x2_int8_plain, upconv_path)
+    from mrisr_tpu_torch.serve.quant_diffusion import gn_silu_chain
 
     g = torch.Generator(device=dev).manual_seed(4321)
+    sms = sm_count(dev)
 
     def codes(shape):
         return torch.randint(-127, 128, shape, generator=g, device=dev,
@@ -813,12 +837,42 @@ def k3_phase(dev):
         elems = BATCH * h * h * c
         t_ops = GN_OPS_PER_ELEM * elems / PEAK_FP32_OPS * 1e3
         t_bytes = (3 * elems + 8 * c + 4) / PEAK_BYTES * 1e3
+        p = plan(BATCH, h * h, c, x.element_size(), sms)
         rows.append({"kernel": "groupnorm_silu", "site": name, "H": h, "C": c,
                      "batch": BATCH, "max_abs_err": float(worst),
                      "off_by_one": off1, "bf16_err": err16, "ms": ms,
                      "plain_ms": plain_ms, "library_ms": lib_ms,
                      "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
-                     "bytes_ms": t_bytes})
+                     "bytes_ms": t_bytes,
+                     "form": "one-read" if p.one_read else "two-read",
+                     "samples_a_pass": p.spp, "passes": p.passes})
+
+    # a measurement only: K3's bf16 mode where the forward runs the chain
+    for name, h, c in diffusion_float_gn_sites():
+        groups = c // 4
+        gamma, beta = 1 + 0.5 * torch.randn(c, generator=g, device=dev), (
+            0.2 * torch.randn(c, generator=g, device=dev))
+        x = (3 * torch.randn((BATCH, h, h, c), generator=g, device=dev)
+             + 0.5).to(torch.bfloat16)
+        y16 = groupnorm_silu(x, gamma, beta, num_groups=groups)
+        chain = gn_silu_chain(x, gamma, beta, groups, torch.bfloat16)
+        diff = float((y16.float() - chain.float()).abs().max())
+        ms = cuda_ms(lambda: groupnorm_silu(x, gamma, beta, num_groups=groups),
+                     reps=20, flush=scrub.zero_)
+        chain_ms = cuda_ms(lambda: gn_silu_chain(x, gamma, beta, groups,
+                                                 torch.bfloat16),
+                           reps=5, flush=scrub.zero_)
+        elems = BATCH * h * h * c
+        t_bytes = (4 * elems + 8 * c) / PEAK_BYTES * 1e3
+        t_ops = (GN_OPS_PER_ELEM - 3) * elems / PEAK_FP32_OPS * 1e3
+        p = plan(BATCH, h * h, c, x.element_size(), sms)
+        rows.append({"kernel": "groupnorm_silu bf16 (float site)",
+                     "site": name, "H": h, "C": c, "batch": BATCH,
+                     "ms": ms, "chain_ms": chain_ms, "max_abs_diff": diff,
+                     "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+                     "bytes_ms": t_bytes,
+                     "form": "one-read" if p.one_read else "two-read",
+                     "samples_a_pass": p.spp, "passes": p.passes})
 
     for name, h, ci, co, k in diffusion_conv_sites():
         wp = pack_conv(codes((k, k, ci, co)))
@@ -884,12 +938,24 @@ def k3_phase(dev):
 
     for r in rows:
         if r["kernel"] == "groupnorm_silu":
-            print(f"{r['kernel']:14s} {r['site']:26s} err "
+            print(f"{r['kernel']:14s} {r['site']:26s} {r['form']} "
+                  f"{r['samples_a_pass']} a pass x {r['passes']} err "
                   f"{r['max_abs_err']:.3g} ms {r['ms']:.4f} bound "
                   f"{r['bound_ms']:.4f} plain {r['plain_ms']:.3f} lib "
                   f"{r['library_ms']}")
+        elif r["kernel"].startswith("groupnorm_silu bf16"):
+            print(f"K3 bf16 at float site {r['site']:12s} (C {r['C']}) "
+                  f"{r['form']} {r['samples_a_pass']} a pass x "
+                  f"{r['passes']}: ms {r['ms']:.4f} vs gn_silu_chain "
+                  f"{r['chain_ms']:.4f} (bound {r['bound_ms']:.4f}); max "
+                  f"|K3 - chain| {r['max_abs_diff']:.4g} (not routed: a "
+                  f"measurement)")
         else:
             print_site(r)
+    sel = [r for r in rows if r["kernel"].startswith("groupnorm_silu bf16")]
+    print(f"float GroupNorm sites of one forward (batch {BATCH}): K3 bf16 "
+          f"{sum(r['ms'] for r in sel):.4f} ms, gn_silu_chain "
+          f"{sum(r['chain_ms'] for r in sel):.4f} ms")
     for kernel in ("groupnorm_silu", "conv_int8", "upconv_int8"):
         sel = [r for r in rows if r["kernel"] == kernel]
         print(f"{kernel}: {len(sel)} launches per int8_deep forward (batch "

@@ -40,10 +40,10 @@ SIGNATURES = {
                          _I, _P],
     "upconv_int8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P],
-    "ssim_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P],
-    "ssim_tiles": [_I, _I, _I],
-    "groupnorm_silu_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _F, _P],
+    "ssim_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "ssim_blocks_per_sm": [_I],
+    "groupnorm_silu_launch": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _F, _P],
 }
 
 
@@ -104,8 +104,11 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-# launcher codes past the CUDA runtime's (csrc/wgmma_int8.cuh, tc::ERR_*)
+# the CUDA runtime's codes a launcher is expected to return, and launcher
+# codes past the runtime's (csrc/wgmma_int8.cuh, tc::ERR_*)
 _LAUNCHER_ERRORS = {
+    720: "the cooperative grid cannot be co-resident on the device "
+         "(cudaErrorCooperativeLaunchTooLarge)",
     10001: "cuTensorMapEncodeTiled refused a tensor map",
     10002: "the driver has no cuTensorMapEncodeTiled",
 }

@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Iterator, Union
 
 import torch
@@ -22,6 +23,19 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA ``device`` (the current one
+    when it has no index): the kernels' plans size their grids by it."""
+    index = device.index if device.index is not None else (
+        torch.cuda.current_device())
+    return _sm_count(index)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @contextlib.contextmanager

@@ -2,9 +2,11 @@
 
 Counterpart: the Pallas TPU kernel ``mrisr_tpu/ops/groupnorm_pallas.py``
 (``groupnorm_silu_pallas``, launcher ``_gn_silu_call``).  The CUDA source
-is ``csrc/groupnorm_silu.cu``; it says how the statistics are reduced
-across blocks and what bounds the kernel on the card: one read of x and one
-write of the output.
+is ``csrc/groupnorm_silu.cu``: one cooperative launch a call, walking the
+batch in passes of whole samples staged in the grid's shared memory, so x
+is read from device memory once; it says what bounds the kernel on the
+card: one read of x and one write of the output.  :func:`plan` is its
+tiling, in Python so that the CPU tests can check it.
 
 Semantics: ``flax.linen.GroupNorm(num_groups, epsilon)`` (float32
 statistics, biased variance E[x^2] - E[x]^2) folded into one multiply-add
@@ -22,16 +24,17 @@ runs, 256^2 included, in the convs' own NHWC layout.
 
 from __future__ import annotations
 
-import functools
 import math
-from typing import Optional, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from mrisr_tpu_torch import _build
+from mrisr_tpu_torch.device import sm_count
 
 GROUP_SIZE = 4   # the kernel's group size: channels // max(1, channels // 4)
-_GB, _ROWS = 32, 8  # groups and pixel lanes of a block (csrc/groupnorm_silu.cu)
+THREADS = 1024   # threads a block (csrc/groupnorm_silu.cu)
+SMEM_LIMIT = 232_448  # 227 KB: a block's shared memory on Hopper
 _OUT_MODE = {torch.float32: 0, torch.bfloat16: 1}
 
 Scale = Union[float, torch.Tensor, None]
@@ -70,19 +73,57 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
     return y.to(out_dtype).reshape(b, h, w, c)
 
 
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+class Plan(NamedTuple):
+    """K3's tiling of an ``(n, hw, c)`` batch: ``passes`` passes of ``spp``
+    whole samples, ``bs`` blocks a sample of ``px`` pixels each (the last
+    block of a sample fewer), ``spp * bs`` co-resident blocks.  With
+    ``one_read`` each block stages its pixels in shared memory and x is
+    read once; else the statistics and the apply both read x."""
+
+    spp: int
+    bs: int
+    px: int
+    passes: int
+    one_read: bool
+    smem: int  # dynamic shared memory a block, bytes
+
+    @property
+    def grid(self) -> int:
+        return self.spp * self.bs
 
 
-def _tiling(n: int, hw: int, c: int, sms: int):
-    """``(tile_px, tiles)``: pixels per block and blocks per (sample, 32
-    groups), aiming at 8 blocks of 256 threads per SM, with at least 64
-    pixels (8 per thread) a tile."""
-    gy = math.ceil(c // GROUP_SIZE / _GB)
-    tiles = max(1, min(math.ceil(hw / 64), math.ceil(8 * sms / (n * gy))))
-    tile_px = math.ceil(math.ceil(hw / tiles) / _ROWS) * _ROWS
-    return tile_px, math.ceil(hw / tile_px)
+def _reserve(c: int) -> int:
+    """Shared memory a block needs besides x: the partial sums (double2,
+    max(THREADS, groups)) and gamma, beta, ga, be (float32, C each)."""
+    return 16 * max(THREADS, c // GROUP_SIZE) + 16 * c
+
+
+def _blocks(hw: int, spp: int, sms: int) -> Tuple[int, int]:
+    """(blocks a sample, pixels a block) with ``spp`` samples on ``sms``
+    blocks: pixels a multiple of 4 (16-byte aligned chunks)."""
+    px = 4 * math.ceil(math.ceil(hw / max(1, sms // spp)) / 4)
+    return math.ceil(hw / px), px
+
+
+def plan(n: int, hw: int, c: int, itemsize: int, sms: int,
+         smem_limit: int = SMEM_LIMIT) -> Plan:
+    """The most samples a pass that the grid's shared memory holds (one
+    block an SM, ``sms`` SMs), then as few passes as that allows, balanced;
+    the two-read form, one sample a pass on every SM, where even one sample
+    does not fit."""
+    reserve, row = _reserve(c), c * itemsize
+
+    def fits(spp):
+        return reserve + _blocks(hw, spp, sms)[1] * row <= smem_limit
+
+    spp = max((s for s in range(1, min(n, sms) + 1) if fits(s)), default=0)
+    if spp == 0:
+        bs, px = _blocks(hw, 1, sms)
+        return Plan(1, bs, px, n, False, reserve)
+    passes = math.ceil(n / spp)
+    spp = math.ceil(n / passes)
+    bs, px = _blocks(hw, spp, sms)
+    return Plan(spp, bs, px, passes, True, reserve + px * row)
 
 
 def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -95,7 +136,8 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     ``quant_scale`` (a float, or a one-element float32 tensor on x's device:
     the following conv's per-step activation scale, read by the kernel from
     device memory) returns int8 codes; without it, ``out_dtype`` (float32
-    or bfloat16).  On the card the group size must be 4."""
+    or bfloat16).  On the card the group size must be 4, and a grid that
+    cannot be co-resident raises (it never falls back)."""
     if x.dim() != 4 or x.shape[-1] % num_groups:
         raise ValueError(f"groupnorm_silu: x {tuple(x.shape)} does not split "
                          f"into {num_groups} groups")
@@ -130,23 +172,17 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     out = torch.empty((b, h, w, c), device=x.device, dtype=dtype)
     if out.numel() == 0:
         return out
-    index = x.device.index if x.device.index is not None else (
-        torch.cuda.current_device())
-    tile_px, tiles = _tiling(b, h * w, c, _sm_count(index))
-    if b * tiles >= 2 ** 31:
-        raise ValueError("groupnorm_silu: the batch exceeds one launch; "
-                         "split it")
-    partial = torch.empty((b, tiles, c // GROUP_SIZE, 2), device=x.device,
-                          dtype=torch.float64)
-    coef = torch.empty((b, c, 2), device=x.device, dtype=torch.float32)
+    p = plan(b, h * w, c, x.element_size(), sm_count(x.device))
+    partial = torch.empty((p.passes, p.grid, c // GROUP_SIZE, 2),
+                          device=x.device, dtype=torch.float64)
     lib = _build.library("groupnorm_silu")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
         err = lib.groupnorm_silu_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), gamma.data_ptr(),
             beta.data_ptr(), None if scale is None else scale.data_ptr(),
-            partial.data_ptr(), coef.data_ptr(), out.data_ptr(), mode, b,
-            h * w, c, tile_px, tiles, eps, stream,
+            partial.data_ptr(), out.data_ptr(), mode, b, h * w, c, p.spp,
+            p.bs, p.px, p.passes, int(p.one_read), p.smem, eps, stream,
         )
     _build.check(err, "groupnorm_silu")
     groupnorm_silu.launches += 1

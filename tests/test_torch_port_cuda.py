@@ -179,6 +179,73 @@ def test_groupnorm_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(y32, ref, rtol=1e-5, atol=1e-5)
 
 
+# K3's plans: (2, 256^2, 192) one read, one sample a pass (the widest
+# 256^2 site); (1, 512^2, 64) bf16, 33.5 MB, more than a grid of 132 x 227
+# KB holds: the two-read form; (8, 32^2, 512) eight samples a pass (the
+# bottleneck's); (3, 11 x 13, 36) an odd H*W with H*W*C not a multiple of
+# 16 (8-byte staging); (1, 2 x 2, 4200) more groups (1050) than threads
+GN_PLAN_CASES = [((2, 256, 256, 192), True, 1), ((1, 512, 512, 64), False, 1),
+                 ((8, 32, 32, 512), True, 8), ((3, 11, 13, 36), True, 3),
+                 ((1, 2, 2, 4200), True, 1)]
+
+
+@pytest.mark.parametrize("shape,one_read,spp", GN_PLAN_CASES, ids=str)
+def test_groupnorm_kernel_plans_match_plain(cuda, shape, one_read, spp):
+    """Each form of the plan against the plain version: int8 codes as in
+    test_groupnorm_kernel_matches_plain, bf16 out within one bf16 rounding
+    step (max(0.03, 2^-8 |y|), chip_smoke.py's contract: wide shapes reach
+    past |y| = 8), two launches the same bits."""
+    from mrisr_tpu_torch.device import sm_count
+    from mrisr_tpu_torch.ops.groupnorm import plan
+
+    b, h, w, c = shape
+    p = plan(b, h * w, c, 2, sm_count(cuda))
+    assert (p.one_read, p.spp) == (one_read, spp)
+    x, gamma, beta = _gn_case(shape, cuda, torch.bfloat16, seed=c)
+    groups = c // 4
+    ref = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                               out_dtype=torch.float32)
+    scale = (ref.abs().amax() / 127.0).reshape(1)
+    before = groupnorm_silu.launches
+    q = groupnorm_silu(x, gamma, beta, num_groups=groups, quant_scale=scale)
+    torch.cuda.synchronize()
+    assert groupnorm_silu.launches == before + 1
+    want = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                                quant_scale=scale)
+    diff = (q.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-3
+    assert torch.equal(groupnorm_silu(x, gamma, beta, num_groups=groups,
+                                      quant_scale=scale), q)
+    y16 = groupnorm_silu(x, gamma, beta, num_groups=groups)
+    tol = torch.clamp_min(ref.abs() * 2.0 ** -8, 0.03)
+    assert bool(((y16.float() - ref).abs() <= tol).all())
+    assert torch.equal(groupnorm_silu(x, gamma, beta, num_groups=groups), y16)
+
+
+def test_groupnorm_kernel_raises_when_the_grid_cannot_be_co_resident(cuda):
+    """Two 200 KB blocks an SM cannot be co-resident: the cooperative launch
+    is refused and the check raises; nothing falls back."""
+    from mrisr_tpu_torch import _build
+    from mrisr_tpu_torch.device import sm_count
+
+    sms = sm_count(cuda)
+    n, px, c = 2, 4, 64
+    hw = sms * px
+    x = torch.zeros((n, hw, c), device=cuda, dtype=torch.bfloat16)
+    gamma = torch.ones(c, device=cuda)
+    out = torch.empty_like(x)
+    partial = torch.empty((1, c // 4, 2 * sms, 2), device=cuda,
+                          dtype=torch.float64)
+    lib = _build.library("groupnorm_silu")
+    err = lib.groupnorm_silu_launch(
+        x.data_ptr(), 1, gamma.data_ptr(), gamma.data_ptr(), None,
+        partial.data_ptr(), out.data_ptr(), 1, n, hw, c, n, sms, px, 1, 1,
+        200_000, 1e-5, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="co-resident"):
+        _build.check(err, "groupnorm_silu")
+
+
 def test_groupnorm_kernel_refuses_what_it_does_not_take(cuda):
     x, gamma, beta = _gn_case((1, 4, 4, 16), cuda, torch.float32)
     with pytest.raises(ValueError, match="groups of 4"):
@@ -292,9 +359,12 @@ def test_fused_unet_on_card_equals_plain(cuda, skip_emit):
 
 
 # K1: the eval shapes at 256^2 (test split of 3 patients: 174 3 mm
-# triplets), ragged tiles, a 1x1 map, a 512^2 image
+# triplets), ragged tiles, a 1x1 map, a 512^2 image; a width that is not a
+# multiple of the 128-column strip (300), an output map shorter than a band
+# (12 rows: 6), an odd width (scalar loads)
 SSIM_SHAPES = [(1, 256, 256), (8, 256, 256), (64, 256, 256),
-               (174, 256, 256), (3, 37, 53), (2, 7, 7), (1, 512, 512)]
+               (174, 256, 256), (3, 37, 53), (2, 7, 7), (1, 512, 512),
+               (2, 64, 300), (3, 12, 256), (1, 9, 133)]
 
 
 def _ssim_pair(shape, device, seed=0):
@@ -327,6 +397,17 @@ def test_ssim_kernel_window_and_range(cuda, win, data_range):
     want = ssim_fused_plain(x * data_range, y * data_range,
                             data_range=data_range, win_size=win)
     torch.testing.assert_close(got, want, rtol=0, atol=3e-5)
+
+
+@pytest.mark.parametrize("win", [3, 11])
+def test_ssim_kernel_window_across_strips(cuda, win):
+    """win 3 and 11 on three strips: the halo (2 and 10 columns past a
+    strip) gathered from the neighbouring strip's columns."""
+    x, y = _ssim_pair((2, 30, 300), cuda, seed=win)
+    got = ssim_fused(x, y, win_size=win)
+    torch.testing.assert_close(got, ssim_fused_plain(x, y, win_size=win),
+                               rtol=0, atol=3e-5)
+    assert torch.equal(ssim_fused(x, y, win_size=win), got)
 
 
 def test_ssim_kernel_identical_pair_is_one(cuda):
