@@ -80,6 +80,29 @@
    (quoted from PERF.md, not measured here), the engine's fetch/assemble
    split, one sampler call's time on the card and a profiled call for
    int8_deep 'fused', int8_deep 'chain' and the bf16 bundle.
+8. Training phase, full width: the unet_combined preset (features 64,
+   31,042,945 parameters, 256^2, batch 4, Adam 1e-4, MSE + 0.1 (1 - SSIM) +
+   0.1 Gabor/LoG) on a CLI-synthesized store of 8 patients x 24 slices (53
+   steps an epoch).  One float32 train step (augmentation off) on the card
+   and on the CPU from the same init_model weights, each held against the
+   same step in float64 on the CPU: the card's loss within rel 1e-4, its
+   BN running statistics within 1e-4, each gradient within rel-L2 1e-3 or
+   within 10x the CPU float32 step's own error on that tensor (a conv bias
+   right before a training-mode BatchNorm, zero in exact arithmetic, is
+   measured against its weight's gradient); the card runs under
+   fp32_reference.  One step's device time, the device busy share
+   over 5 steps and a torch.profiler split of one step (forward and
+   backward convs, BatchNorm, the MSE, SSIM and Gabor terms forward and
+   backward, the optimizer), and one epoch with the batches gathered on the
+   card.  Then the CLI: train --epochs 2, train --epochs 3 --resume (finite
+   losses, epoch 2 below epoch 1, the resumed run starting at 3, the five
+   checkpoint files, the history JSON's series); eval --model
+   unet_combined on the trained checkpoint (K1 launched, each spacing's
+   SSIM within 3e-5 of the plain SSIM of the same predictions);
+   export-serving --quant int8_fused and engine_from_bundle serving 12
+   test-split requests (within rel-L2 0.15 of the folded float forward,
+   equal to the plain versions, every A/B site on its path).  Prints the
+   training steps/s and slices/s over the second epoch.
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -126,7 +149,20 @@ EVAL_PATIENTS, EVAL_SLICES = 12, 60
 EVAL_SAMPLES = {"3mm": 174, "6mm": 168}
 # Fast-DDPM at the fastddpm preset (base 64, time_dim 128, 10 steps)
 FASTDDPM_PARAMS = 13_899_905
+UNET_PARAMS = 31_042_945  # the M2 UNet at features 64
 DIFF_REQUESTS = 10  # served from two threads at batch 8: one batch padded
+# training phase: the unet_combined preset's batch; a store whose train
+# split (5 of 8 patients x 42 triplets) gives 53 steps an epoch
+TRAIN_PATIENTS, TRAIN_SLICES = 8, 24
+TRAIN_BATCH = 4
+TRAIN_REQUESTS = 12  # served at batch 8: one batch padded
+# a float32 gradient vs the float64 step: within GRAD_RTOL, or within
+# GRAD_NOISE_FACTOR times the CPU's own float32 error on the same tensor.
+# Behind a stack of training-mode BatchNorms at random init, float32
+# rounding alone moves deep gradients by 0.3-1 % (two CPU thread counts
+# differ by that much: features 16, 128^2), far past 1e-3; TF32 would move
+# them thousands of times more.
+GRAD_RTOL, GRAD_NOISE_FACTOR = 1e-3, 10.0
 STEADY_BATCHES = 6  # per serving setup
 GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
 SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
@@ -1202,6 +1238,398 @@ def diffusion_phase(dev, card: str):
     return launches, results
 
 
+def grad_errors(module, ref):
+    """Per-tensor gradient error of ``module`` against ``ref`` (the same
+    UNet stepped in float64 on the CPU), by parameter name: the rel-L2 of
+    the difference.  A conv bias right before a training-mode BatchNorm has
+    a zero gradient in exact arithmetic (the batch mean removes it), so its
+    error is its gradient's norm over the same conv weight's."""
+    want = {n: p.grad.detach().double() for n, p in ref.named_parameters()}
+    out = {}
+    for name, p in module.named_parameters():
+        got = p.grad.detach().double().cpu()
+        conv, _, leaf = name.rpartition(".")
+        if leaf == "bias" and conv.endswith((".conv.0", ".conv.3")):
+            out[name] = float(got.norm() / want[conv + ".weight"].norm())
+        else:
+            out[name] = float((got - want[name]).norm() / want[name].norm())
+    return out
+
+
+def stage_split(prof):
+    """Device ms of one profiled stage: total over its kernels, the part
+    launched by convolution and by BatchNorm ops (their self device time),
+    and the rest by difference (a sum of self device time over the other
+    CPU events came to more than the stage's kernels on the H100)."""
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    cats = {"conv": 0.0, "bn": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        key = e.key.lower()
+        cat = ("conv" if "conv" in key else
+               "bn" if "batch_norm" in key or "var_mean" in key else None)
+        if cat is not None:
+            cats[cat] += getattr(e, "self_device_time_total", 0) / 1e3
+    cats["other"] = max(total - cats["conv"] - cats["bn"], 0.0)
+    return total, cats
+
+
+def train_step_split(trainer, batch, perceptual_fn, card: str):
+    """A torch.profiler split of one combined-loss train step on the card,
+    run in six stages, each under its own profile: the UNet forward, the
+    MSE, SSIM and Gabor terms (each forward and backward to the
+    prediction), the backward through the UNet, the optimizer.  Returns a
+    dict of device ms, or None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.losses import mse, ssim_loss
+
+    lcfg = trainer.config.loss
+    inputs, target = batch[..., :2], batch[..., 2:3]
+    module, state = trainer.state.module.train(), trainer.state
+    state.optimizer.zero_grad(set_to_none=True)
+    out = {}
+    keep = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with fp32_reference():
+                keep[name] = fn()
+            torch.cuda.synchronize()
+        out[name] = stage_split(prof)
+
+    def term(fn, weight):
+        return lambda: torch.autograd.grad(
+            weight * fn(keep["forward"], target), keep["forward"],
+            retain_graph=True)[0]
+
+    try:
+        stage("forward", lambda: module(inputs))
+        stage("mse term", term(mse, 1.0))
+        stage("ssim term", term(lambda p, t: ssim_loss(p[..., 0], t[..., 0]),
+                                lcfg.lambda_ssim))
+        stage("gabor term", term(perceptual_fn, lcfg.lambda_perceptual))
+        stage("backward", lambda: keep["forward"].backward(
+            keep["mse term"] + keep["ssim term"] + keep["gabor term"]))
+        stage("optimizer", state.apply_gradients)
+    except Exception as e:  # the profiler is a measurement, not a check
+        print(f"train step split: unavailable ({type(e).__name__}: {e})")
+        return None
+    if sum(t for t, _ in out.values()) <= 0:
+        print("train step split: no device time recorded")
+        return None
+    split = {
+        "forward convs": out["forward"][1]["conv"],
+        "backward convs": out["backward"][1]["conv"],
+        "BatchNorm (fwd + bwd)": out["forward"][1]["bn"]
+        + out["backward"][1]["bn"],
+        "other UNet ops (ReLU, pool, concat, copies; fwd + bwd)":
+            out["forward"][1]["other"] + out["backward"][1]["other"],
+        "MSE term fwd+bwd": out["mse term"][0],
+        "SSIM term fwd+bwd": out["ssim term"][0],
+        "Gabor term fwd+bwd": out["gabor term"][0],
+        "optimizer (Adam)": out["optimizer"][0],
+    }
+    total = sum(t for t, _ in out.values())
+    print(f"one train step split (torch.profiler device ms, batch "
+          f"{TRAIN_BATCH}, {HW}x{HW}, features {FEATURES}; {card}): "
+          f"total {total:.3f}")
+    for k, v in split.items():
+        print(f"  {v:9.3f} ms {100 * v / total:5.1f} %  {k}")
+    return {"total_ms": total, "split_ms": split,
+            "stage_ms": {k: t for k, (t, _) in out.items()}}
+
+
+def train_phase(dev, card: str):
+    """The port's training path at full width (see the module docstring,
+    item 8).  Returns (launches, results)."""
+    import dataclasses
+
+    from mrisr_tpu_torch import cli, fp32_reference
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.ops.conv_int8 import (
+        conv2d_int8, conv_path, reset_launches)
+    from mrisr_tpu_torch.ops.ssim import ssim
+    from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
+    from mrisr_tpu_torch.ops.stats import minmax_normalize
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8, upconv_path
+    from mrisr_tpu_torch.serve import Int8FusedUNet, engine_from_bundle
+    from mrisr_tpu_torch.serve.bundle import load_bundle
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    results, walls = {}, {}
+    base = PRESETS["unet_combined"]
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, image_size=(HW, HW),
+                                 batch_size=TRAIN_BATCH),
+        model=dataclasses.replace(base.model, base_features=FEATURES))
+    with tempfile.TemporaryDirectory() as work:
+        store_dir = os.path.join(work, "store")
+        models_dir = os.path.join(work, "models")
+        results_dir = os.path.join(work, "results")
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(TRAIN_PATIENTS),
+                  "--slices", str(TRAIN_SLICES), "--size", str(HW)])
+        walls["synth"] = time.perf_counter() - t0
+        store = VolumeStore.open(store_dir)
+
+        # --- 1. one float32 step on the card and one on the CPU from the
+        # same init_model weights and batch (augmentation off), each held
+        # against the same step in float64 on the CPU
+        t0 = time.perf_counter()
+        plain_cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                         augment=False))
+        batch = next(iter(build_loader(store, "train", plain_cfg.data,
+                                       device="cpu")))
+        perceptual = make_perceptual_fn(cfg.loss.perceptual)
+        on_card = SupervisedTrainer(plain_cfg, perceptual_fn=perceptual,
+                                    device=dev)
+        on_cpu = SupervisedTrainer(plain_cfg, perceptual_fn=perceptual,
+                                   device="cpu")
+        on_ref = SupervisedTrainer(plain_cfg, perceptual_fn=make_perceptual_fn(
+            cfg.loss.perceptual, dtype=torch.float64), device="cpu")
+        on_ref.state.module.double()
+        n_params = sum(p.numel() for p in on_cpu.state.module.parameters())
+        for (k, a), b in zip(on_card.state.module.state_dict().items(),
+                             on_cpu.state.module.state_dict().values()):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"init differs on the card: {k}")
+        _, m_card = on_card.train_step(on_card.state, batch.to(dev))
+        _, m_cpu = on_cpu.train_step(on_cpu.state, batch)
+        _, m_ref = on_ref.train_step(on_ref.state, batch.double())
+        ref_loss = float(m_ref["loss"])
+        sides = {"card": on_card, "CPU": on_cpu}
+        loss_rel = {s: abs(float(m["loss"]) - ref_loss) / abs(ref_loss)
+                    for s, m in (("card", m_card), ("CPU", m_cpu))}
+        errs = {s: grad_errors(t.state.module, on_ref.state.module)
+                for s, t in sides.items()}
+        stats_err = {s: max(
+            float((a.cpu().double() - b).abs().max()) for (k, a), b in zip(
+                t.state.module.named_buffers(),
+                on_ref.state.module.buffers()) if "running" in k)
+            for s, t in sides.items()}
+        card_cpu = grad_errors(on_card.state.module, on_cpu.state.module)
+        del on_ref
+        walls["card vs CPU step"] = time.perf_counter() - t0
+        bound = {n: max(GRAD_RTOL, GRAD_NOISE_FACTOR * e)
+                 for n, e in errs["CPU"].items()}
+        over = [n for n, e in errs["card"].items() if not e <= bound[n]]
+        worst = sorted(errs["card"], key=errs["card"].get, reverse=True)[:5]
+        print(f"train step, float32 card and CPU vs float64 CPU ({n_params} "
+              f"parameters, batch {TRAIN_BATCH}, {HW}x{HW}): loss "
+              f"{ref_loss:.9f}, rel {loss_rel['card']:.3g} card, "
+              f"{loss_rel['CPU']:.3g} CPU (bound 1e-4); BN running stats "
+              f"max |diff| {stats_err['card']:.3g} card, "
+              f"{stats_err['CPU']:.3g} CPU (bound 1e-4); gradient rel-L2 "
+              f"over {GRAD_RTOL:g}: {sum(e > GRAD_RTOL for e in errs['card'].values())} "
+              f"tensors card, {sum(e > GRAD_RTOL for e in errs['CPU'].values())} "
+              f"CPU, of {len(bound)}; card vs CPU directly: loss rel "
+              f"{abs(float(m_card['loss']) - float(m_cpu['loss'])) / ref_loss:.3g}, "
+              f"worst gradient rel-L2 {max(card_cpu.values()):.3g}")
+        for n in worst:
+            print(f"  {n}: card {errs['card'][n]:.3g}, CPU "
+                  f"{errs['CPU'][n]:.3g}, bound {bound[n]:.3g}")
+        if n_params != UNET_PARAMS:
+            raise AssertionError(f"UNet has {n_params} parameters")
+        if not loss_rel["card"] <= 1e-4:
+            raise AssertionError(f"train step loss card vs float64 rel "
+                                 f"{loss_rel['card']}")
+        if not stats_err["card"] <= 1e-4:
+            raise AssertionError(f"BN running stats card vs float64 "
+                                 f"{stats_err['card']}")
+        if over:
+            raise AssertionError(f"gradients past their bound on the card: "
+                                 f"{over}")
+        results["card_vs_cpu"] = {
+            "loss_rel_f64": loss_rel, "bn_stats_err_f64": stats_err,
+            "grad_rel_l2_f64": errs, "card_vs_cpu_grad_rel_l2": card_cpu}
+
+        # one train step's device time, busy share and split (the trainer
+        # above is a throwaway; its state moves on)
+        xb = batch.to(dev)
+        step_ms = cuda_ms(lambda: on_card.train_step(on_card.state, xb),
+                          reps=5, warmup=1)
+        prof = profile_batch(
+            lambda x: [on_card.train_step(on_card.state, x)
+                       for _ in range(5)], xb, "5 train steps")
+        split = train_step_split(on_card, xb, perceptual, card)
+        # an epoch with the batches gathered on the card (--scan-epochs)
+        loader = build_loader(store, "train", cfg.data, backend="device",
+                              device=dev)
+        on_card.enable_device_epochs(loader.bank, loader.plan_flat)
+        scan = on_card.run_epoch(None, train=True, epoch=1)
+        scan_time = on_card.timings[-1]
+        if not np.isfinite(scan["loss"]):
+            raise AssertionError(f"device-bank epoch loss {scan['loss']}")
+        del on_card, on_cpu, loader
+
+        # --- 2. the CLI: train 2 epochs, then resume to 3
+        common = ["--data", store_dir, "--checkpoint-dir", models_dir,
+                  "--results-dir", results_dir, "--features", str(FEATURES),
+                  "--image-size", str(HW), "--device", str(dev)]
+        t0 = time.perf_counter()
+        trainer = cli.main(["train", "--preset", "unet_combined", *common,
+                            "--epochs", "2"])
+        walls["cli train 2 epochs"] = time.perf_counter() - t0
+        timings = trainer.timings
+        losses = trainer.history.series["train_loss"]
+        del trainer
+        t0 = time.perf_counter()
+        resumed = cli.main(["train", "--preset", "unet_combined", *common,
+                            "--epochs", "3", "--resume"])
+        walls["cli train --resume to 3"] = time.perf_counter() - t0
+        start_epoch = resumed.start_epoch
+        del resumed
+        with open(os.path.join(results_dir,
+                               "unet_combined_history.json")) as f:
+            hist = json.load(f)
+        print(f"train losses {hist['train_loss']}, val losses "
+              f"{hist['val_loss']}")
+        if not all(np.isfinite(hist["train_loss"] + hist["val_loss"])):
+            raise AssertionError("a training loss is not finite")
+        if not losses[1] < losses[0]:
+            raise AssertionError(f"epoch 2 train loss {losses[1]} not below "
+                                 f"epoch 1's {losses[0]}")
+        if start_epoch != 3 or hist["epoch"] != [1.0, 2.0, 3.0]:
+            raise AssertionError(f"resume started at {start_epoch}, history "
+                                 f"epochs {hist['epoch']}")
+        want_files = {f"unet_combined_{s}.pt" for s in (
+            "best", "latest", "epoch_1", "epoch_2", "epoch_3")}
+        if not want_files <= set(os.listdir(models_dir)):
+            raise AssertionError(f"checkpoints {os.listdir(models_dir)}")
+        want_keys = {"train_loss", "val_loss", "epoch_time_s", "train_mse",
+                     "train_ssim", "train_perceptual", "val_mse", "val_ssim",
+                     "val_perceptual", "best_val_loss", "config", "timestamp"}
+        if not want_keys <= set(hist):
+            raise AssertionError(f"history keys {sorted(hist)}")
+        ep2 = [t for t in timings if t["train"] and t["epoch"] == 2][0]
+        steps_per_s = ep2["steps"] / ep2["seconds"]
+        results.update(
+            history={k: hist[k] for k in ("train_loss", "val_loss",
+                                          "epoch_time_s")},
+            epoch2_train={"steps": ep2["steps"], "seconds": ep2["seconds"],
+                          "steps_per_s": steps_per_s,
+                          "slices_per_s": steps_per_s * TRAIN_BATCH},
+            scan_epoch={"steps": scan_time["steps"],
+                        "seconds": scan_time["seconds"],
+                        "loss": scan["loss"]},
+            step_ms=step_ms, profile=prof, split=split)
+
+        # --- 3. the trained checkpoint through K1 (eval) and A, B (serving)
+        ssim_fused.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["eval", "--model", "unet_combined", *common,
+                  "--batch-size", str(BATCH)])
+        walls["cli eval"] = time.perf_counter() - t0
+        launches = {"ssim": ssim_fused.launches}
+        with open(os.path.join(results_dir,
+                               "unet_combined_test_metrics.json")) as f:
+            metrics = json.load(f)
+        model = load_model("unet_combined", models_dir, checkpoint="required",
+                           cfg=cfg.model, device=dev)
+        bank, evals = None, {}
+        for dist, label in ((2, "3mm"), (4, "6mm")):
+            loader = build_loader(store, "test", dataclasses.replace(
+                cfg.data, distance_filter=dist, batch_size=BATCH),
+                device=dev, bank=bank)
+            bank = loader.bank
+            pairs = [(b[..., 2], model.predict_nhwc(b[..., :2])[..., 0])
+                     for b in loader]
+            gt = torch.cat([g for g, _ in pairs])
+            pred = torch.cat([p for _, p in pairs])
+            plain = float(ssim(minmax_normalize(gt), minmax_normalize(pred),
+                               use_kernel=False).mean())
+            got = metrics[label]["ssim_mean"]
+            evals[label] = {"ssim_k1": got, "ssim_plain": plain,
+                            "psnr": metrics[label]["psnr_mean"],
+                            "n": metrics[label]["num_samples"]}
+            print(f"trained unet_combined {label}: SSIM {got:.6f} (plain "
+                  f"{plain:.6f}, diff {abs(got - plain):.2g}) PSNR "
+                  f"{metrics[label]['psnr_mean']:.4f} dB, "
+                  f"{metrics[label]['num_samples']} triplets")
+            if not (np.isfinite(got) and abs(got - plain) <= SSIM_ATOL):
+                raise AssertionError(f"trained eval {label}: K1 {got} vs "
+                                     f"plain {plain}")
+        if launches["ssim"] <= 0:
+            raise AssertionError("K1 was not launched by the trained eval")
+        results["eval"] = evals
+
+        bundle = os.path.join(work, "bundle")
+        t0 = time.perf_counter()
+        cli.main(["export-serving", "--model", "unet_combined", *common,
+                  "--quant", "int8_fused", "--batch-size", str(BATCH),
+                  "--out", bundle])
+        walls["cli export-serving"] = time.perf_counter() - t0
+        loader = build_loader(store, "test", dataclasses.replace(
+            cfg.data, batch_size=BATCH), device=dev)
+        requests = torch.cat([b[..., :2] for b in loader])[:TRAIN_REQUESTS]
+        requests = requests.cpu().numpy()
+        with engine_from_bundle(bundle, batch_size=BATCH, device=dev) as eng:
+            eng.predict(requests[0])
+            eng.reset_stats()
+            reset_launches(conv2d_int8, upconv2x2_int8)
+            served = np.stack([f.result(timeout=600) for f in
+                               [eng.submit(r) for r in requests]])
+            launches.update(launch_counts(conv2d_int8, upconv2x2_int8))
+            stats = eng.stats
+        check_paths(launches, {
+            "conv_int8": path_counts(conv_sites(),
+                                     lambda st: conv_path(st[2], st[3], st[4])),
+            "upconv_int8": path_counts(upconv_sites(),
+                                       lambda st: upconv_path(st[2], st[3]))},
+            stats.batches, "trained serving")
+        x = torch.from_numpy(requests).to(dev)
+        folded = load_model("unet_combined", models_dir,
+                            checkpoint="required", cfg=cfg.model, fold_bn=True,
+                            device=dev)
+        plain_fwd = Int8FusedUNet(load_bundle(bundle)[0], device=dev,
+                                  plain=True)
+        with fp32_reference():
+            y_fp = torch.cat([folded.predict_nhwc(x[i:i + BATCH])
+                              for i in range(0, len(x), BATCH)]).cpu().numpy()
+        y_plain = torch.cat([plain_fwd(x[i:i + BATCH]) for i in range(
+            0, len(x), BATCH)]).cpu().numpy()
+        rel_fp, rel_plain = rel_l2(served, y_fp), rel_l2(served, y_plain)
+        print(f"trained int8_fused served vs folded float rel-L2 {rel_fp:.6f} "
+              f"(bound 0.15); vs plain versions {rel_plain:.6f} (must be 0); "
+              f"{stats.requests} requests in {stats.batches} batches")
+        if served.shape != (len(requests), HW, HW, 1) or not np.isfinite(
+                served).all():
+            raise AssertionError(f"trained serving output {served.shape}")
+        if not rel_fp < 0.15:
+            raise AssertionError(f"trained served vs float rel-L2 {rel_fp}")
+        if rel_plain != 0.0:
+            raise AssertionError(f"trained served vs plain rel-L2 {rel_plain}")
+        results["serving"] = {"rel_l2_float": rel_fp,
+                              "rel_l2_plain": rel_plain,
+                              "batches": stats.batches}
+    results["launches"], results["wall_s"] = launches, walls
+    print(f"train phase launches {launches}")
+    e2 = results["epoch2_train"]
+    print(f"training (unet_combined, features {FEATURES}, {HW}x{HW}, batch "
+          f"{TRAIN_BATCH}, Adam, hflip/vflip, MSE + 0.1 SSIM + 0.1 Gabor; "
+          f"{card}): epoch 2 {e2['steps']} steps in {e2['seconds']:.3f} s = "
+          f"{e2['steps_per_s']:.3f} steps/s, {e2['slices_per_s']:.3f} "
+          f"slices/s; one step {step_ms:.3f} ms on the card; device-bank "
+          f"epoch {scan_time['steps']} steps in {scan_time['seconds']:.3f} s")
+    if prof is not None:
+        print(f"training device busy {prof['busy_ms']:.3f} ms of "
+              f"{prof['wall_ms']:.3f} ms over 5 steps "
+              f"({prof['busy_ms'] / prof['wall_ms']:.1%}; {card})")
+    print("train wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                         for k, v in walls.items()))
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -1246,6 +1674,7 @@ def main() -> int:
     eval_launches, eval_result = eval_phase(dev, qparams, card)
     k3_rows = k3_phase(dev)
     diff_launches, diff_result = diffusion_phase(dev, card)
+    train_launches, train_result = train_phase(dev, card)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -1262,10 +1691,11 @@ def main() -> int:
         libs = [r["library_ms"] for r in sel]
 
         def main_path(key):
-            # the serving, eval and diffusion paths' runs, each counted
-            # from 0 just before it
+            # the serving, eval, diffusion and training paths' runs, each
+            # counted from 0 just before it
             return sum(launches.get(key, 0) for launches in (
-                serve_launches, eval_launches, diff_launches))
+                serve_launches, eval_launches, diff_launches,
+                train_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -1288,7 +1718,8 @@ def main() -> int:
         with open(args.sites_json, "w") as f:
             json.dump({"card": card, "sites": rows + ssim_rows + k3_rows,
                        "slice": slice_result, "eval": eval_result,
-                       "diffusion": diff_result, "kernels": kernels}, f,
+                       "diffusion": diff_result, "train": train_result,
+                       "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

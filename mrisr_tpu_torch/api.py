@@ -20,7 +20,10 @@ import torch
 from torch import nn
 
 from mrisr_tpu_torch.ckpt.fold_bn import fold_unet_batchnorm
-from mrisr_tpu_torch.ckpt.torch_ckpt import load_reference_state_dict
+from mrisr_tpu_torch.ckpt.torch_ckpt import (
+    load_checkpoint_file,
+    load_reference_state_dict,
+)
 from mrisr_tpu_torch.config import PRESETS, ModelConfig
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
 from mrisr_tpu_torch.models import UNet
@@ -166,8 +169,7 @@ def load_model(
         raise FileNotFoundError(f"Checkpoint not found for {name} in "
                                 f"{models_dir}")
     if path is not None:
-        load_reference_state_dict(
-            module, torch.load(path, map_location="cpu", weights_only=True))
+        load_reference_state_dict(module, load_checkpoint_file(path))
     module = module.eval()
     schedule = None
     if kind == "diffusion":

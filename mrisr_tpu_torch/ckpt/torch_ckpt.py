@@ -14,8 +14,10 @@ lacks it loads with zeros.
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import pickle
+from typing import Any, Dict, List
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -42,6 +44,42 @@ def load_reference_state_dict(model: nn.Module, checkpoint: Any) -> None:
         if k.endswith("num_batches_tracked"):
             sd.setdefault(k, torch.zeros_like(v))
     model.load_state_dict(sd, strict=True)
+
+
+def _numpy_globals() -> List[Any]:
+    """The numpy globals a pickled scalar, array or dtype names: the
+    scalar and array rebuilders under both module paths (numpy 1 pickles
+    ``numpy.core.multiarray``, numpy 2 ``numpy._core.multiarray``),
+    ``ndarray``, ``dtype`` and every concrete dtype class."""
+    try:
+        from numpy._core import multiarray
+    except ImportError:  # numpy 1
+        from numpy.core import multiarray
+    out: List[Any] = [np.ndarray, np.dtype]
+    out += [getattr(np.dtypes, n) for n in dir(np.dtypes)
+            if n.endswith("DType")]
+    for name in ("scalar", "_reconstruct"):
+        fn = getattr(multiarray, name)
+        out.append(fn)
+        out += [(fn, f"{m}.{name}") for m in ("numpy.core.multiarray",
+                                              "numpy._core.multiarray")
+                if m != fn.__module__]
+    return out
+
+
+def load_checkpoint_file(path: str) -> Any:
+    """``torch.load`` of a checkpoint file onto the CPU, weights-only.
+
+    A reference-layout dict may carry numpy values beside the state dict
+    (``val_loss=np.float64(...)``, a history array, a list of
+    ``np.float32``), which the plain weights-only unpickler refuses; the
+    load is then retried with numpy's scalar, array and dtype globals
+    allowlisted.  It stays weights-only: no other global is admitted."""
+    try:
+        return torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        with torch.serialization.safe_globals(_numpy_globals()):
+            return torch.load(path, map_location="cpu", weights_only=True)
 
 
 def reference_checkpoint(model: nn.Module, model_name: str, epoch: int = 0,

@@ -1,15 +1,18 @@
 """Command-line interface of the port (counterpart: ``mrisr_tpu/cli.py``):
 
   python -m mrisr_tpu_torch synth <out_store> [--patients 8]
+  python -m mrisr_tpu_torch train --preset unet_combined --data <store> [...]
   python -m mrisr_tpu_torch eval --model unet --data <store> [...]
   python -m mrisr_tpu_torch predict-volume --model unet --data <store> [...]
   python -m mrisr_tpu_torch export-serving --model fastddpm \
       --quant int8_deep --data <store> --out <bundle> [...]
 
 The arguments are the JAX CLI's, plus ``--device`` (default: the card;
-``--device cpu`` runs the plain versions on the CPU).  Training, the other
-commands, ``--figure`` and ``--export-dicom`` come with later slices
-(ROADMAP.md).
+``--device cpu`` runs the plain versions on the CPU).  ``train`` trains the
+pair UNets (presets ``unet`` and ``unet_combined``); the other families,
+the other commands, ``--bf16``, ``--figure`` and ``--export-dicom`` come
+with later slices and raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ import random
 import re
 import sys
 
-from mrisr_tpu_torch.config import PRESETS
+from mrisr_tpu_torch.config import PRESETS, Config
 
 
 def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True) -> None:
@@ -34,7 +37,7 @@ def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True) -> None:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--results-dir", default=None)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 forward (not ported yet: raises)")
+                   help="bfloat16 compute (not ported yet: raises)")
     p.add_argument("--backend", default="host", choices=("host", "device"),
                    help="slice bank in host RAM or on the device")
     p.add_argument("--features", type=int, default=None,
@@ -50,14 +53,46 @@ def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True) -> None:
                         "the plain versions)")
 
 
+def _add_train_args(p: argparse.ArgumentParser) -> None:
+    """The JAX CLI's training flags (``mrisr_tpu/cli.py``)."""
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None,
+                   help="learning rate override (default: preset value)")
+    p.add_argument("--lr-schedule", default=None,
+                   choices=("constant", "cosine"),
+                   help="'cosine' decays to 0 over the full --epochs budget")
+    p.add_argument("--patience", type=int, default=None,
+                   help="early-stopping patience override (epochs)")
+    p.add_argument("--train-seed", type=int, default=None,
+                   help="training seed override (init; default: preset 0)")
+    p.add_argument("--light-checkpoints", action="store_true",
+                   help="save only the best (async) and one final latest "
+                        "checkpoint, no per-epoch snapshots")
+    p.add_argument("--resume", action="store_true",
+                   help="continue from the newest <preset>_epoch_<N>.pt")
+    p.add_argument("--mesh-data", type=int, default=None,
+                   help="data-parallel width (not ported yet above 1)")
+    p.add_argument("--mesh-model", type=int, default=None,
+                   help="model-parallel width (not ported yet above 1)")
+    p.add_argument("--shard-hosts", action="store_true",
+                   help="each process loads only its own patient shard "
+                        "(round-robin, rank and world size from "
+                        "torch.distributed)")
+
+
 def _build_config(args, preset_name: str):
-    """The preset with the flags that were passed applied; reflects the
-    effective checkpoint/results dirs and image size back onto ``args``."""
+    """The preset (or the ``--config`` file) with the flags that were
+    passed applied; reflects the effective checkpoint/results dirs and
+    image size back onto ``args``."""
     if args.bf16:
         raise NotImplementedError(
-            "the bf16 eval forward is not ported yet (ROADMAP.md, Queue 1 "
-            "item 3); the port evaluates in float32")
-    cfg = PRESETS[preset_name]
+            "bf16 compute is not ported yet (ROADMAP.md, Queue 1 item 6, "
+            "rest: bf16); the port runs in float32")
+    if getattr(args, "config", None):
+        with open(args.config) as f:
+            cfg = Config.from_dict(json.load(f))
+    else:
+        cfg = PRESETS[preset_name]
     data = dataclasses.replace(
         cfg.data,
         root=args.data,
@@ -66,11 +101,18 @@ def _build_config(args, preset_name: str):
         **({"batch_size": args.batch_size} if args.batch_size else {}),
         **({"distance_filter": args.distance} if args.distance else {}),
     )
+    flags = {"epochs": "epochs", "lr": "learning_rate",
+             "lr_schedule": "lr_schedule",
+             "patience": "early_stopping_patience", "train_seed": "seed"}
     train = dataclasses.replace(
         cfg.train,
         **({"checkpoint_dir": args.checkpoint_dir}
            if args.checkpoint_dir else {}),
         **({"results_dir": args.results_dir} if args.results_dir else {}),
+        **{field: getattr(args, flag) for flag, field in flags.items()
+           if getattr(args, flag, None) is not None},
+        **({"save_every_epoch": False, "light_checkpoints": True}
+           if getattr(args, "light_checkpoints", False) else {}),
     )
     model = cfg.model
     if args.features:
@@ -98,6 +140,64 @@ def cmd_synth(args) -> None:
         seed=args.seed,
     )
     print(f"packed {len(store)} synthetic series -> {args.out}")
+
+
+# presets the port does not train yet -> the ROADMAP item that ports them
+_TRAIN_NOT_PORTED = {
+    "unet_gan": "ROADMAP.md, Queue 1 item 11",
+    "deepcnn": "ROADMAP.md, Queue 1 item 11",
+    "progressive_unet": "ROADMAP.md, Queue 1 item 11",
+    "fastddpm": "ROADMAP.md, Queue 1 item 12",
+    "fastddpm_simple": "ROADMAP.md, Queue 1 item 12",
+    "fastddpm_cosine128": "ROADMAP.md, Queue 1 item 12",
+    "fastddpm_large": "ROADMAP.md, Queue 1 item 12",
+}
+
+
+def cmd_train(args):
+    """Train a pair UNet (presets 'unet', 'unet_combined') on ``--device``
+    and write ``<preset>_{best,latest,epoch_N}.pt``; returns the trainer."""
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.device import resolve_device
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    if args.preset in _TRAIN_NOT_PORTED:
+        raise NotImplementedError(
+            f"training preset {args.preset!r} is not ported yet "
+            f"({_TRAIN_NOT_PORTED[args.preset]})")
+    if max(args.mesh_data or 1, args.mesh_model or 1) > 1:
+        raise NotImplementedError(
+            "data/model-parallel training is not ported yet (ROADMAP.md, "
+            "Queue 1 item 15: DDP with SyncBatchNorm)")
+    cfg = _build_config(args, args.preset)
+    if cfg.loss.kind == "distill":
+        raise SystemExit(
+            "preset 'unet_distilled' trains against a teacher checkpoint "
+            "with the distill command, which is not ported yet (ROADMAP.md, "
+            "Queue 1 item 14)")
+    if args.scan_epochs and args.backend != "device":
+        raise SystemExit("--scan-epochs requires --backend device")
+    device = resolve_device(args.device)
+    store = VolumeStore.open(args.data)
+    train_loader = build_loader(store, "train", cfg.data,
+                                backend=args.backend, device=device,
+                                shard_by_host=args.shard_hosts)
+    val_loader = build_loader(store, "val", cfg.data, backend=args.backend,
+                              device=device)
+    perceptual_fn = (make_perceptual_fn(cfg.loss.perceptual)
+                     if cfg.loss.kind == "combined" else None)
+    trainer = SupervisedTrainer(cfg, perceptual_fn=perceptual_fn,
+                                steps_per_epoch=len(train_loader),
+                                device=device)
+    if args.scan_epochs:
+        trainer.enable_device_epochs(train_loader.bank, train_loader.plan_flat)
+    if args.resume and trainer.try_resume():
+        print(f"resumed from epoch {trainer.start_epoch - 1}")
+    hist = trainer.fit(train_loader, val_loader)
+    print(f"best val loss: {hist.extra.get('best_val_loss'):.4f}")
+    return trainer
 
 
 def cmd_eval(args) -> None:
@@ -211,6 +311,18 @@ def main(argv=None) -> None:
                    help="base phantom seed (patient p uses seed+p)")
     q.set_defaults(fn=cmd_synth)
 
+    q = sub.add_parser("train")
+    q.add_argument("--preset", required=True, choices=sorted(PRESETS))
+    q.add_argument("--config", default=None,
+                   help="JSON config file overriding the preset "
+                        "(mrisr_tpu/configs/*.json)")
+    q.add_argument("--scan-epochs", action="store_true",
+                   help="gather each train epoch's batches on the card "
+                        "(requires --backend device)")
+    _add_common_args(q, fresh=False)
+    _add_train_args(q)
+    q.set_defaults(fn=cmd_train)
+
     q = sub.add_parser("eval")
     q.add_argument("--model", required=True)
     q.add_argument("--metric-mode", default="minmax-each",
@@ -245,7 +357,7 @@ def main(argv=None) -> None:
     q.set_defaults(fn=cmd_export_serving)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -7,18 +7,23 @@
   (numpy), or a tensor on the card whose gathers run there.
 - A batch is an integer gather plus one host-to-device copy, yielded as a
   contiguous float32 NHWC tensor ``(B, H, W, C)`` on the loader's device,
-  with C = [pre, post, target] (triplets) or the 5-slice window.
+  with C = [pre, post, target] (triplets) or the 5-slice window.  A host
+  bank's batch goes through pinned memory with a non-blocking copy.
+- Train batches get paired augmentation on the loader's device, batch by
+  batch (``ops/augment.py``), and :class:`PrefetchIterator` builds them on a
+  background thread ahead of the consumer.
 
 The loaders mirror ``build_dataloader`` / ``build_progressive_dataloader``
 (reference ``src/ModelDataGenerator.py:217-284``,
 ``src/ModelDataGenerator_ProgressiveUNet.py:218-279``): the same
 patient-level split, shuffle on train, distance filtering and drop_last.
-Augmentation and the background prefetch of train batches come with the
-training slice (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from dataclasses import dataclass
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,6 +34,7 @@ from mrisr_tpu_torch.data.split import split_for
 from mrisr_tpu_torch.data.triplets import TripletIndex, WindowIndex
 from mrisr_tpu_torch.data.volumes import VolumeStore
 from mrisr_tpu_torch.device import DeviceLike, resolve_device
+from mrisr_tpu_torch.ops.augment import paired_augment
 from mrisr_tpu_torch.ops.resize import resize_bilinear
 from mrisr_tpu_torch.ops.stats import minmax_normalize, zscore_slices
 
@@ -113,9 +119,36 @@ class SliceBank:
         return self.flat[flat_ids]
 
 
+@dataclass
+class _AugmentSpec:
+    enabled: bool = False
+    hflip: bool = True
+    vflip: bool = True
+    rot90: bool = False
+    rotate_degrees: float = 0.0
+
+    @classmethod
+    def from_config(cls, cfg: DataConfig, train: bool = True
+                    ) -> "_AugmentSpec":
+        """The spec of ``cfg``: on when ``cfg.augment`` and ``train``."""
+        return cls(enabled=cfg.augment and train, hflip=cfg.hflip,
+                   vflip=cfg.vflip, rot90=cfg.rot90,
+                   rotate_degrees=cfg.rotate_degrees)
+
+    def apply(self, batch: torch.Tensor,
+              generator: torch.Generator) -> torch.Tensor:
+        """``batch`` augmented with draws from ``generator``, or as it is
+        when the spec is disabled."""
+        if not self.enabled:
+            return batch
+        return paired_augment(batch, generator, hflip=self.hflip,
+                              vflip=self.vflip, rot90=self.rot90,
+                              rotate_degrees=self.rotate_degrees)
+
+
 class _BaseLoader:
     """Shared epoch iteration: shuffle, batch, pad or drop the tail, put on
-    the device."""
+    the device, augment."""
 
     def __init__(
         self,
@@ -127,6 +160,7 @@ class _BaseLoader:
         drop_last: bool,
         pad_final: str,
         device: DeviceLike,
+        augment: Optional[_AugmentSpec] = None,
     ):
         if pad_final not in ("wrap", "partial"):
             raise ValueError(f"pad_final must be 'wrap' or 'partial', got "
@@ -138,7 +172,10 @@ class _BaseLoader:
         self.drop_last = drop_last
         self.pad_final = pad_final
         self.device = resolve_device(device)
+        self.augment = augment or _AugmentSpec()
         self._np_rng = np.random.default_rng(seed)
+        # the augmentation draws: one stream on the loader's device
+        self._aug_gen = torch.Generator(self.device).manual_seed(seed)
 
     def __len__(self) -> int:
         n = self.plan_flat.shape[0]
@@ -168,9 +205,13 @@ class _BaseLoader:
             stack = self.bank.gather(self.plan_flat[idx].reshape(-1))
             if isinstance(stack, np.ndarray):
                 stack = torch.from_numpy(stack)
-            stack = stack.to(self.device, torch.float32).reshape(
+                if self.device.type == "cuda":
+                    stack = stack.pin_memory()
+            stack = stack.to(self.device, torch.float32,
+                             non_blocking=True).reshape(
                 idx.shape[0], c, *self.bank.image_size)
-            yield stack.permute(0, 2, 3, 1).contiguous()  # NHWC
+            batch = stack.permute(0, 2, 3, 1).contiguous()  # NHWC
+            yield self.augment.apply(batch, self._aug_gen)
 
 
 class TripletLoader(_BaseLoader):
@@ -190,6 +231,7 @@ class TripletLoader(_BaseLoader):
         drop_last: bool = False,
         pad_final: str = "wrap",
         device: DeviceLike = None,
+        augment: Optional[_AugmentSpec] = None,
     ):
         plan = TripletIndex(bank.counts, distance_filter).slice_plan()
         # [series_local, pre, mid, post, dist] -> flat [pre, post, mid]: the
@@ -198,7 +240,7 @@ class TripletLoader(_BaseLoader):
                          for j in (1, 3, 2)], axis=1)
         self.distances = plan[:, 4].copy()
         super().__init__(bank, flat, batch_size, shuffle, seed, drop_last,
-                         pad_final, device)
+                         pad_final, device, augment)
 
 
 class WindowLoader(_BaseLoader):
@@ -215,12 +257,97 @@ class WindowLoader(_BaseLoader):
         drop_last: bool = False,
         pad_final: str = "wrap",
         device: DeviceLike = None,
+        augment: Optional[_AugmentSpec] = None,
     ):
         plan = WindowIndex(bank.counts).slice_plan()  # [series_local, i..i+4]
         flat = np.stack([bank.flat_ids(plan[:, 0], plan[:, 1 + j])
                          for j in range(5)], axis=1)
         super().__init__(bank, flat, batch_size, shuffle, seed, drop_last,
-                         pad_final, device)
+                         pad_final, device, augment)
+
+
+class PrefetchIterator:
+    """Builds up to ``depth`` batches ahead of the consumer on a background
+    thread (gather, host-to-device copy and augmentation launches): the
+    role DataLoader workers played in the reference, without processes.
+
+    Every batch the loader yields reaches the consumer, the tail included:
+    the end marker goes through the same bounded put as the batches.  A
+    consumer that stops early (``break``) sets the stop flag, and the
+    worker then gives up its pending put.  An exception in the worker is
+    raised on the consumer's side."""
+
+    def __init__(self, loader, depth: int = 2):
+        self.loader = loader
+        self.depth = max(depth, 1)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __getattr__(self, name):
+        # a transparent proxy for the loader's attributes (bank, plan_flat)
+        return getattr(self.loader, name)
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.depth)
+        end = object()
+        stop = threading.Event()
+        error: list = []
+
+        def put(item) -> bool:
+            # bounded and stop-aware: blocks while the queue is full, so no
+            # batch is evicted; gives up only once the consumer has left
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for batch in self.loader:
+                    if not put(batch):
+                        return
+            except BaseException as e:  # re-raised on the consumer's side
+                error.append(e)
+            finally:
+                put(end)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is end:
+                    break
+                yield item
+            t.join()
+            if error:
+                raise error[0]
+        finally:
+            # also reached when the consumer closes the generator early
+            stop.set()
+            t.join(timeout=5)
+
+
+def host_shard_patients(patients, process_index: Optional[int] = None,
+                        process_count: Optional[int] = None):
+    """Round-robin patient shard for multi-process data parallelism: each
+    process reads only its own patients.  Rank and world size default to
+    ``torch.distributed``'s when it is initialized, else one process."""
+    if process_count is None or process_index is None:
+        dist = torch.distributed
+        initialized = dist.is_available() and dist.is_initialized()
+        if process_count is None:
+            process_count = dist.get_world_size() if initialized else 1
+        if process_index is None:
+            process_index = dist.get_rank() if initialized else 0
+    if process_count <= 1:
+        return list(patients)
+    return [p for i, p in enumerate(patients)
+            if i % process_count == process_index]
 
 
 def build_loader(
@@ -232,33 +359,40 @@ def build_loader(
     device: DeviceLike = None,
     seed: int = 0,
     bank: Optional[SliceBank] = None,
-) -> _BaseLoader:
+    shard_by_host: bool = False,
+):
     """The ``build_dataloader`` analog: split -> bank -> loader, batches on
-    ``device`` (``None``: the card).
+    ``device`` (``None``: the card).  The train split is shuffled (numpy's
+    ``default_rng(seed)``), augmented when ``cfg.augment``, and wrapped in a
+    :class:`PrefetchIterator` when ``cfg.prefetch``.
 
     ``bank``: reuse a SliceBank already built for the same split (the bank
     does not depend on ``distance_filter``, so the per-spacing eval builds
-    it once)."""
+    it once).  ``shard_by_host``: this process reads only its round-robin
+    share of the split's patients (:func:`host_shard_patients`)."""
     if kind not in ("triplet", "window"):
         raise ValueError(f"unknown loader kind: {kind}")
-    if cfg.augment and split == "train":
-        raise NotImplementedError(
-            "train-time augmentation is not ported yet; it comes with the "
-            "training slice (ROADMAP.md, Queue 1 item 6)")
     if bank is None:
         patients = split_for(store.patient_ids, split, cfg.test_val_fraction,
                              cfg.test_within_fraction, cfg.split_seed)
+        if shard_by_host:
+            patients = host_shard_patients(patients)
         bank = SliceBank(store, store.series_for_patients(patients),
                          cfg.image_size, backend=backend, device=device,
                          value_range=cfg.value_range)
-    shuffle = split == "train"
+    train = split == "train"
+    aug = _AugmentSpec.from_config(cfg, train)
     # train keeps one batch shape (wrap-pad); eval splits yield the true
     # partial final batch
-    pad_final = "wrap" if split == "train" else "partial"
+    pad_final = "wrap" if train else "partial"
     if kind == "triplet":
-        return TripletLoader(bank, cfg.distance_filter, cfg.batch_size,
-                             shuffle=shuffle, seed=seed, pad_final=pad_final,
-                             device=device)
-    return WindowLoader(bank, cfg.batch_size, shuffle=shuffle, seed=seed,
-                        drop_last=(split == "train"), pad_final=pad_final,
-                        device=device)
+        loader = TripletLoader(bank, cfg.distance_filter, cfg.batch_size,
+                               shuffle=train, seed=seed, pad_final=pad_final,
+                               device=device, augment=aug)
+    else:
+        loader = WindowLoader(bank, cfg.batch_size, shuffle=train, seed=seed,
+                              drop_last=train, pad_final=pad_final,
+                              device=device, augment=aug)
+    if cfg.prefetch and train:
+        return PrefetchIterator(loader, depth=cfg.prefetch)
+    return loader

@@ -16,6 +16,26 @@ BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode update of ``running_var``
+    uses the biased batch variance, as flax's ``BatchNorm`` does
+    (``mrisr_tpu/models/blocks.py``); torch's own update uses the unbiased
+    one, n / (n - 1) larger, which at a 2x2 bottleneck of batch 4 (n = 16)
+    is a 6.7 % difference an update.  Normalization (biased variance), the
+    momentum, eps, the eval forward and the state-dict keys are torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
 class DoubleConv(nn.Module):
     """(Conv3x3 -> BN -> ReLU) x 2.
 
@@ -33,7 +53,7 @@ class DoubleConv(nn.Module):
                 bias=use_bias or not use_bn,
             ))
             if use_bn:
-                layers.append(nn.BatchNorm2d(
+                layers.append(BatchNorm2d(
                     features, eps=BN_EPS, momentum=BN_MOMENTUM))
             layers.append(nn.ReLU(inplace=True))
         self.conv = nn.Sequential(*layers)

@@ -48,7 +48,8 @@ class UNet(nn.Module):
         self.final = nn.Conv2d(f, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out) float32."""
+        """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out) float32 (float64
+        for a float64 module)."""
         h = x.permute(0, 3, 1, 2)
         skips = []
         for name in BLOCKS_DOWN:
@@ -60,4 +61,5 @@ class UNet(nn.Module):
             h = getattr(self, f"upconv{name[-1]}")(h)
             h = torch.cat([h, skip], dim=1)
             h = getattr(self, name)(h)
-        return self.final(h).permute(0, 2, 3, 1).float()
+        h = self.final(h).permute(0, 2, 3, 1)
+        return h.to(torch.promote_types(h.dtype, torch.float32))

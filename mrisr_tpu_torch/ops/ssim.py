@@ -51,11 +51,12 @@ def ssim_map(
     k2: float = 0.03,
 ) -> torch.Tensor:
     """Cropped SSIM map: ``(..., H, W) -> (..., H - win + 1, W - win + 1)``,
-    float32."""
+    float32 (float64 for float64 inputs)."""
     if x.shape != y.shape:
         raise ValueError(f"ssim: shapes differ, {tuple(x.shape)} vs "
                          f"{tuple(y.shape)}")
-    xf, yf = x.float(), y.float()
+    dt = torch.promote_types(x.dtype, torch.float32)
+    xf, yf = x.to(dt), y.to(dt)
     np_ = float(win_size * win_size)
     cov_norm = np_ / (np_ - 1.0)  # skimage use_sample_covariance=True
 

@@ -1,0 +1,11 @@
+"""Training: optimizer and state, the supervised steps, the epoch loop with
+checkpoints and history, and epochs gathered on the card."""
+
+from mrisr_tpu_torch.train.history import TrainingHistory  # noqa: F401
+from mrisr_tpu_torch.train.state import (  # noqa: F401
+    TrainState,
+    create_train_state,
+    make_optimizer,
+)
+from mrisr_tpu_torch.train.steps import make_supervised_steps  # noqa: F401
+from mrisr_tpu_torch.train.trainer import SupervisedTrainer  # noqa: F401

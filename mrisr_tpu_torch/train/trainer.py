@@ -1,0 +1,284 @@
+"""Trainers: epoch loops with early stopping, checkpoints and history
+(counterpart: ``mrisr_tpu/train/trainer.py``).
+
+``SupervisedTrainer`` keeps UNetTrainer's contract (reference
+``src/unet_model.py:148-298``): per-epoch train and val losses, early
+stopping with a patience counter, ``<preset>_best`` / ``_latest`` /
+``_epoch_<N>`` checkpoints, the history JSON and the loss-curve PNG.  It
+trains the pair UNets with the MSE or the combined loss; the progressive
+UNet's window kind comes with that model (ROADMAP.md, Queue 1 item 11).
+
+A checkpoint is the reference's torch layout, Python scalars only::
+
+    {epoch, model_state_dict (the 1x1 head as final_conv),
+     optimizer_state_dict, scheduler_state_dict, step, val_loss, best_loss}
+
+so ``api.load_model("unet_combined")`` reads ``unet_combined_best.pt`` as
+it reads the reference's files, and ``try_resume`` continues from the
+newest ``_epoch_<N>.pt``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Callable, Dict, Iterable, List, Optional
+
+import torch
+
+from mrisr_tpu_torch.ckpt.io import (
+    get_latest_checkpoint,
+    save_checkpoint,
+    wait_for_async_saves,
+)
+from mrisr_tpu_torch.ckpt.torch_ckpt import (
+    load_checkpoint_file,
+    load_reference_state_dict,
+    reference_checkpoint,
+)
+from mrisr_tpu_torch.config import Config
+from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
+from mrisr_tpu_torch.losses import combined_loss, mse
+from mrisr_tpu_torch.models.registry import init_model
+from mrisr_tpu_torch.train.history import TrainingHistory
+from mrisr_tpu_torch.train.state import create_train_state
+from mrisr_tpu_torch.train.steps import make_supervised_steps
+
+
+class _EpochLoopMixin:
+    """Shared epoch loop: early stopping, best/latest/epoch_N checkpoints,
+    history."""
+
+    config: Config
+    history: TrainingHistory
+
+    def enable_device_epochs(self, bank, plan_flat) -> None:
+        """Run the train epochs with the batches gathered on the card
+        (``train/device_epoch.py``): ``bank`` is a device-backend SliceBank
+        and ``plan_flat`` the loader's flat slice plan.  Validation keeps
+        the loader."""
+        from mrisr_tpu_torch.data.pipeline import _AugmentSpec
+        from mrisr_tpu_torch.train.device_epoch import DeviceEpochRunner
+
+        self._device_runner = DeviceEpochRunner(
+            bank, plan_flat, self.train_step,
+            batch_size=self.config.data.batch_size,
+            augment=_AugmentSpec.from_config(self.config.data),
+            seed=self.config.train.seed)
+
+    def _ckpt_path(self, suffix: str) -> str:
+        d = self.config.train.checkpoint_dir
+        os.makedirs(d, exist_ok=True)
+        return os.path.join(d, f"{self.config.preset}_{suffix}.pt")
+
+    def try_resume(self) -> bool:
+        """Resume from the newest ``<preset>_epoch_<N>.pt``, else from
+        ``<preset>_latest.pt``."""
+        found = get_latest_checkpoint(self.config.train.checkpoint_dir,
+                                      self.config.preset)
+        path = found[0] if found is not None else None
+        if path is None and os.path.isfile(self._ckpt_path("latest")):
+            path = self._ckpt_path("latest")
+        if path is None:
+            return False
+        self.load(path)
+        self._restore_history()
+        return True
+
+    def _restore_history(self) -> None:
+        """Reload the epoch series up to the resumed epoch from the run's
+        history JSON, so a resumed run keeps one continuous history."""
+        hist_path = os.path.join(self.config.train.results_dir,
+                                 f"{self.config.preset}_history.json")
+        if not os.path.exists(hist_path):
+            return
+        try:
+            with open(hist_path) as f:
+                prior = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return
+        cutoff = getattr(self, "start_epoch", 1) - 1
+        keep = sum(1 for e in prior.get("epoch", []) if e <= cutoff)
+        for k, v in prior.items():
+            if isinstance(v, list) and v and isinstance(v[0], (int, float)):
+                self.history.series[k] = [float(x) for x in v[:keep]]
+
+    def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
+            epochs: Optional[int] = None, verbose: bool = True
+            ) -> TrainingHistory:
+        epochs = epochs or self.config.train.epochs
+        tcfg = self.config.train
+        patience = tcfg.early_stopping_patience
+        best_loss = getattr(self, "best_loss", float("inf"))
+        patience_counter = 0
+        start_epoch = getattr(self, "start_epoch", 1)
+        # bound before the loop: light mode saves 'latest' after it even
+        # when no epoch ran
+        epoch = start_epoch - 1
+        for epoch in range(start_epoch, epochs + 1):
+            t_epoch = time.perf_counter()
+            train_metrics = self.run_epoch(train_loader, train=True,
+                                           epoch=epoch)
+            val_metrics = (train_metrics if val_loader is None else
+                           self.run_epoch(val_loader, train=False,
+                                          epoch=epoch))
+            self.history.append(epoch=epoch,
+                                train_loss=train_metrics["loss"],
+                                val_loss=val_metrics["loss"],
+                                epoch_time_s=time.perf_counter() - t_epoch)
+            for k, v in train_metrics.items():
+                if k != "loss":
+                    self.history.append(**{f"train_{k}": v})
+            if val_loader is not None:
+                for k, v in val_metrics.items():
+                    if k != "loss":
+                        self.history.append(**{f"val_{k}": v})
+            val_loss = val_metrics["loss"]
+            if verbose:
+                print(f"Epoch {epoch}/{epochs} | train "
+                      f"{train_metrics['loss']:.4f} | val {val_loss:.4f}",
+                      end="")
+            if val_loss < best_loss:
+                best_loss = val_loss
+                patience_counter = 0
+                # light mode: best goes through the async writer, flushed
+                # before fit() returns
+                self.save(self._ckpt_path("best"), epoch, best_loss,
+                          val_loss, async_=tcfg.light_checkpoints)
+                if verbose:
+                    print("  (best)")
+            else:
+                patience_counter += 1
+                if verbose:
+                    print(f"  (patience {patience_counter}/{patience})")
+            if not tcfg.light_checkpoints:
+                self.save(self._ckpt_path("latest"), epoch, best_loss,
+                          val_loss)
+            if tcfg.save_every_epoch:
+                # resume snapshots through the async writer: the step loop
+                # does not wait for the disk
+                self.save(self._ckpt_path(f"epoch_{epoch}"), epoch,
+                          best_loss, val_loss, async_=True)
+            if patience and patience_counter >= patience:
+                if verbose:
+                    print(f"Early stopping after {epoch} epochs")
+                break
+
+        if tcfg.light_checkpoints:
+            # the one resumable state light mode keeps
+            last = self.history.series.get("val_loss") or [best_loss]
+            self.save(self._ckpt_path("latest"), epoch, best_loss, last[-1])
+        # a resume right after fit() sees the newest epoch checkpoint
+        wait_for_async_saves()
+        self.best_loss = best_loss
+        self.history.set(best_val_loss=best_loss)
+        rd = tcfg.results_dir
+        os.makedirs(rd, exist_ok=True)
+        self.history.save_json(os.path.join(
+            rd, f"{self.config.preset}_history.json"))
+        self.history.save_curves_png(
+            os.path.join(rd, f"{self.config.preset}_training_curves.png"),
+            title=f"{self.config.preset} training")
+        return self.history
+
+
+class SupervisedTrainer(_EpochLoopMixin):
+    """MSE or combined-loss training of a pair UNet on ``device``
+    (``None``: the card), initialized as the JAX package initializes it
+    (``models/registry.py:init_model``, seed ``train.seed``)."""
+
+    def __init__(self, config: Config, perceptual_fn: Optional[Callable] = None,
+                 steps_per_epoch: Optional[int] = None,
+                 device: DeviceLike = None):
+        if config.train.compute_dtype != "float32":
+            raise NotImplementedError(
+                "bf16 training is not ported yet (ROADMAP.md, Queue 1 item "
+                "6, rest: bf16); the port trains in float32")
+        self.config = config
+        self.device = resolve_device(device)
+        module, self.kind = init_model(config.model.name, config.model,
+                                       seed=config.train.seed)
+        self.state = create_train_state(module.to(self.device), config.train,
+                                        steps_per_epoch=steps_per_epoch)
+        if config.loss.kind == "combined":
+            def loss_fn(pred, target):
+                return combined_loss(
+                    pred, target, perceptual_fn=perceptual_fn,
+                    lambda_perceptual=config.loss.lambda_perceptual,
+                    lambda_ssim=config.loss.lambda_ssim)
+        elif config.loss.kind == "mse":
+            def loss_fn(pred, target):
+                return mse(pred, target), {}
+        else:
+            raise NotImplementedError(
+                f"loss kind {config.loss.kind!r} is not ported yet "
+                "(ROADMAP.md, Queue 1 items 11-12)")
+        self.train_step, self.eval_step = make_supervised_steps(loss_fn)
+        self._device_runner = None
+        self.history = TrainingHistory(json.loads(config.to_json()))
+        # one entry a run_epoch: {epoch, train, steps, seconds}, the host
+        # clock up to the epoch's one metrics fetch
+        self.timings: List[Dict] = []
+
+    def run_epoch(self, loader, train: bool, epoch: int) -> Dict[str, float]:
+        t0 = time.perf_counter()
+        if train and self._device_runner is not None:
+            means = self._device_runner.run_epoch(self.state, epoch)
+            steps = self._device_runner.steps_per_epoch
+        else:
+            acc: Dict[str, list] = {}
+            steps = 0
+            for batch in loader:
+                if train:
+                    self.state, metrics = self.train_step(self.state, batch)
+                else:
+                    metrics = self.eval_step(self.state, batch)
+                for k, v in metrics.items():
+                    acc.setdefault(k, []).append(v)
+                steps += 1
+            means = {k: torch.stack(v).double().mean()
+                     for k, v in acc.items()}
+        # the epoch's one host fetch
+        out = (dict(zip(means, torch.stack(list(means.values())).tolist()))
+               if means else {})
+        self.timings.append({"epoch": epoch, "train": train, "steps": steps,
+                             "seconds": time.perf_counter() - t0})
+        return out
+
+    @torch.no_grad()
+    def predict(self, inputs: torch.Tensor) -> torch.Tensor:
+        """``(B, H, W, 2) -> (B, H, W, 1)``, eval mode, float32."""
+        with fp32_reference():
+            return self.state.module.eval()(inputs.to(self.device))
+
+    # ------------------------------------------------------------------ ckpt
+    def _checkpoint(self, epoch: int, best_loss: float,
+                    val_loss: float) -> dict:
+        st = self.state
+        ckpt = reference_checkpoint(st.module, self.config.model.name,
+                                    epoch=epoch, val_loss=val_loss)
+        ckpt.update(
+            optimizer_state_dict=st.optimizer.state_dict(),
+            scheduler_state_dict=(st.schedule.state_dict()
+                                  if st.schedule is not None else None),
+            step=int(st.step), best_loss=float(best_loss))
+        return ckpt
+
+    def save(self, path: str, epoch: int, best_loss: float, val_loss: float,
+             async_: bool = False) -> None:
+        save_checkpoint(path, self._checkpoint(epoch, best_loss, val_loss),
+                        async_=async_)
+
+    def load(self, path: str) -> None:
+        ckpt = load_checkpoint_file(path)
+        st = self.state
+        load_reference_state_dict(st.module, ckpt)
+        if ckpt.get("optimizer_state_dict") is not None:
+            st.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
+        if st.schedule is not None and ckpt.get("scheduler_state_dict"):
+            st.schedule.load_state_dict(ckpt["scheduler_state_dict"])
+        st.step = int(ckpt.get("step", 0))
+        self.best_loss = float(ckpt.get("best_loss", ckpt.get(
+            "val_loss", float("inf"))))
+        self.start_epoch = int(ckpt.get("epoch", 0)) + 1

@@ -190,3 +190,94 @@ def test_cli_unported_flags_raise(workdir):
                   "--figure", str(workdir / "f.png")])
     with pytest.raises(NotImplementedError, match="bf16"):
         cli.main(["eval", *common(workdir, "r"), "--device", "cpu", "--bf16"])
+
+
+def test_load_model_reads_numpy_values(workdir, capsys):
+    """A reference-layout checkpoint that carries numpy values beside the
+    state dict (a scalar, a history array, a list of np.float32) loads
+    weights-only, through load_model and the eval command."""
+    ckpt = reference_checkpoint(seeded_port_unet(True, seed=5), "unet",
+                                epoch=3)
+    ckpt.update(val_loss=np.float64(0.5),
+                history=np.linspace(1.0, 0.5, 4, dtype=np.float32),
+                train_losses=[np.float32(0.9), np.float32(0.7)])
+    models = workdir / "np_models"
+    models.mkdir()
+    torch.save(ckpt, models / "unet_best.pt")
+    with pytest.raises(Exception, match="[Ww]eights only"):
+        torch.load(models / "unet_best.pt", weights_only=True)
+    loaded = load_model("unet", str(models), checkpoint="required",
+                        cfg=ModelConfig(base_features=F), device="cpu")
+    sd = {k.replace("final_conv.", "final."): v
+          for k, v in ckpt["model_state_dict"].items()}
+    for k, v in loaded.module.state_dict().items():
+        if not k.endswith("num_batches_tracked"):
+            assert torch.equal(v, sd[k]), k
+    cli.main(["eval", "--model", "unet", "--data", str(workdir / "store"),
+              "--image-size", str(HW), "--features", str(F), "--batch-size",
+              "4", "--checkpoint-dir", str(models), "--results-dir",
+              str(workdir / "np_results"), "--device", "cpu"])
+    got = json.loads((workdir / "np_results" / "unet_test_metrics.json")
+                     .read_text())
+    assert set(got) == {"3mm", "6mm"}
+    assert all(np.isfinite(got[s]["ssim_mean"]) for s in got)
+
+
+def train_args(w, *extra):
+    return ["train", "--preset", "unet", "--data", str(w / "store"),
+            "--device", "cpu", "--features", str(F), "--image-size", str(HW),
+            "--batch-size", "4", "--checkpoint-dir", str(w / "train_models"),
+            "--results-dir", str(w / "train_results"), *extra]
+
+
+def test_cli_train_resume_then_eval(workdir, capsys):
+    trainer = cli.main(train_args(workdir, "--epochs", "2"))
+    out = capsys.readouterr().out
+    assert "Epoch 2/2" in out and "best val loss" in out
+    losses = trainer.history.series["train_loss"]
+    assert len(losses) == 2 and all(np.isfinite(losses))
+    models = workdir / "train_models"
+    assert sorted(os.listdir(models)) == [
+        f"unet_{s}.pt" for s in ("best", "epoch_1", "epoch_2", "latest")]
+    trainer = cli.main(train_args(workdir, "--epochs", "3", "--resume"))
+    out = capsys.readouterr().out
+    assert "resumed from epoch 2" in out and "Epoch 3/3" in out
+    hist = json.loads((workdir / "train_results" / "unet_history.json")
+                      .read_text())
+    assert hist["epoch"] == [1.0, 2.0, 3.0]
+    assert hist["train_loss"][:2] == losses
+    assert {"train_loss", "val_loss", "epoch_time_s", "best_val_loss",
+            "config", "timestamp"} <= set(hist)
+    assert hist["config"]["preset"] == "unet"
+    assert (models / "unet_epoch_3.pt").exists()
+    cli.main(["eval", "--model", "unet", "--data", str(workdir / "store"),
+              "--image-size", str(HW), "--features", str(F), "--batch-size",
+              "4", "--checkpoint-dir", str(models), "--results-dir",
+              str(workdir / "train_results"), "--device", "cpu"])
+    metrics = json.loads((workdir / "train_results" / "unet_test_metrics.json")
+                         .read_text())
+    assert all(np.isfinite(metrics[s]["ssim_mean"]) for s in ("3mm", "6mm"))
+
+
+@pytest.mark.parametrize("preset,item", [
+    ("unet_gan", "item 11"), ("deepcnn", "item 11"),
+    ("progressive_unet", "item 11"), ("fastddpm", "item 12"),
+    ("fastddpm_simple", "item 12")])
+def test_cli_train_unported_presets_raise(workdir, preset, item):
+    args = train_args(workdir, "--epochs", "1")
+    args[2] = preset
+    with pytest.raises(NotImplementedError, match=item):
+        cli.main(args)
+
+
+def test_cli_train_unported_flags_raise(workdir):
+    with pytest.raises(NotImplementedError, match="bf16"):
+        cli.main(train_args(workdir, "--bf16"))
+    with pytest.raises(NotImplementedError, match="item 15"):
+        cli.main(train_args(workdir, "--mesh-data", "2"))
+    args = train_args(workdir)
+    args[2] = "unet_distilled"
+    with pytest.raises(SystemExit, match="distill"):
+        cli.main(args)
+    with pytest.raises(SystemExit, match="--backend device"):
+        cli.main(train_args(workdir, "--scan-epochs"))

@@ -430,3 +430,49 @@ def test_ssim_use_kernel_raises_on_cpu_tensor():
     x = torch.rand(2, 16, 16)
     with pytest.raises(ValueError, match="CUDA"):
         ssim(x, x, use_kernel=True)
+
+
+def test_train_step_and_device_epoch_on_card(cuda, tmp_path):
+    """One combined-loss train step on the card against the CPU from the
+    same init (FEAT 8, 64^2, batch 4), then a train epoch with the batches
+    gathered on the card and augmented there."""
+    import dataclasses
+
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_store
+    from mrisr_tpu_torch.losses import make_perceptual_fn
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    base = PRESETS["unet_combined"]
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, image_size=(64, 64),
+                                 augment=False),
+        model=dataclasses.replace(base.model, base_features=8))
+    store = make_synthetic_store(str(tmp_path / "s"), num_patients=8,
+                                 slices_per_volume=8, height=64, width=64)
+    batch = next(iter(build_loader(store, "train", cfg.data, device="cpu")))
+    fn = make_perceptual_fn("gabor")
+    card = SupervisedTrainer(cfg, perceptual_fn=fn, device=cuda)
+    cpu = SupervisedTrainer(cfg, perceptual_fn=fn, device="cpu")
+    _, mc = card.train_step(card.state, batch.to(cuda))
+    _, mh = cpu.train_step(cpu.state, batch)
+    assert float(mc["loss"]) == pytest.approx(float(mh["loss"]), rel=1e-4)
+    hp = dict(cpu.state.module.named_parameters())
+    for name, p in card.state.module.named_parameters():
+        if name.endswith(("conv.0.bias", "conv.3.bias")):
+            continue  # zero in exact arithmetic before a training-mode BN
+        g, want = p.grad.cpu().double(), hp[name].grad.double()
+        assert float((g - want).norm() / want.norm()) <= 1e-3, name
+    hb = dict(cpu.state.module.named_buffers())
+    for name, b in card.state.module.named_buffers():
+        if "running" in name:
+            torch.testing.assert_close(b.cpu(), hb[name], rtol=0, atol=1e-4)
+    aug = dataclasses.replace(cfg.data, augment=True, rotate_degrees=5.0)
+    loader = build_loader(store, "train", aug, backend="device", device=cuda)
+    first = next(iter(loader))
+    assert first.device.type == "cuda" and first.shape == (4, 64, 64, 3)
+    card.enable_device_epochs(loader.bank, loader.plan_flat)
+    metrics = card.run_epoch(None, train=True, epoch=1)
+    assert np.isfinite(metrics["loss"])
+    assert card.timings[-1]["steps"] == loader.num_samples // 4

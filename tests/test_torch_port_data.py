@@ -179,5 +179,74 @@ def test_index_math_and_stats_match_jax(n):
 
 
 def test_train_augment_raises(store):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        build_loader(store, "train", DataConfig(augment=True), device="cpu")
+    """Train augmentation runs: each sample is a flip of the same sample
+    unaugmented (same shuffle seed), the channels flipped together; rot90
+    on non-square images raises."""
+    kw = dict(batch_size=4, image_size=(32, 32))
+    plain = _batches(build_loader(store, "train", DataConfig(**kw),
+                                  device="cpu", seed=1))
+    aug = _batches(build_loader(store, "train", DataConfig(augment=True, **kw),
+                                device="cpu", seed=1))
+    assert len(aug) == len(plain)
+    seen = set()
+    for a, p in zip(aug, plain):
+        for i in range(p.shape[0]):
+            variants = [p[i], np.flip(p[i], 1), np.flip(p[i], 0),
+                        np.flip(p[i], (0, 1))]
+            match = [j for j, v in enumerate(variants)
+                     if np.array_equal(a[i], v)]
+            assert match, "an augmented sample is no flip of its source"
+            seen.add(match[0])
+    assert len(seen) > 1
+    loader = build_loader(store, "train", DataConfig(
+        augment=True, rot90=True, image_size=(32, 48)), device="cpu")
+    with pytest.raises(ValueError, match="square"):
+        next(iter(loader))
+
+
+def test_prefetch_delivers_every_batch_and_stops():
+    """The bounded queue delivers the tail with a slow consumer, a consumer
+    that breaks early stops the worker, and a loader error is re-raised."""
+    import time
+
+    from mrisr_tpu_torch.data.pipeline import PrefetchIterator
+
+    class Source:
+        def __init__(self, n, fail_at=None):
+            self.n, self.fail_at, self.made = n, fail_at, 0
+
+        def __len__(self):
+            return self.n
+
+        def __iter__(self):
+            for i in range(self.n):
+                if i == self.fail_at:
+                    raise RuntimeError("loader failed")
+                self.made += 1
+                yield i
+
+    src = Source(9)
+    it = PrefetchIterator(src, depth=2)
+    got = []
+    for x in it:
+        time.sleep(0.01)
+        got.append(x)
+    assert got == list(range(9)) and len(it) == 9 and it.n == 9
+    src = Source(1000)
+    for x in PrefetchIterator(src, depth=2):
+        if x == 3:
+            break
+    time.sleep(0.3)
+    assert src.made < 10
+    with pytest.raises(RuntimeError, match="loader failed"):
+        list(PrefetchIterator(Source(5, fail_at=3), depth=2))
+
+
+def test_host_shard_patients():
+    from mrisr_tpu_torch.data.pipeline import host_shard_patients
+
+    pats = [f"p{i}" for i in range(7)]
+    assert host_shard_patients(pats) == pats  # no process group: one shard
+    shards = [host_shard_patients(pats, r, 3) for r in range(3)]
+    assert shards[1] == ["p1", "p4"]
+    assert sorted(sum(shards, [])) == sorted(pats)

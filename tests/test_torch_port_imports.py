@@ -1,4 +1,4 @@
-"""The port package stands alone: it imports neither jax/flax/optax nor
+"""The port package stands alone: it imports neither jax/flax/optax/orbax nor
 scikit-learn nor anything of mrisr_tpu, and its entry points refuse to run without a card
 unless the caller asks for the CPU."""
 
@@ -24,13 +24,13 @@ from mrisr_tpu_torch.serve import (
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "mrisr_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "flax", "optax", "sklearn", "mrisr_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "sklearn", "mrisr_tpu")
 
 
 def test_import_with_jax_blocked():
     code = (
         "import sys\n"
-        "for m in ('jax', 'flax', 'optax', 'sklearn'):\n"
+        "for m in ('jax', 'flax', 'optax', 'orbax', 'sklearn'):\n"
         "    sys.modules[m] = None\n"
         "import mrisr_tpu_torch, mrisr_tpu_torch.models, mrisr_tpu_torch.ckpt\n"
         "import mrisr_tpu_torch.ops.conv_int8, mrisr_tpu_torch.ops.upconv\n"
@@ -40,6 +40,10 @@ def test_import_with_jax_blocked():
         "import mrisr_tpu_torch.cli, mrisr_tpu_torch.ckpt.torch_ckpt\n"
         "import mrisr_tpu_torch.models.diffusion, mrisr_tpu_torch.ops.groupnorm\n"
         "import mrisr_tpu_torch.serve.quant_diffusion\n"
+        "import mrisr_tpu_torch.losses, mrisr_tpu_torch.losses.vgg\n"
+        "import mrisr_tpu_torch.ops.augment, mrisr_tpu_torch.ckpt.io\n"
+        "import mrisr_tpu_torch.models.registry, mrisr_tpu_torch.train\n"
+        "import mrisr_tpu_torch.train.device_epoch\n"
         "from mrisr_tpu_torch.data.split import split_for\n"
         "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
         "assert not any(m == 'mrisr_tpu' or m.startswith('mrisr_tpu.')\n"
@@ -158,3 +162,22 @@ def test_diffusion_entry_points_raise_without_cuda(no_cuda, tmp_path):
     assert loaded.schedule.num_inference_steps == 10
     y = loaded(np.zeros((1, 2, 8, 8), np.float32))
     assert y.shape == (1, 1, 8, 8) and torch.isfinite(y).all()
+
+
+def test_train_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_store
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    store = make_synthetic_store(str(tmp_path / "s"), num_patients=8,
+                                 slices_per_volume=5, height=16, width=16)
+    for call in (
+        lambda: SupervisedTrainer(PRESETS["unet"]),
+        lambda: cli.main(["train", "--preset", "unet", "--data", store.root,
+                          "--features", "4", "--image-size", "16",
+                          "--checkpoint-dir", str(tmp_path / "m")]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "m").exists()

@@ -54,6 +54,41 @@ def port_unet(variables: dict, features: int, use_bias: bool = True):
     return model.eval()
 
 
+def flax_unet_variables(model) -> dict:
+    """A port ``UNet`` (with BatchNorm) -> flax ``{'params',
+    'batch_stats'}`` as numpy: the inverse of
+    ``unet_state_dict_from_flax``."""
+    from mrisr_tpu_torch.ckpt.from_jax import (conv_kernel_hwio,
+                                               convt_kernel_hwio)
+    from mrisr_tpu_torch.models.unet import BLOCKS_DOWN, BLOCKS_UP
+
+    sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    params, stats = {}, {}
+
+    def a(t):
+        return np.ascontiguousarray(t.numpy(), np.float32)
+
+    for name in (*BLOCKS_DOWN, "bottleneck", *BLOCKS_UP):
+        params[name], stats[name] = {}, {}
+        for i, idx in enumerate((0, 3)):
+            conv = {"kernel": a(conv_kernel_hwio(sd[f"{name}.conv.{idx}.weight"]))}
+            if f"{name}.conv.{idx}.bias" in sd:
+                conv["bias"] = a(sd[f"{name}.conv.{idx}.bias"])
+            params[name][f"Conv_{i}"] = conv
+            p = f"{name}.conv.{idx + 1}"
+            params[name][f"BatchNorm_{i}"] = {"scale": a(sd[f"{p}.weight"]),
+                                              "bias": a(sd[f"{p}.bias"])}
+            stats[name][f"BatchNorm_{i}"] = {"mean": a(sd[f"{p}.running_mean"]),
+                                             "var": a(sd[f"{p}.running_var"])}
+    for lvl in (4, 3, 2, 1):
+        params[f"upconv{lvl}"] = {
+            "kernel": a(convt_kernel_hwio(sd[f"upconv{lvl}.weight"])),
+            "bias": a(sd[f"upconv{lvl}.bias"])}
+    params["final"] = {"kernel": a(conv_kernel_hwio(sd["final.weight"])),
+                       "bias": a(sd["final.bias"])}
+    return {"params": params, "batch_stats": stats}
+
+
 def to_torch_tree(tree):
     """jax/numpy tree -> torch tensors, bf16 kept as bf16."""
     if isinstance(tree, dict):
