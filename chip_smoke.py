@@ -102,7 +102,26 @@
    export-serving --quant int8_fused and engine_from_bundle serving 12
    test-split requests (within rel-L2 0.15 of the folded float forward,
    equal to the plain versions, every A/B site on its path).  Prints the
-   training steps/s and slices/s over the second epoch.
+   training steps/s and slices/s over the second epoch.  The conv route of
+   models/conv.py: dec2.conv.0 (256 -> 128 at 128^2, batch 4) forward and
+   backward routed around cuDNN's FFT convolution (at most 20 ms, within
+   1e-5 of cuDNN's output), and the train step with no route (cuDNN at
+   every conv) beside the routed one.
+9. Families phase, full width: the unet_gan, deepcnn, progressive_unet,
+   fastddpm and fastddpm_simple presets (features 64, 256^2, batch 4) on a
+   CLI-synthesized store of 8 patients x 12 slices (23 steps an epoch, 10
+   for the progressive windows); every registry model's parameter count.
+   One float32 train step on the card and on the CPU against the same step
+   in float64 (phase 8's bounds; for the GAN, G and D, and the Fast-DDPM,
+   also the card's worst gradient at most 2x the CPU's) at full size for
+   the GAN and the Fast-DDPM, at 64^2 and batch 2 for the other three.
+   Then, each through the CLI: fastddpm train 1 epoch, --resume to 2,
+   export-serving --quant int8_deep, served at batch 8 (K3, A, B; against
+   the float32 sampler on the same noise, rel-RMSE < 0.35, and the plain
+   versions, equal); unet_gan the same with eval (K1 against the plain
+   SSIM) and int8_fused serving (A, B); deepcnn, progressive_unet
+   (per-stage metrics) and fastddpm_simple (DDIM) train 1 epoch and eval
+   through K1.  Prints each family's losses, steps/s and wall.
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -156,6 +175,12 @@ DIFF_REQUESTS = 10  # served from two threads at batch 8: one batch padded
 TRAIN_PATIENTS, TRAIN_SLICES = 8, 24
 TRAIN_BATCH = 4
 TRAIN_REQUESTS = 12  # served at batch 8: one batch padded
+# phase 9: a store whose train split (5 of 8 patients x 18 triplets) gives
+# 23 steps an epoch at batch 4 (10 of 5-slice windows); the card-vs-CPU
+# step of DeepCNN, the Progressive UNet and the simple Fast-DDPM at
+# SMALL_HW and SMALL_BATCH
+FAMILY_PATIENTS, FAMILY_SLICES = 8, 12
+SMALL_HW, SMALL_BATCH = 64, 2
 # a float32 gradient vs the float64 step: within GRAD_RTOL, or within
 # GRAD_NOISE_FACTOR times the CPU's own float32 error on the same tensor.
 # Behind a stack of training-mode BatchNorms at random init, float32
@@ -1258,7 +1283,8 @@ def grad_errors(module, ref):
 
 def stage_split(prof):
     """Device ms of one profiled stage: total over its kernels, the part
-    launched by convolution and by BatchNorm ops (their self device time),
+    launched by convolution and by BatchNorm or GroupNorm ops (their self
+    device time),
     and the rest by difference (a sum of self device time over the other
     CPU events came to more than the stage's kernels on the H100)."""
     total = sum(e.device_time_total for e in prof.key_averages()
@@ -1269,7 +1295,8 @@ def stage_split(prof):
             continue
         key = e.key.lower()
         cat = ("conv" if "conv" in key else
-               "bn" if "batch_norm" in key or "var_mean" in key else None)
+               "bn" if ("batch_norm" in key or "var_mean" in key
+                        or "group_norm" in key) else None)
         if cat is not None:
             cats[cat] += getattr(e, "self_device_time_total", 0) / 1e3
     cats["other"] = max(total - cats["conv"] - cats["bn"], 0.0)
@@ -1343,6 +1370,59 @@ def train_step_split(trainer, batch, perceptual_fn, card: str):
         print(f"  {v:9.3f} ms {100 * v / total:5.1f} %  {k}")
     return {"total_ms": total, "split_ms": split,
             "stage_ms": {k: t for k, (t, _) in out.items()}}
+
+
+def fft_route_check(trainer, batch, step_ms, dev, card: str):
+    """The conv routes of ``models/conv.py``: ``dec2.conv.0`` (256 -> 128
+    at 128^2, batch 4, channels_last as in the forward) forward and
+    backward routed around cuDNN's FFT convolution against cuDNN's own
+    choice (outputs within 1e-5, the routed conv at most 20 ms), and the
+    whole train step with no route (cuDNN at every conv) beside
+    ``step_ms``, the routed step."""
+    import torch.nn.functional as F
+
+    from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.models import conv as conv_module
+
+    conv = trainer.state.module.dec2.conv[0]
+    x = torch.randn(TRAIN_BATCH, 4 * FEATURES, HW // 2, HW // 2,
+                    device=dev).contiguous(memory_format=torch.channels_last)
+    if conv_module.route(x.shape, conv, True) != "fft":
+        raise AssertionError("dec2.conv.0 at batch 4 is not routed")
+
+    def fwd_bwd(routed):
+        def fn():
+            with fp32_reference():
+                leaf = x.detach().requires_grad_(True)
+                y = conv(leaf) if routed else F.conv2d(
+                    leaf, conv.weight, conv.bias, 1, 1)
+                y.sum().backward()
+            return y.detach()
+        return fn
+
+    diff = float((fwd_bwd(True)() - fwd_bwd(False)()).abs().max())
+    routed_ms = cuda_ms(fwd_bwd(True), reps=5, warmup=1)
+    cudnn_ms = cuda_ms(fwd_bwd(False), reps=3, warmup=1)
+    routes = conv_module.route
+    conv_module.route = lambda *args: None
+    try:
+        no_route_ms = cuda_ms(lambda: trainer.train_step(trainer.state,
+                                                         batch),
+                              reps=3, warmup=1)
+    finally:
+        conv_module.route = routes
+    print(f"conv routes: dec2.conv.0 fwd+bwd at batch {TRAIN_BATCH} routed "
+          f"{routed_ms:.3f} ms, cuDNN's choice {cudnn_ms:.3f} ms, max |diff| "
+          f"{diff:.3g} (bound 1e-5); unet_combined train step {step_ms:.3f} "
+          f"ms routed, {no_route_ms:.3f} ms with no route ({card})")
+    if not diff <= 1e-5:
+        raise AssertionError(f"routed dec2.conv.0 differs from cuDNN's by "
+                             f"{diff}")
+    if not routed_ms <= 20.0:
+        raise AssertionError(f"routed dec2.conv.0 takes {routed_ms} ms")
+    return {"conv_routed_ms": routed_ms, "conv_cudnn_ms": cudnn_ms,
+            "max_abs_diff": diff, "step_routed_ms": step_ms,
+            "step_no_route_ms": no_route_ms}
 
 
 def train_phase(dev, card: str):
@@ -1458,6 +1538,8 @@ def train_phase(dev, card: str):
         xb = batch.to(dev)
         step_ms = cuda_ms(lambda: on_card.train_step(on_card.state, xb),
                           reps=5, warmup=1)
+        results["fft_route"] = fft_route_check(on_card, xb, step_ms, dev,
+                                               card)
         prof = profile_batch(
             lambda x: [on_card.train_step(on_card.state, x)
                        for _ in range(5)], xb, "5 train steps")
@@ -1630,6 +1712,469 @@ def train_phase(dev, card: str):
     return launches, results
 
 
+FAMILY_PARAMS = {"unet_gan": 31_037_057, "patchgan": 2_765_633,
+                 "deepcnn": 11_173_889, "progressive_unet": 93_111_171,
+                 "fastddpm": 13_899_905, "fastddpm_simple": 2_162_177}
+
+
+def make_trainer(preset, cfg, device, dtype=torch.float32):
+    """The preset's trainer on ``device``; float64 modules (and Gabor bank)
+    for ``dtype`` float64."""
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.train import (
+        DiffusionTrainer, GANTrainer, SupervisedTrainer)
+
+    if cfg.loss.kind == "gan":
+        tr = GANTrainer(cfg, make_perceptual_fn(cfg.loss.perceptual,
+                                                dtype=dtype), device=device)
+        states = {"G": tr.g_state, "D": tr.d_state}
+    elif cfg.loss.kind == "diffusion":
+        tr = DiffusionTrainer(cfg, device=device)
+        states = {"": tr.state}
+    else:
+        tr = SupervisedTrainer(cfg, perceptual_fn=make_perceptual_fn(
+            cfg.loss.perceptual, dtype=dtype) if cfg.loss.kind == "combined"
+            else None, device=device)
+        states = {"": tr.state}
+    for st in states.values():
+        st.module.to(dtype)
+    return tr, states
+
+
+def family_step_check(preset, cfg, batch, dev, card, worst_2x=False):
+    """One float32 train step of ``preset`` on the card and on the CPU from
+    the same init_model weights and batch (augmentation off), each held
+    against the same step in float64 on the CPU, as phase 8 holds the UNet:
+    losses within rel 1e-4, BN running statistics within 1e-4, each
+    gradient within max(1e-3, 10x the CPU float32 error on that tensor);
+    with ``worst_2x``, the card's worst gradient error at most 2x the
+    CPU's worst.  A diffusion step takes fixed draws (the same t and noise
+    on every side)."""
+    sides = {"card": (dev, torch.float32),
+             "CPU": (torch.device("cpu"), torch.float32),
+             "f64": (torch.device("cpu"), torch.float64)}
+    g = torch.Generator().manual_seed(1)
+    b = batch.shape[0]
+    t_idx = torch.randint(0, cfg.model.num_inference_steps, (b,),
+                          generator=g)
+    eps = torch.randn(batch[..., 2:3].shape, generator=g)
+    runs = {}
+    for side, (device, dtype) in sides.items():
+        tr, states = make_trainer(preset, cfg, device, dtype)
+        x = batch.to(device, dtype)
+        if cfg.loss.kind == "gan":
+            metrics = tr.train_step(tr.g_state, tr.d_state, x)[-1]
+        elif cfg.loss.kind == "diffusion":
+            metrics = tr.train_step.train_on(
+                tr.state, x, t_idx.to(device), eps.to(device, dtype))[1]
+        else:
+            metrics = tr.train_step(tr.state, x)[1]
+        runs[side] = ({k: float(v) for k, v in metrics.items()},
+                      {n: st.module for n, st in states.items()})
+    ref_metrics, ref_modules = runs.pop("f64")
+    n_params = sum(p.numel() for m in ref_modules.values()
+                   for p in m.parameters())
+    out = {"params": n_params}
+    for side, (metrics, modules) in runs.items():
+        loss_rel = max(abs(metrics[k] - ref_metrics[k]) / abs(ref_metrics[k])
+                       for k in ref_metrics if k in ("loss", "g", "d"))
+        errs, stats = {}, 0.0
+        for name, module in modules.items():
+            ref = ref_modules[name]
+            errs.update({f"{name}:{k}": v for k, v in grad_errors(
+                module, ref).items()})
+            stats = max([stats] + [
+                float((a.cpu().double() - r.double()).abs().max())
+                for (k, a), r in zip(module.named_buffers(), ref.buffers())
+                if "running" in k])
+        out[side] = {"loss_rel": loss_rel, "bn_stats_err": stats,
+                     "grad_rel_l2": errs, "worst": max(errs.values())}
+    on_card, on_cpu = out["card"], out["CPU"]
+    bound = {n: max(GRAD_RTOL, GRAD_NOISE_FACTOR * e)
+             for n, e in on_cpu["grad_rel_l2"].items()}
+    over = [n for n, e in on_card["grad_rel_l2"].items() if not e <= bound[n]]
+    worst = max(on_card["grad_rel_l2"], key=on_card["grad_rel_l2"].get)
+    print(f"{preset} train step, float32 card and CPU vs float64 CPU "
+          f"({n_params} parameters, batch {tuple(batch.shape)}; {card}): "
+          f"loss rel {on_card['loss_rel']:.3g} card, "
+          f"{on_cpu['loss_rel']:.3g} CPU; "
+          f"BN stats {on_card['bn_stats_err']:.3g} card, "
+          f"{on_cpu['bn_stats_err']:.3g} CPU; worst gradient rel-L2 card "
+          f"{on_card['worst']:.3g} ({worst}), CPU {on_cpu['worst']:.3g}; "
+          f"{sum(e > GRAD_RTOL for e in on_card['grad_rel_l2'].values())} "
+          f"card and "
+          f"{sum(e > GRAD_RTOL for e in on_cpu['grad_rel_l2'].values())} "
+          f"CPU tensors over {GRAD_RTOL:g}, of {len(bound)}")
+    if not on_card["loss_rel"] <= 1e-4:
+        raise AssertionError(f"{preset} step loss card vs float64 rel "
+                             f"{on_card['loss_rel']}")
+    if not on_card["bn_stats_err"] <= 1e-4:
+        raise AssertionError(f"{preset} BN stats card vs float64 "
+                             f"{on_card['bn_stats_err']}")
+    if over:
+        raise AssertionError(f"{preset} gradients past their bound on the "
+                             f"card: {over}")
+    if worst_2x and not on_card["worst"] <= 2 * on_cpu["worst"]:
+        raise AssertionError(f"{preset} card's worst gradient "
+                             f"{on_card['worst']} over 2x the CPU's "
+                             f"{on_cpu['worst']}")
+    for side in ("card", "CPU"):
+        del out[side]["grad_rel_l2"]
+    return out
+
+
+def profile_step(fn):
+    """Device ms of one call of ``fn`` by op kind (``stage_split``), or
+    None when the profiler records no device time.  A measurement."""
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total, cats = stage_split(prof)
+    except Exception as e:  # the profiler is a measurement, not a check
+        print(f"step split: unavailable ({type(e).__name__}: {e})")
+        return None
+    return None if total <= 0 else {"total": total, **cats}
+
+
+def count_launches(fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before it;
+    returns (fn's result, the counts just after)."""
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8, reset_launches
+    from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
+    from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+
+    ssim_fused.launches = groupnorm_silu.launches = 0
+    reset_launches(conv2d_int8, upconv2x2_int8)
+    result = fn()
+    return result, {"ssim": ssim_fused.launches,
+                    "groupnorm_silu": groupnorm_silu.launches,
+                    **launch_counts(conv2d_int8, upconv2x2_int8)}
+
+
+def add_counts(total, counts):
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def eval_against_plain(preset, model, store, data_cfg, metrics):
+    """Each eval number K1 gave (SSIM per spacing, or per stage for the
+    progressive model) against the plain SSIM of the same predictions."""
+    import dataclasses
+
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.ops.ssim import ssim
+    from mrisr_tpu_torch.ops.stats import minmax_normalize
+
+    def plain(gt, pred):
+        return float(ssim(minmax_normalize(gt), minmax_normalize(pred),
+                          use_kernel=False).mean())
+
+    out = {}
+    if model.kind == "window":
+        loader = build_loader(store, "test", dataclasses.replace(
+            data_cfg, batch_size=BATCH, augment=False), kind="window",
+            device=model.device)
+        preds = {k: [] for k in ("i1", "i2", "i3")}
+        gts = {k: [] for k in preds}
+        for b in loader:
+            for (k, ch), p in zip((("i1", 1), ("i2", 2), ("i3", 3)),
+                                  model.predict_nhwc(b)):
+                preds[k].append(p[..., 0])
+                gts[k].append(b[..., ch])
+        pairs = {k: (torch.cat(gts[k]), torch.cat(preds[k])) for k in preds}
+    else:
+        pairs, bank = {}, None
+        for dist, label in ((2, "3mm"), (4, "6mm")):
+            loader = build_loader(store, "test", dataclasses.replace(
+                data_cfg, distance_filter=dist, batch_size=BATCH,
+                augment=False), device=model.device, bank=bank)
+            bank = loader.bank
+            got = [(b[..., 2], model.predict_nhwc(b[..., :2])[..., 0])
+                   for b in loader]
+            pairs[label] = (torch.cat([g for g, _ in got]),
+                            torch.cat([p for _, p in got]))
+    for label, (gt, pred) in pairs.items():
+        k1, want = metrics[label]["ssim_mean"], plain(gt, pred)
+        out[label] = {"ssim_k1": k1, "ssim_plain": want,
+                      "psnr": metrics[label]["psnr_mean"],
+                      "n": metrics[label]["num_samples"]}
+        print(f"trained {preset} {label}: SSIM {k1:.6f} (plain {want:.6f}, "
+              f"diff {abs(k1 - want):.2g}) PSNR "
+              f"{metrics[label]['psnr_mean']:.4f} dB, "
+              f"{metrics[label]['num_samples']} samples")
+        if not (np.isfinite(k1) and abs(k1 - want) <= SSIM_ATOL):
+            raise AssertionError(f"trained {preset} eval {label}: K1 {k1} vs "
+                                 f"plain {want}")
+    return out
+
+
+def serve_trained(preset, bundle, requests, dev, models_dir, mcfg):
+    """Serve ``requests`` through ``engine_from_bundle`` (batch 8); the
+    served output against the same tables through the plain versions
+    (must be equal) and against the float model (the folded forward, or
+    the float32 sampler on the same noise).  Returns (results, counts)."""
+    from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+    from mrisr_tpu_torch.ops.upconv import upconv_path
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet, engine_from_bundle, load_bundle, make_bundle_apply)
+
+    diffusion = preset == "fastddpm"
+    with engine_from_bundle(bundle, batch_size=BATCH, device=dev,
+                            **({"gn_impl": "fused"} if diffusion else {})
+                            ) as eng:
+        eng.predict(requests[0])
+        eng.reset_stats()
+        inner, kept = eng._apply, []
+
+        def capture(x):  # the batches as the engine formed them
+            y = inner(x)
+            kept.append((x.clone(), y.clone()))
+            return y
+
+        eng._apply = capture
+        served, counts = count_launches(lambda: np.stack([
+            f.result(timeout=600) for f in [eng.submit(r)
+                                            for r in requests]]))
+        stats = eng.stats
+        eng._apply = inner
+    forwards = stats.batches * (10 if diffusion else 1)
+    if diffusion:
+        for name, n in {"groupnorm_silu": 10, "conv_int8": 14,
+                        "upconv_int8": 2}.items():
+            if counts[name] != n * forwards:
+                raise AssertionError(f"trained {preset} {name}: "
+                                     f"{counts[name]} launches for "
+                                     f"{forwards} forwards, want {n} each")
+        check_paths(counts, {
+            "conv_int8": path_counts(diffusion_conv_sites(), lambda st:
+                                     conv_path(st[2], st[3], st[4])),
+            "upconv_int8": path_counts(diffusion_upconv_sites(), lambda st:
+                                       upconv_path(st[2], st[3]))},
+            forwards, f"trained {preset} serving")
+        plain_apply = make_bundle_apply(*load_bundle(bundle), dev,
+                                        gn_impl="fused", plain=True)
+        model = load_model(preset, models_dir, checkpoint="required",
+                           cfg=mcfg, device=dev)
+        float_fn, plain_fn = model.predict_nhwc, plain_apply
+    else:
+        check_paths(counts, {
+            "conv_int8": path_counts(conv_sites(), lambda st:
+                                     conv_path(st[2], st[3], st[4])),
+            "upconv_int8": path_counts(upconv_sites(), lambda st:
+                                       upconv_path(st[2], st[3]))},
+            forwards, f"trained {preset} serving")
+        model = load_model(preset, models_dir, checkpoint="required",
+                           cfg=mcfg, fold_bn=True, device=dev)
+        float_fn = model.predict_nhwc
+        plain_fn = Int8FusedUNet(load_bundle(bundle)[0], device=dev,
+                                 plain=True)
+    got = np.concatenate([y.cpu().numpy() for _, y in kept])
+    with fp32_reference():
+        y_float = np.concatenate([float_fn(x).cpu().numpy()
+                                  for x, _ in kept])
+    y_plain = np.concatenate([plain_fn(x).cpu().numpy() for x, _ in kept])
+    rel_float = (rel_rmse if diffusion else rel_l2)(got, y_float)
+    rel_plain = rel_l2(got, y_plain)
+    metric, bound = (("rel-RMSE", 0.35) if diffusion else ("rel-L2", 0.15))
+    print(f"trained {preset} served ({stats.requests} requests, "
+          f"{stats.batches} batches of {BATCH}): vs the float model "
+          f"{metric} {rel_float:.6f} (bound {bound}); vs plain versions "
+          f"rel-L2 {rel_plain:.6f} (must be 0); launches {counts}")
+    if served.shape != (len(requests), HW, HW, 1) or not np.isfinite(
+            served).all():
+        raise AssertionError(f"trained {preset} serving output "
+                             f"{served.shape}")
+    if not rel_float < bound:
+        raise AssertionError(f"trained {preset} served vs float {rel_float}")
+    if rel_plain != 0.0:
+        raise AssertionError(f"trained {preset} served vs plain {rel_plain}")
+    return {"float_" + metric: rel_float, "rel_l2_plain": rel_plain,
+            "batches": stats.batches}, counts
+
+
+def families_phase(dev, card: str):
+    """Training of the five other families at full width (see the module
+    docstring, item 9).  Returns (launches, results)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.models.registry import init_model
+
+    results, walls, launches = {}, {}, {}
+    t_phase = time.perf_counter()
+    for name, want in FAMILY_PARAMS.items():
+        got = sum(p.numel() for p in init_model(name)[0].parameters())
+        if got != want:
+            raise AssertionError(f"{name} has {got} parameters, want {want}")
+
+    def preset_cfg(preset, hw=HW, batch=TRAIN_BATCH):
+        base = PRESETS[preset]
+        return base.replace(
+            data=dataclasses.replace(base.data, image_size=(hw, hw),
+                                     batch_size=batch, augment=False),
+            model=dataclasses.replace(base.model, base_features=FEATURES))
+
+    with tempfile.TemporaryDirectory() as work:
+        store_dir = os.path.join(work, "store")
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(FAMILY_PATIENTS),
+                  "--slices", str(FAMILY_SLICES), "--size", str(HW)])
+        store = VolumeStore.open(store_dir)
+        walls["synth"] = time.perf_counter() - t0
+
+        def first_batch(cfg, kind="triplet"):
+            return next(iter(build_loader(store, "train", cfg.data,
+                                          kind=kind, device="cpu")))
+
+        # --- card vs CPU, each against float64: the GAN and the Fast-DDPM
+        # at full size, the other three at 64^2 and batch 2 (their float64
+        # CPU step at 256^2 takes minutes)
+        checks = {}
+        t0 = time.perf_counter()
+        for preset in ("unet_gan", "fastddpm"):
+            cfg = preset_cfg(preset)
+            checks[preset] = family_step_check(preset, cfg, first_batch(cfg),
+                                               dev, card, worst_2x=True)
+        for preset in ("deepcnn", "progressive_unet", "fastddpm_simple"):
+            cfg = preset_cfg(preset)
+            kind = "window" if preset == "progressive_unet" else "triplet"
+            b = first_batch(cfg, kind)[:SMALL_BATCH]
+            small = F.avg_pool2d(b.permute(0, 3, 1, 2), HW // SMALL_HW
+                                 ).permute(0, 2, 3, 1).contiguous()
+            checks[preset] = family_step_check(
+                preset, preset_cfg(preset, SMALL_HW, SMALL_BATCH), small,
+                dev, card)
+        walls["card vs CPU steps"] = time.perf_counter() - t0
+        results["card_vs_cpu"] = checks
+
+        loader = build_loader(store, "test", dataclasses.replace(
+            preset_cfg("unet_gan").data, batch_size=BATCH), device=dev)
+        requests = torch.cat([b[..., :2] for b in loader])[:TRAIN_REQUESTS]
+        requests = requests.cpu().numpy()
+        for preset in ("fastddpm", "unet_gan", "deepcnn", "progressive_unet",
+                       "fastddpm_simple"):
+            t_family = time.perf_counter()
+            fam, fwalls = {}, {}
+            models_dir = os.path.join(work, preset, "models")
+            results_dir = os.path.join(work, preset, "results")
+            common = ["--data", store_dir, "--checkpoint-dir", models_dir,
+                      "--results-dir", results_dir, "--features",
+                      str(FEATURES), "--image-size", str(HW), "--device",
+                      str(dev)]
+            train = ["train", "--preset", preset, *common]
+            t0 = time.perf_counter()
+            trainer = cli.main([*train, "--epochs", "1"])
+            fwalls["train 1 epoch"] = time.perf_counter() - t0
+            timings, last = list(trainer.timings), trainer
+            resumes = preset in ("fastddpm", "unet_gan")
+            if resumes:
+                del trainer, last
+                t0 = time.perf_counter()
+                last = cli.main([*train, "--epochs", "2", "--resume"])
+                fwalls["train --resume to 2"] = time.perf_counter() - t0
+                if last.start_epoch != 2:
+                    raise AssertionError(f"{preset} resumed at "
+                                         f"{last.start_epoch}")
+                timings += last.timings
+            else:
+                del trainer
+            with open(os.path.join(results_dir,
+                                   f"{preset}_history.json")) as f:
+                hist = json.load(f)
+            epochs = [1.0, 2.0] if resumes else [1.0]
+            if hist["epoch"] != epochs or not all(np.isfinite(
+                    hist["train_loss"] + hist["val_loss"])):
+                raise AssertionError(f"{preset} history {hist['epoch']} "
+                                     f"{hist['train_loss']} "
+                                     f"{hist['val_loss']}")
+            # one more step of the trained state: its device time and
+            # its split by op kind
+            kind = "window" if preset == "progressive_unet" else "triplet"
+            xb = next(iter(build_loader(store, "train", preset_cfg(
+                preset).data, kind=kind, device=dev)))
+            g = last._generator(0, True, 0)
+            fam["step_ms"] = cuda_ms(lambda: last._train(xb, g), reps=3,
+                                     warmup=1)
+            fam["step_split"] = profile_step(lambda: last._train(xb, g))
+            del last
+            tr = [t for t in timings if t["train"]]
+            steps = sum(t["steps"] for t in tr)
+            seconds = sum(t["seconds"] for t in tr)
+            fam.update(train_loss=hist["train_loss"],
+                       val_loss=hist["val_loss"], steps=steps,
+                       seconds=seconds, steps_per_s=steps / seconds)
+            split = fam["step_split"]
+            print(f"{preset}: train losses {hist['train_loss']}, val losses "
+                  f"{hist['val_loss']}; {steps} steps in {seconds:.3f} s = "
+                  f"{steps / seconds:.3f} steps/s; one step "
+                  f"{fam['step_ms']:.3f} ms on the card"
+                  + ("" if split is None else
+                     f" (device {split['total']:.3f} ms: convs "
+                     f"{split['conv']:.3f}, BN/GN {split['bn']:.3f}, other "
+                     f"{split['other']:.3f})") + f" ({card})")
+            mcfg = preset_cfg(preset).model
+            if preset != "fastddpm":
+                t0 = time.perf_counter()
+                _, counts = count_launches(lambda: cli.main([
+                    "eval", "--model", preset, *common, "--batch-size",
+                    str(BATCH)]))
+                fwalls["eval"] = time.perf_counter() - t0
+                add_counts(launches, counts)
+                if counts["ssim"] <= 0:
+                    raise AssertionError(f"K1 was not launched by the "
+                                         f"trained {preset} eval")
+                with open(os.path.join(results_dir,
+                                       f"{preset}_test_metrics.json")) as f:
+                    metrics = json.load(f)
+                model = load_model(preset, models_dir, checkpoint="required",
+                                   cfg=mcfg, device=dev)
+                fam["eval"] = eval_against_plain(
+                    preset, model, store, preset_cfg(preset).data, metrics)
+                del model
+            if preset in ("fastddpm", "unet_gan"):
+                quant = "int8_deep" if preset == "fastddpm" else "int8_fused"
+                bundle = os.path.join(work, preset, "bundle")
+                t0 = time.perf_counter()
+                cli.main(["export-serving", "--model", preset, *common,
+                          "--quant", quant, "--batch-size", str(BATCH),
+                          "--calib-batches", "2", "--out", bundle])
+                fwalls["export-serving"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                n = DIFF_REQUESTS if preset == "fastddpm" else TRAIN_REQUESTS
+                fam["serving"], counts = serve_trained(
+                    preset, bundle, requests[:n], dev, models_dir, mcfg)
+                fwalls["serve"] = time.perf_counter() - t0
+                add_counts(launches, counts)
+            fwalls["family"] = time.perf_counter() - t_family
+            fam["wall_s"] = fwalls
+            results[preset] = fam
+            print(f"{preset} wall (s): " + ", ".join(
+                f"{k} {v:.2f}" for k, v in fwalls.items()))
+    walls["phase"] = time.perf_counter() - t_phase
+    results["wall_s"], results["launches"] = walls, launches
+    for kernel in ("ssim", "conv_int8", "upconv_int8", "groupnorm_silu"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"{kernel} was not launched in phase 9")
+    print(f"families phase launches {launches}")
+    print("families wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in walls.items()))
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -1675,6 +2220,7 @@ def main() -> int:
     k3_rows = k3_phase(dev)
     diff_launches, diff_result = diffusion_phase(dev, card)
     train_launches, train_result = train_phase(dev, card)
+    family_launches, family_result = families_phase(dev, card)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -1691,11 +2237,11 @@ def main() -> int:
         libs = [r["library_ms"] for r in sel]
 
         def main_path(key):
-            # the serving, eval, diffusion and training paths' runs, each
-            # counted from 0 just before it
+            # the serving, eval, diffusion, training and families paths'
+            # runs, each counted from 0 just before it
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
-                train_launches))
+                train_launches, family_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -1719,7 +2265,7 @@ def main() -> int:
             json.dump({"card": card, "sites": rows + ssim_rows + k3_rows,
                        "slice": slice_result, "eval": eval_result,
                        "diffusion": diff_result, "train": train_result,
-                       "kernels": kernels}, f,
+                       "families": family_result, "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

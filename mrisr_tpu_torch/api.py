@@ -4,9 +4,11 @@
 ``load_model(name)`` searches checkpoints as ``mrisr_tpu.api.load_model``
 does and returns a :class:`LoadedModel` with the reference's NCHW call
 contract, ``(B, 2, H, W) -> (B, 1, H, W)``, and the NHWC fast path the
-eval code uses.  The pair UNets and ``fastddpm`` (the Fast-DDPM UNet,
-sampled by the 10-step ancestral chain) are ported; the other families
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+eval code uses.  Every eval model of the registry loads: the pair UNets
+(the GAN's generator among them), DeepCNN, the Progressive UNet (a window
+``(B, 5, H, W)`` in, three predictions out), ``fastddpm`` (sampled by the
+10-step ancestral chain) and ``fastddpm_simple`` (DDIM over the compressed
+schedule).
 """
 
 from __future__ import annotations
@@ -26,22 +28,21 @@ from mrisr_tpu_torch.ckpt.torch_ckpt import (
 )
 from mrisr_tpu_torch.config import PRESETS, ModelConfig
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
-from mrisr_tpu_torch.models import UNet
 from mrisr_tpu_torch.models.diffusion import (
     DiffusionSchedule,
-    FastDDPMUNet,
+    FastNoiseSchedule,
     sample_ancestral,
+    sample_ddim,
 )
+from mrisr_tpu_torch.models.registry import TRAINABLE, create_model
 
 # pair UNets of the registry (mrisr_tpu/models/registry.py): the GAN
 # generator's convs are bias-free
 PAIR_UNETS = ("unet", "unet_combined", "unet_gan", "unet_distilled")
-DIFFUSION = ("fastddpm",)
-NOT_PORTED = {
-    "deepcnn": "ROADMAP.md, Queue 1 item 11",
-    "progressive_unet": "ROADMAP.md, Queue 1 item 11",
-    "patchgan": "ROADMAP.md, Queue 1 item 11",
-    "fastddpm_simple": "ROADMAP.md, Queue 1 item 12",
+DIFFUSION = ("fastddpm", "fastddpm_simple")
+NOT_EVAL = {
+    "patchgan": "'patchgan' is the UNet-GAN's discriminator, not an eval "
+                "model: load 'unet_gan' (its checkpoint holds both)",
 }
 
 # the reference's checkpoint file names (reference src/ModelLoader.py:662-669)
@@ -63,34 +64,41 @@ class LoadedModel:
 
     name: str
     module: nn.Module
-    kind: str  # 'pair' | 'diffusion'
+    kind: str  # 'pair' | 'window' | 'diffusion'
     device: torch.device
-    schedule: Optional[DiffusionSchedule] = None
+    # DiffusionSchedule (ancestral) or FastNoiseSchedule (fastddpm_simple)
+    schedule: Optional[object] = None
 
     @torch.no_grad()
     def predict_nhwc(self, x: torch.Tensor,
-                     generator: Optional[torch.Generator] = None
-                     ) -> torch.Tensor:
-        """``(B, H, W, 2) -> (B, H, W, 1)`` float32 on the model's device.
-        The forward runs in full float32 (TF32 off): the metric it feeds
-        is the reference's float model's.  A diffusion model samples the
-        ancestral chain from ``x`` = [pre, post], with ``generator`` (None:
-        seeded 0, the JAX package's ``PRNGKey(0)``)."""
+                     generator: Optional[torch.Generator] = None):
+        """``(B, H, W, 2) -> (B, H, W, 1)`` float32 on the model's device
+        (a window model: ``(B, H, W, 5) -> (p1, p2, p3)``).  The forward
+        runs in full float32 (TF32 off): the metric it feeds is the
+        reference's float model's.  A diffusion model samples from ``x`` =
+        [pre, post]: the ancestral chain, or DDIM for ``fastddpm_simple``,
+        with ``generator`` (None: seeded 0, the JAX package's
+        ``PRNGKey(0)``)."""
         x = x.to(self.device, torch.float32)
         with fp32_reference():
             if self.kind != "diffusion":
                 return self.module(x)
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
+            if self.name == "fastddpm_simple":
+                return sample_ddim(self.module, x, generator, self.schedule)
             return sample_ancestral(self.module, x, generator, self.schedule,
                                     combine="first")
 
-    def __call__(self, x_nchw, generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+    def __call__(self, x_nchw, generator: Optional[torch.Generator] = None):
         """``(B, 2, H, W) -> (B, 1, H, W)`` (a diffusion model: the sample
-        conditioned on the two slices)."""
+        conditioned on the two slices; a window model: ``(B, 5, H, W)`` ->
+        three ``(B, 1, H, W)``)."""
         x = torch.as_tensor(x_nchw, dtype=torch.float32).permute(0, 2, 3, 1)
-        return self.predict_nhwc(x, generator).permute(0, 3, 1, 2)
+        out = self.predict_nhwc(x, generator)
+        if isinstance(out, tuple):
+            return tuple(o.permute(0, 3, 1, 2) for o in out)
+        return out.permute(0, 3, 1, 2)
 
 
 def _orbax_error(path: str) -> NotImplementedError:
@@ -113,45 +121,39 @@ def load_model(
 
     Search order, as the JAX package's: an explicit ``checkpoint`` path;
     the Orbax dir ``<models_dir>/<name>_best`` (raises: it needs JAX); the
-    reference torch file ``<models_dir>/<torch name>``.  With none found,
+    reference torch file ``<models_dir>/<torch name>``; the port trainer's
+    ``<models_dir>/<name>_best.pt``.  With none found,
     fresh weights (seeded), unless ``checkpoint='required'``, which raises.
     ``fold_bn`` folds a pair UNet's BatchNorm into the convs (exact in
-    eval).  A diffusion model's schedule is built from ``cfg``."""
+    eval).  A diffusion model's schedule is built from ``cfg``;
+    'patchgan' raises ``ValueError``: it is not an eval model."""
     name = model_name.lower()
     base = re.sub(r"_steps\d+$", "", name)
     if base != name and base in DIFFUSION:
         raise NotImplementedError(
             f"step-distilled model {model_name!r} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 12: sample_ddim_grid)")
-    if base in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {model_name!r} is not ported yet ({NOT_PORTED[base]})")
-    if name not in PAIR_UNETS + DIFFUSION:
+            "(ROADMAP.md, Queue 1 item 14: sample_ddim_grid)")
+    if name in NOT_EVAL:
+        raise ValueError(NOT_EVAL[name])
+    if name not in TRAINABLE:
         raise ValueError(f"Unknown model: {model_name}. Choose from: "
-                         f"{sorted(PAIR_UNETS + DIFFUSION + tuple(NOT_PORTED))}")
+                         f"{sorted(set(TRAINABLE) - set(NOT_EVAL))}")
     device = resolve_device(device)
     if cfg is None:
         cfg = PRESETS[name].model if name in PRESETS else ModelConfig(name=name)
-    kind = "diffusion" if name in DIFFUSION else "pair"
+    kind = TRAINABLE[name]
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
-        if kind == "diffusion":
-            # in = [pre, post, x_noisy], whatever cfg.in_channels says, as
-            # the JAX registry builds it
-            module = FastDDPMUNet(base_features=cfg.base_features,
-                                  time_dim=cfg.time_dim,
-                                  out_channels=cfg.out_channels)
-        else:
-            module = UNet(features=cfg.base_features,
-                          use_bias=name != "unet_gan",
-                          in_channels=cfg.in_channels,
-                          out_channels=cfg.out_channels)
+        module = create_model(name, cfg)
 
     require = checkpoint == "required"
     if require:
         checkpoint = None
     orbax_path = os.path.join(models_dir, f"{name}_best")
     torch_path = os.path.join(models_dir, _TORCH_CKPT_FILES.get(name, ""))
+    # the port's trainer writes <preset>_best.pt (the reference's file name
+    # for every family but the simple lineage)
+    own_path = os.path.join(models_dir, f"{name}_best.pt")
     path = None
     if checkpoint:
         # an explicit path must exist: falling back to another checkpoint
@@ -165,6 +167,8 @@ def load_model(
         raise _orbax_error(orbax_path)
     elif name in _TORCH_CKPT_FILES and os.path.isfile(torch_path):
         path = torch_path
+    elif os.path.isfile(own_path):
+        path = own_path
     elif require:
         raise FileNotFoundError(f"Checkpoint not found for {name} in "
                                 f"{models_dir}")
@@ -172,7 +176,9 @@ def load_model(
         load_reference_state_dict(module, load_checkpoint_file(path))
     module = module.eval()
     schedule = None
-    if kind == "diffusion":
+    if name == "fastddpm_simple":
+        schedule = FastNoiseSchedule.create(cfg.num_inference_steps)
+    elif kind == "diffusion":
         # the sampling schedule comes from the model's config: the trained
         # fastddpm presets use cosine beta
         schedule = DiffusionSchedule.create(
@@ -180,7 +186,7 @@ def load_model(
             num_inference_steps=cfg.num_inference_steps,
             beta_schedule=cfg.beta_schedule,
             selection=cfg.timestep_selection)
-    elif fold_bn:
+    elif fold_bn and name in PAIR_UNETS:
         module = fold_unet_batchnorm(module)
     return LoadedModel(name=name, module=module.to(device), kind=kind,
                        device=device, schedule=schedule)

@@ -1,5 +1,7 @@
-"""flax variables -> port state dicts (the weight carry): ``UNet`` and
-``FastDDPMUNet``, and the FastDDPM param tree back out of a port model.
+"""flax variables -> port state dicts (the weight carry) for every family:
+``UNet`` (and the GAN generator), ``ProgressiveUNet``, ``DeepCNN``,
+``PatchGAN``, ``FastDDPMUNet`` and ``SimpleDiffusionUNet``; and the
+FastDDPM param tree back out of a port model.
 
 The inverse of the reference's torch -> flax converter
 (``mrisr_tpu/ckpt/torch_convert.py``):
@@ -7,18 +9,20 @@ The inverse of the reference's torch -> flax converter
 - Conv           HWIO -> (O, I, kh, kw)
 - ConvTranspose  HWIO -> (I, O, kh, kw) with the spatial flip [::-1, ::-1]:
   flax applies the kernel flipped relative to torch's ConvTranspose2d
+- Dense          (I, O) -> (O, I)
 - BatchNorm      scale/bias + batch_stats mean/var ->
                  weight/bias/running_mean/running_var
+- GroupNorm      scale/bias -> weight/bias
 
-Both trees are accepted: unfolded (``{'params', 'batch_stats'}`` with
+Both UNet trees are accepted: unfolded (``{'params', 'batch_stats'}`` with
 ``BatchNorm_0/1``) loads into ``UNet()``, BN-folded (``{'params'}`` only)
 into ``UNet(use_bn=False)``.  Leaves are numpy arrays (``np.asarray`` of a
-jax array is one).
+jax array is one); a tree of gradients converts as a tree of parameters.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Iterable, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +84,111 @@ def unet_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def progressive_state_dict_from_flax(variables: Dict
+                                     ) -> Dict[str, torch.Tensor]:
+    """flax ``ProgressiveUNet`` -> ``unet1.*``, ``unet2.*``, ``unet3.*``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for stage in ("unet1", "unet2", "unet3"):
+        sub = {"params": variables["params"][stage],
+               "batch_stats": variables.get("batch_stats", {}).get(stage, {})}
+        sd.update({f"{stage}.{k}": v
+                   for k, v in unet_state_dict_from_flax(sub).items()})
+    return sd
+
+
+# (kind, flax path, torch prefix); kind is 'conv', 'convt', 'dense', 'gn'
+# (GroupNorm) or 'bn' (BatchNorm, with its running statistics)
+Layers = Iterable[Tuple[str, Tuple[str, ...], str]]
+
+
+def _get(tree: Dict, path: Sequence[str]):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def state_dict_from_layers(variables: Dict, layers: Layers
+                           ) -> Dict[str, torch.Tensor]:
+    """Carry each listed flax layer to its torch prefix."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd: Dict[str, torch.Tensor] = {}
+    for kind, path, prefix in layers:
+        sub = _get(params, path)
+        if kind == "conv":
+            sd[f"{prefix}.weight"] = conv_weight(sub["kernel"])
+        elif kind == "convt":
+            sd[f"{prefix}.weight"] = convt_weight(sub["kernel"])
+        elif kind == "dense":
+            sd[f"{prefix}.weight"] = _t(np.asarray(sub["kernel"]).T)
+        else:  # 'gn', 'bn'
+            sd[f"{prefix}.weight"] = _t(sub["scale"])
+        if "bias" in sub:
+            sd[f"{prefix}.bias"] = _t(sub["bias"])
+        if kind == "bn":
+            st = _get(stats, path)
+            sd[f"{prefix}.running_mean"] = _t(st["mean"])
+            sd[f"{prefix}.running_var"] = _t(st["var"])
+            sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def deepcnn_layers(params: Dict) -> Layers:
+    """DeepCNN: ``layer{L}_block{b}`` -> ``layer{L}.{b}``, the downsample
+    pair -> ``downsample.0/1``."""
+    yield "conv", ("conv1",), "conv1"
+    yield "bn", ("bn1",), "bn1"
+    blocks = sorted((k for k in params if k.startswith("layer")),
+                    key=lambda k: tuple(int(n) for n in
+                                        k[len("layer"):].split("_block")))
+    for name in blocks:
+        layer, blk = name[len("layer"):].split("_block")
+        tp = f"layer{layer}.{blk}"
+        for leaf in ("conv1", "bn1", "conv2", "bn2"):
+            yield leaf[:-1] if leaf.startswith("conv") else "bn", \
+                (name, leaf), f"{tp}.{leaf}"
+        if "downsample_conv" in params[name]:
+            yield "conv", (name, "downsample_conv"), f"{tp}.downsample.0"
+            yield "bn", (name, "downsample_bn"), f"{tp}.downsample.1"
+    yield "conv", ("output_conv",), "output_conv"
+
+
+def deepcnn_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    return state_dict_from_layers(variables,
+                                  deepcnn_layers(variables["params"]))
+
+
+# PatchGAN: flax Conv_i / BatchNorm_i -> model.<Sequential index>
+PATCHGAN_LAYERS = (("conv", ("Conv_0",), "model.0"),
+                   ("conv", ("Conv_1",), "model.2"),
+                   ("bn", ("BatchNorm_0",), "model.3"),
+                   ("conv", ("Conv_2",), "model.5"),
+                   ("bn", ("BatchNorm_1",), "model.6"),
+                   ("conv", ("Conv_3",), "model.8"),
+                   ("bn", ("BatchNorm_2",), "model.9"),
+                   ("conv", ("Conv_4",), "model.11"))
+
+
+def patchgan_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    return state_dict_from_layers(variables, PATCHGAN_LAYERS)
+
+
+# SimpleDiffusionUNet: the ModelLoader names the JAX converter reads
+SIMPLE_BLOCKS = ("inc", "down1", "down2", "up2", "up1")
+SIMPLE_LAYERS = (
+    (("dense", ("time_mlp1",), "time_mlp.0"),
+     ("dense", ("time_mlp2",), "time_mlp.2"))
+    + tuple(layer for blk in SIMPLE_BLOCKS for layer in (
+        ("conv", (f"{blk}_conv1",), f"{blk}.block.0"),
+        ("conv", (f"{blk}_conv2",), f"{blk}.block.2")))
+    + (("conv", ("outc",), "outc"),))
+
+
+def simple_diffusion_state_dict_from_flax(variables: Dict
+                                          ) -> Dict[str, torch.Tensor]:
+    return state_dict_from_layers(variables, SIMPLE_LAYERS)
+
+
 # FastDDPMUNet: flax module path -> the reference's (and the port's) name.
 # Dense kernels are (I, O), torch Linear weights (O, I); GroupNorm's
 # scale/bias are weight/bias.
@@ -89,45 +198,30 @@ DIFFUSION_BLOCKS = ("enc1", "enc2", "enc3", "bottleneck", "dec3", "dec2",
                     "dec1")
 
 
-def _fastddpm_layers(params: Dict):
-    """``(kind, flax sub-tree, torch prefix)`` of every FastDDPMUNet layer;
-    kind is 'conv', 'convt', 'dense' or 'norm'."""
+def _fastddpm_layers(params: Dict) -> Layers:
+    """Every FastDDPMUNet layer as (kind, flax path, torch prefix)."""
     for outer, inner, prefix in _FASTDDPM_DENSE:
-        yield "dense", params[outer][inner], prefix
-    yield "conv", params["init_conv"], "init_conv"
+        yield "dense", (outer, inner), prefix
+    yield "conv", ("init_conv",), "init_conv"
     for res in DIFFUSION_BLOCKS:
-        p = params[res]
-        yield "norm", p["norm1"], f"{res}.norm1"
-        yield "conv", p["conv1"], f"{res}.conv1"
-        yield "dense", p["time_fc"], f"{res}.time_fc"
-        yield "norm", p["norm2"], f"{res}.norm2"
-        yield "conv", p["conv2"], f"{res}.conv2"
-        if "skip" in p:
-            yield "conv", p["skip"], f"{res}.skip"
+        yield "gn", (res, "norm1"), f"{res}.norm1"
+        yield "conv", (res, "conv1"), f"{res}.conv1"
+        yield "dense", (res, "time_fc"), f"{res}.time_fc"
+        yield "gn", (res, "norm2"), f"{res}.norm2"
+        yield "conv", (res, "conv2"), f"{res}.conv2"
+        if "skip" in params[res]:
+            yield "conv", (res, "skip"), f"{res}.skip"
     for lvl in (3, 2, 1):
-        yield "convt", params[f"upconv{lvl}"], f"upconv{lvl}"
-    yield "norm", params["final_norm"], "final.0"
-    yield "conv", params["final_conv"], "final.2"
+        yield "convt", (f"upconv{lvl}",), f"upconv{lvl}"
+    yield "gn", ("final_norm",), "final.0"
+    yield "conv", ("final_conv",), "final.2"
 
 
 def fastddpm_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     """flax ``FastDDPMUNet`` variables -> the port's (= the reference's)
-    state dict: Dense kernels transposed, conv kernels HWIO -> OIHW, the
-    ConvTranspose flip as in :func:`convt_weight`, GroupNorm scale/bias ->
-    weight/bias."""
-    sd: Dict[str, torch.Tensor] = {}
-    for kind, sub, prefix in _fastddpm_layers(variables["params"]):
-        if kind == "conv":
-            w = conv_weight(sub["kernel"])
-        elif kind == "convt":
-            w = convt_weight(sub["kernel"])
-        elif kind == "dense":
-            w = _t(np.asarray(sub["kernel"]).T)
-        else:
-            w = _t(sub["scale"])
-        sd[f"{prefix}.weight"] = w
-        sd[f"{prefix}.bias"] = _t(sub["bias"])
-    return sd
+    state dict."""
+    return state_dict_from_layers(variables,
+                                  _fastddpm_layers(variables["params"]))
 
 
 def fastddpm_flax_params(model) -> Dict:

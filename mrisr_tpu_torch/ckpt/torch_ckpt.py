@@ -1,15 +1,14 @@
-"""The reference's torch checkpoint layout for the pair UNets and the
-Fast-DDPM UNet.
+"""The reference's torch checkpoint layout for every family.
 
 The reference saves ``{'epoch', 'model_state_dict', 'val_loss', ...}``,
 ``{'generator_state_dict', ...}`` (GAN) or a raw state dict
 (reference ``src/ModelLoader.py:693-705``).  Its UNet has the port's keys
 (``enc1.conv.0.weight`` ...) except the 1x1 head, which the reference names
 ``final_conv`` in the MSE/combined UNet and ``final`` in the GAN generator
-(``mrisr_tpu/ckpt/torch_convert.py:_convert_unet``); the Fast-DDPM UNet
-has the port's keys throughout.  BatchNorm's
-``num_batches_tracked`` is not read by an eval forward; a state dict that
-lacks it loads with zeros.
+(``mrisr_tpu/ckpt/torch_convert.py:_convert_unet``); every other family
+has the port's keys throughout (the simple Fast-DDPM's under ``unet.``).
+BatchNorm's ``num_batches_tracked`` is not read by an eval forward; a state
+dict that lacks it loads with zeros.
 """
 
 from __future__ import annotations
@@ -37,9 +36,14 @@ def unwrap_state_dict(checkpoint: Any) -> Dict[str, torch.Tensor]:
 
 def load_reference_state_dict(model: nn.Module, checkpoint: Any) -> None:
     """Load a reference-layout checkpoint (any of the three) into a port
-    UNet, strictly: every other missing or unexpected key raises."""
+    model, strictly: every other missing or unexpected key raises.  The
+    reference's simple Fast-DDPM files wrap the UNet2D's keys in
+    ``unet.``; that prefix is dropped."""
+    sd = unwrap_state_dict(checkpoint)
+    if sd and all(k.startswith("unet.") for k in sd):
+        sd = {k[len("unet."):]: v for k, v in sd.items()}
     sd = {("final." + k[len("final_conv."):] if k.startswith("final_conv.")
-           else k): v for k, v in unwrap_state_dict(checkpoint).items()}
+           else k): v for k, v in sd.items()}
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
             sd.setdefault(k, torch.zeros_like(v))

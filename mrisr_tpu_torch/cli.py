@@ -8,11 +8,12 @@
       --quant int8_deep --data <store> --out <bundle> [...]
 
 The arguments are the JAX CLI's, plus ``--device`` (default: the card;
-``--device cpu`` runs the plain versions on the CPU).  ``train`` trains the
-pair UNets (presets ``unet`` and ``unet_combined``); the other families,
-the other commands, ``--bf16``, ``--figure`` and ``--export-dicom`` come
-with later slices and raise ``NotImplementedError`` naming their ROADMAP
-item.
+``--device cpu`` runs the plain versions on the CPU).  ``train`` trains
+every family's preset: the pair UNets, DeepCNN, the Progressive UNet (on
+5-slice windows), the UNet-GAN and both Fast-DDPM lineages.  The other
+commands, ``--bf16``, ``--figure``, ``--export-dicom`` and data/model-
+parallel training come with later slices and raise ``NotImplementedError``
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -142,31 +143,38 @@ def cmd_synth(args) -> None:
     print(f"packed {len(store)} synthetic series -> {args.out}")
 
 
-# presets the port does not train yet -> the ROADMAP item that ports them
-_TRAIN_NOT_PORTED = {
-    "unet_gan": "ROADMAP.md, Queue 1 item 11",
-    "deepcnn": "ROADMAP.md, Queue 1 item 11",
-    "progressive_unet": "ROADMAP.md, Queue 1 item 11",
-    "fastddpm": "ROADMAP.md, Queue 1 item 12",
-    "fastddpm_simple": "ROADMAP.md, Queue 1 item 12",
-    "fastddpm_cosine128": "ROADMAP.md, Queue 1 item 12",
-    "fastddpm_large": "ROADMAP.md, Queue 1 item 12",
-}
+def make_trainer(cfg: Config, steps_per_epoch: int, device):
+    """The trainer of ``cfg``'s family, by ``loss.kind``: 'gan' ->
+    ``GANTrainer``, 'diffusion' -> ``DiffusionTrainer``, else
+    ``SupervisedTrainer`` (pair models, and the Progressive UNet's
+    windows)."""
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.train import (
+        DiffusionTrainer,
+        GANTrainer,
+        SupervisedTrainer,
+    )
+
+    kind = cfg.loss.kind
+    if kind == "gan":
+        return GANTrainer(cfg, make_perceptual_fn(cfg.loss.perceptual),
+                          steps_per_epoch=steps_per_epoch, device=device)
+    if kind == "diffusion":
+        return DiffusionTrainer(cfg, steps_per_epoch=steps_per_epoch,
+                                device=device)
+    perceptual_fn = (make_perceptual_fn(cfg.loss.perceptual)
+                     if kind == "combined" else None)
+    return SupervisedTrainer(cfg, perceptual_fn=perceptual_fn,
+                             steps_per_epoch=steps_per_epoch, device=device)
 
 
 def cmd_train(args):
-    """Train a pair UNet (presets 'unet', 'unet_combined') on ``--device``
-    and write ``<preset>_{best,latest,epoch_N}.pt``; returns the trainer."""
+    """Train the preset's family on ``--device`` and write
+    ``<preset>_{best,latest,epoch_N}.pt``; returns the trainer."""
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.device import resolve_device
-    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
-    from mrisr_tpu_torch.train import SupervisedTrainer
 
-    if args.preset in _TRAIN_NOT_PORTED:
-        raise NotImplementedError(
-            f"training preset {args.preset!r} is not ported yet "
-            f"({_TRAIN_NOT_PORTED[args.preset]})")
     if max(args.mesh_data or 1, args.mesh_model or 1) > 1:
         raise NotImplementedError(
             "data/model-parallel training is not ported yet (ROADMAP.md, "
@@ -181,16 +189,13 @@ def cmd_train(args):
         raise SystemExit("--scan-epochs requires --backend device")
     device = resolve_device(args.device)
     store = VolumeStore.open(args.data)
-    train_loader = build_loader(store, "train", cfg.data,
+    kind = "window" if cfg.model.name == "progressive_unet" else "triplet"
+    train_loader = build_loader(store, "train", cfg.data, kind=kind,
                                 backend=args.backend, device=device,
                                 shard_by_host=args.shard_hosts)
-    val_loader = build_loader(store, "val", cfg.data, backend=args.backend,
-                              device=device)
-    perceptual_fn = (make_perceptual_fn(cfg.loss.perceptual)
-                     if cfg.loss.kind == "combined" else None)
-    trainer = SupervisedTrainer(cfg, perceptual_fn=perceptual_fn,
-                                steps_per_epoch=len(train_loader),
-                                device=device)
+    val_loader = build_loader(store, "val", cfg.data, kind=kind,
+                              backend=args.backend, device=device)
+    trainer = make_trainer(cfg, len(train_loader), device)
     if args.scan_epochs:
         trainer.enable_device_epochs(train_loader.bank, train_loader.plan_flat)
     if args.resume and trainer.try_resume():
@@ -203,7 +208,10 @@ def cmd_train(args):
 def cmd_eval(args) -> None:
     from mrisr_tpu_torch.api import load_model
     from mrisr_tpu_torch.data.volumes import VolumeStore
-    from mrisr_tpu_torch.eval.runner import evaluate_and_save
+    from mrisr_tpu_torch.eval.runner import (
+        evaluate_and_save,
+        evaluate_progressive_test_set,
+    )
 
     cfg = _build_config(args, _preset_for(args.model))
     store = VolumeStore.open(args.data)
@@ -211,11 +219,17 @@ def cmd_eval(args) -> None:
                        cfg=cfg.model, device=args.device,
                        checkpoint=None if args.allow_fresh else "required")
     out = os.path.join(args.results_dir, f"{args.model}_test_metrics.json")
-    metrics = evaluate_and_save(
-        model.predict_nhwc, store, cfg.data, out_json=out,
-        mode=args.metric_mode, max_batches=args.max_batches,
-        backend=args.backend, device=model.device,
-    )
+    kwargs = dict(mode=args.metric_mode, max_batches=args.max_batches,
+                  backend=args.backend, device=model.device)
+    if model.kind == "window":
+        metrics = evaluate_progressive_test_set(model.predict_nhwc, store,
+                                                cfg.data, **kwargs)
+        os.makedirs(args.results_dir, exist_ok=True)
+        with open(out, "w") as f:
+            json.dump(metrics, f, indent=2)
+    else:
+        metrics = evaluate_and_save(model.predict_nhwc, store, cfg.data,
+                                    out_json=out, **kwargs)
     print(json.dumps(metrics, indent=2))
 
 

@@ -11,6 +11,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from mrisr_tpu_torch.models.conv import Conv2d
+
 # flax momentum 0.9 == torch momentum 0.1 (torch weighs the NEW batch)
 BN_MOMENTUM = 0.1
 BN_EPS = 1e-5
@@ -48,7 +50,7 @@ class DoubleConv(nn.Module):
         super().__init__()
         layers = []
         for i in range(2):
-            layers.append(nn.Conv2d(
+            layers.append(Conv2d(
                 in_channels if i == 0 else features, features, 3, padding=1,
                 bias=use_bias or not use_bn,
             ))

@@ -16,8 +16,13 @@
   the JAX package's draws: ``jax.random`` streams cannot be reproduced in
   torch).
 
-``FastNoiseSchedule``, ``SimpleDiffusionUNet`` and ``sample_ddim`` are not
-ported yet (ROADMAP.md, Queue 1 item 12).
+- :class:`SimpleDiffusionUNet`, the ModelLoader "Simple" lineage (M10): a
+  2-level UNet with the 256-dim time embedding broadcast as input
+  channels, ``[x_noisy, pre, post]`` in.  2,162,177 parameters at base 64.
+- :class:`FastNoiseSchedule`: the compressed-T schedule of that lineage
+  (the 1000-step linear beta table subsampled to T entries; the model sees
+  the compressed indices 0..T-1), and :func:`sample_ddim`, its
+  deterministic sampler (x first, a final clamp to [-1, 1]).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mrisr_tpu_torch.models.blocks import UpConv2x2, max_pool_2x2
+from mrisr_tpu_torch.models.conv import Conv2d
 
 GN_EPS = 1e-5
 
@@ -67,7 +73,8 @@ class TimeEmbedding(nn.Module):
                                 nn.Linear(2 * dim, dim))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
-        return self.fc(timestep_embedding(t, self.dim, "ddpm"))
+        emb = timestep_embedding(t, self.dim, "ddpm")
+        return self.fc(emb.to(self.fc[0].weight.dtype))
 
 
 def num_groups(channels: int) -> int:
@@ -83,11 +90,11 @@ class DiffResBlock(nn.Module):
         super().__init__()
         self.norm1 = nn.GroupNorm(num_groups(in_channels), in_channels,
                                   eps=GN_EPS)
-        self.conv1 = nn.Conv2d(in_channels, features, 3, padding=1)
+        self.conv1 = Conv2d(in_channels, features, 3, padding=1)
         self.time_fc = nn.Linear(time_dim, features)
         self.norm2 = nn.GroupNorm(num_groups(features), features, eps=GN_EPS)
-        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
-        self.skip = (nn.Conv2d(in_channels, features, 1)
+        self.conv2 = Conv2d(features, features, 3, padding=1)
+        self.skip = (Conv2d(in_channels, features, 1)
                      if in_channels != features else nn.Identity())
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
@@ -108,7 +115,7 @@ class FastDDPMUNet(nn.Module):
         self.base_features = b
         self.time_dim = time_dim
         self.time_emb = TimeEmbedding(time_dim)
-        self.init_conv = nn.Conv2d(in_channels, b, 3, padding=1)
+        self.init_conv = Conv2d(in_channels, b, 3, padding=1)
         self.enc1 = DiffResBlock(b, 2 * b, time_dim)
         self.enc2 = DiffResBlock(2 * b, 4 * b, time_dim)
         self.enc3 = DiffResBlock(4 * b, 8 * b, time_dim)
@@ -121,7 +128,7 @@ class FastDDPMUNet(nn.Module):
         self.dec1 = DiffResBlock(3 * b, b, time_dim)
         self.final = nn.Sequential(
             nn.GroupNorm(num_groups(b), b, eps=GN_EPS), nn.SiLU(),
-            nn.Conv2d(b, out_channels, 3, padding=1))
+            Conv2d(b, out_channels, 3, padding=1))
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         t_emb = self.time_emb(t)
@@ -133,7 +140,72 @@ class FastDDPMUNet(nn.Module):
         h = self.dec3(torch.cat([self.upconv3(h), e3], dim=1), t_emb)
         h = self.dec2(torch.cat([self.upconv2(h), e2], dim=1), t_emb)
         h = self.dec1(torch.cat([self.upconv1(h), e1], dim=1), t_emb)
-        return self.final(h).permute(0, 2, 3, 1).float()
+        h = self.final(h).permute(0, 2, 3, 1)
+        return h.to(torch.promote_types(h.dtype, torch.float32))
+
+
+# --------------------------------------------------------------------------
+# the "Simple" UNet2D of the ModelLoader lineage (M10)
+# --------------------------------------------------------------------------
+
+
+class _Block(nn.Module):
+    """conv3x3 -> ReLU -> conv3x3 -> ReLU as ``block.{0,2}``, the
+    reference's DoubleConv names."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__()
+        self.block = nn.Sequential(
+            Conv2d(in_channels, features, 3, padding=1), nn.ReLU(inplace=True),
+            Conv2d(features, features, 3, padding=1), nn.ReLU(inplace=True))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.block(x)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsampling of NCHW, as ``F.interpolate(scale_factor=2)``
+    (the JAX package's ``_upsample_nearest_2x`` on NHWC)."""
+    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+
+
+class SimpleDiffusionUNet(nn.Module):
+    """``(B, H, W, 3) + (B,) t -> (B, H, W, 1)``: the time embedding
+    ('simple' sinusoid -> Linear -> ReLU -> Linear) broadcast over the
+    image and concatenated as ``time_dim`` input channels, then a 2-level
+    UNet (max-pool down, nearest-2x up, skip concat), a 1x1 ``outc``.
+    State-dict keys ``time_mlp.{0,2}``, ``inc.block.{0,2}`` ... ``outc``;
+    the reference's files wrap them in ``unet.``, which
+    ``ckpt/torch_ckpt.py`` strips."""
+
+    def __init__(self, in_channels: int = 3, base_features: int = 64,
+                 time_dim: int = 256):
+        super().__init__()
+        b = base_features
+        self.time_dim = time_dim
+        self.time_mlp = nn.Sequential(nn.Linear(time_dim, time_dim),
+                                      nn.ReLU(inplace=True),
+                                      nn.Linear(time_dim, time_dim))
+        self.inc = _Block(in_channels + time_dim, b)
+        self.down1 = _Block(b, 2 * b)
+        self.down2 = _Block(2 * b, 4 * b)
+        self.up2 = _Block(6 * b, 2 * b)
+        self.up1 = _Block(3 * b, b)
+        self.outc = Conv2d(b, 1, 1)
+
+    def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        n, h, w, _ = x.shape
+        emb = timestep_embedding(t, self.time_dim, "simple")
+        t_emb = self.time_mlp(emb.to(self.time_mlp[0].weight.dtype))
+        t_map = t_emb.to(x.dtype)[:, :, None, None].expand(n, self.time_dim,
+                                                          h, w)
+        c1 = self.inc(torch.cat([x.permute(0, 3, 1, 2), t_map], dim=1))
+        c2 = self.down1(max_pool_2x2(c1))
+        c3 = self.down2(max_pool_2x2(c2))
+        u2 = self.up2(torch.cat([upsample_nearest_2x(c3), c2], dim=1))
+        u1 = self.up1(torch.cat([upsample_nearest_2x(u2), c1], dim=1))
+        out = self.outc(u1).permute(0, 2, 3, 1)
+        return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 # --------------------------------------------------------------------------
@@ -209,6 +281,59 @@ class DiffusionSchedule:
     @property
     def num_inference_steps(self) -> int:
         return int(self.timesteps.shape[0])
+
+    def add_noise(self, x0: torch.Tensor, t: torch.Tensor,
+                  noise: torch.Tensor) -> torch.Tensor:
+        """q(x_t | x_0) = sqrt(abar_t) x0 + sqrt(1 - abar_t) noise, t the
+        ORIGINAL timestep value."""
+        return q_sample(self.alphas_cumprod, x0, t, noise)
+
+
+@dataclass(frozen=True)
+class FastNoiseSchedule:
+    """Compressed-T schedule (ModelLoader's FastNoiseScheduler): the
+    1000-step linear beta table subsampled to T indices, 40 % over
+    [0, 699] and 60 % over [699, 999] by truncating ``linspace``; the
+    model is conditioned on the compressed indices 0..T-1.  float32 CPU
+    tables, computed in numpy float64 as the JAX package computes them."""
+
+    betas: torch.Tensor
+    alphas: torch.Tensor
+    alphas_cumprod: torch.Tensor
+
+    @staticmethod
+    def create(T: int = 10) -> "FastNoiseSchedule":
+        betas = np.linspace(1e-4, 0.02, 1000)
+        alphas = 1.0 - betas
+        abar = np.cumprod(alphas)
+        late = int(T * 0.6)
+        early = T - late
+        idxs = np.sort(np.concatenate([
+            np.linspace(0, 699, early).astype(np.int64),
+            np.linspace(699, 999, late).astype(np.int64)]))
+        return FastNoiseSchedule(
+            betas=torch.tensor(betas[idxs], dtype=torch.float32),
+            alphas=torch.tensor(alphas[idxs], dtype=torch.float32),
+            alphas_cumprod=torch.tensor(abar[idxs], dtype=torch.float32))
+
+    @property
+    def T(self) -> int:
+        return int(self.betas.shape[0])
+
+    def q_sample(self, x0: torch.Tensor, t: torch.Tensor,
+                 noise: torch.Tensor) -> torch.Tensor:
+        """sqrt(abar_t) x0 + sqrt(1 - abar_t) noise, t the compressed
+        index."""
+        return q_sample(self.alphas_cumprod, x0, t, noise)
+
+
+def q_sample(alphas_cumprod: torch.Tensor, x0: torch.Tensor,
+             t: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+    """sqrt(abar[t]) x0 + sqrt(1 - abar[t]) noise, one t a sample."""
+    abar = alphas_cumprod.to(x0.device)[t.long()].to(x0.dtype)
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    return (abar.sqrt().reshape(shape) * x0
+            + (1.0 - abar).sqrt().reshape(shape) * noise)
 
 
 def ancestral_steps(schedule: DiffusionSchedule) -> List[Tuple[int, float,
@@ -297,3 +422,42 @@ def sample_ancestral(
                   for i in range(num_samples)]
         return torch.stack(chains).mean(dim=0)
     raise ValueError(combine)
+
+
+def sample_ddim(
+    eps_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+    cond: torch.Tensor,
+    generator: Optional[torch.Generator],
+    schedule: FastNoiseSchedule,
+    noise: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Deterministic DDIM-style sampler over the compressed schedule
+    (ModelLoader's ``sample``): from x_T ~ N(0, 1), for i = T-1 .. 0,
+    ``x0 = (x - sqrt(1 - abar_i) eps) / sqrt(abar_i)`` and
+    ``x = sqrt(abar_{i-1}) x0 + sqrt(1 - abar_{i-1}) eps`` (abar_{-1} = 1),
+    then a clamp to [-1, 1].  The model sees ``[x, cond]``: x FIRST.
+
+    cond ``(B, H, W, 2)``; ``generator`` draws x_T (``None``: seeded 0 on
+    cond's device), or ``noise`` gives it (the tests pass the JAX
+    package's draw).  The constants are float32 values, as the JAX
+    sampler's traced arithmetic computes them."""
+    b, h, w, _ = cond.shape
+    device = cond.device
+    if noise is not None:
+        x = torch.as_tensor(noise, dtype=torch.float32, device=device)
+    else:
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        x = torch.randn((b, h, w, 1), generator=generator, device=device,
+                        dtype=torch.float32)
+    one = np.float32(1.0)
+    abar_all = schedule.alphas_cumprod.numpy()
+    for i in range(schedule.T - 1, -1, -1):
+        abar = abar_all[i]
+        abar_prev = abar_all[i - 1] if i > 0 else one
+        t_batch = torch.full((b,), i, dtype=torch.int32, device=device)
+        eps = eps_fn(torch.cat([x, cond], dim=-1), t_batch)
+        x0 = (x - float(np.sqrt(one - abar)) * eps) / float(np.sqrt(abar))
+        x = (float(np.sqrt(abar_prev)) * x0
+             + float(np.sqrt(one - abar_prev)) * eps)
+    return x.clamp(-1.0, 1.0)

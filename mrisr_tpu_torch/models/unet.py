@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from mrisr_tpu_torch.models.blocks import DoubleConv, UpConv2x2, max_pool_2x2
+from mrisr_tpu_torch.models.conv import Conv2d
 
 BLOCKS_DOWN = ("enc1", "enc2", "enc3", "enc4")
 BLOCKS_UP = ("dec4", "dec3", "dec2", "dec1")
@@ -45,7 +46,7 @@ class UNet(nn.Module):
         self.dec2 = dc(4 * f, 2 * f)
         self.upconv1 = UpConv2x2(2 * f, f)
         self.dec1 = dc(2 * f, f)
-        self.final = nn.Conv2d(f, out_channels, 1)
+        self.final = Conv2d(f, out_channels, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out) float32 (float64

@@ -203,11 +203,21 @@ def export_serving_bundle(
     loaded = load_model(model_name, models_dir=models_dir,
                         checkpoint="required", cfg=cfg, fold_bn=True,
                         device=device)
+    if loaded.name == "fastddpm_simple":
+        # M10's SimpleDiffusionUNet is another topology than the M11
+        # skeleton the int8/float sampler mirrors
+        raise ValueError("diffusion bundles cover the fastddpm (M11) family; "
+                         "fastddpm_simple has no bundle path")
     if loaded.kind == "diffusion":
         return _export_diffusion_bundle(
             out_path, loaded, quant=quant,
             calibration_batches=calibration_batches, image_size=image_size,
             percentile=percentile)
+    if not hasattr(loaded.module, "features"):
+        raise ValueError(
+            f"serving bundles cover the UNet-family pair models and the "
+            f"fastddpm diffusion family; {model_name!r} is "
+            f"{type(loaded.module).__name__}, kind={loaded.kind!r}")
     if quant in ("none", "int8"):
         raise NotImplementedError(
             f"pair-model bundles with quant {quant!r} are not ported yet; "

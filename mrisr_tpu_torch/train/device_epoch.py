@@ -7,9 +7,9 @@ draws one ``torch.randperm`` from a generator on the card, and every step
 gathers its batch there, moves it to NHWC float32, augments it with draws
 from the same generator and takes the train step; the metrics are averaged
 on the card.  No batch crosses the host, and the host fetches the metrics
-once an epoch.  The pair models' step, ``step(state, batch)``, is the one
-this slice ports; the GAN and diffusion steps come with their trainers
-(ROADMAP.md, Queue 1 items 11-12).
+once an epoch.  Every trainer runs here through its own step of a batch
+and the epoch's generator (the diffusion step draws its timesteps and
+noise from it; the others ignore it).
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ class DeviceEpochRunner:
 
     bank: a SliceBank with backend='device'.
     plan_flat: ``(N, C)`` flat slice ids (the loader's ``plan_flat``).
-    train_step: ``step(state, batch) -> (state, metrics)``.
+    train_step: ``step(batch, generator) -> metrics``, one train step of
+    the trainer's states, updated in place.
     """
 
     def __init__(self, bank: SliceBank, plan_flat: np.ndarray,
@@ -55,7 +56,7 @@ class DeviceEpochRunner:
         self.augment = augment or _AugmentSpec()
         self.seed = seed
 
-    def run_epoch(self, state, epoch: int) -> Dict[str, torch.Tensor]:
+    def run_epoch(self, epoch: int) -> Dict[str, torch.Tensor]:
         """One epoch of ``steps_per_epoch`` steps (the tail that does not
         fill a batch is dropped, as the scan does); returns the mean of
         each metric as a device scalar."""
@@ -68,7 +69,7 @@ class DeviceEpochRunner:
             rows = self.plan[perm[s * bs:(s + 1) * bs]]        # (B, C)
             batch = self.flat[rows].permute(0, 2, 3, 1).float()  # NHWC
             batch = self.augment.apply(batch.contiguous(), g)
-            state, metrics = self.train_step(state, batch)
+            metrics = self.train_step(batch, g)
             for k, v in metrics.items():
                 acc.setdefault(k, []).append(v)
         return {k: torch.stack(v).double().mean() for k, v in acc.items()}

@@ -34,12 +34,13 @@ def make_optimizer(
     cfg: TrainConfig,
     params: Iterable[torch.Tensor],
     steps_per_epoch: Optional[int] = None,
+    learning_rate: Optional[float] = None,
 ) -> Tuple[torch.optim.Optimizer, Optional[LambdaLR]]:
     """(optimizer, schedule or None) for ``params``: Adam or AdamW (betas
-    0.9 / 0.999, eps 1e-8, optax's defaults) at ``cfg.learning_rate``, with
-    the cosine decay over ``cfg.epochs * steps_per_epoch`` updates when
-    ``cfg.lr_schedule`` is 'cosine'."""
-    lr = cfg.learning_rate
+    0.9 / 0.999, eps 1e-8, optax's defaults) at ``learning_rate`` (None:
+    ``cfg.learning_rate``), with the cosine decay over ``cfg.epochs *
+    steps_per_epoch`` updates when ``cfg.lr_schedule`` is 'cosine'."""
+    lr = cfg.learning_rate if learning_rate is None else learning_rate
     if cfg.optimizer == "adamw":
         opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=cfg.weight_decay)
@@ -97,8 +98,10 @@ class TrainState:
 
 
 def create_train_state(module: nn.Module, cfg: TrainConfig,
-                       steps_per_epoch: Optional[int] = None) -> TrainState:
+                       steps_per_epoch: Optional[int] = None,
+                       learning_rate: Optional[float] = None) -> TrainState:
     opt, schedule = make_optimizer(cfg, module.parameters(),
-                                   steps_per_epoch=steps_per_epoch)
+                                   steps_per_epoch=steps_per_epoch,
+                                   learning_rate=learning_rate)
     return TrainState(module=module, optimizer=opt, schedule=schedule,
                       grad_clip_norm=cfg.grad_clip_norm)

@@ -5,12 +5,14 @@
 ``src/unet_model.py:148-298``): per-epoch train and val losses, early
 stopping with a patience counter, ``<preset>_best`` / ``_latest`` /
 ``_epoch_<N>`` checkpoints, the history JSON and the loss-curve PNG.  It
-trains the pair UNets with the MSE or the combined loss; the progressive
-UNet's window kind comes with that model (ROADMAP.md, Queue 1 item 11).
+trains the pair models (the UNets and DeepCNN) with the MSE or the combined
+loss, and the Progressive UNet on 5-slice windows with the weighted
+progressive loss.  ``train/gan.py`` and ``train/diffusion.py`` run their
+families on the same loop (:class:`_EpochLoopMixin`).
 
 A checkpoint is the reference's torch layout, Python scalars only::
 
-    {epoch, model_state_dict (the 1x1 head as final_conv),
+    {epoch, model_state_dict (a pair UNet's 1x1 head as final_conv),
      optimizer_state_dict, scheduler_state_dict, step, val_loss, best_loss}
 
 so ``api.load_model("unet_combined")`` reads ``unet_combined_best.pt`` as
@@ -39,11 +41,21 @@ from mrisr_tpu_torch.ckpt.torch_ckpt import (
 )
 from mrisr_tpu_torch.config import Config
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
-from mrisr_tpu_torch.losses import combined_loss, mse
+from mrisr_tpu_torch.losses import combined_loss, mse, progressive_loss
 from mrisr_tpu_torch.models.registry import init_model
 from mrisr_tpu_torch.train.history import TrainingHistory
-from mrisr_tpu_torch.train.state import create_train_state
-from mrisr_tpu_torch.train.steps import make_supervised_steps
+from mrisr_tpu_torch.train.state import TrainState, create_train_state
+from mrisr_tpu_torch.train.steps import (
+    make_progressive_steps,
+    make_supervised_steps,
+)
+
+
+def require_float32(config: Config) -> None:
+    if config.train.compute_dtype != "float32":
+        raise NotImplementedError(
+            "bf16 training is not ported yet (ROADMAP.md, Queue 1 item "
+            "6, rest: bf16); the port trains in float32")
 
 
 class _EpochLoopMixin:
@@ -52,6 +64,16 @@ class _EpochLoopMixin:
 
     config: Config
     history: TrainingHistory
+
+    def _init_loop(self, config: Config, device: DeviceLike) -> None:
+        require_float32(config)
+        self.config = config
+        self.device = resolve_device(device)
+        self._device_runner = None
+        self.history = TrainingHistory(json.loads(config.to_json()))
+        # one entry a run_epoch: {epoch, train, steps, seconds}, the host
+        # clock up to the epoch's one metrics fetch
+        self.timings: List[Dict] = []
 
     def enable_device_epochs(self, bank, plan_flat) -> None:
         """Run the train epochs with the batches gathered on the card
@@ -62,10 +84,62 @@ class _EpochLoopMixin:
         from mrisr_tpu_torch.train.device_epoch import DeviceEpochRunner
 
         self._device_runner = DeviceEpochRunner(
-            bank, plan_flat, self.train_step,
+            bank, plan_flat, self._train,
             batch_size=self.config.data.batch_size,
             augment=_AugmentSpec.from_config(self.config.data),
             seed=self.config.train.seed)
+
+    # a trainer defines _train and _eval (one batch, with the generator of
+    # its draws) and _checkpoint / load
+    def _train(self, batch, generator) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def _eval(self, batch, generator) -> Dict[str, torch.Tensor]:
+        raise NotImplementedError
+
+    def _generator(self, epoch: int, train: bool,
+                   index: int) -> Optional[torch.Generator]:
+        """The generator of a loader batch's draws (None: a step that
+        draws nothing)."""
+        return None
+
+    def _epoch_metrics(self, out: Dict[str, float]) -> Dict[str, float]:
+        """The fetched epoch means; a trainer whose metrics have no 'loss'
+        names the one early stopping reads."""
+        return out
+
+    def run_epoch(self, loader, train: bool, epoch: int) -> Dict[str, float]:
+        t0 = time.perf_counter()
+        if train and self._device_runner is not None:
+            means = self._device_runner.run_epoch(epoch)
+            steps = self._device_runner.steps_per_epoch
+        else:
+            step = self._train if train else self._eval
+            acc: Dict[str, list] = {}
+            steps = 0
+            for i, batch in enumerate(loader):
+                g = self._generator(epoch, train, i)
+                for k, v in step(batch, g).items():
+                    acc.setdefault(k, []).append(v)
+                steps += 1
+            means = {k: torch.stack(v).double().mean()
+                     for k, v in acc.items()}
+        # the epoch's one host fetch
+        out = (dict(zip(means, torch.stack(list(means.values())).tolist()))
+               if means else {})
+        self.timings.append({"epoch": epoch, "train": train, "steps": steps,
+                             "seconds": time.perf_counter() - t0})
+        return self._epoch_metrics(out)
+
+    def save(self, path: str, epoch: int, best_loss: float, val_loss: float,
+             async_: bool = False) -> None:
+        save_checkpoint(path, self._checkpoint(epoch, best_loss, val_loss),
+                        async_=async_)
+
+    def _resume_point(self, ckpt: dict) -> None:
+        self.best_loss = float(ckpt.get("best_loss", ckpt.get(
+            "val_loss", float("inf"))))
+        self.start_epoch = int(ckpt.get("epoch", 0)) + 1
 
     def _ckpt_path(self, suffix: str) -> str:
         d = self.config.train.checkpoint_dir
@@ -183,102 +257,102 @@ class _EpochLoopMixin:
         return self.history
 
 
-class SupervisedTrainer(_EpochLoopMixin):
-    """MSE or combined-loss training of a pair UNet on ``device``
-    (``None``: the card), initialized as the JAX package initializes it
-    (``models/registry.py:init_model``, seed ``train.seed``)."""
+def state_checkpoint(state: TrainState, model_name: str, epoch: int,
+                     val_loss: float, sd_key: str = "model_state_dict",
+                     prefix: str = "") -> dict:
+    """One train state in the reference layout: the module under
+    ``sd_key`` (a pair UNet's head under the reference's name), its
+    optimizer, schedule and update count under ``<prefix>optimizer_
+    state_dict``, ``<prefix>scheduler_state_dict`` and ``<prefix>step``."""
+    ckpt = reference_checkpoint(state.module, model_name, epoch=epoch,
+                                val_loss=val_loss)
+    ckpt[sd_key] = ckpt.pop("model_state_dict")
+    ckpt.update({
+        f"{prefix}optimizer_state_dict": state.optimizer.state_dict(),
+        f"{prefix}scheduler_state_dict": (state.schedule.state_dict()
+                                          if state.schedule is not None
+                                          else None),
+        f"{prefix}step": int(state.step)})
+    return ckpt
+
+
+def load_state(state: TrainState, ckpt: dict,
+               sd_key: str = "model_state_dict", prefix: str = "") -> None:
+    """The inverse of :func:`state_checkpoint` into ``state``."""
+    load_reference_state_dict(state.module,
+                              ckpt[sd_key] if sd_key in ckpt else ckpt)
+    if ckpt.get(f"{prefix}optimizer_state_dict") is not None:
+        state.optimizer.load_state_dict(ckpt[f"{prefix}optimizer_state_dict"])
+    if state.schedule is not None and ckpt.get(
+            f"{prefix}scheduler_state_dict"):
+        state.schedule.load_state_dict(ckpt[f"{prefix}scheduler_state_dict"])
+    state.step = int(ckpt.get(f"{prefix}step", 0))
+
+
+class _SingleStateTrainer(_EpochLoopMixin):
+    """A trainer of one model: ``self.state``, checkpointed as
+    ``model_state_dict``."""
+
+    state: TrainState
+
+    def _checkpoint(self, epoch: int, best_loss: float,
+                    val_loss: float) -> dict:
+        ckpt = state_checkpoint(self.state, self.config.model.name, epoch,
+                                val_loss)
+        ckpt["best_loss"] = float(best_loss)
+        return ckpt
+
+    def load(self, path: str) -> None:
+        ckpt = load_checkpoint_file(path)
+        load_state(self.state, ckpt)
+        self._resume_point(ckpt)
+
+
+class SupervisedTrainer(_SingleStateTrainer):
+    """MSE or combined-loss training of a pair model (the UNets, DeepCNN),
+    or progressive-loss training of the Progressive UNet on windows, on
+    ``device`` (``None``: the card), initialized as the JAX package
+    initializes it (``models/registry.py:init_model``, seed
+    ``train.seed``)."""
 
     def __init__(self, config: Config, perceptual_fn: Optional[Callable] = None,
                  steps_per_epoch: Optional[int] = None,
                  device: DeviceLike = None):
-        if config.train.compute_dtype != "float32":
-            raise NotImplementedError(
-                "bf16 training is not ported yet (ROADMAP.md, Queue 1 item "
-                "6, rest: bf16); the port trains in float32")
-        self.config = config
-        self.device = resolve_device(device)
+        self._init_loop(config, device)
         module, self.kind = init_model(config.model.name, config.model,
                                        seed=config.train.seed)
         self.state = create_train_state(module.to(self.device), config.train,
                                         steps_per_epoch=steps_per_epoch)
-        if config.loss.kind == "combined":
+        lcfg = config.loss
+        if self.kind == "window":
+            def loss_fn(preds, window):
+                return progressive_loss(preds, window, lcfg.w_i1, lcfg.w_i2,
+                                        lcfg.w_i3)
+            steps = make_progressive_steps(loss_fn)
+        elif lcfg.kind == "combined":
             def loss_fn(pred, target):
                 return combined_loss(
                     pred, target, perceptual_fn=perceptual_fn,
-                    lambda_perceptual=config.loss.lambda_perceptual,
-                    lambda_ssim=config.loss.lambda_ssim)
-        elif config.loss.kind == "mse":
-            def loss_fn(pred, target):
-                return mse(pred, target), {}
+                    lambda_perceptual=lcfg.lambda_perceptual,
+                    lambda_ssim=lcfg.lambda_ssim)
+            steps = make_supervised_steps(loss_fn)
+        elif lcfg.kind == "mse":
+            steps = make_supervised_steps(lambda p, t: (mse(p, t), {}))
         else:
-            raise NotImplementedError(
-                f"loss kind {config.loss.kind!r} is not ported yet "
-                "(ROADMAP.md, Queue 1 items 11-12)")
-        self.train_step, self.eval_step = make_supervised_steps(loss_fn)
-        self._device_runner = None
-        self.history = TrainingHistory(json.loads(config.to_json()))
-        # one entry a run_epoch: {epoch, train, steps, seconds}, the host
-        # clock up to the epoch's one metrics fetch
-        self.timings: List[Dict] = []
+            raise ValueError(
+                f"loss kind {lcfg.kind!r} is not a supervised loss: the GAN "
+                "trains with train/gan.py, diffusion with train/diffusion.py")
+        self.train_step, self.eval_step = steps
 
-    def run_epoch(self, loader, train: bool, epoch: int) -> Dict[str, float]:
-        t0 = time.perf_counter()
-        if train and self._device_runner is not None:
-            means = self._device_runner.run_epoch(self.state, epoch)
-            steps = self._device_runner.steps_per_epoch
-        else:
-            acc: Dict[str, list] = {}
-            steps = 0
-            for batch in loader:
-                if train:
-                    self.state, metrics = self.train_step(self.state, batch)
-                else:
-                    metrics = self.eval_step(self.state, batch)
-                for k, v in metrics.items():
-                    acc.setdefault(k, []).append(v)
-                steps += 1
-            means = {k: torch.stack(v).double().mean()
-                     for k, v in acc.items()}
-        # the epoch's one host fetch
-        out = (dict(zip(means, torch.stack(list(means.values())).tolist()))
-               if means else {})
-        self.timings.append({"epoch": epoch, "train": train, "steps": steps,
-                             "seconds": time.perf_counter() - t0})
-        return out
+    def _train(self, batch, generator):
+        return self.train_step(self.state, batch)[1]
+
+    def _eval(self, batch, generator):
+        return self.eval_step(self.state, batch)
 
     @torch.no_grad()
-    def predict(self, inputs: torch.Tensor) -> torch.Tensor:
-        """``(B, H, W, 2) -> (B, H, W, 1)``, eval mode, float32."""
+    def predict(self, inputs: torch.Tensor):
+        """``(B, H, W, 2) -> (B, H, W, 1)`` (a window model: ``(B, H, W,
+        5) -> (p1, p2, p3)``), eval mode, float32."""
         with fp32_reference():
             return self.state.module.eval()(inputs.to(self.device))
-
-    # ------------------------------------------------------------------ ckpt
-    def _checkpoint(self, epoch: int, best_loss: float,
-                    val_loss: float) -> dict:
-        st = self.state
-        ckpt = reference_checkpoint(st.module, self.config.model.name,
-                                    epoch=epoch, val_loss=val_loss)
-        ckpt.update(
-            optimizer_state_dict=st.optimizer.state_dict(),
-            scheduler_state_dict=(st.schedule.state_dict()
-                                  if st.schedule is not None else None),
-            step=int(st.step), best_loss=float(best_loss))
-        return ckpt
-
-    def save(self, path: str, epoch: int, best_loss: float, val_loss: float,
-             async_: bool = False) -> None:
-        save_checkpoint(path, self._checkpoint(epoch, best_loss, val_loss),
-                        async_=async_)
-
-    def load(self, path: str) -> None:
-        ckpt = load_checkpoint_file(path)
-        st = self.state
-        load_reference_state_dict(st.module, ckpt)
-        if ckpt.get("optimizer_state_dict") is not None:
-            st.optimizer.load_state_dict(ckpt["optimizer_state_dict"])
-        if st.schedule is not None and ckpt.get("scheduler_state_dict"):
-            st.schedule.load_state_dict(ckpt["scheduler_state_dict"])
-        st.step = int(ckpt.get("step", 0))
-        self.best_loss = float(ckpt.get("best_loss", ckpt.get(
-            "val_loss", float("inf"))))
-        self.start_epoch = int(ckpt.get("epoch", 0)) + 1

@@ -105,9 +105,13 @@ def test_load_model_refusals(tmp_path):
                {"checkpoint": str(tmp_path / "unet_best")}):
         with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
             load_model("unet", str(tmp_path), cfg=mcfg, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        load_model("progressive_unet", str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # every registry family loads (fresh weights here); the discriminator
+    # is not an eval model
+    assert load_model("progressive_unet", str(tmp_path / "empty"),
+                      device="cpu").kind == "window"
+    with pytest.raises(ValueError, match="discriminator"):
+        load_model("patchgan", str(tmp_path), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14"):
         load_model("fastddpm_steps5", str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         load_model("nope", str(tmp_path), device="cpu")
@@ -264,10 +268,20 @@ def test_cli_train_resume_then_eval(workdir, capsys):
     ("progressive_unet", "item 11"), ("fastddpm", "item 12"),
     ("fastddpm_simple", "item 12")])
 def test_cli_train_unported_presets_raise(workdir, preset, item):
+    """The presets once refused (citing ROADMAP ``item`` 11 or 12) now
+    train: one epoch on the CPU writes ``<preset>_best.pt``, which
+    ``load_model`` reads back."""
     args = train_args(workdir, "--epochs", "1")
     args[2] = preset
-    with pytest.raises(NotImplementedError, match=item):
-        cli.main(args)
+    args[args.index("--checkpoint-dir") + 1] = str(workdir / preset)
+    trainer = cli.main(args)
+    assert all(np.isfinite(trainer.history.series["train_loss"]))
+    assert (workdir / preset / f"{preset}_best.pt").exists()
+    loaded = load_model(preset, str(workdir / preset), checkpoint="required",
+                        cfg=trainer.config.model, device="cpu")
+    assert loaded.kind == {"progressive_unet": "window", "fastddpm":
+                           "diffusion", "fastddpm_simple": "diffusion"}.get(
+                               preset, "pair")
 
 
 def test_cli_train_unported_flags_raise(workdir):
@@ -281,3 +295,19 @@ def test_cli_train_unported_flags_raise(workdir):
         cli.main(args)
     with pytest.raises(SystemExit, match="--backend device"):
         cli.main(train_args(workdir, "--scan-epochs"))
+
+
+@pytest.mark.parametrize("preset,beta", [("fastddpm_cosine128", "cosine"),
+                                         ("fastddpm_large", "linear")])
+def test_cli_train_base128_fastddpm_presets(workdir, preset, beta):
+    """The base-128 Fast-DDPM presets train through the same trainer as
+    'fastddpm': their time_dim 256 and beta schedule come from the preset
+    (the width from --features here)."""
+    args = train_args(workdir, "--epochs", "1")
+    args[2] = preset
+    args[args.index("--checkpoint-dir") + 1] = str(workdir / preset)
+    trainer = cli.main(args)
+    assert trainer.state.module.time_dim == 256
+    assert trainer.config.model.beta_schedule == beta
+    assert all(np.isfinite(trainer.history.series["train_loss"]))
+    assert (workdir / preset / f"{preset}_best.pt").exists()

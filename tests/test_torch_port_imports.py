@@ -44,6 +44,10 @@ def test_import_with_jax_blocked():
         "import mrisr_tpu_torch.ops.augment, mrisr_tpu_torch.ckpt.io\n"
         "import mrisr_tpu_torch.models.registry, mrisr_tpu_torch.train\n"
         "import mrisr_tpu_torch.train.device_epoch\n"
+        "import mrisr_tpu_torch.train.gan, mrisr_tpu_torch.train.diffusion\n"
+        "import mrisr_tpu_torch.models.deepcnn, mrisr_tpu_torch.models.conv\n"
+        "import mrisr_tpu_torch.models.discriminator\n"
+        "import mrisr_tpu_torch.models.progressive\n"
         "from mrisr_tpu_torch.data.split import split_for\n"
         "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
         "assert not any(m == 'mrisr_tpu' or m.startswith('mrisr_tpu.')\n"

@@ -138,3 +138,81 @@ def jax_chain_noise(key, shape, schedule):
     zs = [np.array(jax.random.normal(jax.random.fold_in(k_loop, int(t)),
                                        shape, jnp.float32)) for t in ts]
     return x_t, zs
+
+
+def perturbed(variables: dict, seed: int) -> dict:
+    """flax variables as numpy with seeded, non-trivial norm scales and
+    biases, BatchNorm statistics and conv/dense biases (flax's init leaves
+    them at 1/0/0/1, which would hide a mix-up)."""
+    rng = np.random.default_rng(seed)
+
+    def perturb(path, a):
+        a = np.asarray(a, np.float32)
+        name = path[-1].key
+        if name == "scale":
+            return (1 + 0.2 * rng.standard_normal(a.shape)).astype(np.float32)
+        if name == "bias":
+            return (0.05 * rng.standard_normal(a.shape)).astype(np.float32)
+        if name == "mean":
+            return (0.1 * rng.standard_normal(a.shape)).astype(np.float32)
+        if name == "var":
+            return (0.5 + rng.random(a.shape)).astype(np.float32)
+        return a
+
+    return jax.tree_util.tree_map_with_path(perturb, dict(variables))
+
+
+def jax_init(model, *inputs, seed: int = 0, **kw) -> dict:
+    """A flax module's variables (jitted init) as perturbed numpy."""
+    v = jax.jit(lambda key, *x: model.init(key, *x, **kw))(
+        jax.random.PRNGKey(seed), *inputs)
+    return perturbed(jax.tree.map(np.asarray, v), seed)
+
+
+def adam_mu(opt_state):
+    """``mu`` of the Adam state inside an optax state (plain, chained
+    after a clip, or AdamW's chain)."""
+    import optax
+
+    def is_adam(s):
+        return isinstance(s, optax.ScaleByAdamState)
+
+    return next(s for s in jax.tree_util.tree_leaves(opt_state,
+                                                     is_leaf=is_adam)
+                if is_adam(s)).mu
+
+
+def param_count(tree) -> int:
+    return sum(int(np.prod(a.shape)) for a in jax.tree_util.tree_leaves(tree))
+
+
+def check_updated(module, grads: dict, params: dict, lr: float) -> None:
+    """A port module after one Adam step against the JAX step's: each
+    gradient (``.grad``, clipped where the optimizer clips) within rel-L2
+    1e-4 of ``grads`` (the JAX ``mu / 0.1``, torch names), each parameter
+    within 1e-6 of ``params`` (an element whose gradient is rounding noise,
+    under 1e-6, may move by about lr either way), BatchNorm running
+    statistics within 1e-6.  A conv bias right before a training-mode
+    BatchNorm has a zero gradient in exact arithmetic (the batch mean
+    removes it): both sides must hold only noise far below the weight's."""
+    import re
+
+    named = dict(module.named_parameters())
+    for name, p in named.items():
+        g = p.grad.numpy()
+        before_bn = re.search(r"\.conv\.[03]\.bias$", name) is not None
+        if before_bn:
+            wg = named[name[:-4] + "weight"].grad
+            assert np.linalg.norm(g) <= 1e-4 * float(wg.norm()), name
+            assert np.linalg.norm(grads[name].numpy()) <= 1e-4 * float(
+                wg.norm()), name
+        else:
+            assert rel_l2(g, grads[name].numpy()) <= 1e-4, name
+        d = np.abs(p.detach().numpy() - params[name].numpy())
+        tiny = (np.abs(grads[name].numpy()) < 1e-6) | before_bn
+        assert d[~tiny].max(initial=0) <= 1e-6, name
+        assert d[tiny].max(initial=0) <= 2 * lr, name
+    for name, b in module.named_buffers():
+        if "running" in name:
+            np.testing.assert_allclose(b.numpy(), params[name].numpy(),
+                                       rtol=0, atol=1e-6, err_msg=name)

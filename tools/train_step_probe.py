@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a full-width float32 train step of the M2 UNet spends its card time.
+"""Where a full-width float32 train step spends its card time, by conv.
 
     python3 tools/train_step_probe.py [--json PATH]
 
@@ -8,11 +8,20 @@ CUDA events (median of 5 after 2 warm-ups) with the UNet's input laid out
 as the trainer passes it (an NHWC slice, so the convs see channels_last
 memory) and as a contiguous NCHW copy, each with cuDNN's heuristic choice
 of algorithm and with ``torch.backends.cudnn.benchmark`` (timed choice).
-Beside the step: the UNet forward alone in train and in eval mode, and one
-3x3 conv 64 -> 64 at 256^2 forward and backward in both layouts.  The
+The step takes the routes of ``models/conv.py`` around cuDNN; it is timed
+once more with no route (cuDNN at every conv).  Beside the step: the UNet
+forward alone in train and in eval mode, and one 3x3 conv 64 -> 64 at
+256^2 forward and backward in both layouts.  Then every conv of the five
+training families' full-width steps (pair UNet, GAN generator and
+PatchGAN, DeepCNN, Progressive UNet, Fast-DDPM, simple Fast-DDPM; batch
+4) and eval forwards (batch 8), each alone: forward + backward under
+cuDNN's heuristic and with cuDNN off (PyTorch's own convolution,
+``models/conv.py``), beside its float32 bound (67 TFLOP/s), and the shapes
+where cuDNN runs past 10x its bound while its own conv is at least 5x
+faster: the shapes ``models/conv.py:CUDNN_FFT_SHAPES`` routes.  The
 heuristic, trainer-layout step is profiled once (top kernels by device
-time).  Needs one CUDA card; prints the card's name and power limit and one
-JSON line (also written to PATH).
+time).  Needs one CUDA card; prints the card's name and power limit and
+one JSON line (also written to PATH).
 """
 
 from __future__ import annotations
@@ -62,104 +71,134 @@ def top_kernels(fn, n: int = 6):
              "count": e.count} for e in rows[:n]]
 
 
-def conv_table(module, batch, dev):
-    """Each conv of the UNet alone, forward and forward + backward, on a
-    random input of the shape, dtype and memory layout it gets inside the
-    model's forward, at the batch of ``batch`` and at twice that."""
+def family_inputs(dev, n: int):
+    """Each training family's full-width module and the input its step
+    gives it at batch ``n`` (as the trainers lay it out: the pair models
+    read an NHWC slice of the (n, H, W, 3) batch)."""
+    from mrisr_tpu_torch.models.deepcnn import DeepCNN
+    from mrisr_tpu_torch.models.diffusion import (FastDDPMUNet,
+                                                  SimpleDiffusionUNet)
+    from mrisr_tpu_torch.models.discriminator import PatchGAN
+    from mrisr_tpu_torch.models.progressive import ProgressiveUNet
+    from mrisr_tpu_torch.models.unet import UNet
+
+    g = torch.Generator(dev).manual_seed(0)
+    batch = torch.rand((n, HW, HW, 3), generator=g, device=dev)
+    window = torch.rand((n, HW, HW, 5), generator=g, device=dev)
+    t = torch.zeros((n,), dtype=torch.int32, device=dev)
+    pair = batch[..., :2]
+    return {
+        "unet_combined": (UNet(FEATURES), (pair,)),
+        "unet_gan G": (UNet(FEATURES, use_bias=False), (pair,)),
+        "unet_gan D": (PatchGAN(base_features=FEATURES), (batch,)),
+        "deepcnn": (DeepCNN(base_features=FEATURES), (pair,)),
+        "progressive_unet": (ProgressiveUNet(FEATURES), (window,)),
+        "fastddpm": (FastDDPMUNet(base_features=FEATURES), (batch, t)),
+        "fastddpm_simple": (SimpleDiffusionUNet(base_features=FEATURES),
+                            (batch, t)),
+    }
+
+
+def conv_table(dev):
+    """Every conv of the five families' full-width train steps (batch 4)
+    and eval forwards (batch 8), deduplicated by layer shape and input
+    shape and strides: forward + backward (to the input and the weight)
+    under cuDNN's heuristic and with cuDNN off (PyTorch's own conv), on a
+    random input of the shape, dtype and memory layout it gets in the
+    model, beside the float32 bound of the same work (forward + backward
+    = 3x the forward's FLOPs, at 67 TFLOP/s) and the two outputs' max
+    |diff|."""
     from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.models.conv import _cudnn_off, conv2d_no_cudnn
 
-    seen = []
+    rows, seen = [], {}
+    for n, what in ((BATCH, "train step"), (2 * BATCH, "eval forward")):
+        for family, (module, args) in family_inputs(dev, n).items():
+            module = module.to(dev).train(what == "train step")
+            calls = []
 
-    def hook(mod, args):
-        seen.append((mod, args[0].shape, args[0].stride()))
+            def hook(mod, a):
+                calls.append((mod, a[0].shape, a[0].stride()))
 
-    handles = [(name, m.register_forward_pre_hook(hook))
-               for name, m in module.named_modules()
-               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
-    with torch.no_grad(), fp32_reference():
-        module.eval()(batch[..., :2])
-    for _, h in handles:
-        h.remove()
-    names = {m: name for name, m in module.named_modules()}
-    rows = []
-    for mod, shape, stride in seen:
-        for n in (shape[0], 2 * shape[0]):
-            full = (n,) + tuple(shape[1:])
-            # the same strides as inside the model (a channels_last view of
-            # an NHWC slice for the first conv), made from a larger buffer
-            span = 1 + sum((s - 1) * st for s, st in zip(full, stride))
-            buf = torch.randn(span, device=dev)
-            x = buf.as_strided(full, stride)
-
-            def fwd():
-                with torch.no_grad(), fp32_reference():
-                    mod(x)
-
-            def fwd_bwd():
-                with fp32_reference():
-                    leaf = buf.detach().requires_grad_(True)
-                    mod(leaf.as_strided(full, stride)).sum().backward()
-
-            row = {"conv": names[mod], "shape": list(full),
-                   "stride": list(stride), "channels_last": x.is_contiguous(
-                       memory_format=torch.channels_last),
-                   "fwd_ms": median_ms(fwd, reps=3, warmup=1),
-                   "fwd_bwd_ms": median_ms(fwd_bwd, reps=3, warmup=1)}
-            rows.append(row)
-            print(f"  {row['conv']:18s} {str(full):22s} cl={row['channels_last']!s:5s} "
-                  f"fwd {row['fwd_ms']:9.3f} ms  fwd+bwd {row['fwd_bwd_ms']:9.3f} ms")
+            names = {m: name for name, m in module.named_modules()}
+            handles = [m.register_forward_pre_hook(hook)
+                       for m in module.modules()
+                       if isinstance(m, (torch.nn.Conv2d,
+                                         torch.nn.ConvTranspose2d))]
+            with torch.no_grad(), fp32_reference():
+                module(*args)
+            for h in handles:
+                h.remove()
+            for mod, shape, stride in calls:
+                key = (type(mod).__name__, tuple(mod.weight.shape),
+                       mod.stride, mod.padding, mod.bias is not None,
+                       tuple(shape), tuple(stride))
+                if key in seen:
+                    seen[key]["used_by"].append(f"{family} {names[mod]} "
+                                                f"({what})")
+                    continue
+                row = conv_row(mod, tuple(shape), tuple(stride), dev,
+                               fp32_reference, _cudnn_off, conv2d_no_cudnn)
+                row["used_by"] = [f"{family} {names[mod]} ({what})"]
+                seen[key] = row
+                rows.append(row)
+                print(f"  {row['used_by'][0]:44s} {str(row['shape']):22s} "
+                      f"cudnn {row['cudnn_ms']:9.3f} ms "
+                      f"({row['cudnn_x_bound']:7.1f}x bound) own "
+                      f"{row['own_ms']:9.3f} ms bound {row['bound_ms']:.4f} "
+                      f"diff {row['max_abs_diff']:.2g}")
+            del module
+            torch.cuda.empty_cache()
     return rows
 
 
-def slowest_conv_remedies(module, rows, dev):
-    """The slowest conv of the table at its batch-of-``batch`` shape,
-    forward + backward under cuDNN's heuristic, ``cudnn.benchmark`` over
-    every plan (``benchmark_limit = 0``), cuDNN off (PyTorch's own conv),
-    and with a contiguous NCHW input; each output's max |diff| from the
-    heuristic's."""
-    from mrisr_tpu_torch import fp32_reference
-
-    row = max(rows[::2], key=lambda r: r["fwd_ms"])
-    mod = dict(module.named_modules())[row["conv"]]
-    full, stride = tuple(row["shape"]), tuple(row["stride"])
+def conv_row(mod, full, stride, dev, fp32_reference, cudnn_off,
+             conv2d_no_cudnn):
     span = 1 + sum((s - 1) * st for s, st in zip(full, stride))
     buf = torch.randn(span, device=dev)
-    x_model = buf.as_strided(full, stride)
-    x_nchw = x_model.contiguous()
-    cudnn = torch.backends.cudnn
+    transposed = isinstance(mod, torch.nn.ConvTranspose2d)
 
-    def case(x, benchmark=False, enabled=True):
+    def run(own):
         def fn():
-            prev = cudnn.enabled, cudnn.benchmark
-            cudnn.enabled, cudnn.benchmark = enabled, benchmark
-            try:
-                with fp32_reference():
-                    leaf = x.detach().requires_grad_(True)
-                    y = mod(leaf)
+            with fp32_reference():
+                leaf = buf.detach().requires_grad_(True)
+                x = leaf.as_strided(full, stride)
+                if own and not transposed:
+                    y = conv2d_no_cudnn(x, mod.weight, mod.bias, mod.stride,
+                                        mod.padding, mod.dilation)
+                elif own:
+                    with cudnn_off():
+                        y = torch.nn.ConvTranspose2d.forward(mod, x)
+                else:
+                    y = torch.nn.functional.conv2d(
+                        x, mod.weight, mod.bias, mod.stride, mod.padding,
+                        mod.dilation) if not transposed else (
+                        torch.nn.ConvTranspose2d.forward(mod, x))
+                if own and transposed:
+                    with cudnn_off():
+                        y.sum().backward()
+                else:
                     y.sum().backward()
-            finally:
-                cudnn.enabled, cudnn.benchmark = prev
             return y.detach()
         return fn
 
-    limit = cudnn.benchmark_limit
-    cudnn.benchmark_limit = 0
-    try:
-        cases = {"heuristic": case(x_model),
-                 "cudnn.benchmark, every plan": case(x_model, benchmark=True),
-                 "cuDNN off": case(x_model, enabled=False),
-                 "contiguous NCHW input": case(x_nchw)}
-        ref = cases["heuristic"]()
-        out = {"conv": row["conv"], "shape": list(full)}
-        for name, fn in cases.items():
-            ms = median_ms(fn, reps=3, warmup=1)
-            diff = float((fn() - ref).abs().max())
-            out[name] = {"fwd_bwd_ms": ms, "max_abs_diff": diff}
-            print(f"  {row['conv']} {full}: {name:28s} fwd+bwd {ms:9.3f} ms, "
-                  f"max |diff| {diff:.3g}")
-    finally:
-        cudnn.benchmark_limit = limit
-    return out
+    y_cudnn, y_own = run(False)(), run(True)()
+    out_hw = y_cudnn.shape[2] * y_cudnn.shape[3]
+    cin = mod.weight.shape[0] if transposed else mod.weight.shape[1]
+    cout = mod.weight.shape[1] if transposed else mod.weight.shape[0]
+    taps = mod.weight.shape[2] * mod.weight.shape[3]
+    flops = 2.0 * full[0] * cout * cin * taps * (
+        full[2] * full[3] if transposed else out_hw)
+    row = {"layer": type(mod).__name__, "weight": list(mod.weight.shape),
+           "conv_stride": list(mod.stride), "shape": list(full),
+           "stride": list(stride), "fwd_flop": flops,
+           "bound_ms": 3 * flops / 67e12 * 1e3,
+           "cudnn_ms": median_ms(run(False), reps=3, warmup=1),
+           "own_ms": median_ms(run(True), reps=3, warmup=1),
+           "max_abs_diff": float((y_cudnn - y_own).abs().max())}
+    row["cudnn_x_bound"] = row["cudnn_ms"] / row["bound_ms"]
+    row["own_speedup"] = row["cudnn_ms"] / row["own_ms"]
+    return row
 
 
 def main() -> int:
@@ -234,8 +273,29 @@ def main() -> int:
             print(f"{'conv3x3 64->64 fwd+bwd':28s} {name:28s} {algo:16s} "
                   f"{ms:9.3f} ms")
     torch.backends.cudnn.benchmark = False
-    out["convs"] = conv_table(module, batch, dev)
-    out["slowest_conv"] = slowest_conv_remedies(module, out["convs"], dev)
+    from mrisr_tpu_torch.models import conv as conv_module
+
+    routes = conv_module.route
+    conv_module.route = lambda *args: None
+    try:
+        ms = median_ms(step(batch))
+    finally:
+        conv_module.route = routes
+    out["cases"].append({"what": "train step", "input": "trainer layout "
+                         "(NHWC slice)", "algo": "heuristic, no route "
+                         "(cuDNN at every conv)", "ms": ms})
+    print(f"{'train step, no route':28s} {'trainer layout':28s} "
+          f"{'heuristic':16s} {ms:9.3f} ms")
+    print(f"every conv of the five families' train steps (batch {BATCH}) "
+          f"and eval forwards (batch {2 * BATCH}), fwd+bwd ({card}):")
+    out["convs"] = conv_table(dev)
+    routed = [r for r in out["convs"]
+              if r["cudnn_x_bound"] > 10 and r["own_speedup"] >= 5]
+    print("shapes past 10x their bound under cuDNN where its own conv is "
+          ">= 5x faster: " + ("; ".join(
+              f"{r['used_by']} {r['shape']} w {r['weight']}: cudnn "
+              f"{r['cudnn_ms']:.3f} own {r['own_ms']:.3f} ms"
+              for r in routed) or "none"))
     out["profile_heuristic_step"] = top_kernels(step(batch))
     print(f"top kernels of one heuristic train step ({card}):")
     for r in out["profile_heuristic_step"]:
