@@ -122,6 +122,26 @@
    SSIM) and int8_fused serving (A, B); deepcnn, progressive_unet
    (per-stage metrics) and fastddpm_simple (DDIM) train 1 epoch and eval
    through K1.  Prints each family's losses, steps/s and wall.
+10. bf16 phase, full width: the six families in bf16 compute (float32
+   parameters, loss and optimizer; ``train --bf16``) on an 8 x 12 x 256^2
+   store.  One bf16 train step of each family on the card and on the CPU
+   at 64^2 and batch 2 from the same weights and batch, each held against
+   the same step in float64: losses within rel 2e-2, the weights' and norm
+   parameters' gradients as one vector within rel-L2 0.5, the card's worst
+   tensor at most 2x the CPU's.  Each family's full-size bf16 step (256^2,
+   batch 4): its device time, its conv and matmul FLOPs
+   (``torch.utils.flop_counter``) and their bound at 989 TFLOP/s, and its
+   torch.profiler split.  Then the CLI: unet_combined train --bf16 1 epoch
+   and --resume to 2, fastddpm 1 epoch (steps/s); eval of the bf16-trained
+   unet_combined (``--bf16`` taken, K1 equal to the plain SSIM);
+   export-serving --quant none and --quant int8 served by
+   engine_from_bundle (none within rel-L2 0.05 of the folded float32
+   forward; int8 within 0.15 and equal to the plain versions, kernel A 18
+   launches a forward on its paths); engine_from_model quant none (float32
+   over bf16-rounded weights, within 1e-2), int8 and int8_fused (within
+   0.15; A, and B for int8_fused, on their paths); the same calibration
+   without its upconv/final entries served by the int8_fused fallback
+   (within 0.15, equal to the plain versions, A 22 launches a forward).
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -2175,6 +2195,411 @@ def families_phase(dev, card: str):
     return launches, results
 
 
+# phase 10: the six families trained in bf16 compute
+BF16_FAMILIES = ("unet_combined", "unet_gan", "deepcnn", "progressive_unet",
+                 "fastddpm", "fastddpm_simple")
+PEAK_BF16_OPS = 989e12  # H100 SXM dense bf16 (data sheet, 700 W)
+# a bf16 step against the same step in float64: losses within
+# BF16_LOSS_RTOL (bf16's unit roundoff is 3.9e-3); the gradients of the
+# weights and norm parameters, as one vector, within BF16_GRAD_BUDGET
+# rel-L2; the card's worst tensor at most 2x the CPU bf16 step's worst
+BF16_LOSS_RTOL, BF16_GRAD_BUDGET = 2e-2, 0.5
+# a bf16 served forward (quant 'none' bundle) against the folded float32
+# forward; engine_from_model's 'none' (float32 over bf16-rounded weights)
+BF16_SERVE_RTOL, BF16_WEIGHTS_RTOL = 5e-2, 1e-2
+# kernel A launches of one full-width forward: unet_int8_apply (9 blocks x
+# 2 convs; enc1/Conv_0 on dp4a) and the pre-r3 fallback ('dual': the 4
+# encoder blocks emit Conv_1 twice)
+INT8_APPLY_A = {"tc": 17, "dp4a": 1}
+LEGACY_A = {"tc": 21, "dp4a": 1}
+
+
+def step_flops(fn) -> float:
+    """The conv and matmul FLOPs of one call of ``fn`` (forward and
+    backward), counted by ``torch.utils.flop_counter`` from the shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def weights_and_norms(module):
+    """Parameter names of ``module`` except the conv biases right before a
+    training-mode BatchNorm (zero in exact arithmetic, noise on every
+    side)."""
+    return [n for n, _ in module.named_parameters()
+            if not (n.endswith(".bias") and n.rpartition(".")[0].endswith(
+                (".conv.0", ".conv.3")))]
+
+
+def bf16_step_check(preset, cfg, batch, dev, card):
+    """One bf16 train step of ``preset`` on the card and on the CPU from
+    the same init_model weights and batch, each held against the same step
+    in float64 on the CPU: losses within BF16_LOSS_RTOL, the weights' and
+    norm parameters' gradients as one vector within BF16_GRAD_BUDGET, and
+    the card's worst tensor (``grad_errors``) at most 2x the CPU bf16
+    step's worst.  A diffusion step takes fixed draws."""
+    import dataclasses
+
+    bf16 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                 compute_dtype="bfloat16"))
+    sides = {"card": (dev, bf16, torch.float32),
+             "CPU": (torch.device("cpu"), bf16, torch.float32),
+             "f64": (torch.device("cpu"), cfg, torch.float64)}
+    g = torch.Generator().manual_seed(1)
+    b = batch.shape[0]
+    t_idx = torch.randint(0, cfg.model.num_inference_steps, (b,),
+                          generator=g)
+    eps = torch.randn(batch[..., 2:3].shape, generator=g)
+    runs = {}
+    for side, (device, side_cfg, dtype) in sides.items():
+        tr, states = make_trainer(preset, side_cfg, device, dtype)
+        x = batch.to(device, dtype)
+        if cfg.loss.kind == "gan":
+            metrics = tr.train_step(tr.g_state, tr.d_state, x)[-1]
+        elif cfg.loss.kind == "diffusion":
+            metrics = tr.train_step.train_on(
+                tr.state, x, t_idx.to(device), eps.to(device, dtype))[1]
+        else:
+            metrics = tr.train_step(tr.state, x)[1]
+        runs[side] = ({k: float(v) for k, v in metrics.items()},
+                      {n: st.module for n, st in states.items()})
+    ref_metrics, ref_modules = runs.pop("f64")
+    out = {}
+    for side, (metrics, modules) in runs.items():
+        loss_rel = max(abs(metrics[k] - ref_metrics[k]) / abs(ref_metrics[k])
+                       for k in ref_metrics if k in ("loss", "g", "d"))
+        errs, got, want = {}, [], []
+        for name, module in modules.items():
+            ref = ref_modules[name]
+            errs.update({f"{name}:{k}": v for k, v in grad_errors(
+                module, ref).items()})
+            grads = dict(module.named_parameters())
+            refs = dict(ref.named_parameters())
+            for k in weights_and_norms(module):
+                got.append(grads[k].grad.detach().double().cpu().ravel())
+                want.append(refs[k].grad.detach().double().ravel())
+        got, want = torch.cat(got), torch.cat(want)
+        worst = max(errs, key=errs.get)
+        out[side] = {"loss_rel": loss_rel,
+                     "grad_rel_l2": float((got - want).norm() / want.norm()),
+                     "worst": errs[worst], "worst_tensor": worst}
+    on_card, on_cpu = out["card"], out["CPU"]
+    print(f"{preset} bf16 train step, card and CPU vs float64 CPU (batch "
+          f"{tuple(batch.shape)}; {card}): loss rel {on_card['loss_rel']:.3g}"
+          f" card, {on_cpu['loss_rel']:.3g} CPU; gradients rel-L2 "
+          f"{on_card['grad_rel_l2']:.3g} card, {on_cpu['grad_rel_l2']:.3g} "
+          f"CPU; worst tensor {on_card['worst']:.3g} card "
+          f"({on_card['worst_tensor']}), {on_cpu['worst']:.3g} CPU "
+          f"({on_cpu['worst_tensor']})")
+    for side, r in out.items():
+        if not r["loss_rel"] <= BF16_LOSS_RTOL:
+            raise AssertionError(f"{preset} bf16 step loss {side} vs float64 "
+                                 f"rel {r['loss_rel']}")
+        if not r["grad_rel_l2"] <= BF16_GRAD_BUDGET:
+            raise AssertionError(f"{preset} bf16 gradients {side} vs float64 "
+                                 f"rel-L2 {r['grad_rel_l2']}")
+    if not on_card["worst"] <= 2 * on_cpu["worst"]:
+        raise AssertionError(f"{preset} card's worst bf16 gradient "
+                             f"{on_card['worst']} over 2x the CPU's "
+                             f"{on_cpu['worst']}")
+    return out
+
+
+def bf16_step_time(preset, cfg, store, dev, card):
+    """One full-size bf16 train step of ``preset`` on the card: its device
+    time (CUDA events), the host clock's time a step over 5 steps, its
+    conv/matmul FLOPs and their bound at the bf16 peak, and its
+    ``torch.profiler`` split."""
+    import dataclasses
+
+    from mrisr_tpu_torch.data.pipeline import build_loader
+
+    bf16 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                 compute_dtype="bfloat16"))
+    tr, _ = make_trainer(preset, bf16, dev)
+    kind = "window" if preset == "progressive_unet" else "triplet"
+    xb = next(iter(build_loader(store, "train", cfg.data, kind=kind,
+                                device=dev)))
+    g = tr._generator(0, True, 0)
+    out = {"step_ms": cuda_ms(lambda: tr._train(xb, g), reps=3, warmup=1)}
+    # the host's time a step over 5 queued steps: where it matches the
+    # device time, the host's launches set the pace
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        tr._train(xb, g)
+    torch.cuda.synchronize()
+    out["host_ms"] = (time.perf_counter() - t0) / 5 * 1e3
+    out["flops"] = step_flops(lambda: tr._train(xb, g))
+    out["bound_ms"] = out["flops"] / PEAK_BF16_OPS * 1e3
+    out["split"] = profile_step(lambda: tr._train(xb, g))
+    split = out["split"]
+    print(f"{preset} bf16 step {out['step_ms']:.3f} ms on the card "
+          f"({out['host_ms']:.3f} ms a step on the host clock over 5), "
+          f"{out['flops'] / 1e12:.3f} TFLOP of convs and matmuls, bound "
+          f"{out['bound_ms']:.3f} ms at 989 TFLOP/s"
+          + ("" if split is None else
+             f" (device {split['total']:.3f} ms: convs {split['conv']:.3f}, "
+             f"BN/GN {split['bn']:.3f}, other {split['other']:.3f})")
+          + f" ({card})")
+    return out
+
+
+def bf16_phase(dev, card: str):
+    """bf16 training of the six families and the remaining pair serving
+    paths (see the module docstring, item 10).  Returns (launches,
+    results)."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from mrisr_tpu_torch import cli, fp32_reference
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet, Int8UNet, calibrate_unet, engine_from_bundle,
+        engine_from_model, load_bundle, quantize_unet)
+
+    results, walls, launches = {}, {}, {}
+    t_phase = time.perf_counter()
+
+    def preset_cfg(preset, hw=HW, batch=TRAIN_BATCH):
+        base = PRESETS[preset]
+        return base.replace(
+            data=dataclasses.replace(base.data, image_size=(hw, hw),
+                                     batch_size=batch, augment=False),
+            model=dataclasses.replace(base.model, base_features=FEATURES))
+
+    with tempfile.TemporaryDirectory() as work:
+        store_dir = os.path.join(work, "store")
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(FAMILY_PATIENTS),
+                  "--slices", str(FAMILY_SLICES), "--size", str(HW)])
+        store = VolumeStore.open(store_dir)
+        walls["synth"] = time.perf_counter() - t0
+
+        # --- 1. each family's full-size bf16 step: time, bound, split (first,
+        # on a host that has run no CPU step yet)
+        t0 = time.perf_counter()
+        results["steps"] = {p: bf16_step_time(p, preset_cfg(p), store, dev,
+                                              card) for p in BF16_FAMILIES}
+        walls["bf16 step times"] = time.perf_counter() - t0
+
+        # --- 2. one bf16 step of each family, card and CPU vs float64, at
+        # SMALL_HW and SMALL_BATCH
+        t0 = time.perf_counter()
+        checks = {}
+        for preset in BF16_FAMILIES:
+            kind = "window" if preset == "progressive_unet" else "triplet"
+            b = next(iter(build_loader(store, "train", preset_cfg(
+                preset).data, kind=kind, device="cpu")))[:SMALL_BATCH]
+            small = F.avg_pool2d(b.permute(0, 3, 1, 2), HW // SMALL_HW
+                                 ).permute(0, 2, 3, 1).contiguous()
+            checks[preset] = bf16_step_check(
+                preset, preset_cfg(preset, SMALL_HW, SMALL_BATCH), small,
+                dev, card)
+        walls["card vs CPU bf16 steps"] = time.perf_counter() - t0
+        results["card_vs_cpu"] = checks
+
+        # --- 3. cli train --bf16: unet_combined 1 epoch then --resume to
+        # 2, fastddpm 1 epoch
+        for preset, epochs in (("unet_combined", (1, 2)), ("fastddpm", (1,))):
+            models_dir = os.path.join(work, preset, "models")
+            results_dir = os.path.join(work, preset, "results")
+            common = ["--data", store_dir, "--checkpoint-dir", models_dir,
+                      "--results-dir", results_dir, "--features",
+                      str(FEATURES), "--image-size", str(HW), "--device",
+                      str(dev), "--bf16"]
+            timings = []
+            for i, n in enumerate(epochs):
+                t0 = time.perf_counter()
+                tr = cli.main(["train", "--preset", preset, *common,
+                               "--epochs", str(n), *(["--resume"] if i
+                                                     else [])])
+                walls[f"cli train --bf16 {preset} to {n}"] = (
+                    time.perf_counter() - t0)
+                if tr.config.train.compute_dtype != "bfloat16":
+                    raise AssertionError(f"{preset} trained in "
+                                         f"{tr.config.train.compute_dtype}")
+                if i and tr.start_epoch != n:
+                    raise AssertionError(f"{preset} resumed at "
+                                         f"{tr.start_epoch}")
+                timings += [t for t in tr.timings if t["train"]]
+                del tr
+            with open(os.path.join(results_dir,
+                                   f"{preset}_history.json")) as f:
+                hist = json.load(f)
+            if hist["epoch"] != [float(e) for e in range(1, epochs[-1] + 1)] \
+                    or not all(np.isfinite(hist["train_loss"]
+                                           + hist["val_loss"])):
+                raise AssertionError(f"{preset} bf16 history {hist}")
+            steps = sum(t["steps"] for t in timings)
+            seconds = sum(t["seconds"] for t in timings)
+            results[f"cli_{preset}"] = {
+                "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
+                "steps": steps, "seconds": seconds,
+                "steps_per_s": steps / seconds}
+            print(f"cli train --bf16 {preset}: train losses "
+                  f"{hist['train_loss']}, val {hist['val_loss']}; {steps} "
+                  f"steps in {seconds:.3f} s = {steps / seconds:.3f} steps/s "
+                  f"({card})")
+
+        # --- 4. the bf16-trained unet_combined: eval through K1, then
+        # served as the pair bundles, by engine_from_model and through the
+        # pre-r3 fallback
+        mcfg = preset_cfg("unet_combined").model
+        models_dir = os.path.join(work, "unet_combined", "models")
+        common = ["--data", store_dir, "--checkpoint-dir", models_dir,
+                  "--results-dir", os.path.join(work, "unet_combined",
+                                                "results"),
+                  "--features", str(FEATURES), "--image-size", str(HW),
+                  "--device", str(dev)]
+        t0 = time.perf_counter()
+        _, counts = count_launches(lambda: cli.main([
+            "eval", "--model", "unet_combined", *common, "--batch-size",
+            str(BATCH), "--bf16"]))
+        walls["cli eval"] = time.perf_counter() - t0
+        add_counts(launches, counts)
+        if counts["ssim"] <= 0:
+            raise AssertionError("K1 was not launched by the bf16-trained "
+                                 "eval")
+        with open(os.path.join(work, "unet_combined", "results",
+                               "unet_combined_test_metrics.json")) as f:
+            metrics = json.load(f)
+        model = load_model("unet_combined", models_dir, checkpoint="required",
+                           cfg=mcfg, device=dev)
+        results["eval"] = eval_against_plain(
+            "unet_combined (bf16)", model, store,
+            preset_cfg("unet_combined").data, metrics)
+        del model
+
+        loader = build_loader(store, "test", dataclasses.replace(
+            preset_cfg("unet_combined").data, batch_size=BATCH), device=dev)
+        requests = torch.cat([b[..., :2] for b in loader])[:TRAIN_REQUESTS]
+        requests = requests.cpu().numpy()
+        x = torch.from_numpy(requests).to(dev)
+        folded = load_model("unet_combined", models_dir,
+                            checkpoint="required", cfg=mcfg, fold_bn=True,
+                            device=dev)
+        with fp32_reference():
+            y_float = np.concatenate([folded.predict_nhwc(x[i:i + BATCH])
+                                      .cpu().numpy()
+                                      for i in range(0, len(x), BATCH)])
+        val = build_loader(store, "val", dataclasses.replace(
+            preset_cfg("unet_combined").data, batch_size=BATCH), device=dev)
+        calib = [b[..., :2] for b, _ in zip(val, range(2))]
+
+        def serve(make_engine, what, bound, plain_fn=None, a_paths=None,
+                  b_per_forward=0):
+            with make_engine() as eng:
+                eng.predict(requests[0])
+                eng.reset_stats()
+                served, counts = count_launches(lambda: np.stack([
+                    f.result(timeout=600) for f in [eng.submit(r)
+                                                    for r in requests]]))
+                batches = eng.stats.batches
+            add_counts(launches, counts)
+            rel = rel_l2(served, y_float)
+            row = {"rel_l2_float": rel, "batches": batches, "launches": counts}
+            if plain_fn is not None:
+                y_plain = np.concatenate([plain_fn(x[i:i + BATCH]).cpu().numpy()
+                                          for i in range(0, len(x), BATCH)])
+                row["rel_l2_plain"] = rel_l2(served, y_plain)
+            print(f"bf16-trained unet_combined {what}: vs the folded float32 "
+                  f"forward rel-L2 {rel:.6f} (bound {bound})"
+                  + ("" if plain_fn is None else
+                     f"; vs plain versions {row['rel_l2_plain']:.6f} (must "
+                     f"be 0)") + f"; launches {counts}")
+            if served.shape != (len(requests), HW, HW, 1) or not np.isfinite(
+                    served).all():
+                raise AssertionError(f"{what} output {served.shape}")
+            if not rel < bound:
+                raise AssertionError(f"{what} vs float rel-L2 {rel}")
+            if plain_fn is not None and row["rel_l2_plain"] != 0.0:
+                raise AssertionError(f"{what} vs plain {row['rel_l2_plain']}")
+            if a_paths is not None:
+                check_paths(counts, {"conv_int8": a_paths}, batches, what)
+            if counts["upconv_int8"] != b_per_forward * batches:
+                raise AssertionError(f"{what}: kernel B launched "
+                                     f"{counts['upconv_int8']} times")
+            return row
+
+        serving = {}
+        t0 = time.perf_counter()
+        for quant in ("none", "int8"):
+            bundle = os.path.join(work, f"bundle_{quant}")
+            cli.main(["export-serving", "--model", "unet_combined", *common,
+                      "--quant", quant, "--batch-size", str(BATCH),
+                      "--calib-batches", "2", "--out", bundle, "--bf16"])
+            serving[f"bundle {quant}"] = serve(
+                lambda: engine_from_bundle(bundle, batch_size=BATCH,
+                                           device=dev),
+                f"bundle quant={quant!r}",
+                BF16_SERVE_RTOL if quant == "none" else 0.15,
+                plain_fn=(Int8UNet(load_bundle(bundle)[0], device=dev,
+                                   plain=True) if quant == "int8" else None),
+                a_paths=INT8_APPLY_A if quant == "int8" else None)
+        walls["export + serve bundles"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for quant, bound, a_paths, b_n in (
+                ("none", BF16_WEIGHTS_RTOL, None, 0),
+                ("int8", 0.15, INT8_APPLY_A, 0),
+                ("int8_fused", 0.15, path_counts(conv_sites(), lambda st:
+                                                 conv_path(st[2], st[3],
+                                                           st[4])), 4)):
+            serving[f"engine_from_model {quant}"] = serve(
+                lambda: engine_from_model(
+                    "unet_combined", models_dir, quant=quant,
+                    batch_size=BATCH, image_size=(HW, HW),
+                    calibration_batches=calib, cfg=mcfg, device=dev),
+                f"engine_from_model quant={quant!r}", bound,
+                a_paths=a_paths, b_per_forward=b_n)
+        walls["engine_from_model"] = time.perf_counter() - t0
+        # the same calibration without its upconv/final entries: a pre-r3
+        # table, served by the int8_fused fallback
+        t0 = time.perf_counter()
+        ranges = calibrate_unet(folded.module, calib)
+        legacy = quantize_unet(folded.module, {
+            k: v for k, v in ranges.items()
+            if not k.startswith(("upconv", "final"))})
+        fwd = Int8FusedUNet(legacy, device=dev)
+
+        class _Legacy:
+            """An engine-shaped runner of the fallback over the requests."""
+
+            def __enter__(self):
+                from mrisr_tpu_torch.serve import InferenceEngine
+
+                self.eng = InferenceEngine(fwd, batch_size=BATCH,
+                                           input_shape=(HW, HW, 2),
+                                           device=dev)
+                return self.eng
+
+            def __exit__(self, *exc):
+                self.eng.close()
+
+        serving["legacy int8_fused"] = serve(
+            _Legacy, "pre-r3 tables (int8_fused fallback)", 0.15,
+            plain_fn=Int8FusedUNet(legacy, device=dev, plain=True),
+            a_paths=LEGACY_A)
+        walls["legacy fallback"] = time.perf_counter() - t0
+        results["serving"] = serving
+    walls["phase"] = time.perf_counter() - t_phase
+    results["wall_s"], results["launches"] = walls, launches
+    for kernel in ("ssim", "conv_int8", "upconv_int8"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"{kernel} was not launched in phase 10")
+    print(f"bf16 phase launches {launches}")
+    print("bf16 wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                        for k, v in walls.items()))
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -2221,6 +2646,7 @@ def main() -> int:
     diff_launches, diff_result = diffusion_phase(dev, card)
     train_launches, train_result = train_phase(dev, card)
     family_launches, family_result = families_phase(dev, card)
+    bf16_launches, bf16_result = bf16_phase(dev, card)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -2237,11 +2663,11 @@ def main() -> int:
         libs = [r["library_ms"] for r in sel]
 
         def main_path(key):
-            # the serving, eval, diffusion, training and families paths'
-            # runs, each counted from 0 just before it
+            # the serving, eval, diffusion, training, families and bf16
+            # paths' runs, each counted from 0 just before it
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
-                train_launches, family_launches))
+                train_launches, family_launches, bf16_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -2265,7 +2691,8 @@ def main() -> int:
             json.dump({"card": card, "sites": rows + ssim_rows + k3_rows,
                        "slice": slice_result, "eval": eval_result,
                        "diffusion": diff_result, "train": train_result,
-                       "families": family_result, "kernels": kernels}, f,
+                       "families": family_result, "bf16": bf16_result,
+                       "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

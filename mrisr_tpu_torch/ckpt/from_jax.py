@@ -1,7 +1,7 @@
 """flax variables -> port state dicts (the weight carry) for every family:
 ``UNet`` (and the GAN generator), ``ProgressiveUNet``, ``DeepCNN``,
 ``PatchGAN``, ``FastDDPMUNet`` and ``SimpleDiffusionUNet``; and the
-FastDDPM param tree back out of a port model.
+BN-folded UNet's and the FastDDPM's param trees back out of a port model.
 
 The inverse of the reference's torch -> flax converter
 (``mrisr_tpu/ckpt/torch_convert.py``):
@@ -82,6 +82,29 @@ def unet_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     sd["final.weight"] = conv_weight(params["final"]["kernel"])
     sd["final.bias"] = _t(params["final"]["bias"])
     return sd
+
+
+def unet_flax_params(model) -> Dict:
+    """A BN-folded port ``UNet`` -> the flax ``{'params': ...}`` tree of
+    ``UNet(use_bn=False)`` (torch tensors on the model's device, float32):
+    the layout of the reference's ``quant='none'`` pair bundles."""
+    if model.use_bn:
+        raise ValueError("unet_flax_params expects a BN-folded UNet")
+    params: Dict = {}
+    for name in (*BLOCKS_DOWN, "bottleneck", *BLOCKS_UP):
+        params[name] = {
+            f"Conv_{i}": {"kernel": conv_kernel_hwio(c.weight).contiguous(),
+                          "bias": c.bias.detach()}
+            for i, c in enumerate(getattr(model, name).convs())}
+    for lvl in (4, 3, 2, 1):
+        up = getattr(model, f"upconv{lvl}")
+        params[f"upconv{lvl}"] = {
+            "kernel": convt_kernel_hwio(up.weight).contiguous(),
+            "bias": up.bias.detach()}
+    params["final"] = {"kernel": conv_kernel_hwio(model.final.weight
+                                                  ).contiguous(),
+                       "bias": model.final.bias.detach()}
+    return {"params": params}
 
 
 def progressive_state_dict_from_flax(variables: Dict

@@ -10,10 +10,15 @@
 The arguments are the JAX CLI's, plus ``--device`` (default: the card;
 ``--device cpu`` runs the plain versions on the CPU).  ``train`` trains
 every family's preset: the pair UNets, DeepCNN, the Progressive UNet (on
-5-slice windows), the UNet-GAN and both Fast-DDPM lineages.  The other
-commands, ``--bf16``, ``--figure``, ``--export-dicom`` and data/model-
-parallel training come with later slices and raise ``NotImplementedError``
-naming their ROADMAP item.
+5-slice windows), the UNet-GAN and both Fast-DDPM lineages.  ``--bf16``
+sets ``train.compute_dtype='bfloat16'``, as the JAX CLI does: ``train``
+then builds its models in bf16 compute (float32 parameters, loss and
+optimizer); ``eval``, ``predict-volume`` and ``export-serving`` take the
+flag and run as without it, since only the trainers read the field.
+``export-serving`` writes pair UNets as int8_fused, int8 or none (bf16)
+bundles.  The other commands, ``--figure``, ``--export-dicom`` and
+data/model-parallel training come with later slices and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,7 +43,9 @@ def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True) -> None:
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--results-dir", default=None)
     p.add_argument("--bf16", action="store_true",
-                   help="bfloat16 compute (not ported yet: raises)")
+                   help="bfloat16 compute: train.compute_dtype='bfloat16' "
+                        "(read by train; eval, predict-volume and "
+                        "export-serving run as without it)")
     p.add_argument("--backend", default="host", choices=("host", "device"),
                    help="slice bank in host RAM or on the device")
     p.add_argument("--features", type=int, default=None,
@@ -85,10 +92,6 @@ def _build_config(args, preset_name: str):
     """The preset (or the ``--config`` file) with the flags that were
     passed applied; reflects the effective checkpoint/results dirs and
     image size back onto ``args``."""
-    if args.bf16:
-        raise NotImplementedError(
-            "bf16 compute is not ported yet (ROADMAP.md, Queue 1 item 6, "
-            "rest: bf16); the port runs in float32")
     if getattr(args, "config", None):
         with open(args.config) as f:
             cfg = Config.from_dict(json.load(f))
@@ -110,6 +113,7 @@ def _build_config(args, preset_name: str):
         **({"checkpoint_dir": args.checkpoint_dir}
            if args.checkpoint_dir else {}),
         **({"results_dir": args.results_dir} if args.results_dir else {}),
+        **({"compute_dtype": "bfloat16"} if args.bf16 else {}),
         **{field: getattr(args, flag) for flag, field in flags.items()
            if getattr(args, flag, None) is not None},
         **({"save_every_epoch": False, "light_checkpoints": True}
@@ -284,9 +288,9 @@ def cmd_predict_volume(args) -> None:
 
 def cmd_export_serving(args) -> None:
     """Export a checkpoint as a one-artifact serving bundle
-    (``serve/bundle.py``): the int8_fused pair UNet, or the fastddpm T-step
-    sampler (quant none, int8 or int8_deep), calibrated on
-    ``--calib-batches`` batches of the val split."""
+    (``serve/bundle.py``): a pair UNet (quant int8_fused, int8 or none), or
+    the fastddpm T-step sampler (quant none, int8 or int8_deep); the int8
+    modes calibrate on ``--calib-batches`` batches of the val split."""
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.device import resolve_device
@@ -361,7 +365,7 @@ def main(argv=None) -> None:
     q.add_argument("--out", required=True, help="bundle output directory")
     q.add_argument("--quant", default="int8_fused",
                    choices=("none", "int8", "int8_fused", "int8_deep"),
-                   help="pair models: int8_fused (none/int8 not ported yet); "
+                   help="pair models: none/int8/int8_fused; "
                         "fastddpm: none/int8/int8_deep")
     q.add_argument("--calib-batches", type=int, default=4)
     q.add_argument("--percentile", type=float, default=None,

@@ -3,15 +3,40 @@
 The module layout mirrors the reference PyTorch UNetBlock: a ``conv``
 Sequential whose indices 0/1/3/4 are conv/BN/conv/BN, so the reference's
 ``.pt`` state-dict keys (``enc1.conv.0.weight`` ...) load as they are.
+
+**Compute dtype** (flax's ``dtype=``, ``mrisr_tpu/models/registry.py:
+create_model(name, cfg, dtype)``).  :func:`set_compute_dtype` gives every
+conv, transposed conv and dense layer of a model a ``compute_dtype``; the
+parameters stay float32, so the optimizer and the checkpoints see float32,
+and autograd hands the float32 parameters float32 gradients through the
+casts, as JAX differentiates through ``astype``.  The layers round where
+flax rounds:
+
+- conv, transposed conv, dense: input, kernel and bias cast to bf16, the
+  product rounded to bf16, then the bias added in bf16 (a second rounding);
+- BatchNorm and GroupNorm (:class:`BatchNorm2d`, :class:`GroupNorm`): a
+  bf16 input is promoted to float32, the statistics (and BatchNorm's
+  float32 running statistics) come from that, the normalization runs in
+  float32 and its result is rounded to bf16 once;
+- SiLU (:func:`silu`): ``x * (1 / (1 + exp(-x)))`` op by op in bf16, each
+  op rounded, the expression ``jax.nn.silu`` runs on a bf16 array;
+- everything between (ReLU, max-pool, concatenation, DeepCNN's residual
+  add, the time-embedding add) runs on the bf16 tensors themselves.
+
+``torch.autocast`` rounds elsewhere: it returns float32 from ``batch_norm``
+and keeps elementwise ops in float32, so a residual add or a GroupNorm ->
+SiLU between two convs would see unrounded values.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrisr_tpu_torch.models.conv import Conv2d
+from mrisr_tpu_torch.models.conv import Conv2d, lowp_bias
 
 # flax momentum 0.9 == torch momentum 0.1 (torch weighs the NEW batch)
 BN_MOMENTUM = 0.1
@@ -24,9 +49,17 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``mrisr_tpu/models/blocks.py``); torch's own update uses the unbiased
     one, n / (n - 1) larger, which at a 2x2 bottleneck of batch 4 (n = 16)
     is a 6.7 % difference an update.  Normalization (biased variance), the
-    momentum, eps, the eval forward and the state-dict keys are torch's."""
+    momentum, eps, the eval forward and the state-dict keys are torch's.
+
+    A bf16 input is normalized in float32 (statistics included) and the
+    result returned in bf16, as flax's ``BatchNorm(dtype=bfloat16)``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self._forward(x.float()).to(x.dtype)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
@@ -36,6 +69,71 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm``; a bf16 input is normalized in float32 and the
+    result returned in bf16, as flax's ``GroupNorm(dtype=bfloat16)``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return super().forward(x.float()).to(x.dtype)
+        return super().forward(x)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` that runs in ``compute_dtype`` when one is set (flax's
+    ``Dense(dtype=...)``: the product rounded, then the bias added)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        return lowp_bias(F.linear(x.to(cd), self.weight.to(cd)), self.bias)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` that runs in ``compute_dtype`` when one is
+    set (flax's ``ConvTranspose(dtype=...)``)."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is None:
+            return super().forward(x)
+        y = F.conv_transpose2d(x.to(cd), self.weight.to(cd), None,
+                               self.stride, self.padding, self.output_padding,
+                               self.groups, self.dilation)
+        return lowp_bias(y, self.bias)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU; on a bf16 tensor ``x * (1 / (1 + exp(-x)))`` op by op, each
+    op rounded to bf16, as ``jax.nn.silu`` computes it on a bf16 array."""
+    if x.dtype == torch.bfloat16:
+        return x * torch.reciprocal(1 + torch.exp(-x))
+    return F.silu(x)
+
+
+class SiLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return silu(x)
+
+
+def set_compute_dtype(model: nn.Module,
+                      dtype: Optional[torch.dtype]) -> nn.Module:
+    """flax's ``dtype=`` for every layer of ``model``: bf16 computes each
+    conv, transposed conv and dense layer in bf16, and the norms and
+    activations follow their inputs' type; float32 or None computes in the
+    parameters' own type.  The parameters are untouched."""
+    cd = torch.bfloat16 if dtype == torch.bfloat16 else None
+    for m in model.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d, Linear)):
+            m.compute_dtype = cd
+    return model
 
 
 class DoubleConv(nn.Module):
@@ -73,8 +171,8 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
 
 
-def UpConv2x2(in_channels: int, features: int) -> nn.ConvTranspose2d:
+def UpConv2x2(in_channels: int, features: int) -> ConvTranspose2d:
     """ConvTranspose2d(kernel_size=2, stride=2).  Its weight is
     ``(in, out, 2, 2)``; the flax kernel is the same spatially flipped
     (``ckpt/from_jax.py``)."""
-    return nn.ConvTranspose2d(in_channels, features, 2, stride=2)
+    return ConvTranspose2d(in_channels, features, 2, stride=2)

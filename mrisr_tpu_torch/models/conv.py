@@ -20,6 +20,18 @@ both measured on an NVIDIA H100 80GB HBM3 at 700 W
 Every other call is ``nn.Conv2d``'s.  The state-dict keys and the module
 type (a subclass of ``nn.Conv2d``) are unchanged, so checkpoints, the BN
 fold and the int8 quantizer see the layer they saw before.
+
+A layer with a ``compute_dtype`` (bf16: ``models/blocks.py:
+set_compute_dtype``, flax's ``dtype=``) casts its input, weight and bias to
+that type, convolves, rounds, then adds the bias and rounds again, as flax's
+``nn.Conv`` does.  Those calls go to cuDNN: no bf16 conv of the six
+families' train steps (batch 4) or eval forwards (batch 8) runs more than
+10x its bf16 bound under cuDNN while PyTorch's own conv is 5x faster
+(``tools/train_step_probe.py --dtype bfloat16``, 156 shapes, NVIDIA H100
+80GB HBM3 at 700 W).  The best own-conv gain is 1.6x, at the UNet's
+``upconv4`` (4 x 1024 x 16^2: cuDNN 1.485 ms, 114x its bound; own 0.930),
+too small a gain to route.  The 'fft' shape above is cuDNN's float32
+choice: in bf16 ``dec2.conv.0`` takes 1.495 ms under cuDNN, 3.588 own.
 """
 
 from __future__ import annotations
@@ -114,11 +126,28 @@ def conv2d_no_cudnn(x: torch.Tensor, weight: torch.Tensor,
                               tuple(dilation))
 
 
+def lowp_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y + bias`` in ``y``'s type: flax adds the bias after the product
+    has been rounded, and rounds the sum again.  ``y`` is NCHW or
+    ``(..., C)``."""
+    if bias is None:
+        return y
+    b = bias.to(y.dtype)
+    return y + (b[:, None, None] if y.dim() == 4 else b)
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` that sends the calls of :func:`avoids_cudnn` around
-    cuDNN."""
+    cuDNN, and runs in ``compute_dtype`` when one is set."""
+
+    # None: the parameters' own type (float32, or float64 after .double())
+    compute_dtype: Optional[torch.dtype] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        if cd is not None:
+            return lowp_bias(self._conv_forward(x.to(cd), self.weight.to(cd),
+                                                None), self.bias)
         if self.padding_mode == "zeros" and avoids_cudnn(x, self):
             return conv2d_no_cudnn(x, self.weight, self.bias, self.stride,
                                    self.padding, self.dilation)

@@ -12,13 +12,18 @@ converter reads (``mrisr_tpu/ckpt/torch_convert.py:_convert_deepcnn``).
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrisr_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm2d
+from mrisr_tpu_torch.models.blocks import (
+    BN_EPS,
+    BN_MOMENTUM,
+    BatchNorm2d,
+    set_compute_dtype,
+)
 from mrisr_tpu_torch.models.conv import Conv2d
 
 
@@ -50,7 +55,8 @@ class ResidualBlock(nn.Module):
 class DeepCNN(nn.Module):
     def __init__(self, in_channels: int = 2, out_channels: int = 1,
                  base_features: int = 64,
-                 num_blocks: Sequence[int] = (2, 2, 2, 2)):
+                 num_blocks: Sequence[int] = (2, 2, 2, 2),
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = base_features
         self.conv1 = Conv2d(in_channels, f, 7, padding=3, bias=False)
@@ -67,6 +73,7 @@ class DeepCNN(nn.Module):
             self.add_module(f"layer{i + 1}", nn.Sequential(*layer))
         self.num_layers = len(num_blocks)
         self.output_conv = Conv2d(cin, out_channels, 1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out), float32 (float64

@@ -23,6 +23,10 @@
   (the 1000-step linear beta table subsampled to T entries; the model sees
   the compressed indices 0..T-1), and :func:`sample_ddim`, its
   deterministic sampler (x first, a final clamp to [-1, 1]).
+
+Both UNets take flax's compute dtype (``dtype=torch.bfloat16``,
+``models/blocks.py``): GroupNorm statistics in float32, the time
+embedding's dense layers, SiLU and the additive projection in bf16.
 """
 
 from __future__ import annotations
@@ -36,7 +40,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mrisr_tpu_torch.models.blocks import UpConv2x2, max_pool_2x2
+from mrisr_tpu_torch.models.blocks import (
+    GroupNorm,
+    Linear,
+    SiLU,
+    UpConv2x2,
+    max_pool_2x2,
+    set_compute_dtype,
+    silu,
+)
 from mrisr_tpu_torch.models.conv import Conv2d
 
 GN_EPS = 1e-5
@@ -69,8 +81,8 @@ class TimeEmbedding(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
         self.dim = dim
-        self.fc = nn.Sequential(nn.Linear(dim, 2 * dim), nn.SiLU(),
-                                nn.Linear(2 * dim, dim))
+        self.fc = nn.Sequential(Linear(dim, 2 * dim), SiLU(),
+                                Linear(2 * dim, dim))
 
     def forward(self, t: torch.Tensor) -> torch.Tensor:
         emb = timestep_embedding(t, self.dim, "ddpm")
@@ -88,19 +100,19 @@ class DiffResBlock(nn.Module):
 
     def __init__(self, in_channels: int, features: int, time_dim: int):
         super().__init__()
-        self.norm1 = nn.GroupNorm(num_groups(in_channels), in_channels,
-                                  eps=GN_EPS)
+        self.norm1 = GroupNorm(num_groups(in_channels), in_channels,
+                               eps=GN_EPS)
         self.conv1 = Conv2d(in_channels, features, 3, padding=1)
-        self.time_fc = nn.Linear(time_dim, features)
-        self.norm2 = nn.GroupNorm(num_groups(features), features, eps=GN_EPS)
+        self.time_fc = Linear(time_dim, features)
+        self.norm2 = GroupNorm(num_groups(features), features, eps=GN_EPS)
         self.conv2 = Conv2d(features, features, 3, padding=1)
         self.skip = (Conv2d(in_channels, features, 1)
                      if in_channels != features else nn.Identity())
 
     def forward(self, x: torch.Tensor, t_emb: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
+        h = self.conv1(silu(self.norm1(x)))
         h = h + self.time_fc(t_emb)[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv2(silu(self.norm2(h)))
         return h + self.skip(x)
 
 
@@ -109,7 +121,8 @@ class FastDDPMUNet(nn.Module):
     the interface (NCHW views of channels_last memory inside)."""
 
     def __init__(self, in_channels: int = 3, out_channels: int = 1,
-                 base_features: int = 64, time_dim: int = 128):
+                 base_features: int = 64, time_dim: int = 128,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         b = base_features
         self.base_features = b
@@ -127,8 +140,9 @@ class FastDDPMUNet(nn.Module):
         self.upconv1 = UpConv2x2(2 * b, b)
         self.dec1 = DiffResBlock(3 * b, b, time_dim)
         self.final = nn.Sequential(
-            nn.GroupNorm(num_groups(b), b, eps=GN_EPS), nn.SiLU(),
+            GroupNorm(num_groups(b), b, eps=GN_EPS), SiLU(),
             Conv2d(b, out_channels, 3, padding=1))
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         t_emb = self.time_emb(t)
@@ -179,19 +193,20 @@ class SimpleDiffusionUNet(nn.Module):
     ``ckpt/torch_ckpt.py`` strips."""
 
     def __init__(self, in_channels: int = 3, base_features: int = 64,
-                 time_dim: int = 256):
+                 time_dim: int = 256, dtype: Optional[torch.dtype] = None):
         super().__init__()
         b = base_features
         self.time_dim = time_dim
-        self.time_mlp = nn.Sequential(nn.Linear(time_dim, time_dim),
+        self.time_mlp = nn.Sequential(Linear(time_dim, time_dim),
                                       nn.ReLU(inplace=True),
-                                      nn.Linear(time_dim, time_dim))
+                                      Linear(time_dim, time_dim))
         self.inc = _Block(in_channels + time_dim, b)
         self.down1 = _Block(b, 2 * b)
         self.down2 = _Block(2 * b, 4 * b)
         self.up2 = _Block(6 * b, 2 * b)
         self.up1 = _Block(3 * b, b)
         self.outc = Conv2d(b, 1, 1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         n, h, w, _ = x.shape

@@ -13,28 +13,49 @@ BatchNorms at 3, 6, 9.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from mrisr_tpu_torch.models.blocks import BN_EPS, BN_MOMENTUM, BatchNorm2d
+from mrisr_tpu_torch.models.blocks import (
+    BN_EPS,
+    BN_MOMENTUM,
+    BatchNorm2d,
+    set_compute_dtype,
+)
 from mrisr_tpu_torch.models.conv import Conv2d
+
+SLOPE = 0.2
+
+
+class LeakyReLU(nn.Module):
+    """LeakyReLU(0.2) whose slope is first rounded to the input's type:
+    ``jax.nn.leaky_relu`` multiplies a bf16 array by the weakly typed 0.2,
+    which becomes bf16's 0.2001953125."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(x, float(torch.tensor(SLOPE, dtype=x.dtype)))
 
 
 class PatchGAN(nn.Module):
-    def __init__(self, in_channels: int = 3, base_features: int = 64):
+    def __init__(self, in_channels: int = 3, base_features: int = 64,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         f = base_features
         layers = [Conv2d(in_channels, f, 4, stride=2, padding=1),
-                  nn.LeakyReLU(0.2)]
+                  LeakyReLU()]
         cin = f
         for width, stride in ((2 * f, 2), (4 * f, 2), (8 * f, 1)):
             layers += [Conv2d(cin, width, 4, stride=stride, padding=1,
                               bias=False),
                        BatchNorm2d(width, eps=BN_EPS, momentum=BN_MOMENTUM),
-                       nn.LeakyReLU(0.2)]
+                       LeakyReLU()]
             cin = width
         layers.append(Conv2d(cin, 1, 4, stride=1, padding=1))
         self.model = nn.Sequential(*layers)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 3) NHWC -> the (B, h, w, 1) patch map, float32

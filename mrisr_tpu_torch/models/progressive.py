@@ -14,7 +14,7 @@ parameters at features 64; state-dict keys ``unet1.enc1.conv.0.weight``
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -23,11 +23,12 @@ from mrisr_tpu_torch.models.unet import UNet
 
 
 class ProgressiveUNet(nn.Module):
-    def __init__(self, base_features: int = 64):
+    def __init__(self, base_features: int = 64,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.unet1 = UNet(features=base_features, use_bias=False)
-        self.unet2 = UNet(features=base_features, use_bias=False)
-        self.unet3 = UNet(features=base_features, use_bias=False)
+        self.unet1 = UNet(features=base_features, use_bias=False, dtype=dtype)
+        self.unet2 = UNet(features=base_features, use_bias=False, dtype=dtype)
+        self.unet3 = UNet(features=base_features, use_bias=False, dtype=dtype)
 
     def forward(self, window: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

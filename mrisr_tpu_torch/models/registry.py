@@ -12,7 +12,8 @@ Torch's default ``kaiming_uniform(a=sqrt(5))`` has a third of the
 lecun variance and would train a different model.  The draws come from a
 ``torch.Generator`` seeded with the training seed; they are not the JAX
 package's numbers (a ``jax.random`` stream cannot be reproduced), only its
-distribution.
+distribution.  ``dtype`` is flax's compute dtype (``models/blocks.py``):
+the parameters and their init are float32 whatever it is.
 """
 
 from __future__ import annotations
@@ -92,42 +93,44 @@ def kaiming_fan_out_init_(model: nn.Module, seed: int) -> nn.Module:
     return model
 
 
-def create_model(name: str, cfg: ModelConfig) -> nn.Module:
+def create_model(name: str, cfg: ModelConfig,
+                 dtype: Optional[torch.dtype] = None) -> nn.Module:
     """The module of registry ``name`` at ``cfg``'s width (torch's default
-    init), as the JAX registry builds it: the GAN generator and the
-    progressive stages bias-free, Fast-DDPM's input [pre, post, x_noisy]
-    whatever ``cfg.in_channels`` says, the simple lineage's time_dim 256."""
+    init) computing in ``dtype`` (None: float32), as the JAX registry
+    builds it: the GAN generator and the progressive stages bias-free,
+    Fast-DDPM's input [pre, post, x_noisy] whatever ``cfg.in_channels``
+    says, the simple lineage's time_dim 256."""
     f = cfg.base_features
     if name in ("unet", "unet_combined", "unet_distilled", "unet_gan"):
         return UNet(features=f, use_bias=name != "unet_gan",
                     in_channels=cfg.in_channels,
-                    out_channels=cfg.out_channels)
+                    out_channels=cfg.out_channels, dtype=dtype)
     if name == "deepcnn":
         return DeepCNN(in_channels=cfg.in_channels,
                        out_channels=cfg.out_channels, base_features=f,
-                       num_blocks=tuple(cfg.num_blocks))
+                       num_blocks=tuple(cfg.num_blocks), dtype=dtype)
     if name == "progressive_unet":
-        return ProgressiveUNet(base_features=f)
+        return ProgressiveUNet(base_features=f, dtype=dtype)
     if name == "fastddpm":
         return FastDDPMUNet(base_features=f, time_dim=cfg.time_dim,
-                            out_channels=cfg.out_channels)
+                            out_channels=cfg.out_channels, dtype=dtype)
     if name == "fastddpm_simple":
-        return SimpleDiffusionUNet(base_features=f, time_dim=256)
+        return SimpleDiffusionUNet(base_features=f, time_dim=256, dtype=dtype)
     if name == "patchgan":
-        return PatchGAN(base_features=f)
+        return PatchGAN(base_features=f, dtype=dtype)
     raise ValueError(f"Unknown model: {name}. Choose from: "
                      f"{sorted(TRAINABLE)}")
 
 
-def init_model(name: str, cfg: Optional[ModelConfig] = None, seed: int = 0
-               ) -> Tuple[nn.Module, str]:
+def init_model(name: str, cfg: Optional[ModelConfig] = None, seed: int = 0,
+               dtype: Optional[torch.dtype] = None) -> Tuple[nn.Module, str]:
     """A freshly initialized model of registry ``name`` and its input
-    kind, on the CPU (the caller moves it)."""
+    kind, on the CPU (the caller moves it), computing in ``dtype``."""
     if name not in TRAINABLE:
         raise ValueError(f"Unknown model: {name}. Choose from: "
                          f"{sorted(TRAINABLE)}")
     if cfg is None:
         cfg = PRESETS[name].model if name in PRESETS else ModelConfig(name=name)
-    model = create_model(name, cfg)
+    model = create_model(name, cfg, dtype)
     init = kaiming_fan_out_init_ if name == "deepcnn" else flax_init_
     return init(model, seed), TRAINABLE[name]

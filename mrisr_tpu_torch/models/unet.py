@@ -6,14 +6,23 @@ Inside, the input is permuted to NCHW, which for an NHWC tensor is already
 Topology: 4-level encoder f -> 2f -> 4f -> 8f with 2x2 max-pool, bottleneck
 16f, decoder ConvTranspose(2, 2) + skip concat + double conv, final 1x1.
 31,042,945 parameters at f=64 (31,037,057 without conv biases).
+``dtype=torch.bfloat16`` is flax's compute dtype (``models/blocks.py``):
+float32 parameters, bf16 activations, the output cast to float32.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
-from mrisr_tpu_torch.models.blocks import DoubleConv, UpConv2x2, max_pool_2x2
+from mrisr_tpu_torch.models.blocks import (
+    DoubleConv,
+    UpConv2x2,
+    max_pool_2x2,
+    set_compute_dtype,
+)
 from mrisr_tpu_torch.models.conv import Conv2d
 
 BLOCKS_DOWN = ("enc1", "enc2", "enc3", "enc4")
@@ -23,7 +32,7 @@ BLOCKS_UP = ("dec4", "dec3", "dec2", "dec1")
 class UNet(nn.Module):
     def __init__(self, features: int = 64, use_bias: bool = True,
                  use_bn: bool = True, in_channels: int = 2,
-                 out_channels: int = 1):
+                 out_channels: int = 1, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.features = features
         self.use_bias = use_bias
@@ -47,10 +56,11 @@ class UNet(nn.Module):
         self.upconv1 = UpConv2x2(2 * f, f)
         self.dec1 = dc(2 * f, f)
         self.final = Conv2d(f, out_channels, 1)
+        set_compute_dtype(self, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out) float32 (float64
-        for a float64 module)."""
+        for a float64 module; float32 from a bf16 compute dtype)."""
         h = x.permute(0, 3, 1, 2)
         skips = []
         for name in BLOCKS_DOWN:

@@ -7,10 +7,16 @@ from mrisr_tpu_torch.serve.bundle import (  # noqa: F401
     make_bundle_apply,
     save_bundle,
 )
-from mrisr_tpu_torch.serve.engine import EngineStats, InferenceEngine  # noqa: F401
+from mrisr_tpu_torch.serve.engine import (  # noqa: F401
+    EngineStats,
+    InferenceEngine,
+    engine_from_model,
+)
 from mrisr_tpu_torch.serve.quant import (  # noqa: F401
     Int8FusedUNet,
+    Int8UNet,
     calibrate_unet,
     quantize_unet,
+    unet_int8_apply,
     unet_int8_fused_apply,
 )

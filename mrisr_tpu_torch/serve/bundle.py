@@ -159,27 +159,80 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
     return apply
 
 
+def _to_numpy(tree: Dict) -> Dict:
+    """A tree of tensors (bf16 included) -> float32 numpy leaves."""
+    return {k: _to_numpy(v) if isinstance(v, dict) else
+            v.detach().float().cpu().numpy() for k, v in tree.items()}
+
+
+def _require_folded_tree(params: Dict, who: str) -> None:
+    """A pair bundle's float tree must be a BN-folded UNet: the forward
+    rebuilds ``UNet(use_bn=False)``, which would silently ignore leftover
+    BatchNorm parameters."""
+    if "enc1" not in params:
+        raise ValueError(
+            f"{who} expects the UNet-family topology (enc*/dec*/bottleneck "
+            "blocks); got keys " + str(sorted(params)[:6]))
+    for name, sub in params.items():
+        if isinstance(sub, dict) and "BatchNorm_0" in sub:
+            raise ValueError(
+                f"{who} expects a BN-FOLDED tree (ckpt/fold_bn.py) but "
+                f"{name!r} still contains BatchNorm params: fold first")
+
+
+def _bf16_unet_apply(params: Dict, meta: Dict, device: torch.device):
+    """The ``quant='none'`` pair bundle: the BN-folded
+    ``UNet(use_bn=False)`` in bf16 compute over the bundle's bf16
+    parameters, float32 out."""
+    from mrisr_tpu_torch.ckpt.from_jax import unet_state_dict_from_flax
+    from mrisr_tpu_torch.models.unet import UNet
+
+    tree = params.get("params", {})
+    _require_folded_tree(tree, "make_bundle_apply")
+    kernel = tree["enc1"]["Conv_0"]["kernel"]
+    module = UNet(features=int(meta["base_features"]), use_bn=False,
+                  in_channels=int(kernel.shape[2]),
+                  out_channels=int(tree["final"]["kernel"].shape[-1]),
+                  dtype=torch.bfloat16)
+    # the bf16 values are exact in the float32 parameters, and the
+    # forward casts them back to bf16
+    module.load_state_dict(unet_state_dict_from_flax(_to_numpy(params)))
+    module = module.to(device).eval()
+
+    @torch.no_grad()
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        return module(x.to(device, torch.float32))
+
+    return apply
+
+
 def make_bundle_apply(params: Dict, meta: Dict, device: DeviceLike = None,
                       gn_impl: Optional[str] = None, plain: bool = False):
     """The serving forward of a loaded bundle on ``device`` (``None``: the
     card): ``(B, H, W, 2) -> (B, H, W, 1)`` tensors on that device.
 
-    Pair bundles: the one-shot forward; only ``quant='int8_fused'`` is
-    ported so far.  Diffusion bundles (quant none, int8 or int8_deep): the
-    call runs the whole T-step ancestral chain; ``gn_impl`` picks the int8
-    forward's GroupNorm path ('chain' or 'fused', see
-    ``serve/quant_diffusion.py``).  ``plain=True`` runs the kernels' plain
-    versions on the card: the reference the kernels are held against."""
+    Pair bundles: the one-shot forward; ``quant`` 'int8_fused' (kernels A
+    and B), 'int8' (``unet_int8_apply``: kernel A's float epilogue at every
+    3x3 conv) or 'none' (the folded UNet in bf16 compute).  Diffusion
+    bundles (quant none, int8 or int8_deep): the call runs the whole T-step
+    ancestral chain; ``gn_impl`` picks the int8 forward's GroupNorm path
+    ('chain' or 'fused', see ``serve/quant_diffusion.py``).
+    ``plain=True`` runs the kernels' plain versions on the card: the
+    reference the kernels are held against."""
     device = resolve_device(device)
     if meta.get("kind") == "diffusion":
         return _diffusion_apply(params, meta, device, gn_impl, plain)
-    if meta["quant"] != "int8_fused":
-        raise NotImplementedError(
-            f"bundle quant {meta['quant']!r} is not ported yet; the port "
-            "serves 'int8_fused' (ROADMAP.md, Queue 1 item 8)")
-    from mrisr_tpu_torch.serve.quant import Int8FusedUNet
+    from mrisr_tpu_torch.serve.quant import Int8FusedUNet, Int8UNet
 
-    return Int8FusedUNet(params, device=device, plain=plain)
+    quant = meta["quant"]
+    if quant == "int8_fused":
+        return Int8FusedUNet(params, device=device, plain=plain)
+    if quant == "int8":
+        return Int8UNet(params, device=device, plain=plain)
+    if quant == "none":
+        return _bf16_unet_apply(params, meta, device)
+    raise ValueError(f"pair bundles carry quant none/int8/int8_fused, got "
+                     f"{quant!r}")
 
 
 def export_serving_bundle(
@@ -195,9 +248,9 @@ def export_serving_bundle(
 ) -> str:
     """Checkpoint -> (BN-fold) -> calibrate and quantize -> bundle on disk,
     computed on ``device`` (``None``: the card).  A checkpoint is required,
-    as in the JAX package.  Pair models export ``int8_fused``; the
-    ``fastddpm`` family exports its sampler with quant none, int8 or
-    int8_deep."""
+    as in the JAX package.  Pair UNets export quant int8_fused, int8 (the
+    same tables) or none (the folded parameters in bf16); the ``fastddpm``
+    family exports its sampler with quant none, int8 or int8_deep."""
     from mrisr_tpu_torch.api import load_model
 
     loaded = load_model(model_name, models_dir=models_dir,
@@ -218,14 +271,20 @@ def export_serving_bundle(
             f"serving bundles cover the UNet-family pair models and the "
             f"fastddpm diffusion family; {model_name!r} is "
             f"{type(loaded.module).__name__}, kind={loaded.kind!r}")
-    if quant in ("none", "int8"):
-        raise NotImplementedError(
-            f"pair-model bundles with quant {quant!r} are not ported yet; "
-            "the port exports 'int8_fused' (ROADMAP.md, Queue 1 item 8)")
-    if quant != "int8_fused":
+    if quant not in ("none", "int8", "int8_fused"):
         raise ValueError(
             f"pair-model bundles support quant none/int8/int8_fused, got "
             f"{quant!r} (int8_deep is the diffusion-sampler path)")
+    if quant == "none":
+        from mrisr_tpu_torch.ckpt.from_jax import unet_flax_params
+        from mrisr_tpu_torch.serve.quant_diffusion import bf16_params
+
+        # the folded tree with every float32 leaf in bf16, as the
+        # reference stores it
+        return save_bundle(
+            out_path, bf16_params(unet_flax_params(loaded.module)),
+            model_name=model_name, quant=quant,
+            base_features=loaded.module.features, image_size=image_size)
     from mrisr_tpu_torch.serve.quant import calibrate_unet, quantize_unet
 
     if not calibration_batches:

@@ -11,10 +11,18 @@ On the card: two pinned host input buffers (ping-pong), a dedicated CUDA
 stream, a ``non_blocking`` host-to-device copy, and the result copied back
 into a pinned buffer behind an event; resolving a batch waits on that event
 (``EngineStats.fetch_time_s``: the wait for the device result).
+
+:func:`engine_from_model` builds an engine from a checkpoint, as the
+reference's does: the BN-folded float forward over bf16-rounded weights
+(quant 'none'), or the int8 forward calibrated on the caller's batches
+(quant 'int8' or 'int8_fused').
 """
 
 from __future__ import annotations
 
+import copy
+import functools
+import itertools
 import queue
 import threading
 import time
@@ -25,7 +33,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from mrisr_tpu_torch.device import DeviceLike, resolve_device
+from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
 
 
 @dataclass
@@ -276,3 +284,105 @@ class InferenceEngine:
             if pending is not None:
                 self._resolve(pending)
             pending = (host_out, done, batch, t0)
+
+
+def _bn_over_bf16(bn: torch.nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
+    """flax's eval-mode BatchNorm of a float32 module over bf16 variables:
+    dtype promotion leaves ``rsqrt(var + eps) * scale`` a bf16 computation
+    (each op rounded; eps rounded to bf16 first), and the rest float32."""
+    bf16, shape = torch.bfloat16, (1, -1, 1, 1)
+    rstd = torch.rsqrt((bn.running_var.to(bf16) + torch.tensor(
+        bn.eps, dtype=bf16)).float()).to(bf16)
+    mul = (rstd * bn.weight.to(bf16)).float()
+    return ((x - bn.running_mean.view(shape)) * mul.view(shape)
+            + bn.bias.view(shape))
+
+
+def _bf16_weights_apply(module: torch.nn.Module) -> Callable:
+    """The reference's ``quant='none'`` engine forward: every float32
+    parameter and buffer rounded to bf16, the module itself still float32,
+    so the forward is float32 arithmetic over bf16-rounded weights (but a
+    BatchNorm's scale factor, which :func:`_bn_over_bf16` computes in bf16
+    as flax does).  It runs with TF32 off (``fp32_reference``), the float32
+    the reference computes on the CPU."""
+    module = copy.deepcopy(module).eval()
+    with torch.no_grad():
+        for t in itertools.chain(module.parameters(), module.buffers()):
+            if t.dtype == torch.float32:
+                t.copy_(t.bfloat16().float())
+    for m in module.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.forward = functools.partial(_bn_over_bf16, m)
+
+    @torch.no_grad()
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        with fp32_reference():
+            return module(x.float())
+
+    return apply
+
+
+def engine_from_model(
+    model_name: str = "unet",
+    models_dir: str = "models",
+    quant: str = "none",
+    batch_size: int = 128,
+    image_size: Tuple[int, int] = (256, 256),
+    calibration_batches: Optional[List] = None,
+    cfg=None,
+    data_parallel: bool = False,
+    require_checkpoint: bool = True,
+    device: DeviceLike = None,
+    **engine_kwargs,
+) -> InferenceEngine:
+    """A serving engine on ``device`` (``None``: the card) from a
+    checkpoint (counterpart: ``mrisr_tpu/serve/engine.py:
+    engine_from_model``).
+
+    quant='none': the BN-folded float32 forward over bf16-rounded weights.
+    quant='int8': ``unet_int8_apply`` (kernel A's float epilogue at every
+    3x3 conv); 'int8_fused': the int8-resident forward (kernels A and B).
+    Both need ``calibration_batches`` (a few ``(B, H, W, 2)`` arrays).
+    ``require_checkpoint`` (default True): a missing checkpoint raises
+    instead of serving fresh weights.  ``data_parallel=True`` raises
+    ``NotImplementedError``: data-parallel serving is not ported."""
+    from mrisr_tpu_torch.api import load_model
+
+    if data_parallel:
+        raise NotImplementedError(
+            "data-parallel serving is not ported yet (ROADMAP.md, Queue 1 "
+            "items 9 and 15: data_parallel_apply over DDP)")
+    device = resolve_device(device)
+    # a serving engine quietly built on random weights (a typo'd
+    # models_dir) would serve garbage with no error
+    loaded = load_model(model_name, models_dir=models_dir, cfg=cfg,
+                        fold_bn=True, device=device,
+                        checkpoint="required" if require_checkpoint else None)
+    if loaded.kind != "pair":
+        raise ValueError("the serving engine batches 2-in/1-out pair models; "
+                         f"{model_name!r} is kind={loaded.kind!r}")
+    if quant in ("int8", "int8_fused"):
+        from mrisr_tpu_torch.serve.quant import (
+            Int8FusedUNet,
+            Int8UNet,
+            calibrate_unet,
+            quantize_unet,
+        )
+
+        if not hasattr(loaded.module, "enc1"):
+            # quantize_unet walks the UNet block names
+            raise ValueError(
+                "int8 serving covers the UNet-family topology; "
+                f"{model_name!r} has no enc1 block: serve it with "
+                "quant='none'")
+        if not calibration_batches:
+            raise ValueError("int8 serving requires calibration_batches")
+        qparams = quantize_unet(loaded.module, calibrate_unet(
+            loaded.module, calibration_batches))
+        apply_fn = (Int8FusedUNet if quant == "int8_fused" else Int8UNet)(
+            qparams, device=device)
+    else:
+        apply_fn = _bf16_weights_apply(loaded.module)
+    return InferenceEngine(apply_fn, batch_size=batch_size,
+                           input_shape=(image_size[0], image_size[1], 2),
+                           device=device, **engine_kwargs)

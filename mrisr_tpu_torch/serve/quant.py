@@ -12,7 +12,15 @@ bundles that carry them) move between the two packages:
 - ``unet_int8_fused_apply``: int8-resident activations.  Every conv is
   kernel A (``ops/conv_int8.py``) with the requantizing epilogue fused;
   the four upconvs are kernel B (``ops/upconv.py``) with the decoder's
-  concat fused; only the input and the final output are float.
+  concat fused; only the input and the final output are float.  Tables
+  from a pre-r3 calibration (no upconv/final int8 entries) take the
+  reference's fallback: the same int8 encoder, kernel A's float epilogue
+  at the bottleneck and at each decoder block's second conv, the upconvs
+  and the final 1x1 conv in bf16, and 'dual' skip emission.
+- ``unet_int8_apply``: the plain int8 forward.  Each 3x3 conv quantizes
+  its input with ``quant_input`` and runs kernel A with the float epilogue
+  and ReLU; its output is cast to bf16, and max-pool, the upconvs and the
+  final 1x1 conv run in bf16.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ import torch.nn.functional as F
 
 from mrisr_tpu_torch.ckpt.from_jax import conv_kernel_hwio, convt_kernel_hwio
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
+from mrisr_tpu_torch.models.conv import lowp_bias
 from mrisr_tpu_torch.models.unet import BLOCKS_DOWN, BLOCKS_UP, UNet
 from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8,
@@ -203,8 +212,40 @@ def quant_input(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
                        127).to(torch.int8)
 
 
+def _float_upconv(ent: Dict, dtype: torch.dtype, device):
+    """An upconv's float ``kernel``/``bias`` (the reference's bf16 copies)
+    as a ConvTranspose2d weight ``(I, O, 2, 2)`` and bias in ``dtype``."""
+    w = ent["kernel"].flip(0, 1).permute(2, 3, 0, 1)   # HWIO, flax flip
+    return (w.to(device, dtype).contiguous(),
+            ent["bias"].to(device, dtype))
+
+
+def _float_final(ent: Dict, dtype: torch.dtype, device):
+    """The final 1x1 conv's float ``kernel``/``bias`` as a Conv2d weight
+    ``(O, I, 1, 1)`` and bias in ``dtype``."""
+    return (ent["kernel"].permute(3, 2, 0, 1).to(device, dtype).contiguous(),
+            ent["bias"].to(device, dtype))
+
+
+def upconv_float(x: torch.Tensor, wb) -> torch.Tensor:
+    """The reference's ``_upconv``: NHWC ConvTranspose(k=2, s=2) in the
+    weights' type, rounded, then the bias added in that type."""
+    w, b = wb
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2).to(w.dtype), w, stride=2)
+    return lowp_bias(y, b).permute(0, 2, 3, 1)
+
+
+def final_float(x: torch.Tensor, wb) -> torch.Tensor:
+    """The final 1x1 conv in the weights' type, bias added after the
+    rounding, returned as float32 NHWC."""
+    w, b = wb
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(w.dtype), w)
+    return lowp_bias(y, b).permute(0, 2, 3, 1).float()
+
+
 class _Site:
-    """One kernel-A conv: packed weights and its fp32 epilogue vectors."""
+    """One kernel-A conv: packed weights and its fp32 epilogue vectors
+    (``out_float``: float32 out, the reference's ``_float_epilogue``)."""
 
     def __init__(self, w_int8, s, b, device, relu=True, out_float=False):
         self.w = pack_conv(w_int8).to(device)
@@ -223,24 +264,36 @@ def _requant_site(lq: Dict, a_next, device, in_ratio=None) -> _Site:
     return _Site(lq["w_int8"], s, _f32(lq["bias"]) / a_next, device)
 
 
+def _float_site(lq: Dict, device) -> _Site:
+    """The reference's ``_float_epilogue``: ``acc * scale + bias``, ReLU,
+    float32 out (the caller casts it to the compute dtype)."""
+    return _Site(lq["w_int8"], _f32(lq["scale"]), _f32(lq["bias"]), device,
+                 out_float=True)
+
+
 class Int8FusedUNet:
     """``unet_int8_fused_apply`` with its tables packed once for a device.
 
+    Full (r3) tables run the int8-resident forward; pre-r3 tables run the
+    reference's fallback in ``dtype`` (bf16 upconvs and final conv, 'dual'
+    emission; an explicit 'shared' raises, as in the reference).
     ``plain=True`` runs the kernels' plain versions even on the card (the
     reference the kernels are held against)."""
 
     def __init__(self, qparams: Dict, skip_emit: Optional[str] = None,
-                 device: DeviceLike = None, plain: bool = False):
+                 device: DeviceLike = None, plain: bool = False,
+                 dtype: torch.dtype = torch.bfloat16):
         device = resolve_device(device)
-        if not _has_full_tables(qparams):
-            raise NotImplementedError(
-                "these int8 tables have no upconv/final w_int8 (a pre-r3 "
-                "calibration); their bf16-decoder fallback is not ported yet "
-                "(ROADMAP.md, Queue 1 item 8)")
+        self.full = _has_full_tables(qparams)
         skip_emit = resolve_variants(qparams, skip_emit)
         if skip_emit not in ("shared", "dual"):
             raise ValueError(f"skip_emit must be 'shared' or 'dual', got "
                              f"{skip_emit!r}")
+        if skip_emit == "shared" and not self.full:
+            raise ValueError(
+                "skip_emit='shared' needs the full int8 tables (r3 "
+                "calibration with upconv/final entries)")
+        self.dtype = dtype
         self._conv = conv2d_int8_plain if plain else conv2d_int8
         self._upconv = upconv2x2_int8_plain if plain else upconv2x2_int8
         a = {f"{blk}/{cn}": _f32(qparams[blk][cn]["a_scale"])
@@ -272,9 +325,13 @@ class Int8FusedUNet:
             self.enc.append((c0, c1))
 
         q = qparams["bottleneck"]
+        c0 = _requant_site(q["Conv_0"], a["bottleneck/Conv_1"], device,
+                           in_ratio)
+        if not self.full:
+            self._legacy_decoder(qparams, a, c0, device)
+            return
         self.mid = (
-            _requant_site(q["Conv_0"], a["bottleneck/Conv_1"], device,
-                          in_ratio),
+            c0,
             _requant_site(q["Conv_1"], _f32(qparams["upconv4"]["a_scale"]),
                           device),
         )
@@ -301,13 +358,31 @@ class Int8FusedUNet:
         self.final = _Site(f["w_int8"], _f32(f["scale"]), _f32(f["qbias"]),
                            device, relu=False, out_float=True)
 
+    def _legacy_decoder(self, qparams: Dict, a: Dict, c0: _Site,
+                        device) -> None:
+        """The pre-r3 fallback's bottleneck and decoder: the bottleneck's
+        Conv_1 through the float epilogue, each decoder block a float
+        upconv, ``quant_input`` at its Conv_0 scale, the int8 concat, a
+        requantizing Conv_0 and a float Conv_1."""
+        self.mid = (c0, _float_site(qparams["bottleneck"]["Conv_1"], device))
+        self.dec = []
+        for name in BLOCKS_UP:
+            q = qparams[name]
+            self.dec.append((
+                _float_upconv(qparams[f"upconv{name[-1]}"], self.dtype,
+                              device),
+                a[f"{name}/Conv_0"].to(device),
+                _requant_site(q["Conv_0"], a[f"{name}/Conv_1"], device),
+                _float_site(q["Conv_1"], device),
+            ))
+        self.final = _float_final(qparams["final"], self.dtype, device)
+
     def _run(self, x: torch.Tensor, site: _Site) -> torch.Tensor:
         return self._conv(x, site.w, site.s, site.b, relu=site.relu,
                           out_float=site.out_float)
 
-    @torch.no_grad()
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, H, W, 2) float NHWC -> (B, H, W, 1) float32."""
+    def _encode(self, x: torch.Tensor):
+        """The int8 encoder: (the bottleneck's input codes, the skips)."""
         xi = quant_input(x, self.a_in)
         skips = []
         for c0, c1 in self.enc:
@@ -319,16 +394,84 @@ class Int8FusedUNet:
             else:
                 skips.append(self._run(xi, c1[0]))
                 xi = max_pool_int8(self._run(xi, c1[1]))
+        return xi, skips
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, 2) float NHWC -> (B, H, W, 1) float32."""
+        if not self.full:
+            return self._legacy(x)
+        xi, skips = self._encode(x)
         xi = self._run(self._run(xi, self.mid[0]), self.mid[1])
         for ((w2, s4, b4), c0, c1), skip in zip(self.dec, reversed(skips)):
             xi = self._upconv(xi, w2, s4, b4, skip=skip)
             xi = self._run(self._run(xi, c0), c1)
         return self._run(xi, self.final)
 
+    def _legacy(self, x: torch.Tensor) -> torch.Tensor:
+        xi, skips = self._encode(x)
+        xf = self._run(self._run(xi, self.mid[0]), self.mid[1]).to(self.dtype)
+        for (up, a0, c0, c1), skip in zip(self.dec, reversed(skips)):
+            xi = torch.cat([quant_input(upconv_float(xf, up), a0), skip],
+                           dim=-1)
+            xf = self._run(self._run(xi, c0), c1).to(self.dtype)
+        return final_float(xf, self.final)
+
 
 def unet_int8_fused_apply(qparams: Dict, x: torch.Tensor,
-                          skip_emit: Optional[str] = None) -> torch.Tensor:
+                          skip_emit: Optional[str] = None,
+                          dtype: torch.dtype = torch.bfloat16
+                          ) -> torch.Tensor:
     """int8 UNet forward with int8-resident activations on ``x.device``:
-    ``(B, H, W, 2) -> (B, H, W, 1)``.  Packs the tables on every call; a
-    server builds :class:`Int8FusedUNet` once instead."""
-    return Int8FusedUNet(qparams, skip_emit, device=x.device)(x)
+    ``(B, H, W, 2) -> (B, H, W, 1)`` (``dtype``: the float layers of the
+    pre-r3 fallback).  Packs the tables on every call; a server builds
+    :class:`Int8FusedUNet` once instead."""
+    return Int8FusedUNet(qparams, skip_emit, device=x.device, dtype=dtype)(x)
+
+
+class Int8UNet:
+    """``unet_int8_apply`` with its tables packed once for a device: the
+    plain int8 forward, each 3x3 conv's float output cast to ``dtype``
+    (bf16 by default) between the convs.  ``plain=True`` runs kernel A's
+    plain version even on the card."""
+
+    def __init__(self, qparams: Dict, dtype: torch.dtype = torch.bfloat16,
+                 device: DeviceLike = None, plain: bool = False):
+        device = resolve_device(device)
+        self.dtype = dtype
+        self._conv = conv2d_int8_plain if plain else conv2d_int8
+        self.blocks = {
+            name: [(_f32(qparams[name][cn]["a_scale"]).to(device),
+                    _float_site(qparams[name][cn], device)) for cn in CONVS]
+            for name in BLOCKS}
+        self.up = {name: _float_upconv(qparams[name], dtype, device)
+                   for name in UPCONVS}
+        self.final = _float_final(qparams["final"], dtype, device)
+
+    def _block(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        for a, site in self.blocks[name]:
+            h = self._conv(quant_input(h, a), site.w, site.s, site.b,
+                           relu=True, out_float=True).to(self.dtype)
+        return h
+
+    @torch.no_grad()
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, H, W, 2) float NHWC -> (B, H, W, 1) float32."""
+        h, skips = x, []
+        for name in BLOCKS_DOWN:
+            h = self._block(name, h)
+            skips.append(h)
+            h = max_pool_int8(h)
+        h = self._block("bottleneck", h)
+        for name, skip in zip(BLOCKS_UP, reversed(skips)):
+            h = upconv_float(h, self.up[f"upconv{name[-1]}"])
+            h = self._block(name, torch.cat([h, skip], dim=-1))
+        return final_float(h, self.final)
+
+
+def unet_int8_apply(qparams: Dict, x: torch.Tensor,
+                    dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """The plain int8 UNet forward on ``x.device``: ``(B, H, W, 2) ->
+    (B, H, W, 1)``.  Packs the tables on every call; a server builds
+    :class:`Int8UNet` once instead."""
+    return Int8UNet(qparams, dtype, device=x.device)(x)

@@ -8,7 +8,9 @@
 - 'fastddpm_simple' (M10): ``SimpleDiffusionUNet``, the compressed-T
   ``FastNoiseSchedule``, ``[x, cond]`` input order, DDIM sampling.
 
-AdamW with a global-norm clip of 1.0 (``train/state.py``).  Every draw of a
+AdamW with a global-norm clip of 1.0 (``train/state.py``).  The model
+computes in the config's compute dtype; the timesteps, the noise and
+``q_sample`` stay float32, as the JAX steps draw them.  Every draw of a
 step (timesteps and noise) comes from a generator seeded from (seed,
 epoch, train or val, batch index) alone, so a resumed run draws what an
 unbroken one would; the card-side epochs (``--scan-epochs``) draw from the
@@ -37,7 +39,7 @@ from mrisr_tpu_torch.train.steps import (
     make_diffusion_steps,
     make_simple_diffusion_steps,
 )
-from mrisr_tpu_torch.train.trainer import _SingleStateTrainer
+from mrisr_tpu_torch.train.trainer import _SingleStateTrainer, compute_dtype
 
 
 def batch_seed(seed: int, epoch: int, train: bool, index: int) -> int:
@@ -53,7 +55,8 @@ class DiffusionTrainer(_SingleStateTrainer):
         mcfg = config.model
         self.simple = mcfg.name == "fastddpm_simple"
         module, _ = init_model("fastddpm_simple" if self.simple
-                               else "fastddpm", mcfg, seed=config.train.seed)
+                               else "fastddpm", mcfg, seed=config.train.seed,
+                               dtype=compute_dtype(config))
         self.state = create_train_state(module.to(self.device), config.train,
                                         steps_per_epoch=steps_per_epoch)
         if self.simple:

@@ -33,6 +33,7 @@ from mrisr_tpu_torch.train.state import create_train_state
 from mrisr_tpu_torch.train.steps import make_gan_steps
 from mrisr_tpu_torch.train.trainer import (
     _EpochLoopMixin,
+    compute_dtype,
     load_state,
     state_checkpoint,
 )
@@ -44,8 +45,12 @@ class GANTrainer(_EpochLoopMixin):
                  device: DeviceLike = None):
         self._init_loop(config, device)
         tcfg = config.train
-        gen, _ = init_model("unet_gan", config.model, seed=tcfg.seed)
-        disc, _ = init_model("patchgan", config.model, seed=tcfg.seed + 1)
+        # G and D both in the compute dtype, as the JAX trainer builds them
+        dtype = compute_dtype(config)
+        gen, _ = init_model("unet_gan", config.model, seed=tcfg.seed,
+                            dtype=dtype)
+        disc, _ = init_model("patchgan", config.model, seed=tcfg.seed + 1,
+                             dtype=dtype)
         self.g_state = create_train_state(gen.to(self.device), tcfg,
                                           steps_per_epoch=steps_per_epoch)
         self.d_state = create_train_state(

@@ -18,6 +18,10 @@ A checkpoint is the reference's torch layout, Python scalars only::
 so ``api.load_model("unet_combined")`` reads ``unet_combined_best.pt`` as
 it reads the reference's files, and ``try_resume`` continues from the
 newest ``_epoch_<N>.pt``.
+
+``train.compute_dtype='bfloat16'`` builds every model in bf16 compute
+(flax's ``dtype=``, ``models/blocks.py``), as the JAX trainers do; the
+parameters, the loss, the optimizer and the checkpoints stay float32.
 """
 
 from __future__ import annotations
@@ -51,11 +55,11 @@ from mrisr_tpu_torch.train.steps import (
 )
 
 
-def require_float32(config: Config) -> None:
-    if config.train.compute_dtype != "float32":
-        raise NotImplementedError(
-            "bf16 training is not ported yet (ROADMAP.md, Queue 1 item "
-            "6, rest: bf16); the port trains in float32")
+def compute_dtype(config: Config) -> torch.dtype:
+    """The models' compute dtype: bf16 for ``train.compute_dtype ==
+    'bfloat16'``, else float32, as the JAX trainers read it."""
+    return (torch.bfloat16 if config.train.compute_dtype == "bfloat16"
+            else torch.float32)
 
 
 class _EpochLoopMixin:
@@ -66,7 +70,6 @@ class _EpochLoopMixin:
     history: TrainingHistory
 
     def _init_loop(self, config: Config, device: DeviceLike) -> None:
-        require_float32(config)
         self.config = config
         self.device = resolve_device(device)
         self._device_runner = None
@@ -313,14 +316,15 @@ class SupervisedTrainer(_SingleStateTrainer):
     or progressive-loss training of the Progressive UNet on windows, on
     ``device`` (``None``: the card), initialized as the JAX package
     initializes it (``models/registry.py:init_model``, seed
-    ``train.seed``)."""
+    ``train.seed``), in the config's compute dtype."""
 
     def __init__(self, config: Config, perceptual_fn: Optional[Callable] = None,
                  steps_per_epoch: Optional[int] = None,
                  device: DeviceLike = None):
         self._init_loop(config, device)
         module, self.kind = init_model(config.model.name, config.model,
-                                       seed=config.train.seed)
+                                       seed=config.train.seed,
+                                       dtype=compute_dtype(config))
         self.state = create_train_state(module.to(self.device), config.train,
                                         steps_per_epoch=steps_per_epoch)
         lcfg = config.loss
@@ -353,6 +357,7 @@ class SupervisedTrainer(_SingleStateTrainer):
     @torch.no_grad()
     def predict(self, inputs: torch.Tensor):
         """``(B, H, W, 2) -> (B, H, W, 1)`` (a window model: ``(B, H, W,
-        5) -> (p1, p2, p3)``), eval mode, float32."""
+        5) -> (p1, p2, p3)``), eval mode, float32 out (computed in the
+        model's compute dtype)."""
         with fp32_reference():
             return self.state.module.eval()(inputs.to(self.device))

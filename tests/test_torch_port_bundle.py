@@ -83,10 +83,18 @@ def test_port_bundle_loads_in_jax(tables, tmp_path):
 
 
 def test_unported_modes_raise(tables):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """Pair bundles of every quant serve
+    (``tests/test_torch_port_pair_serving.py``): a 'none' bundle whose tree
+    is not a folded UNet raises the reference's ValueError, an unknown
+    quant a ValueError; the step-distilled students' ddim_grid diffusion
+    bundles are still item 14's."""
+    with pytest.raises(ValueError, match="UNet-family topology"):
         make_bundle_apply({}, {"quant": "none"}, device="cpu")
-    # diffusion bundles serve (tests/test_torch_port_quant_diffusion.py),
-    # but not the step-distilled students' ddim_grid sampler yet
+    with pytest.raises(ValueError, match="BN-FOLDED"):
+        make_bundle_apply({"params": {"enc1": {"BatchNorm_0": {}}}},
+                          {"quant": "none"}, device="cpu")
+    with pytest.raises(ValueError, match="int8_fused"):
+        make_bundle_apply(tables["q"], {"quant": "int4"}, device="cpu")
     with pytest.raises(NotImplementedError, match="diffusion"):
         make_bundle_apply({}, {"quant": "int8", "kind": "diffusion",
                                "sampler": "ddim_grid"}, device="cpu")

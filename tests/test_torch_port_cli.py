@@ -189,11 +189,20 @@ def test_cli_predict_volume_matches_jax(workdir, capsys, hierarchical):
 
 
 def test_cli_unported_flags_raise(workdir):
+    """``--figure`` still raises (ROADMAP item 10); ``eval --bf16`` runs
+    and writes the metrics ``eval`` writes without the flag, as in the JAX
+    CLI, where only the trainers read ``compute_dtype``."""
     with pytest.raises(NotImplementedError, match="matplotlib"):
         cli.main(["predict-volume", *common(workdir, "r"), "--device", "cpu",
                   "--figure", str(workdir / "f.png")])
-    with pytest.raises(NotImplementedError, match="bf16"):
-        cli.main(["eval", *common(workdir, "r"), "--device", "cpu", "--bf16"])
+    metrics = {}
+    for flag in ([], ["--bf16"]):
+        results = "bf16_on" if flag else "bf16_off"
+        cli.main(["eval", *common(workdir, results), "--device", "cpu",
+                  *flag])
+        metrics[results] = json.loads(
+            (workdir / results / "unet_test_metrics.json").read_text())
+    assert metrics["bf16_on"] == metrics["bf16_off"]
 
 
 def test_load_model_reads_numpy_values(workdir, capsys):
@@ -285,8 +294,19 @@ def test_cli_train_unported_presets_raise(workdir, preset, item):
 
 
 def test_cli_train_unported_flags_raise(workdir):
-    with pytest.raises(NotImplementedError, match="bf16"):
-        cli.main(train_args(workdir, "--bf16"))
+    """``--mesh-data 2`` (item 15), the distillation preset (item 14) and
+    ``--scan-epochs`` without a device bank still refuse; ``--bf16`` now
+    trains in bf16 compute with float32 parameters and checkpoints."""
+    args = train_args(workdir, "--bf16", "--epochs", "1")
+    args[args.index("--checkpoint-dir") + 1] = str(workdir / "bf16_models")
+    trainer = cli.main(args)
+    assert trainer.config.train.compute_dtype == "bfloat16"
+    assert trainer.state.module.final.compute_dtype == torch.bfloat16
+    assert all(np.isfinite(trainer.history.series["train_loss"]))
+    ckpt = torch.load(workdir / "bf16_models" / "unet_best.pt",
+                      weights_only=True)
+    assert all(v.dtype == torch.float32 for k, v in
+               ckpt["model_state_dict"].items() if "num_batches" not in k)
     with pytest.raises(NotImplementedError, match="item 15"):
         cli.main(train_args(workdir, "--mesh-data", "2"))
     args = train_args(workdir)

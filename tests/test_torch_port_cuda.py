@@ -358,6 +358,81 @@ def test_fused_unet_on_card_equals_plain(cuda, skip_emit):
     assert torch.equal(got, want)
 
 
+# the 18 kernel-A sites of the full-width unet_int8_apply forward (features
+# 64, 256^2) at batch 1: (name, H, Ci, Co).  Each runs the float epilogue
+# with ReLU, and the forward casts its float32 output to bf16.
+UNET_INT8_APPLY_SITES = (
+    [(f"{name}/Conv_{i}", 256 >> lvl, ci if i == 0 else co, co)
+     for lvl, (name, ci, co) in enumerate(
+         (("enc1", 2, 64), ("enc2", 64, 128), ("enc3", 128, 256),
+          ("enc4", 256, 512), ("bottleneck", 512, 1024))) for i in (0, 1)]
+    + [(f"dec{lvl}/Conv_{i}", 256 >> (lvl - 1), 2 * co if i == 0 else co, co)
+       for lvl, co in ((4, 512), (3, 256), (2, 128), (1, 64))
+       for i in (0, 1)])
+
+
+@pytest.mark.parametrize("name,h,ci,co", UNET_INT8_APPLY_SITES,
+                         ids=[s[0] for s in UNET_INT8_APPLY_SITES])
+def test_conv_int8_float_relu_at_unet_int8_apply_sites(cuda, name, h, ci,
+                                                       co):
+    """Kernel A's float-epilogue + ReLU mode at the shapes of
+    ``unet_int8_apply``: the plain version's bits, twice, on the path
+    ``conv_path`` gives the site, and the same bf16 values after the cast."""
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+
+    g = torch.Generator().manual_seed(h + ci + co)
+    x = _codes(g, (1, h, h, ci), cuda)
+    wp = pack_conv(_codes(g, (3, 3, ci, co), "cpu")).to(cuda)
+    acc_std = 127 * 127 / 3 * (9 * ci) ** 0.5
+    s = ((torch.rand(co, generator=g) + 0.5) * 4 / acc_std).to(cuda)
+    b = (torch.randn(co, generator=g) * 0.5).to(cuda)
+    path = conv_path(ci, co, 3)
+    before = _path_counts(conv2d_int8)
+    got = conv2d_int8(x, wp, s, b, relu=True, out_float=True)
+    torch.cuda.synchronize()
+    assert_launched(conv2d_int8, before, path)
+    want = conv2d_int8_plain(x, wp, s, b, relu=True, out_float=True)
+    assert bool((got == 0).any()) and bool((got > 0).any())
+    assert torch.equal(got, want)
+    assert torch.equal(got.bfloat16(), want.bfloat16())
+    assert torch.equal(conv2d_int8(x, wp, s, b, relu=True, out_float=True),
+                       got)
+
+
+@pytest.mark.parametrize("forward", ["unet_int8_apply", "legacy int8_fused"])
+def test_int8_unet_forwards_on_card_equal_plain(cuda, forward):
+    """``unet_int8_apply`` (every 3x3 conv through kernel A's float
+    epilogue) and the pre-r3 int8_fused fallback (requantizing and float
+    epilogues, bf16 upconvs) on the card equal their plain runs."""
+    from mrisr_tpu_torch.ckpt import fold_unet_batchnorm
+    from mrisr_tpu_torch.models import UNet
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet, Int8UNet, calibrate_unet, quantize_unet)
+
+    torch.manual_seed(0)
+    folded = fold_unet_batchnorm(UNet(features=16).eval().to(cuda))
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((4, 32, 32, 2), generator=g).to(cuda)
+    calib = calibrate_unet(folded, [x])
+    if forward == "unet_int8_apply":
+        q = quantize_unet(folded, calib)
+        run = (Int8UNet(q, device=cuda), Int8UNet(q, device=cuda, plain=True))
+        want_a = 18
+    else:
+        q = quantize_unet(folded, {k: v for k, v in calib.items()
+                                   if not k.startswith(("upconv", "final"))})
+        run = (Int8FusedUNet(q, device=cuda),
+               Int8FusedUNet(q, device=cuda, plain=True))
+        want_a = 22  # 4 encoder blocks emit twice ('dual')
+    before = conv2d_int8.launches
+    got = run[0](x)
+    torch.cuda.synchronize()
+    assert conv2d_int8.launches - before == want_a
+    want = run[1](x)
+    assert got.shape == (4, 32, 32, 1) and got.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
 # K1: the eval shapes at 256^2 (test split of 3 patients: 174 3 mm
 # triplets), ragged tiles, a 1x1 map, a 512^2 image; a width that is not a
 # multiple of the 128-column strip (300), an output map shorter than a band

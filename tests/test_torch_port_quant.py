@@ -102,6 +102,10 @@ def test_fused_apply_matches_jax(setup, skip_emit):
 
 
 def test_legacy_tables_raise(setup):
+    """Pre-r3 tables (no upconv/final int8 entries) take the reference's
+    fallback: a default skip_emit degrades to 'dual' and serves the JAX
+    package's output (the same bits in bf16); an explicit 'shared' raises
+    its ValueError."""
     legacy_calib = {k: v for k, v in setup["calib"].items()
                     if not (k.startswith("upconv") or k == "final")}
     q = pq.quantize_unet(setup["model"], legacy_calib)
@@ -109,8 +113,16 @@ def test_legacy_tables_raise(setup):
     assert pq.resolve_variants(q) == "dual"
     assert pq.resolve_variants(pq.quantize_unet(setup["model"],
                                                 setup["calib"])) == "shared"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pq.unet_int8_fused_apply(q, torch.from_numpy(setup["x"]))
+    x = setup["x"]
+    with pytest.raises(ValueError, match="full int8 tables"):
+        pq.unet_int8_fused_apply(q, torch.from_numpy(x), skip_emit="shared")
+    jq_legacy = jq.quantize_unet(setup["folded"], legacy_calib)
+    want = np.asarray(jax.jit(jq.unet_int8_fused_apply)(jq_legacy,
+                                                        jnp.asarray(x)))
+    got = pq.unet_int8_fused_apply(to_torch_tree(jq_legacy),
+                                   torch.from_numpy(x))
+    assert got.shape == (4, HW, HW, 1) and got.dtype == torch.float32
+    assert rel_l2(got.numpy(), want) == 0.0
 
 
 def test_rejects_unfolded():

@@ -89,6 +89,17 @@ def flax_unet_variables(model) -> dict:
     return {"params": params, "batch_stats": stats}
 
 
+def jit_exact(f):
+    """``jax.jit(f)`` compiled with XLA's excess precision off, so that
+    every op of a bf16 program rounds to bf16 as the flax modules write it
+    (by default jit keeps a fusion's bf16 intermediates in float32 on the
+    CPU, rounding fewer times than the module's ops do)."""
+    def call(*args):
+        return jax.jit(f).lower(*args).compile(compiler_options={
+            "xla_allow_excess_precision": False})(*args)
+    return call
+
+
 def to_torch_tree(tree):
     """jax/numpy tree -> torch tensors, bf16 kept as bf16."""
     if isinstance(tree, dict):

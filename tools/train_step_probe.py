@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Where a full-width float32 train step spends its card time, by conv.
+"""Where a full-width train step spends its card time, by conv.
 
-    python3 tools/train_step_probe.py [--json PATH]
+    python3 tools/train_step_probe.py [--dtype bfloat16] [--json PATH]
 
 The unet_combined step (features 64, 256^2, batch 4, TF32 off) is timed by
 CUDA events (median of 5 after 2 warm-ups) with the UNet's input laid out
@@ -20,8 +20,10 @@ cuDNN's heuristic and with cuDNN off (PyTorch's own convolution,
 where cuDNN runs past 10x its bound while its own conv is at least 5x
 faster: the shapes ``models/conv.py:CUDNN_FFT_SHAPES`` routes.  The
 heuristic, trainer-layout step is profiled once (top kernels by device
-time).  Needs one CUDA card; prints the card's name and power limit and
-one JSON line (also written to PATH).
+time).  ``--dtype bfloat16`` runs all of it in bf16 compute (the models'
+``compute_dtype``, as ``train --bf16`` trains), against the bf16 bound
+(989 TFLOP/s dense, the H100 SXM data sheet).  Needs one CUDA card; prints
+the card's name and power limit and one JSON line (also written to PATH).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 HW, FEATURES, BATCH = 256, 64, 4
+# dense peak FLOP/s of an H100 SXM by compute dtype (data sheet)
+PEAK = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def median_ms(fn, reps: int = 5, warmup: int = 2) -> float:
@@ -71,10 +75,10 @@ def top_kernels(fn, n: int = 6):
              "count": e.count} for e in rows[:n]]
 
 
-def family_inputs(dev, n: int):
-    """Each training family's full-width module and the input its step
-    gives it at batch ``n`` (as the trainers lay it out: the pair models
-    read an NHWC slice of the (n, H, W, 3) batch)."""
+def family_inputs(dev, n: int, dtype=None):
+    """Each training family's full-width module (computing in ``dtype``)
+    and the input its step gives it at batch ``n`` (as the trainers lay it
+    out: the pair models read an NHWC slice of the (n, H, W, 3) batch)."""
     from mrisr_tpu_torch.models.deepcnn import DeepCNN
     from mrisr_tpu_torch.models.diffusion import (FastDDPMUNet,
                                                   SimpleDiffusionUNet)
@@ -88,32 +92,36 @@ def family_inputs(dev, n: int):
     t = torch.zeros((n,), dtype=torch.int32, device=dev)
     pair = batch[..., :2]
     return {
-        "unet_combined": (UNet(FEATURES), (pair,)),
-        "unet_gan G": (UNet(FEATURES, use_bias=False), (pair,)),
-        "unet_gan D": (PatchGAN(base_features=FEATURES), (batch,)),
-        "deepcnn": (DeepCNN(base_features=FEATURES), (pair,)),
-        "progressive_unet": (ProgressiveUNet(FEATURES), (window,)),
-        "fastddpm": (FastDDPMUNet(base_features=FEATURES), (batch, t)),
-        "fastddpm_simple": (SimpleDiffusionUNet(base_features=FEATURES),
-                            (batch, t)),
+        "unet_combined": (UNet(FEATURES, dtype=dtype), (pair,)),
+        "unet_gan G": (UNet(FEATURES, use_bias=False, dtype=dtype), (pair,)),
+        "unet_gan D": (PatchGAN(base_features=FEATURES, dtype=dtype),
+                       (batch,)),
+        "deepcnn": (DeepCNN(base_features=FEATURES, dtype=dtype), (pair,)),
+        "progressive_unet": (ProgressiveUNet(FEATURES, dtype=dtype),
+                             (window,)),
+        "fastddpm": (FastDDPMUNet(base_features=FEATURES, dtype=dtype),
+                     (batch, t)),
+        "fastddpm_simple": (SimpleDiffusionUNet(base_features=FEATURES,
+                                                dtype=dtype), (batch, t)),
     }
 
 
-def conv_table(dev):
+def conv_table(dev, dtype="float32"):
     """Every conv of the five families' full-width train steps (batch 4)
     and eval forwards (batch 8), deduplicated by layer shape and input
     shape and strides: forward + backward (to the input and the weight)
     under cuDNN's heuristic and with cuDNN off (PyTorch's own conv), on a
     random input of the shape, dtype and memory layout it gets in the
-    model, beside the float32 bound of the same work (forward + backward
-    = 3x the forward's FLOPs, at 67 TFLOP/s) and the two outputs' max
-    |diff|."""
+    model, beside the bound of the same work in ``dtype`` (forward +
+    backward = 3x the forward's FLOPs, at :data:`PEAK`) and the two
+    outputs' max |diff|."""
     from mrisr_tpu_torch import fp32_reference
     from mrisr_tpu_torch.models.conv import _cudnn_off, conv2d_no_cudnn
 
     rows, seen = [], {}
     for n, what in ((BATCH, "train step"), (2 * BATCH, "eval forward")):
-        for family, (module, args) in family_inputs(dev, n).items():
+        for family, (module, args) in family_inputs(
+                dev, n, getattr(torch, dtype)).items():
             module = module.to(dev).train(what == "train step")
             calls = []
 
@@ -138,7 +146,8 @@ def conv_table(dev):
                                                 f"({what})")
                     continue
                 row = conv_row(mod, tuple(shape), tuple(stride), dev,
-                               fp32_reference, _cudnn_off, conv2d_no_cudnn)
+                               fp32_reference, _cudnn_off, conv2d_no_cudnn,
+                               dtype)
                 row["used_by"] = [f"{family} {names[mod]} ({what})"]
                 seen[key] = row
                 rows.append(row)
@@ -153,27 +162,30 @@ def conv_table(dev):
 
 
 def conv_row(mod, full, stride, dev, fp32_reference, cudnn_off,
-             conv2d_no_cudnn):
+             conv2d_no_cudnn, dtype="float32"):
+    cd = getattr(torch, dtype)
     span = 1 + sum((s - 1) * st for s, st in zip(full, stride))
-    buf = torch.randn(span, device=dev)
+    buf = torch.randn(span, device=dev, dtype=cd)
     transposed = isinstance(mod, torch.nn.ConvTranspose2d)
+    F = torch.nn.functional
 
     def run(own):
         def fn():
             with fp32_reference():
                 leaf = buf.detach().requires_grad_(True)
                 x = leaf.as_strided(full, stride)
+                w = mod.weight.to(cd)
+                b = None if mod.bias is None else mod.bias.to(cd)
                 if own and not transposed:
-                    y = conv2d_no_cudnn(x, mod.weight, mod.bias, mod.stride,
-                                        mod.padding, mod.dilation)
+                    y = conv2d_no_cudnn(x, w, b, mod.stride, mod.padding,
+                                        mod.dilation)
                 elif own:
                     with cudnn_off():
-                        y = torch.nn.ConvTranspose2d.forward(mod, x)
+                        y = F.conv_transpose2d(x, w, b, mod.stride)
                 else:
-                    y = torch.nn.functional.conv2d(
-                        x, mod.weight, mod.bias, mod.stride, mod.padding,
-                        mod.dilation) if not transposed else (
-                        torch.nn.ConvTranspose2d.forward(mod, x))
+                    y = F.conv2d(x, w, b, mod.stride, mod.padding,
+                                 mod.dilation) if not transposed else (
+                        F.conv_transpose2d(x, w, b, mod.stride))
                 if own and transposed:
                     with cudnn_off():
                         y.sum().backward()
@@ -192,10 +204,10 @@ def conv_row(mod, full, stride, dev, fp32_reference, cudnn_off,
     row = {"layer": type(mod).__name__, "weight": list(mod.weight.shape),
            "conv_stride": list(mod.stride), "shape": list(full),
            "stride": list(stride), "fwd_flop": flops,
-           "bound_ms": 3 * flops / 67e12 * 1e3,
+           "bound_ms": 3 * flops / PEAK[dtype] * 1e3,
            "cudnn_ms": median_ms(run(False), reps=3, warmup=1),
            "own_ms": median_ms(run(True), reps=3, warmup=1),
-           "max_abs_diff": float((y_cudnn - y_own).abs().max())}
+           "max_abs_diff": float((y_cudnn - y_own).abs().max().float())}
     row["cudnn_x_bound"] = row["cudnn_ms"] / row["bound_ms"]
     row["own_speedup"] = row["cudnn_ms"] / row["own_ms"]
     return row
@@ -204,6 +216,8 @@ def conv_row(mod, full, stride, dev, fp32_reference, cudnn_off,
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", default=None)
+    ap.add_argument("--dtype", default="float32", choices=sorted(PEAK),
+                    help="compute dtype of the models and the conv table")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("train_step_probe: no CUDA device available", file=sys.stderr)
@@ -222,7 +236,8 @@ def main() -> int:
     cfg = base.replace(
         data=dataclasses.replace(base.data, image_size=(HW, HW),
                                  batch_size=BATCH, augment=False),
-        model=dataclasses.replace(base.model, base_features=FEATURES))
+        model=dataclasses.replace(base.model, base_features=FEATURES),
+        train=dataclasses.replace(base.train, compute_dtype=args.dtype))
     trainer = SupervisedTrainer(cfg, perceptual_fn=make_perceptual_fn(
         cfg.loss.perceptual), device=dev)
     module, state = trainer.state.module, trainer.state
@@ -233,8 +248,9 @@ def main() -> int:
     batches = {"trainer layout (NHWC slice)": batch,
                "contiguous NCHW": batch.permute(0, 3, 1, 2).contiguous()
                .permute(0, 2, 3, 1)}
-    conv = torch.nn.Conv2d(FEATURES, FEATURES, 3, padding=1).to(dev)
-    x64 = torch.randn(BATCH, FEATURES, HW, HW, device=dev)
+    cd = getattr(torch, args.dtype)
+    conv = torch.nn.Conv2d(FEATURES, FEATURES, 3, padding=1).to(dev, cd)
+    x64 = torch.randn(BATCH, FEATURES, HW, HW, device=dev, dtype=cd)
     conv_inputs = {"channels_last": x64.contiguous(
         memory_format=torch.channels_last), "contiguous NCHW": x64}
 
@@ -254,7 +270,7 @@ def main() -> int:
                 conv(xr).sum().backward()
         return fn
 
-    out = {"card": card, "cases": []}
+    out = {"card": card, "dtype": args.dtype, "cases": []}
     for bench in (False, True):
         torch.backends.cudnn.benchmark = bench
         algo = "cudnn.benchmark" if bench else "heuristic"
@@ -288,7 +304,7 @@ def main() -> int:
           f"{'heuristic':16s} {ms:9.3f} ms")
     print(f"every conv of the five families' train steps (batch {BATCH}) "
           f"and eval forwards (batch {2 * BATCH}), fwd+bwd ({card}):")
-    out["convs"] = conv_table(dev)
+    out["convs"] = conv_table(dev, args.dtype)
     routed = [r for r in out["convs"]
               if r["cudnn_x_bound"] > 10 and r["own_speedup"] >= 5]
     print("shapes past 10x their bound under cuDNN where its own conv is "
