@@ -142,6 +142,32 @@
    0.15; A, and B for int8_fused, on their paths); the same calibration
    without its upconv/final entries served by the int8_fused fallback
    (within 0.15, equal to the plain versions, A 22 launches a forward).
+11. Distillation phase, full width, from phase 8's trained unet_combined
+   (the teacher) and phase 9's trained fastddpm, on a phase 8-sized store.
+   One float32 distill step (float teacher, pruned init, EMA 0.999, SSIM
+   term) on the card and on the CPU at 64^2, batch 2, against float64
+   (phase 8's bounds; the EMA within 1e-5).  The int8_fused teacher at
+   batch 32 equal to its plain versions (A 19, B 4 launches).  cli distill
+   (the unet_distilled preset: features 32, batch 32, bf16, augment;
+   --teacher-quant int8_fused --init-from-teacher --ema 0.999
+   --distill-lambda-ssim 0.1) 1 epoch, a trainer resumed from epoch 1
+   holding the checkpoint's live and averaged weights, then --resume to 2:
+   the teacher's A and B launches, 19 and 4 per train and val step, on
+   their paths; one step's device and host ms and steps/s.  eval --model
+   unet_distilled (K1 within 3e-5 of plain); export-serving of the student
+   and of the teacher (int8_fused), the student served at batch 8 (0.0
+   from plain, rel-L2 < 0.15 from its folded float forward) and both
+   engines' steady-state slices/s in turns.  cli distill-steps --teacher
+   fastddpm --rounds 2 --factor 2 (10 -> 5 -> 3, 1 epoch a round, eval
+   through K1), a step-distill step's device ms, export-serving --quant
+   int8_deep of fastddpm, fastddpm_steps5 and fastddpm_steps3 (meta
+   'ancestral', 'ddim_grid', 'ddim_grid'), the two students served (0.0
+   from plain, rel-RMSE < 0.35 from the float ddim_grid sampler on the
+   same conds and x_T; K3 10, A 14, B 2 launches a step) and one sampler
+   call of each of the three at batch 8.  The student's and the _steps5
+   bundle's HTTP front end (127.0.0.1, port 0): answers equal to the
+   engine's forward, /healthz, /stats counting the requests, 400 on a bad
+   body.
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -155,6 +181,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -303,10 +330,10 @@ def print_site(r):
           f"{r['library_ms']} host {r['host_us']:.1f} us")
 
 
-def conv_sites():
+def conv_sites(f: int = FEATURES):
     """(name, H, Ci, Co, k, out_float) of every kernel-A launch of one
-    full-width int8_fused forward (skip_emit 'shared')."""
-    f, sites, h = FEATURES, [], HW
+    int8_fused forward of the UNet at width ``f`` (skip_emit 'shared')."""
+    sites, h = [], HW
     widths = [(2, f), (f, 2 * f), (2 * f, 4 * f), (4 * f, 8 * f),
               (8 * f, 16 * f)]
     for name, (ci, co) in zip(("enc1", "enc2", "enc3", "enc4", "bottleneck"),
@@ -322,9 +349,9 @@ def conv_sites():
     return sites
 
 
-def upconv_sites():
-    """(name, H_in, C, Co) of the 4 kernel-B launches; skip has Co channels."""
-    f = FEATURES
+def upconv_sites(f: int = FEATURES):
+    """(name, H_in, C, Co) of the 4 kernel-B launches of the UNet at width
+    ``f``; skip has Co channels."""
     return [(f"upconv{lvl}", HW >> lvl, 2 * co, co)
             for lvl, co in zip((4, 3, 2, 1), (8 * f, 4 * f, 2 * f, f))]
 
@@ -1445,9 +1472,10 @@ def fft_route_check(trainer, batch, step_ms, dev, card: str):
             "step_no_route_ms": no_route_ms}
 
 
-def train_phase(dev, card: str):
+def train_phase(dev, card: str, keep=None):
     """The port's training path at full width (see the module docstring,
-    item 8).  Returns (launches, results)."""
+    item 8); the trained ``unet_combined_best.pt`` is copied into ``keep``
+    (phase 11's teacher).  Returns (launches, results)."""
     import dataclasses
 
     from mrisr_tpu_torch import cli, fp32_reference
@@ -1608,6 +1636,9 @@ def train_phase(dev, card: str):
             "best", "latest", "epoch_1", "epoch_2", "epoch_3")}
         if not want_files <= set(os.listdir(models_dir)):
             raise AssertionError(f"checkpoints {os.listdir(models_dir)}")
+        if keep is not None:
+            shutil.copy(os.path.join(models_dir, "unet_combined_best.pt"),
+                        keep)
         want_keys = {"train_loss", "val_loss", "epoch_time_s", "train_mse",
                      "train_ssim", "train_perceptual", "val_mse", "val_ssim",
                      "val_perceptual", "best_val_loss", "config", "timestamp"}
@@ -1934,11 +1965,13 @@ def eval_against_plain(preset, model, store, data_cfg, metrics):
     return out
 
 
-def serve_trained(preset, bundle, requests, dev, models_dir, mcfg):
+def serve_trained(preset, bundle, requests, dev, models_dir, mcfg,
+                  features=FEATURES, steps=10):
     """Serve ``requests`` through ``engine_from_bundle`` (batch 8); the
     served output against the same tables through the plain versions
-    (must be equal) and against the float model (the folded forward, or
-    the float32 sampler on the same noise).  Returns (results, counts)."""
+    (must be equal) and against the float model (the folded forward of a
+    UNet of width ``features``, or the float32 sampler of ``steps`` steps
+    on the same noise).  Returns (results, counts)."""
     from mrisr_tpu_torch import fp32_reference
     from mrisr_tpu_torch.api import load_model
     from mrisr_tpu_torch.ops.conv_int8 import conv_path
@@ -1946,7 +1979,7 @@ def serve_trained(preset, bundle, requests, dev, models_dir, mcfg):
     from mrisr_tpu_torch.serve import (
         Int8FusedUNet, engine_from_bundle, load_bundle, make_bundle_apply)
 
-    diffusion = preset == "fastddpm"
+    diffusion = preset.startswith("fastddpm")
     with engine_from_bundle(bundle, batch_size=BATCH, device=dev,
                             **({"gn_impl": "fused"} if diffusion else {})
                             ) as eng:
@@ -1965,7 +1998,7 @@ def serve_trained(preset, bundle, requests, dev, models_dir, mcfg):
                                             for r in requests]]))
         stats = eng.stats
         eng._apply = inner
-    forwards = stats.batches * (10 if diffusion else 1)
+    forwards = stats.batches * (steps if diffusion else 1)
     if diffusion:
         for name, n in {"groupnorm_silu": 10, "conv_int8": 14,
                         "upconv_int8": 2}.items():
@@ -1986,9 +2019,9 @@ def serve_trained(preset, bundle, requests, dev, models_dir, mcfg):
         float_fn, plain_fn = model.predict_nhwc, plain_apply
     else:
         check_paths(counts, {
-            "conv_int8": path_counts(conv_sites(), lambda st:
+            "conv_int8": path_counts(conv_sites(features), lambda st:
                                      conv_path(st[2], st[3], st[4])),
-            "upconv_int8": path_counts(upconv_sites(), lambda st:
+            "upconv_int8": path_counts(upconv_sites(features), lambda st:
                                        upconv_path(st[2], st[3]))},
             forwards, f"trained {preset} serving")
         model = load_model(preset, models_dir, checkpoint="required",
@@ -2020,9 +2053,10 @@ def serve_trained(preset, bundle, requests, dev, models_dir, mcfg):
             "batches": stats.batches}, counts
 
 
-def families_phase(dev, card: str):
+def families_phase(dev, card: str, keep=None):
     """Training of the five other families at full width (see the module
-    docstring, item 9).  Returns (launches, results)."""
+    docstring, item 9); the trained ``fastddpm_best.pt`` is copied into
+    ``keep`` (phase 11's teacher).  Returns (launches, results)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -2115,6 +2149,9 @@ def families_phase(dev, card: str):
             with open(os.path.join(results_dir,
                                    f"{preset}_history.json")) as f:
                 hist = json.load(f)
+            if preset == "fastddpm" and keep is not None:
+                shutil.copy(os.path.join(models_dir, "fastddpm_best.pt"),
+                            keep)
             epochs = [1.0, 2.0] if resumes else [1.0]
             if hist["epoch"] != epochs or not all(np.isfinite(
                     hist["train_loss"] + hist["val_loss"])):
@@ -2600,6 +2637,517 @@ def bf16_phase(dev, card: str):
     return launches, results
 
 
+# phase 11: serving distillation.  The unet_distilled preset (half width,
+# batch 32, bf16 compute, augment) against phase 8's trained unet_combined
+# (the int8_fused teacher), on a phase 8-sized store; phase 9's fastddpm
+# step-distilled 10 -> 5 -> 3; both students served, also over HTTP
+DISTILL_BATCH = 32
+STEP_EVAL_BATCHES = 1  # distill-steps --max-eval-batches
+HTTP_REQUESTS = 3      # sequential POSTs per served bundle
+EMA_ATOL = 1e-5        # the EMA after one step, card vs float64
+UNET_A, UNET_B = 19, 4  # launches of one int8_fused UNet forward
+
+
+def expect_launches(counts, per_forward, forwards, what):
+    """``counts[kernel] == n * forwards`` for each ``kernel: n``."""
+    for name, n in per_forward.items():
+        if counts[name] != n * forwards:
+            raise AssertionError(f"{what} {name}: {counts[name]} launches "
+                                 f"for {forwards} forwards, want {n} each")
+
+
+def steady_state(bundle, requests, dev):
+    """One bundle's engine at its steady state (batch 8, STEADY_BATCHES
+    full batches), one batch's device ms and host ms to enqueue."""
+    from mrisr_tpu_torch.serve import engine_from_bundle
+
+    with engine_from_bundle(bundle, batch_size=BATCH, device=dev) as eng:
+        eng.predict(requests[0])
+        eng.reset_stats()
+        burst = [eng.submit(requests[i % len(requests)])
+                 for i in range(STEADY_BATCHES * BATCH)]
+        for fut in burst:
+            fut.result(timeout=600)
+        st = eng.stats
+        x8 = torch.from_numpy(requests[np.arange(BATCH) % len(requests)]).to(
+            dev)
+        ms = cuda_ms(lambda: eng._apply(x8), reps=3, warmup=1)
+        host = host_us(lambda: eng._apply(x8), calls=3) / 1e3
+    return {"slices_per_sec": st.slices_per_sec, "requests": st.requests,
+            "batch_ms": ms, "host_ms": host}
+
+
+def http_check(bundle, requests, dev, what):
+    """Serve ``bundle`` over HTTP on 127.0.0.1 (port 0, a background
+    thread): sequential POSTs, each equal to the bundle's forward of a
+    batch of that request (the engine wrap-pads a lone request), /healthz,
+    /stats counting them, a bad body answered 400.  Returns (results,
+    launches of the served requests)."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    from mrisr_tpu_torch.serve import load_bundle, make_bundle_apply
+    from mrisr_tpu_torch.serve.http import serve_bundle
+
+    apply = make_bundle_apply(*load_bundle(bundle), dev)
+    with serve_bundle(bundle, port=0, batch_size=BATCH,
+                      device=dev).start_background() as server:
+        url = f"http://{server.host}:{server.port}"
+
+        def post(body):
+            req = urllib.request.Request(url + "/predict", data=body)
+            with urllib.request.urlopen(req, timeout=600) as resp:
+                return np.load(io.BytesIO(resp.read()))
+
+        def body_of(x):
+            buf = io.BytesIO()
+            np.save(buf, x)
+            return buf.getvalue()
+
+        answers, counts = count_launches(lambda: [
+            post(body_of(requests[i])) for i in range(HTTP_REQUESTS)])
+        for i, y in enumerate(answers):
+            x = torch.from_numpy(np.repeat(requests[i][None], BATCH, 0)).to(
+                dev)
+            want = apply(x)[0].cpu().numpy()
+            if y.shape != (HW, HW, 1) or not np.array_equal(y, want):
+                raise AssertionError(f"{what} HTTP answer {i} differs from "
+                                     f"the engine's forward")
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = resp.read()
+        with urllib.request.urlopen(url + "/stats", timeout=60) as resp:
+            stats = json.loads(resp.read())
+        try:
+            post(b"not an npy")
+            bad = 200
+        except urllib.error.HTTPError as e:
+            bad = e.code
+    print(f"{what} over HTTP: {HTTP_REQUESTS} answers equal to the engine's "
+          f"forward; /healthz {health!r}; /stats {stats}; a bad body {bad}")
+    if health != b"ok" or stats["requests"] != HTTP_REQUESTS or bad != 400:
+        raise AssertionError(f"{what} HTTP: health {health!r}, stats "
+                             f"{stats}, bad body {bad}")
+    return {"stats": stats, "bad_status": bad}, counts
+
+
+def distill_phase(dev, card: str, teachers: str):
+    """Serving distillation at full width (see the module docstring, item
+    11): ``teachers`` holds phase 8's unet_combined_best.pt and phase 9's
+    fastddpm_best.pt.  Returns (launches, results)."""
+    import copy
+    import dataclasses
+    import itertools
+
+    import torch.nn.functional as F
+
+    from mrisr_tpu_torch import cli, fp32_reference
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.ckpt.torch_ckpt import (
+        load_checkpoint_file, port_state_dict)
+    from mrisr_tpu_torch.config import PRESETS, TrainConfig
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+    from mrisr_tpu_torch.ops.upconv import upconv_path
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet, calibrate_unet, load_bundle, make_bundle_apply,
+        quantize_unet)
+    from mrisr_tpu_torch.serve.distill import (
+        DistillationTrainer, make_teacher_fn)
+    from mrisr_tpu_torch.serve.distill_diffusion import (
+        frozen_bf16_teacher, make_stepdistill_steps)
+    from mrisr_tpu_torch.serve.engine import bf16_rounded_copy
+    from mrisr_tpu_torch.train.state import create_train_state
+
+    results, walls, launches = {}, {}, {}
+    t_phase = time.perf_counter()
+    sf = FEATURES // 2  # the unet_distilled preset's 32 at full width
+    teacher_mcfg = dataclasses.replace(PRESETS["unet_combined"].model,
+                                       base_features=FEATURES)
+    base = PRESETS["unet_distilled"]
+    student = base.replace(
+        data=dataclasses.replace(base.data, image_size=(HW, HW)),
+        model=dataclasses.replace(base.model, base_features=sf))
+    fast_mcfg = dataclasses.replace(PRESETS["fastddpm"].model,
+                                    base_features=FEATURES)
+    unet_paths = {
+        "conv_int8": path_counts(conv_sites(FEATURES), lambda st: conv_path(
+            st[2], st[3], st[4])),
+        "upconv_int8": path_counts(upconv_sites(FEATURES), lambda st:
+                                   upconv_path(st[2], st[3]))}
+
+    with tempfile.TemporaryDirectory() as work:
+        models_dir = os.path.join(work, "models")
+        results_dir = os.path.join(work, "results")
+        store_dir = os.path.join(work, "store")
+        os.makedirs(models_dir)
+        for f in ("unet_combined_best.pt", "fastddpm_best.pt"):
+            shutil.copy(os.path.join(teachers, f), models_dir)
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(TRAIN_PATIENTS),
+                  "--slices", str(TRAIN_SLICES), "--size", str(HW)])
+        store = VolumeStore.open(store_dir)
+        walls["synth"] = time.perf_counter() - t0
+
+        # --- 1. one float32 distill step (float teacher, pruned init, EMA
+        # and the SSIM term) on the card and on the CPU at SMALL_HW, batch
+        # SMALL_BATCH, each held against the same step in float64
+        t0 = time.perf_counter()
+        small = student.replace(
+            data=dataclasses.replace(student.data, augment=False,
+                                     image_size=(SMALL_HW, SMALL_HW),
+                                     batch_size=SMALL_BATCH),
+            loss=dataclasses.replace(student.loss, distill_ema=0.999,
+                                     distill_lambda_ssim=0.1),
+            train=dataclasses.replace(student.train,
+                                      compute_dtype="float32"))
+        b = next(iter(build_loader(store, "train", dataclasses.replace(
+            student.data, augment=False), device="cpu")))[:SMALL_BATCH]
+        batch = F.avg_pool2d(b.permute(0, 3, 1, 2), HW // SMALL_HW).permute(
+            0, 2, 3, 1).contiguous()
+        folded = load_model("unet_combined", models_dir,
+                            checkpoint="required", cfg=teacher_mcfg,
+                            fold_bn=True, device="cpu").module
+        teacher64 = bf16_rounded_copy(folded).double()
+
+        def ref_teacher(x):
+            with torch.no_grad():
+                return teacher64(x.double())
+
+        def trainer(device, teacher_fn):
+            return DistillationTrainer(
+                small, teacher_fn=teacher_fn, teacher_name="unet_combined",
+                teacher_models_dir=models_dir, teacher_cfg=teacher_mcfg,
+                init_from_teacher=True, device=device)
+
+        sides = {s: trainer(d, make_teacher_fn(
+            "unet_combined", models_dir, cfg=teacher_mcfg, device=d))
+            for s, d in (("card", dev), ("CPU", "cpu"))}
+        ref = trainer("cpu", ref_teacher)
+        ref.state.module.double()
+        ref.state.seed_ema()
+        for (k, a), b2 in zip(sides["card"].state.module.state_dict().items(),
+                              sides["CPU"].state.module.state_dict().values()):
+            if not torch.equal(a.cpu(), b2):
+                raise AssertionError(f"pruned init differs on the card: {k}")
+        metrics = {"card": sides["card"].train_step(
+            sides["card"].state, batch.to(dev))[1],
+            "CPU": sides["CPU"].train_step(sides["CPU"].state, batch)[1]}
+        m_ref = ref.train_step(ref.state, batch.double())[1]
+        ref_loss = float(m_ref["loss"])
+        loss_rel = {s: abs(float(m["loss"]) - ref_loss) / abs(ref_loss)
+                    for s, m in metrics.items()}
+        errs = {s: grad_errors(t.state.module, ref.state.module)
+                for s, t in sides.items()}
+        stats_err = {s: max(
+            float((a.cpu().double() - b2).abs().max()) for (k, a), b2 in zip(
+                t.state.module.named_buffers(), ref.state.module.buffers())
+            if "running" in k) for s, t in sides.items()}
+        ema_err = {s: max(float((t.state.ema_params[n].cpu().double()
+                                 - e).abs().max())
+                          for n, e in ref.state.ema_params.items())
+                   for s, t in sides.items()}
+        bound = {n: max(GRAD_RTOL, GRAD_NOISE_FACTOR * e)
+                 for n, e in errs["CPU"].items()}
+        over = [n for n, e in errs["card"].items() if not e <= bound[n]]
+        print(f"distill step, float32 card and CPU vs float64 CPU (student "
+              f"features {sf}, pruned from the features-{FEATURES} teacher, "
+              f"{SMALL_HW}x{SMALL_HW}, batch {SMALL_BATCH}, EMA 0.999, SSIM "
+              f"0.1): loss {ref_loss:.9f}, rel {loss_rel['card']:.3g} card, "
+              f"{loss_rel['CPU']:.3g} CPU (bound 1e-4); BN stats "
+              f"{stats_err['card']:.3g} / {stats_err['CPU']:.3g} (bound "
+              f"1e-4); EMA {ema_err['card']:.3g} / {ema_err['CPU']:.3g} "
+              f"(bound {EMA_ATOL:g}); gradients past rel-L2 {GRAD_RTOL:g}: "
+              f"{sum(e > GRAD_RTOL for e in errs['card'].values())} card, "
+              f"{sum(e > GRAD_RTOL for e in errs['CPU'].values())} CPU of "
+              f"{len(bound)}; worst {max(errs['card'].values()):.3g} card, "
+              f"{max(errs['CPU'].values()):.3g} CPU")
+        if not loss_rel["card"] <= 1e-4:
+            raise AssertionError(f"distill step loss rel {loss_rel['card']}")
+        if not stats_err["card"] <= 1e-4:
+            raise AssertionError(f"distill BN stats {stats_err['card']}")
+        if not ema_err["card"] <= EMA_ATOL:
+            raise AssertionError(f"distill EMA {ema_err['card']}")
+        if over:
+            raise AssertionError(f"distill gradients past their bound: "
+                                 f"{over}")
+        results["card_vs_cpu"] = {"loss_rel_f64": loss_rel,
+                                  "bn_stats_err_f64": stats_err,
+                                  "ema_err_f64": ema_err,
+                                  "grad_rel_l2_f64": errs}
+        del sides, ref, teacher64
+        walls["card vs CPU distill step"] = time.perf_counter() - t0
+
+        # --- 2. the int8_fused teacher at the distill batch (32) on the
+        # card against its plain versions on the same tables
+        t0 = time.perf_counter()
+        full_data = dataclasses.replace(student.data,
+                                        batch_size=DISTILL_BATCH)
+        val = build_loader(store, "val", full_data, device=dev)
+        calib = [vb[..., :2] for vb in itertools.islice(iter(val), 4)]
+        folded_card = load_model("unet_combined", models_dir,
+                                 checkpoint="required", cfg=teacher_mcfg,
+                                 fold_bn=True, device=dev).module
+        q = quantize_unet(folded_card, calibrate_unet(folded_card, calib))
+        fwd = Int8FusedUNet(q, device=dev)
+        xb = next(iter(build_loader(store, "train", full_data,
+                                    device=dev)))
+        y_k, counts = count_launches(lambda: fwd(xb[..., :2]))
+        torch.cuda.synchronize()
+        y_p = Int8FusedUNet(q, device=dev, plain=True)(xb[..., :2])
+        if not (torch.equal(y_k, y_p) and torch.equal(fwd(xb[..., :2]), y_k)):
+            raise AssertionError(
+                f"the int8_fused teacher at batch {DISTILL_BATCH} differs "
+                f"from its plain versions: max "
+                f"{float((y_k - y_p).abs().max())}")
+        expect_launches(counts, {"conv_int8": UNET_A, "upconv_int8": UNET_B},
+                        1, "teacher")
+        check_paths(counts, unet_paths, 1, "teacher")
+        teacher_ms = cuda_ms(lambda: fwd(xb[..., :2]), reps=5)
+        print(f"int8_fused teacher at batch {DISTILL_BATCH}: equal to its "
+              f"plain versions, {teacher_ms:.3f} ms on the card ({card})")
+        results["teacher"] = {"batch": DISTILL_BATCH, "ms": teacher_ms}
+        del folded_card, fwd
+        walls["teacher vs plain"] = time.perf_counter() - t0
+
+        # --- 3. cli distill: 1 epoch, the restore checked, --resume to 2
+        common = ["--data", store_dir, "--checkpoint-dir", models_dir,
+                  "--results-dir", results_dir, "--image-size", str(HW),
+                  "--device", str(dev)]
+        distill = ["distill", "--teacher", "unet_combined",
+                   "--teacher-features", str(FEATURES), "--teacher-quant",
+                   "int8_fused", "--init-from-teacher", "--ema", "0.999",
+                   "--distill-lambda-ssim", "0.1", "--features", str(sf),
+                   "--batch-size", str(DISTILL_BATCH), *common]
+        timings = []
+        for n in (1, 2):
+            t0 = time.perf_counter()
+            tr, counts = count_launches(lambda: cli.main(
+                [*distill, "--epochs", str(n), *(["--resume"] if n > 1
+                                                 else [])]))
+            walls[f"cli distill to {n}"] = time.perf_counter() - t0
+            add_counts(launches, counts)
+            run = tr.timings
+            forwards = sum(t["steps"] for t in run)
+            expect_launches(counts, {"conv_int8": UNET_A,
+                                     "upconv_int8": UNET_B}, forwards,
+                            f"cli distill to {n} (teacher)")
+            check_paths(counts, unet_paths, forwards, f"cli distill to {n}")
+            if tr.config.train.compute_dtype != "bfloat16" or \
+                    tr.config.data.batch_size != DISTILL_BATCH:
+                raise AssertionError(f"distill config {tr.config.train}")
+            timings += [t for t in run if t["train"]]
+            if n == 1:
+                # a trainer resumed from epoch 1 holds its live weights and
+                # its average, as the checkpoint stores them
+                ck = load_checkpoint_file(os.path.join(
+                    models_dir, "unet_distilled_epoch_1.pt"))
+                live = port_state_dict(ck["live_params"])
+                ema = port_state_dict(ck["model_state_dict"])
+                probe = DistillationTrainer(tr.config,
+                                            teacher_fn=lambda x: x[..., :1],
+                                            device=dev)
+                if not probe.try_resume() or probe.start_epoch != 2:
+                    raise AssertionError("distill did not resume at 2")
+                moved = [k for k, p in probe.state.module.named_parameters()
+                         if not (torch.equal(p.detach().cpu(), live[k])
+                                 and torch.equal(probe.state.ema_params[k]
+                                                 .cpu(), ema[k]))]
+                if moved:
+                    raise AssertionError(f"restored EMA/live weights "
+                                         f"differ: {moved[:3]}")
+                if all(torch.equal(live[k], ema[k]) for k in live):
+                    raise AssertionError("the checkpoint's average equals "
+                                         "its live weights")
+                del probe
+            else:
+                start = tr.start_epoch
+            last = tr
+        with open(os.path.join(results_dir,
+                               "unet_distilled_history.json")) as f:
+            hist = json.load(f)
+        if start != 2 or hist["epoch"] != [1.0, 2.0] or not all(np.isfinite(
+                hist["train_loss"] + hist["val_loss"]
+                + hist["train_teacher_mse"] + hist["train_ssim_loss"])):
+            raise AssertionError(f"distill history {hist['epoch']} "
+                                 f"{hist['train_loss']} (resumed at {start})")
+        steps = sum(t["steps"] for t in timings)
+        seconds = sum(t["seconds"] for t in timings)
+        xs = next(iter(build_loader(store, "train", full_data, device=dev)))
+        step_ms = cuda_ms(lambda: last._train(xs, None), reps=3, warmup=1)
+        step_host_ms = host_us(lambda: last._train(xs, None), calls=3) / 1e3
+        split = profile_step(lambda: last._train(xs, None))
+        results["distill"] = {
+            "train_loss": hist["train_loss"], "val_loss": hist["val_loss"],
+            "teacher_mse": hist["train_teacher_mse"], "steps": steps,
+            "seconds": seconds, "steps_per_s": steps / seconds,
+            "step_ms": step_ms, "step_host_ms": step_host_ms,
+            "step_split": split}
+        print(f"cli distill (unet_distilled, features {sf}, batch "
+              f"{DISTILL_BATCH}, bf16, int8_fused teacher, EMA 0.999): train "
+              f"losses {hist['train_loss']}, val {hist['val_loss']}; "
+              f"{steps} steps in {seconds:.3f} s = {steps / seconds:.3f} "
+              f"steps/s; one step {step_ms:.3f} ms on the card, "
+              f"{step_host_ms:.3f} ms of host time"
+              + ("" if split is None else
+                 f" (device {split['total']:.3f} ms: convs "
+                 f"{split['conv']:.3f}, BN/GN {split['bn']:.3f}, other "
+                 f"{split['other']:.3f})") + f" ({card})")
+        del last, tr
+
+        # --- 4. the student through K1 (eval) and A, B (its bundle)
+        scommon = [*common, "--features", str(sf)]
+        t0 = time.perf_counter()
+        _, counts = count_launches(lambda: cli.main([
+            "eval", "--model", "unet_distilled", *scommon, "--batch-size",
+            str(BATCH)]))
+        walls["cli eval student"] = time.perf_counter() - t0
+        add_counts(launches, counts)
+        if counts["ssim"] <= 0:
+            raise AssertionError("K1 was not launched by the student's eval")
+        with open(os.path.join(results_dir,
+                               "unet_distilled_test_metrics.json")) as f:
+            metrics = json.load(f)
+        model = load_model("unet_distilled", models_dir,
+                           checkpoint="required", cfg=student.model,
+                           device=dev)
+        results["eval"] = eval_against_plain("unet_distilled", model, store,
+                                             student.data, metrics)
+        del model
+        loader = build_loader(store, "test", dataclasses.replace(
+            student.data, batch_size=BATCH, augment=False), device=dev)
+        requests = torch.cat([tb[..., :2] for tb in loader]).cpu().numpy()
+        bundles = {}
+        t0 = time.perf_counter()
+        for name, feats in (("unet_distilled", sf),
+                            ("unet_combined", FEATURES)):
+            bundles[name] = os.path.join(work, f"bundle_{name}")
+            cli.main(["export-serving", "--model", name, *common,
+                      "--features", str(feats), "--quant", "int8_fused",
+                      "--batch-size", str(BATCH), "--calib-batches", "2",
+                      "--out", bundles[name]])
+        walls["export pair bundles"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results["serving"], counts = serve_trained(
+            "unet_distilled", bundles["unet_distilled"],
+            requests[:TRAIN_REQUESTS], dev, models_dir, student.model,
+            features=sf)
+        add_counts(launches, counts)
+        walls["serve student"] = time.perf_counter() - t0
+        # the student's engine beside the teacher's, in turns
+        t0 = time.perf_counter()
+        turns = [(n, steady_state(bundles[n], requests, dev)) for n in (
+            "unet_distilled", "unet_combined", "unet_combined",
+            "unet_distilled")]
+        walls["steady state"] = time.perf_counter() - t0
+        results["steady"] = turns
+        for n, st in turns:
+            print(f"{n} int8_fused engine: {st['slices_per_sec']:.2f} "
+                  f"slices/s ({st['requests']} requests, batch {BATCH}); a "
+                  f"forward {st['batch_ms']:.3f} ms on the card, "
+                  f"{st['host_ms']:.3f} ms to enqueue ({card})")
+
+        # --- 5. cli distill-steps (10 -> 5 -> 3), then the students'
+        # int8_deep bundles
+        fcommon = [*common, "--features", str(FEATURES)]
+        t0 = time.perf_counter()
+        report, counts = count_launches(lambda: cli.main([
+            "distill-steps", "--teacher", "fastddpm", "--rounds", "2",
+            "--factor", "2", "--epochs", "1", "--max-eval-batches",
+            str(STEP_EVAL_BATCHES), *fcommon]))
+        walls["cli distill-steps"] = time.perf_counter() - t0
+        add_counts(launches, counts)
+        if counts["ssim"] <= 0:
+            raise AssertionError("K1 was not launched by distill-steps' eval")
+        names = {"teacher", "fastddpm_steps5", "fastddpm_steps3"}
+        if set(report) != names:
+            raise AssertionError(f"distill-steps report {sorted(report)}")
+        for n in (5, 3):
+            entry = report[f"fastddpm_steps{n}"]
+            with open(os.path.join(models_dir,
+                                   f"fastddpm_steps{n}_grid.json")) as f:
+                grid = json.load(f)
+            if len(grid["timesteps"]) != n or not all(np.isfinite(
+                    entry["history"]["train_loss"])):
+                raise AssertionError(f"fastddpm_steps{n}: {grid} {entry}")
+            print(f"fastddpm_steps{n}: grid {grid['timesteps']}, train loss "
+                  f"{entry['history']['train_loss']}, val "
+                  f"{entry['history']['val_loss']}; SSIM 3 mm "
+                  f"{entry['eval']['3mm']['ssim_mean']:.6f} (vs the 10-step "
+                  f"teacher {entry['ssim_delta_vs_teacher_3mm']:+.6f}), 6 mm "
+                  f"{entry['eval']['6mm']['ssim_mean']:.6f} "
+                  f"({entry['ssim_delta_vs_teacher_6mm']:+.6f})")
+        results["distill_steps"] = report
+        fd = load_model("fastddpm", models_dir, checkpoint="required",
+                        cfg=fast_mcfg, device=dev)
+        step_fn = make_stepdistill_steps(fd.schedule, 2,
+                                         frozen_bf16_teacher(fd.module))[0]
+        state = create_train_state(
+            copy.deepcopy(fd.module).requires_grad_(True), TrainConfig(
+                optimizer="adamw", learning_rate=2e-5, weight_decay=1e-4,
+                grad_clip_norm=1.0))
+        x4 = next(iter(build_loader(store, "train", dataclasses.replace(
+            PRESETS["fastddpm"].data, image_size=(HW, HW)), device=dev)))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        sd_ms = cuda_ms(lambda: step_fn(state, x4, gen), reps=3, warmup=1)
+        sd_host = host_us(lambda: step_fn(state, x4, gen), calls=3) / 1e3
+        results["stepdistill_step"] = {"batch": int(x4.shape[0]),
+                                       "ms": sd_ms, "host_ms": sd_host}
+        print(f"step-distill step (fastddpm, factor 2, batch "
+              f"{x4.shape[0]}, float32): {sd_ms:.3f} ms on the card, "
+              f"{sd_host:.3f} ms of host time ({card})")
+        del fd, state, step_fn
+
+        t0 = time.perf_counter()
+        sampler = {}
+        x8 = torch.from_numpy(requests[:BATCH]).to(dev)
+        for name, n in (("fastddpm", 10), ("fastddpm_steps5", 5),
+                        ("fastddpm_steps3", 3)):
+            bundles[name] = os.path.join(work, f"bundle_{name}")
+            cli.main(["export-serving", "--model", name, *fcommon, "--quant",
+                      "int8_deep", "--batch-size", str(BATCH),
+                      "--calib-batches", "2", "--out", bundles[name]])
+            params, meta = load_bundle(bundles[name])
+            want = "ancestral" if n == 10 else "ddim_grid"
+            if meta["sampler"] != want or len(
+                    params["schedule"]["timesteps"]) != n:
+                raise AssertionError(f"{name} bundle meta {meta}")
+            if n < 10:
+                results[f"serving {name}"], counts = serve_trained(
+                    name, bundles[name], requests[:DIFF_REQUESTS], dev,
+                    models_dir, fast_mcfg, steps=n)
+                add_counts(launches, counts)
+            apply = make_bundle_apply(params, meta, dev)
+            ms = cuda_ms(lambda: apply(x8), reps=3, warmup=1)
+            sampler[name] = {"steps": n, "ms": ms,
+                             "slices_per_s": BATCH / ms * 1e3}
+            print(f"{name} int8_deep sampler ({meta['sampler']}, {n} steps, "
+                  f"batch {BATCH}): {ms:.2f} ms a call on the card = "
+                  f"{BATCH / ms * 1e3:.2f} slices/s ({card})")
+        results["sampler"] = sampler
+        walls["export + serve step students"] = time.perf_counter() - t0
+
+        # --- 6. cli serve's front end over HTTP
+        t0 = time.perf_counter()
+        http = {}
+        for name in ("unet_distilled", "fastddpm_steps5"):
+            http[name], counts = http_check(bundles[name], requests, dev,
+                                            name)
+            add_counts(launches, counts)
+        results["http"] = http
+        walls["http"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    results["wall_s"], results["launches"] = walls, launches
+    for kernel in ("ssim", "conv_int8", "upconv_int8", "groupnorm_silu"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"{kernel} was not launched in phase 11")
+    print(f"distill phase launches {launches}")
+    print("distill wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                           for k, v in walls.items()))
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -2644,9 +3192,11 @@ def main() -> int:
     eval_launches, eval_result = eval_phase(dev, qparams, card)
     k3_rows = k3_phase(dev)
     diff_launches, diff_result = diffusion_phase(dev, card)
-    train_launches, train_result = train_phase(dev, card)
-    family_launches, family_result = families_phase(dev, card)
-    bf16_launches, bf16_result = bf16_phase(dev, card)
+    with tempfile.TemporaryDirectory() as teachers:
+        train_launches, train_result = train_phase(dev, card, teachers)
+        family_launches, family_result = families_phase(dev, card, teachers)
+        bf16_launches, bf16_result = bf16_phase(dev, card)
+        distill_launches, distill_result = distill_phase(dev, card, teachers)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -2663,11 +3213,12 @@ def main() -> int:
         libs = [r["library_ms"] for r in sel]
 
         def main_path(key):
-            # the serving, eval, diffusion, training, families and bf16
-            # paths' runs, each counted from 0 just before it
+            # the serving, eval, diffusion, training, families, bf16 and
+            # distillation paths' runs, each counted from 0 just before it
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
-                train_launches, family_launches, bf16_launches))
+                train_launches, family_launches, bf16_launches,
+                distill_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -2692,7 +3243,7 @@ def main() -> int:
                        "slice": slice_result, "eval": eval_result,
                        "diffusion": diff_result, "train": train_result,
                        "families": family_result, "bf16": bf16_result,
-                       "kernels": kernels}, f,
+                       "distill": distill_result, "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -8,14 +8,17 @@ eval code uses.  Every eval model of the registry loads: the pair UNets
 (the GAN's generator among them), DeepCNN, the Progressive UNet (a window
 ``(B, 5, H, W)`` in, three predictions out), ``fastddpm`` (sampled by the
 10-step ancestral chain) and ``fastddpm_simple`` (DDIM over the compressed
-schedule).
+schedule).  A step-distilled student ``<base>_steps<N>`` (``cli
+distill-steps``) loads as its base architecture with the timestep grid of
+its sidecar, sampled by deterministic DDIM over that grid.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import re
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import torch
@@ -39,7 +42,6 @@ from mrisr_tpu_torch.models.registry import TRAINABLE, create_model
 # pair UNets of the registry (mrisr_tpu/models/registry.py): the GAN
 # generator's convs are bias-free
 PAIR_UNETS = ("unet", "unet_combined", "unet_gan", "unet_distilled")
-DIFFUSION = ("fastddpm", "fastddpm_simple")
 NOT_EVAL = {
     "patchgan": "'patchgan' is the UNet-GAN's discriminator, not an eval "
                 "model: load 'unet_gan' (its checkpoint holds both)",
@@ -68,6 +70,9 @@ class LoadedModel:
     device: torch.device
     # DiffusionSchedule (ancestral) or FastNoiseSchedule (fastddpm_simple)
     schedule: Optional[object] = None
+    # 'ddim_grid': deterministic DDIM over schedule.timesteps (the
+    # step-distilled students); None: the lineage's own sampler
+    sampler: Optional[str] = None
 
     @torch.no_grad()
     def predict_nhwc(self, x: torch.Tensor,
@@ -76,8 +81,9 @@ class LoadedModel:
         (a window model: ``(B, H, W, 5) -> (p1, p2, p3)``).  The forward
         runs in full float32 (TF32 off): the metric it feeds is the
         reference's float model's.  A diffusion model samples from ``x`` =
-        [pre, post]: the ancestral chain, or DDIM for ``fastddpm_simple``,
-        with ``generator`` (None: seeded 0, the JAX package's
+        [pre, post]: the ancestral chain, DDIM for ``fastddpm_simple``, or
+        DDIM over the grid for a step-distilled student, with
+        ``generator`` (None: seeded 0, the JAX package's
         ``PRNGKey(0)``)."""
         x = x.to(self.device, torch.float32)
         with fp32_reference():
@@ -85,6 +91,13 @@ class LoadedModel:
                 return self.module(x)
             if generator is None:
                 generator = torch.Generator(self.device).manual_seed(0)
+            if self.sampler == "ddim_grid":
+                from mrisr_tpu_torch.serve.distill_diffusion import (
+                    sample_ddim_grid,
+                )
+
+                return sample_ddim_grid(self.module, x, generator,
+                                        self.schedule)
             if self.name == "fastddpm_simple":
                 return sample_ddim(self.module, x, generator, self.schedule)
             return sample_ancestral(self.module, x, generator, self.schedule,
@@ -128,11 +141,17 @@ def load_model(
     eval).  A diffusion model's schedule is built from ``cfg``;
     'patchgan' raises ``ValueError``: it is not an eval model."""
     name = model_name.lower()
-    base = re.sub(r"_steps\d+$", "", name)
-    if base != name and base in DIFFUSION:
-        raise NotImplementedError(
-            f"step-distilled model {model_name!r} is not ported yet "
-            "(ROADMAP.md, Queue 1 item 14: sample_ddim_grid)")
+    m = re.fullmatch(r"(.+)_steps(\d+)", name)
+    if m and m.group(1) in TRAINABLE:
+        # the checkpoint pairs with its grid sidecar in models_dir: an
+        # explicit path has no sidecar, and would sample on the wrong grid
+        if checkpoint and checkpoint != "required":
+            raise ValueError(
+                f"{model_name}: step-distilled models resolve their "
+                "checkpoint AND timestep-grid sidecar from models_dir; "
+                "pass models_dir instead of an explicit checkpoint path")
+        return _load_step_distilled(name, m.group(1), int(m.group(2)),
+                                    models_dir, cfg, device)
     if name in NOT_EVAL:
         raise ValueError(NOT_EVAL[name])
     if name not in TRAINABLE:
@@ -190,3 +209,55 @@ def load_model(
         module = fold_unet_batchnorm(module)
     return LoadedModel(name=name, module=module.to(device), kind=kind,
                        device=device, schedule=schedule)
+
+
+def _load_step_distilled(name: str, base: str, n_steps: int,
+                         models_dir: str, cfg: Optional[ModelConfig],
+                         device: DeviceLike) -> LoadedModel:
+    """A step-distilled Fast-DDPM student (``cli distill-steps``,
+    ``serve/distill_diffusion.py``): ``<base>_steps<N>`` is the base
+    architecture with the weights of ``<models_dir>/<name>_best.pt`` and
+    the timestep grid of ``<name>_grid.json`` (keys ``base``, ``factor``,
+    ``timesteps``), sampled by DDIM over that grid."""
+    if base == "fastddpm_simple":
+        raise ValueError(
+            "step-distillation targets the Fixed lineage ([pre, post, x] "
+            "input order); fastddpm_simple is not supported")
+    if TRAINABLE[base] != "diffusion":
+        raise ValueError(f"{name}: step-distilled students must be diffusion "
+                         f"models, {base} is kind={TRAINABLE[base]!r}")
+    orbax_path = os.path.join(models_dir, f"{name}_best")
+    if os.path.isdir(orbax_path):
+        raise _orbax_error(orbax_path)
+    ckpt_path = os.path.join(models_dir, f"{name}_best.pt")
+    grid_path = os.path.join(models_dir, f"{name}_grid.json")
+    if not os.path.isfile(ckpt_path) or not os.path.exists(grid_path):
+        raise FileNotFoundError(
+            f"step-distilled checkpoint needs both {ckpt_path} and "
+            f"{grid_path} (produced by: cli distill-steps --teacher {base})")
+    with open(grid_path) as f:
+        timesteps = json.load(f)["timesteps"]
+    if len(timesteps) != n_steps:
+        raise ValueError(
+            f"{grid_path} carries {len(timesteps)} timesteps but the model "
+            f"name says {n_steps}")
+    if cfg is None:
+        cfg = PRESETS[base].model if base in PRESETS else ModelConfig(
+            name=base)
+    # a corrupt sidecar must fail loudly: an out-of-range t would index
+    # the wrong abar, and the sampler assumes a strictly ascending grid
+    if not all(0 <= int(t) < cfg.num_timesteps for t in timesteps):
+        raise ValueError(
+            f"{grid_path}: timesteps must lie in [0, {cfg.num_timesteps}), "
+            f"got {timesteps}")
+    if any(b <= a for a, b in zip(timesteps, timesteps[1:])):
+        raise ValueError(
+            f"{grid_path}: timesteps must be strictly ascending, "
+            f"got {timesteps}")
+    loaded = load_model(base, models_dir, checkpoint=ckpt_path, cfg=cfg,
+                        device=device)
+    schedule = replace(loaded.schedule, timesteps=torch.tensor(
+        timesteps, dtype=torch.int32))
+    return LoadedModel(name=name, module=loaded.module, kind="diffusion",
+                       device=loaded.device, schedule=schedule,
+                       sampler="ddim_grid")

@@ -85,17 +85,30 @@ def unet_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 
 def unet_flax_params(model) -> Dict:
-    """A BN-folded port ``UNet`` -> the flax ``{'params': ...}`` tree of
-    ``UNet(use_bn=False)`` (torch tensors on the model's device, float32):
-    the layout of the reference's ``quant='none'`` pair bundles."""
-    if model.use_bn:
-        raise ValueError("unet_flax_params expects a BN-folded UNet")
+    """A port ``UNet`` -> its flax tree (torch tensors on the model's
+    device, float32): ``{'params': ...}`` of ``UNet(use_bn=False)`` for a
+    BN-folded model (the layout of the reference's ``quant='none'`` pair
+    bundles), ``{'params', 'batch_stats'}`` with ``BatchNorm_0/1`` for one
+    with BatchNorm (the inverse of :func:`unet_state_dict_from_flax`)."""
     params: Dict = {}
+    stats: Dict = {}
     for name in (*BLOCKS_DOWN, "bottleneck", *BLOCKS_UP):
-        params[name] = {
-            f"Conv_{i}": {"kernel": conv_kernel_hwio(c.weight).contiguous(),
-                          "bias": c.bias.detach()}
-            for i, c in enumerate(getattr(model, name).convs())}
+        block = getattr(model, name)
+        params[name] = {}
+        for i, c in enumerate(block.convs()):
+            conv = {"kernel": conv_kernel_hwio(c.weight).contiguous()}
+            if c.bias is not None:
+                conv["bias"] = c.bias.detach()
+            params[name][f"Conv_{i}"] = conv
+        if model.use_bn:
+            bns = [m for m in block.conv
+                   if isinstance(m, torch.nn.BatchNorm2d)]
+            stats[name] = {}
+            for i, bn in enumerate(bns):
+                params[name][f"BatchNorm_{i}"] = {
+                    "scale": bn.weight.detach(), "bias": bn.bias.detach()}
+                stats[name][f"BatchNorm_{i}"] = {"mean": bn.running_mean,
+                                                 "var": bn.running_var}
     for lvl in (4, 3, 2, 1):
         up = getattr(model, f"upconv{lvl}")
         params[f"upconv{lvl}"] = {
@@ -104,7 +117,8 @@ def unet_flax_params(model) -> Dict:
     params["final"] = {"kernel": conv_kernel_hwio(model.final.weight
                                                   ).contiguous(),
                        "bias": model.final.bias.detach()}
-    return {"params": params}
+    return {"params": params, "batch_stats": stats} if model.use_bn else {
+        "params": params}
 
 
 def progressive_state_dict_from_flax(variables: Dict

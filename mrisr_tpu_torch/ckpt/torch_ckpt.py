@@ -34,16 +34,23 @@ def unwrap_state_dict(checkpoint: Any) -> Dict[str, torch.Tensor]:
     return checkpoint
 
 
-def load_reference_state_dict(model: nn.Module, checkpoint: Any) -> None:
-    """Load a reference-layout checkpoint (any of the three) into a port
-    model, strictly: every other missing or unexpected key raises.  The
-    reference's simple Fast-DDPM files wrap the UNet2D's keys in
-    ``unet.``; that prefix is dropped."""
+def port_state_dict(checkpoint: Any) -> Dict[str, torch.Tensor]:
+    """The state dict inside a reference-layout checkpoint (any of the
+    three) under the port's names: the reference's simple Fast-DDPM files
+    wrap the UNet2D's keys in ``unet.`` (dropped), and a pair UNet's head
+    ``final_conv`` is the port's ``final``."""
     sd = unwrap_state_dict(checkpoint)
     if sd and all(k.startswith("unet.") for k in sd):
         sd = {k[len("unet."):]: v for k, v in sd.items()}
-    sd = {("final." + k[len("final_conv."):] if k.startswith("final_conv.")
-           else k): v for k, v in sd.items()}
+    return {("final." + k[len("final_conv."):] if k.startswith("final_conv.")
+             else k): v for k, v in sd.items()}
+
+
+def load_reference_state_dict(model: nn.Module, checkpoint: Any) -> None:
+    """Load a reference-layout checkpoint (any of the three) into a port
+    model, strictly (:func:`port_state_dict`'s names): every other missing
+    or unexpected key raises."""
+    sd = port_state_dict(checkpoint)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
             sd.setdefault(k, torch.zeros_like(v))
@@ -91,8 +98,17 @@ def reference_checkpoint(model: nn.Module, model_name: str, epoch: int = 0,
     """A port model as the reference saves it:
     ``{'epoch', 'model_state_dict', 'val_loss'}``, a pair UNet's head under
     the reference's name."""
-    head = REFERENCE_HEAD.get(model_name, "final")
-    sd = {(head + k[len("final"):] if k.startswith("final.") else k):
-          v.detach().cpu() for k, v in model.state_dict().items()}
-    return {"epoch": int(epoch), "model_state_dict": sd,
+    return {"epoch": int(epoch),
+            "model_state_dict": reference_state_dict(model.state_dict(),
+                                                     model_name),
             "val_loss": float(val_loss)}
+
+
+def reference_state_dict(sd: Dict[str, torch.Tensor], model_name: str
+                         ) -> Dict[str, torch.Tensor]:
+    """A port state dict (or any part of one) under the reference's names,
+    detached on the CPU: a pair UNet's head is ``final_conv`` (``final``
+    in the GAN generator)."""
+    head = REFERENCE_HEAD.get(model_name, "final")
+    return {(head + k[len("final"):] if k.startswith("final.") else k):
+            v.detach().cpu() for k, v in sd.items()}

@@ -6,17 +6,26 @@
   python -m mrisr_tpu_torch predict-volume --model unet --data <store> [...]
   python -m mrisr_tpu_torch export-serving --model fastddpm \
       --quant int8_deep --data <store> --out <bundle> [...]
+  python -m mrisr_tpu_torch distill --teacher unet --data <store> [...]
+  python -m mrisr_tpu_torch distill-steps --teacher fastddpm --data <store>
+  python -m mrisr_tpu_torch serve --bundle <bundle> [--port 8000]
 
 The arguments are the JAX CLI's, plus ``--device`` (default: the card;
 ``--device cpu`` runs the plain versions on the CPU).  ``train`` trains
 every family's preset: the pair UNets, DeepCNN, the Progressive UNet (on
-5-slice windows), the UNet-GAN and both Fast-DDPM lineages.  ``--bf16``
+5-slice windows), the UNet-GAN and both Fast-DDPM lineages; ``distill``
+trains the ``unet_distilled`` student against a teacher checkpoint, and
+``distill-steps`` the Fast-DDPM's few-step students
+(``<teacher>_steps<N>_best.pt`` + ``_grid.json``), which ``eval``,
+``predict-volume`` and ``export-serving`` take as ``--model
+fastddpm_steps5``.  ``--bf16``
 sets ``train.compute_dtype='bfloat16'``, as the JAX CLI does: ``train``
 then builds its models in bf16 compute (float32 parameters, loss and
 optimizer); ``eval``, ``predict-volume`` and ``export-serving`` take the
 flag and run as without it, since only the trainers read the field.
 ``export-serving`` writes pair UNets as int8_fused, int8 or none (bf16)
-bundles.  The other commands, ``--figure``, ``--export-dicom`` and
+bundles, and ``serve`` answers HTTP requests from a bundle.  The other
+commands, ``--figure``, ``--export-dicom`` and
 data/model-parallel training come with later slices and raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -179,16 +188,12 @@ def cmd_train(args):
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.device import resolve_device
 
-    if max(args.mesh_data or 1, args.mesh_model or 1) > 1:
-        raise NotImplementedError(
-            "data/model-parallel training is not ported yet (ROADMAP.md, "
-            "Queue 1 item 15: DDP with SyncBatchNorm)")
+    _refuse_parallel(args)
     cfg = _build_config(args, args.preset)
     if cfg.loss.kind == "distill":
         raise SystemExit(
-            "preset 'unet_distilled' trains against a teacher checkpoint "
-            "with the distill command, which is not ported yet (ROADMAP.md, "
-            "Queue 1 item 14)")
+            "preset 'unet_distilled' trains against a teacher checkpoint: "
+            "use python -m mrisr_tpu_torch distill --teacher unet ...")
     if args.scan_epochs and args.backend != "device":
         raise SystemExit("--scan-epochs requires --backend device")
     device = resolve_device(args.device)
@@ -200,6 +205,19 @@ def cmd_train(args):
     val_loader = build_loader(store, "val", cfg.data, kind=kind,
                               backend=args.backend, device=device)
     trainer = make_trainer(cfg, len(train_loader), device)
+    return _fit(trainer, args, train_loader, val_loader)
+
+
+def _refuse_parallel(args) -> None:
+    if max(args.mesh_data or 1, args.mesh_model or 1) > 1:
+        raise NotImplementedError(
+            "data/model-parallel training is not ported yet (ROADMAP.md, "
+            "Queue 1 item 15: DDP with SyncBatchNorm)")
+
+
+def _fit(trainer, args, train_loader, val_loader):
+    """The training commands' common tail: ``--scan-epochs``,
+    ``--resume``, fit; returns the trainer."""
     if args.scan_epochs:
         trainer.enable_device_epochs(train_loader.bank, train_loader.plan_flat)
     if args.resume and trainer.try_resume():
@@ -207,6 +225,134 @@ def cmd_train(args):
     hist = trainer.fit(train_loader, val_loader)
     print(f"best val loss: {hist.extra.get('best_val_loss'):.4f}")
     return trainer
+
+
+def cmd_distill(args):
+    """Serving distillation (``serve/distill.py``): train the reduced-width
+    UNet student against a trained teacher checkpoint on ``--device``.  The
+    student lands as ``<preset>_best.pt``, so ``eval --model
+    unet_distilled`` and the serving engine load it like any pair model;
+    returns the trainer."""
+    import itertools
+
+    from mrisr_tpu_torch.config import ModelConfig
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.device import resolve_device
+    from mrisr_tpu_torch.serve.distill import DistillationTrainer
+
+    _refuse_parallel(args)
+    cfg = _build_config(args, args.preset)
+    loss_over = {field: getattr(args, flag) for flag, field in (
+        ("distill_alpha", "distill_alpha"),
+        ("distill_lambda_ssim", "distill_lambda_ssim"),
+        ("ema", "distill_ema")) if getattr(args, flag) is not None}
+    if loss_over:
+        cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, **loss_over))
+    if args.scan_epochs and args.backend != "device":
+        raise SystemExit("--scan-epochs requires --backend device")
+    device = resolve_device(args.device)
+    store = VolumeStore.open(args.data)
+    train_loader = build_loader(store, "train", cfg.data, kind="triplet",
+                                backend=args.backend, device=device,
+                                shard_by_host=args.shard_hosts)
+    val_loader = build_loader(store, "val", cfg.data, kind="triplet",
+                              backend=args.backend, device=device)
+    teacher_cfg = None
+    if args.teacher_features:
+        teacher_cfg = ModelConfig(name=args.teacher,
+                                  base_features=args.teacher_features)
+    calib_batches = None
+    if args.teacher_quant != "none":
+        # the quantized teacher calibrates on 4 val inputs, as
+        # export-serving's bundles do
+        calib_batches = [b[..., :2]
+                         for b in itertools.islice(iter(val_loader), 4)]
+    trainer = DistillationTrainer(
+        cfg, teacher_name=args.teacher,
+        teacher_models_dir=args.teacher_dir or args.checkpoint_dir,
+        teacher_cfg=teacher_cfg, teacher_quant=args.teacher_quant,
+        teacher_calibration_batches=calib_batches,
+        init_from_teacher=args.init_from_teacher,
+        steps_per_epoch=len(train_loader), device=device)
+    return _fit(trainer, args, train_loader, val_loader)
+
+
+def cmd_distill_steps(args):
+    """Progressive step-distillation of a trained Fast-DDPM checkpoint
+    (``serve/distill_diffusion.py``): the sampler grid shrinks by
+    ``--factor``, ``--rounds`` times (T = 10 -> 5 -> 3).  Each round writes
+    ``<teacher>_steps<N>_best.pt`` and ``<teacher>_steps<N>_grid.json``;
+    the per-round test-set eval (the teacher's and each student's, every
+    sampler call seeded 0) and the histories go to
+    ``<teacher>_stepdistill.json``.  Returns that dict."""
+    import torch
+
+    from mrisr_tpu_torch.api import LoadedModel, load_model
+    from mrisr_tpu_torch.ckpt.torch_ckpt import reference_checkpoint
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.device import resolve_device
+    from mrisr_tpu_torch.eval.runner import evaluate_pair_model_test_set
+    from mrisr_tpu_torch.serve.distill_diffusion import progressive_distill
+
+    if args.teacher not in PRESETS or \
+            PRESETS[args.teacher].loss.kind != "diffusion":
+        raise SystemExit(
+            f"--teacher must be a diffusion preset, got {args.teacher!r}")
+    cfg = _build_config(args, args.teacher)
+    device = resolve_device(args.device)
+    store = VolumeStore.open(args.data)
+    loaded = load_model(args.teacher,
+                        models_dir=args.teacher_dir or args.checkpoint_dir,
+                        checkpoint="required", cfg=cfg.model, device=device)
+    train_loader = build_loader(store, "train", cfg.data, kind="triplet",
+                                backend=args.backend, device=device)
+    val_loader = build_loader(store, "val", cfg.data, kind="triplet",
+                              backend=args.backend, device=device)
+    rounds = progressive_distill(
+        loaded.module, loaded.schedule, train_loader, val_loader,
+        rounds=args.rounds, factor=args.factor, epochs=cfg.train.epochs,
+        learning_rate=cfg.train.learning_rate)
+
+    def _eval(model):
+        return evaluate_pair_model_test_set(
+            model.predict_nhwc, store, cfg.data,
+            max_batches=args.max_eval_batches, device=device)
+
+    results = {}
+    if not args.no_eval:
+        results["teacher"] = _eval(loaded)
+        print(f"teacher ({loaded.schedule.num_inference_steps} steps): "
+              f"{json.dumps(results['teacher'])}")
+    os.makedirs(args.checkpoint_dir, exist_ok=True)
+    os.makedirs(args.results_dir, exist_ok=True)
+    for student, sched, hist in rounds:
+        name = f"{args.teacher}_steps{sched.num_inference_steps}"
+        torch.save(reference_checkpoint(student, args.teacher),
+                   os.path.join(args.checkpoint_dir, f"{name}_best.pt"))
+        with open(os.path.join(args.checkpoint_dir,
+                               f"{name}_grid.json"), "w") as f:
+            json.dump({"base": args.teacher, "factor": args.factor,
+                       "timesteps": [int(t) for t in sched.timesteps]}, f)
+        entry = {"history": hist}
+        if not args.no_eval:
+            entry["eval"] = _eval(LoadedModel(
+                name=name, module=student, kind="diffusion", device=device,
+                schedule=sched, sampler="ddim_grid"))
+            for sp in ("3mm", "6mm"):
+                if sp in entry["eval"] and sp in results.get("teacher", {}):
+                    entry["ssim_delta_vs_teacher_" + sp] = round(
+                        entry["eval"][sp]["ssim_mean"]
+                        - results["teacher"][sp]["ssim_mean"], 6)
+            print(f"{name}: {json.dumps(entry['eval'])}")
+        results[name] = entry
+        print(f"saved {name}_best.pt + {name}_grid.json")
+    out = os.path.join(args.results_dir, f"{args.teacher}_stepdistill.json")
+    with open(out, "w") as f:
+        json.dump(results, f, indent=2)
+    print(f"results -> {out}")
+    return results
 
 
 def cmd_eval(args) -> None:
@@ -316,6 +462,23 @@ def cmd_export_serving(args) -> None:
     print(f"serving bundle -> {path}")
 
 
+def cmd_serve(args) -> None:
+    """Serve a bundle over HTTP (``serve/http.py``): .npy in, .npy out,
+    the micro-batching engine on ``--device`` underneath."""
+    from mrisr_tpu_torch.serve.http import serve_bundle
+
+    server = serve_bundle(args.bundle, host=args.host, port=args.port,
+                          batch_size=args.batch_size,
+                          max_delay_ms=args.max_delay_ms, device=args.device)
+    print(f"serving {args.bundle} on http://{server.host}:{server.port} "
+          f"(batch {args.batch_size}; POST /predict, GET /stats)")
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("shutting down")
+        server.close()
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="mrisr_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -340,6 +503,70 @@ def main(argv=None) -> None:
     _add_common_args(q, fresh=False)
     _add_train_args(q)
     q.set_defaults(fn=cmd_train)
+
+    q = sub.add_parser("distill")
+    q.add_argument("--preset", default="unet_distilled",
+                   choices=sorted(k for k in PRESETS
+                                  if PRESETS[k].loss.kind == "distill"))
+    q.add_argument("--teacher", default="unet",
+                   help="trained pair-model checkpoint to distill from")
+    q.add_argument("--teacher-dir", default=None,
+                   help="teacher checkpoint dir (default: --checkpoint-dir)")
+    q.add_argument("--teacher-features", type=int, default=None,
+                   help="teacher base feature width if not the default 64")
+    q.add_argument("--distill-alpha", type=float, default=None,
+                   help="weight of the teacher-matching MSE term (1-alpha "
+                        "weighs ground truth)")
+    q.add_argument("--distill-lambda-ssim", type=float, default=None,
+                   help="weight of an added (1 - SSIM(student, teacher)) "
+                        "term (default 0: MSE only)")
+    q.add_argument("--ema", type=float, default=None, metavar="DECAY",
+                   help="average the student's parameters every step "
+                        "(e.g. 0.999); eval and the _best checkpoint use "
+                        "the averaged weights")
+    q.add_argument("--teacher-quant", default="none",
+                   choices=("none", "int8", "int8_fused"),
+                   help="distill against the quantized teacher's outputs "
+                        "(the serving numerics), calibrated on 4 val "
+                        "batches")
+    q.add_argument("--init-from-teacher", action="store_true",
+                   help="initialize the student as a magnitude-pruned "
+                        "channel slice of the teacher (BN |gamma| scores, "
+                        "serve/prune.py)")
+    q.add_argument("--config", default=None)
+    q.add_argument("--scan-epochs", action="store_true")
+    _add_common_args(q, fresh=False)
+    _add_train_args(q)
+    q.set_defaults(fn=cmd_distill)
+
+    q = sub.add_parser("distill-steps")
+    q.add_argument("--teacher", default="fastddpm",
+                   help="trained diffusion preset checkpoint to distill")
+    q.add_argument("--teacher-dir", default=None,
+                   help="teacher checkpoint dir (default: --checkpoint-dir)")
+    q.add_argument("--factor", type=int, default=2,
+                   help="teacher sub-steps folded into one student step a "
+                        "round (the grid shrinks to ceil(N/factor))")
+    q.add_argument("--rounds", type=int, default=2,
+                   help="number of grid-shrink rounds (10 -> 5 -> 3)")
+    q.add_argument("--no-eval", action="store_true",
+                   help="skip the per-round test-set eval")
+    q.add_argument("--max-eval-batches", type=int, default=None)
+    q.add_argument("--config", default=None)
+    _add_common_args(q, fresh=False)
+    _add_train_args(q)
+    q.set_defaults(fn=cmd_distill_steps)
+
+    q = sub.add_parser("serve")
+    q.add_argument("--bundle", required=True,
+                   help="serving bundle dir (see export-serving)")
+    q.add_argument("--host", default="127.0.0.1")
+    q.add_argument("--port", type=int, default=8000)
+    q.add_argument("--batch-size", type=int, default=128)
+    q.add_argument("--max-delay-ms", type=float, default=2.0)
+    q.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+    q.set_defaults(fn=cmd_serve)
 
     q = sub.add_parser("eval")
     q.add_argument("--model", required=True)

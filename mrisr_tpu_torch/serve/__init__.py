@@ -1,5 +1,7 @@
-"""Serving: int8 quantization (quant.py), bundles (bundle.py) and the
-micro-batching engine (engine.py)."""
+"""Serving: int8 quantization (quant.py), bundles (bundle.py), the
+micro-batching engine (engine.py) and its HTTP front end (http.py), and
+distillation: the half-width student (distill.py, prune.py) and the
+few-step Fast-DDPM students (distill_diffusion.py)."""
 
 from mrisr_tpu_torch.serve.bundle import (  # noqa: F401
     engine_from_bundle,

@@ -116,20 +116,23 @@ def _reflatten_int8_sites(nested: Dict) -> Dict[str, Dict]:
 def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
                      gn_impl: Optional[str], plain: bool = False):
     """The T-step sampler of a Fast-DDPM bundle: ``cond (B, H, W, 2) ->
-    (B, H, W, 1)``, the ancestral chain with a generator seeded 0 on every
-    call (the counterpart of the JAX package's ``PRNGKey(0)``: serving is
-    deterministic per input)."""
+    (B, H, W, 1)`` with a generator seeded 0 on every call (the counterpart
+    of the JAX package's ``PRNGKey(0)``: serving is deterministic per
+    input).  The chain is the meta's ``sampler``: the ancestral one, or
+    DDIM over the bundle's grid for a step-distilled student
+    (``'ddim_grid'``), which was trained to reproduce its teacher under
+    that deterministic sampler."""
     from mrisr_tpu_torch.models.diffusion import (
         DiffusionSchedule,
         sample_ancestral,
     )
+    from mrisr_tpu_torch.serve.distill_diffusion import sample_ddim_grid
     from mrisr_tpu_torch.serve.quant_diffusion import FastDDPMForward
 
-    if meta.get("sampler") == "ddim_grid":
-        raise NotImplementedError(
-            "ddim_grid (step-distilled) diffusion bundles are not ported yet: "
-            "they need serve/distill_diffusion.py (ROADMAP.md, Queue 1 item "
-            "14)")
+    quant = meta["quant"]
+    if quant not in ("none", "int8", "int8_deep"):
+        raise ValueError(f"diffusion bundles carry quant none/int8/int8_deep, "
+                         f"got {quant!r}")
     sched = params["schedule"]
     schedule = DiffusionSchedule(
         betas=sched["betas"].float(), alphas=sched["alphas"].float(),
@@ -137,24 +140,23 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
         timesteps=sched["timesteps"].to(torch.int32))
     time_dim = int(meta["time_dim"])
     combine = meta.get("combine", "first")
-    quant = meta["quant"]
-    if quant in ("int8", "int8_deep"):
+    if quant == "none":
+        eps_fn = FastDDPMForward(params["params"], time_dim=time_dim,
+                                 device=device)
+    else:
         eps_fn = FastDDPMForward(
             params["params"], _reflatten_int8_sites(params["int8"]),
             params.get("timesteps"), time_dim=time_dim, gn_impl=gn_impl,
             device=device, plain=plain)
-    elif quant == "none":
-        eps_fn = FastDDPMForward(params["params"], time_dim=time_dim,
-                                 device=device)
-    else:
-        raise ValueError(f"diffusion bundles carry quant none/int8/int8_deep, "
-                         f"got {quant!r}")
+    ddim_grid = meta.get("sampler") == "ddim_grid"
 
     @torch.no_grad()
     def apply(cond: torch.Tensor) -> torch.Tensor:
         gen = torch.Generator(device=device).manual_seed(0)
-        return sample_ancestral(eps_fn, cond.to(device, torch.float32), gen,
-                                schedule, combine=combine)
+        cond = cond.to(device, torch.float32)
+        if ddim_grid:
+            return sample_ddim_grid(eps_fn, cond, gen, schedule)
+        return sample_ancestral(eps_fn, cond, gen, schedule, combine=combine)
 
     return apply
 
@@ -215,8 +217,9 @@ def make_bundle_apply(params: Dict, meta: Dict, device: DeviceLike = None,
     and B), 'int8' (``unet_int8_apply``: kernel A's float epilogue at every
     3x3 conv) or 'none' (the folded UNet in bf16 compute).  Diffusion
     bundles (quant none, int8 or int8_deep): the call runs the whole T-step
-    ancestral chain; ``gn_impl`` picks the int8 forward's GroupNorm path
-    ('chain' or 'fused', see ``serve/quant_diffusion.py``).
+    chain of the meta's sampler (ancestral, or ``'ddim_grid'``);
+    ``gn_impl`` picks the int8 forward's GroupNorm path ('chain' or
+    'fused', see ``serve/quant_diffusion.py``).
     ``plain=True`` runs the kernels' plain versions on the card: the
     reference the kernels are held against."""
     device = resolve_device(device)
@@ -307,9 +310,11 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
                              calibration_batches,
                              image_size: Tuple[int, int],
                              percentile: Optional[float] = None) -> str:
-    """Fast-DDPM serving bundle: the T-step ancestral sampler as one
-    artifact, quant 'none' (bf16), 'int8' (every conv) or 'int8_deep' (the
-    <= 128^2 ``DEEP_SITES``)."""
+    """Fast-DDPM serving bundle: the T-step sampler of ``loaded`` (the
+    ancestral chain, or DDIM over the grid of a step-distilled student) as
+    one artifact, quant 'none' (bf16), 'int8' (every conv) or 'int8_deep'
+    (the <= 128^2 ``DEEP_SITES``), calibrated on that sampler's
+    trajectory."""
     from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
     from mrisr_tpu_torch.serve.quant_diffusion import (
         DEEP_SITES,
@@ -324,6 +329,7 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
             f"{quant!r} (int8_fused is the pair-UNet path)")
     params = fastddpm_flax_params(loaded.module)
     time_dim = int(params["time_emb"]["Dense_1"]["kernel"].shape[-1])
+    sampler = loaded.sampler or "ancestral"
     if quant == "none":
         tree = {"params": bf16_params(params)}
         calib_desc = None
@@ -333,7 +339,7 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
         gen = torch.Generator(device=loaded.device).manual_seed(0)
         ranges = calibrate_fastddpm(
             {"params": params}, loaded.schedule, calibration_batches, gen,
-            time_dim=time_dim, percentile=percentile)
+            time_dim=time_dim, percentile=percentile, sampler=sampler)
         tree = quantize_fastddpm(
             {"params": params}, ranges,
             only=DEEP_SITES if quant == "int8_deep" else None)
@@ -350,7 +356,7 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
         base_features=int(params["init_conv"]["kernel"].shape[-1]),
         image_size=image_size, calibration=calib_desc,
         extra={"kind": "diffusion", "time_dim": time_dim, "combine": "first",
-               "sampler": "ancestral"})
+               "sampler": sampler})
 
 
 def engine_from_bundle(path: str, batch_size: int = 128,

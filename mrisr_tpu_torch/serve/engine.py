@@ -298,6 +298,17 @@ def _bn_over_bf16(bn: torch.nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:
             + bn.bias.view(shape))
 
 
+def bf16_rounded_copy(module: torch.nn.Module) -> torch.nn.Module:
+    """A copy of ``module`` in eval mode with every float32 parameter and
+    buffer rounded to bf16 (and kept float32)."""
+    module = copy.deepcopy(module).eval()
+    with torch.no_grad():
+        for t in itertools.chain(module.parameters(), module.buffers()):
+            if t.dtype == torch.float32:
+                t.copy_(t.bfloat16().float())
+    return module
+
+
 def _bf16_weights_apply(module: torch.nn.Module) -> Callable:
     """The reference's ``quant='none'`` engine forward: every float32
     parameter and buffer rounded to bf16, the module itself still float32,
@@ -305,11 +316,7 @@ def _bf16_weights_apply(module: torch.nn.Module) -> Callable:
     BatchNorm's scale factor, which :func:`_bn_over_bf16` computes in bf16
     as flax does).  It runs with TF32 off (``fp32_reference``), the float32
     the reference computes on the CPU."""
-    module = copy.deepcopy(module).eval()
-    with torch.no_grad():
-        for t in itertools.chain(module.parameters(), module.buffers()):
-            if t.dtype == torch.float32:
-                t.copy_(t.bfloat16().float())
+    module = bf16_rounded_copy(module)
     for m in module.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.forward = functools.partial(_bn_over_bf16, m)

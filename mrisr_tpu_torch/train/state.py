@@ -21,7 +21,7 @@ from __future__ import annotations
 import math
 import warnings
 from dataclasses import dataclass
-from typing import Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -77,13 +77,34 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> None:
 @dataclass
 class TrainState:
     """A module with its optimizer, its schedule (or None), the clip norm
-    (0: none) and the count of updates taken."""
+    (0: none), the count of updates taken and, for the distillation
+    student, ``ema_params``: an exponential moving average of the
+    parameters by name (None: no average).  BatchNorm running statistics
+    are not averaged: the live module's are shared."""
 
     module: nn.Module
     optimizer: torch.optim.Optimizer
     schedule: Optional[LambdaLR] = None
     grad_clip_norm: float = 0.0
     step: int = 0
+    ema_params: Optional[Dict[str, torch.Tensor]] = None
+
+    def seed_ema(self) -> None:
+        """Start the average at the current parameters, as a copy."""
+        self.ema_params = {n: p.detach().clone()
+                           for n, p in self.module.named_parameters()}
+
+    @torch.no_grad()
+    def update_ema(self, decay: float) -> None:
+        """``ema = decay * ema + (1 - decay) * p`` for every parameter, as
+        two products and a sum (the JAX step's arithmetic; ``lerp`` rounds
+        otherwise)."""
+        names = list(self.ema_params)
+        ema = [self.ema_params[n] for n in names]
+        live = dict(self.module.named_parameters())
+        torch._foreach_mul_(ema, decay)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            [live[n].detach() for n in names], 1.0 - decay))
 
     def apply_gradients(self) -> None:
         """Clip the gradients the last backward left, take one optimizer

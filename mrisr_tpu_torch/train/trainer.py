@@ -327,7 +327,11 @@ class SupervisedTrainer(_SingleStateTrainer):
                                        dtype=compute_dtype(config))
         self.state = create_train_state(module.to(self.device), config.train,
                                         steps_per_epoch=steps_per_epoch)
-        lcfg = config.loss
+        self.train_step, self.eval_step = self._make_steps(perceptual_fn)
+
+    def _make_steps(self, perceptual_fn: Optional[Callable]):
+        """``(train_step, eval_step)`` of the config's loss."""
+        lcfg = self.config.loss
         if self.kind == "window":
             def loss_fn(preds, window):
                 return progressive_loss(preds, window, lcfg.w_i1, lcfg.w_i2,
@@ -345,8 +349,9 @@ class SupervisedTrainer(_SingleStateTrainer):
         else:
             raise ValueError(
                 f"loss kind {lcfg.kind!r} is not a supervised loss: the GAN "
-                "trains with train/gan.py, diffusion with train/diffusion.py")
-        self.train_step, self.eval_step = steps
+                "trains with train/gan.py, diffusion with train/diffusion.py, "
+                "distillation with serve/distill.py")
+        return steps
 
     def _train(self, batch, generator):
         return self.train_step(self.state, batch)[1]

@@ -86,8 +86,8 @@ def test_unported_modes_raise(tables):
     """Pair bundles of every quant serve
     (``tests/test_torch_port_pair_serving.py``): a 'none' bundle whose tree
     is not a folded UNet raises the reference's ValueError, an unknown
-    quant a ValueError; the step-distilled students' ddim_grid diffusion
-    bundles are still item 14's."""
+    quant a ValueError, and so does a diffusion bundle's pair-only quant
+    (ddim_grid bundles serve: ``test_steps_export_reloads_as_ddim_grid``)."""
     with pytest.raises(ValueError, match="UNet-family topology"):
         make_bundle_apply({}, {"quant": "none"}, device="cpu")
     with pytest.raises(ValueError, match="BN-FOLDED"):
@@ -95,8 +95,8 @@ def test_unported_modes_raise(tables):
                           {"quant": "none"}, device="cpu")
     with pytest.raises(ValueError, match="int8_fused"):
         make_bundle_apply(tables["q"], {"quant": "int4"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="diffusion"):
-        make_bundle_apply({}, {"quant": "int8", "kind": "diffusion",
+    with pytest.raises(ValueError, match="diffusion bundles carry"):
+        make_bundle_apply({}, {"quant": "int8_fused", "kind": "diffusion",
                                "sampler": "ddim_grid"}, device="cpu")
 
 
@@ -130,3 +130,60 @@ def test_engine_threads_and_close(tables, tmp_path):
     with engine_from_bundle(path, batch_size=2, device="cpu") as eng2:
         with pytest.raises(ValueError, match="shape"):
             eng2.submit(np.zeros((3, 3, 2), np.float32))
+
+
+def test_steps_export_reloads_as_ddim_grid(tmp_path):
+    """A step-distilled student (``fastddpm_steps3_best.pt`` + its grid
+    sidecar) exports as a bundle whose meta names the loaded model's
+    sampler, 'ddim_grid' (the JAX package writes ``loaded.sampler``), with
+    its grid, calibrated on that sampler's trajectory; the JAX package
+    reads the same meta, and the port serves it with DDIM over the grid."""
+    import json
+
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.ckpt.torch_ckpt import reference_checkpoint
+    from mrisr_tpu_torch.config import ModelConfig
+    from mrisr_tpu_torch.models.diffusion import FastDDPMUNet
+    from mrisr_tpu_torch.serve.bundle import export_serving_bundle
+    from mrisr_tpu_torch.serve.quant_diffusion import calibrate_fastddpm
+
+    torch.manual_seed(23)
+    module = FastDDPMUNet(base_features=4, time_dim=8)
+    torch.save(reference_checkpoint(module, "fastddpm"),
+               tmp_path / "fastddpm_steps3_best.pt")
+    grid = [199, 799, 999]
+    (tmp_path / "fastddpm_steps3_grid.json").write_text(json.dumps(
+        {"base": "fastddpm", "factor": 2, "timesteps": grid}))
+    mcfg = ModelConfig(name="fastddpm", base_features=4, time_dim=8)
+    cond = noise((2, HW, HW, 2), seed=24) * 0.5
+    path = export_serving_bundle(
+        str(tmp_path / "b"), "fastddpm_steps3", str(tmp_path),
+        quant="int8_deep", calibration_batches=[cond], cfg=mcfg,
+        image_size=(HW, HW), device="cpu")
+    params, meta = load_bundle(path)
+    assert meta["sampler"] == "ddim_grid"
+    assert meta["model_name"] == "fastddpm_steps3"
+    np.testing.assert_array_equal(params["schedule"]["timesteps"].numpy(),
+                                  grid)
+    loaded = load_model("fastddpm_steps3", str(tmp_path), cfg=mcfg,
+                        device="cpu")
+    for sampler in ("ddim_grid", "ancestral"):
+        ranges = calibrate_fastddpm(
+            {"params": fastddpm_flax_params(loaded.module)}, loaded.schedule,
+            [cond], torch.Generator().manual_seed(0), time_dim=8,
+            sampler=sampler)
+        same = np.array_equal(
+            params["int8"]["enc2"]["conv1"]["a_scale"].numpy(),
+            np.maximum(ranges["enc2/conv1"], 1e-12) / 127.0)
+        assert same == (sampler == "ddim_grid"), sampler
+    assert jb.load_bundle(path)[1]["sampler"] == "ddim_grid"
+    with engine_from_bundle(path, batch_size=2, device="cpu") as eng:
+        got = np.stack(eng.predict_many(list(cond)))
+    fwd = make_bundle_apply(params, meta, device="cpu")
+    want = fwd(torch.from_numpy(cond)).numpy()
+    np.testing.assert_array_equal(got, want)
+    # one fresh x_T a call, the chain DDIM over the 3-step grid
+    assert not np.array_equal(want, make_bundle_apply(
+        params, {**meta, "sampler": "ancestral"}, device="cpu")(
+            torch.from_numpy(cond)).numpy())

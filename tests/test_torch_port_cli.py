@@ -111,7 +111,8 @@ def test_load_model_refusals(tmp_path):
                       device="cpu").kind == "window"
     with pytest.raises(ValueError, match="discriminator"):
         load_model("patchgan", str(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # a step-distilled student needs its checkpoint and grid sidecar
+    with pytest.raises(FileNotFoundError, match="distill-steps"):
         load_model("fastddpm_steps5", str(tmp_path), device="cpu")
     with pytest.raises(ValueError, match="Unknown model"):
         load_model("nope", str(tmp_path), device="cpu")
@@ -294,9 +295,10 @@ def test_cli_train_unported_presets_raise(workdir, preset, item):
 
 
 def test_cli_train_unported_flags_raise(workdir):
-    """``--mesh-data 2`` (item 15), the distillation preset (item 14) and
-    ``--scan-epochs`` without a device bank still refuse; ``--bf16`` now
-    trains in bf16 compute with float32 parameters and checkpoints."""
+    """``--mesh-data 2`` (item 15) and ``--scan-epochs`` without a device
+    bank still refuse, and the distillation preset points at the distill
+    command, as in the JAX CLI; ``--bf16`` now trains in bf16 compute with
+    float32 parameters and checkpoints."""
     args = train_args(workdir, "--bf16", "--epochs", "1")
     args[args.index("--checkpoint-dir") + 1] = str(workdir / "bf16_models")
     trainer = cli.main(args)
@@ -331,3 +333,157 @@ def test_cli_train_base128_fastddpm_presets(workdir, preset, beta):
     assert trainer.config.model.beta_schedule == beta
     assert all(np.isfinite(trainer.history.series["train_loss"]))
     assert (workdir / preset / f"{preset}_best.pt").exists()
+
+
+def _parsed(argv, command, monkeypatch):
+    """The namespace the port CLI hands ``command``'s function."""
+    seen = {}
+    monkeypatch.setattr(cli, command, lambda args: seen.setdefault("a", args))
+    cli.main(argv)
+    return vars(seen["a"])
+
+
+def _jax_flags(capsys, command):
+    with pytest.raises(SystemExit):
+        jax_cli.main([command, "--help"])
+    return set(re.findall(r"(--[a-z][a-z0-9-]*)", capsys.readouterr().out))
+
+
+@pytest.mark.parametrize("command,fn,argv,defaults", [
+    ("distill", "cmd_distill", ["--data", "d"], {
+        "preset": "unet_distilled", "teacher": "unet", "teacher_dir": None,
+        "teacher_features": None, "distill_alpha": None,
+        "distill_lambda_ssim": None, "ema": None, "teacher_quant": "none",
+        "init_from_teacher": False, "config": None, "scan_epochs": False}),
+    ("distill-steps", "cmd_distill_steps", ["--data", "d"], {
+        "teacher": "fastddpm", "teacher_dir": None, "factor": 2,
+        "rounds": 2, "no_eval": False, "max_eval_batches": None,
+        "config": None}),
+    ("serve", "cmd_serve", ["--bundle", "b"], {
+        "bundle": "b", "host": "127.0.0.1", "port": 8000, "batch_size": 128,
+        "max_delay_ms": 2.0}),
+])
+def test_cli_distill_commands_take_jax_flags(command, fn, argv, defaults,
+                                             capsys, monkeypatch):
+    """distill, distill-steps and serve take every flag of the JAX CLI's
+    commands (but its mesh/allow-fresh extras, which the port's training
+    commands leave out or refuse) with the same defaults, plus
+    ``--device``."""
+    args = _parsed([command, *argv], fn, monkeypatch)
+    for k, v in defaults.items():
+        assert args[k] == v, k
+    assert args["device"] is None
+    want = _jax_flags(capsys, command)
+    with pytest.raises(SystemExit):
+        cli.main([command, "--help"])
+    got = set(re.findall(r"(--[a-z][a-z0-9-]*)", capsys.readouterr().out))
+    assert want - got <= {"--allow-fresh"}, want - got
+    assert got - want <= {"--device", "--shard-hosts"}, got - want
+
+
+def test_cli_distill_resume_eval(workdir, capsys):
+    """cli distill on the CPU from the width-4 teacher checkpoint: the
+    int8_fused teacher, the pruned init at width 2, the EMA and the SSIM
+    term, one epoch, then --resume to 2; eval --model unet_distilled reads
+    the served (averaged) weights."""
+    models, results = workdir / "distill_models", workdir / "distill_results"
+    args = ["distill", "--teacher", "unet", "--teacher-dir",
+            str(workdir / "models"), "--teacher-features", str(F),
+            "--teacher-quant", "int8_fused", "--init-from-teacher", "--ema",
+            "0.9", "--distill-lambda-ssim", "0.1", "--data",
+            str(workdir / "store"), "--features", "2", "--image-size",
+            str(HW), "--batch-size", "4", "--checkpoint-dir", str(models),
+            "--results-dir", str(results), "--device", "cpu"]
+    tr = cli.main([*args, "--epochs", "1"])
+    assert tr.state.module.features == 2
+    assert tr.config.train.compute_dtype == "bfloat16"  # the preset's
+    tr = cli.main([*args, "--epochs", "2", "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from epoch 1" in out and "Epoch 2/2" in out
+    hist = json.loads((results / "unet_distilled_history.json").read_text())
+    assert hist["epoch"] == [1.0, 2.0]
+    for k in ("train_teacher_mse", "train_gt_mse", "train_ssim_loss",
+              "val_ssim_loss"):
+        assert len(hist[k]) == 2 and all(np.isfinite(hist[k])), k
+    ckpt = torch.load(models / "unet_distilled_latest.pt", weights_only=True)
+    assert {"model_state_dict", "live_params"} <= set(ckpt)
+    cli.main(["eval", "--model", "unet_distilled", "--data",
+              str(workdir / "store"), "--image-size", str(HW), "--features",
+              "2", "--checkpoint-dir", str(models), "--results-dir",
+              str(results), "--device", "cpu", "--max-batches", "1"])
+    metrics = json.loads((results / "unet_distilled_test_metrics.json")
+                         .read_text())
+    assert all(np.isfinite(metrics[s]["ssim_mean"]) for s in ("3mm", "6mm"))
+
+
+def test_cli_distill_steps_eval_export_serve(workdir, capsys, monkeypatch):
+    """cli distill-steps on the CPU (10 -> 5 -> 3, one epoch a round), its
+    files and per-round report, eval --model fastddpm_steps3,
+    export-serving --model fastddpm_steps5 --quant int8_deep (a ddim_grid
+    bundle) and cli serve answering one HTTP request."""
+    import io
+    import urllib.request
+
+    from mrisr_tpu.ckpt import convert_torch_checkpoint
+    from mrisr_tpu_torch.models.diffusion import FastDDPMUNet
+    from mrisr_tpu_torch.serve.http import ServingServer
+
+    models, results = workdir / "steps_models", workdir / "steps_results"
+    os.makedirs(models)
+    torch.manual_seed(7)
+    torch.save(reference_checkpoint(FastDDPMUNet(base_features=F),
+                                    "fastddpm"), models / "fastddpm_best.pt")
+    common = ["--data", str(workdir / "store"), "--image-size", str(HW),
+              "--features", str(F), "--batch-size", "4", "--checkpoint-dir",
+              str(models), "--results-dir", str(results), "--device", "cpu"]
+    report = cli.main(["distill-steps", "--teacher", "fastddpm", *common,
+                       "--epochs", "1", "--max-eval-batches", "1"])
+    assert set(report) == {"teacher", "fastddpm_steps5", "fastddpm_steps3"}
+    for n, grid in ((5, [175, 525, 749, 849, 949]),
+                    (3, [175, 749, 949])):
+        entry = report[f"fastddpm_steps{n}"]
+        assert set(entry) == {"history", "eval", "ssim_delta_vs_teacher_3mm",
+                              "ssim_delta_vs_teacher_6mm"}
+        assert len(entry["history"]["train_loss"]) == 1
+        sidecar = json.loads((models / f"fastddpm_steps{n}_grid.json")
+                             .read_text())
+        assert sidecar == {"base": "fastddpm", "factor": 2,
+                           "timesteps": grid}
+        # the JAX package's converter reads the student's weights
+        convert_torch_checkpoint("fastddpm", torch.load(
+            models / f"fastddpm_steps{n}_best.pt", weights_only=True))
+    assert json.loads((results / "fastddpm_stepdistill.json").read_text()
+                      ) == json.loads(json.dumps(report))
+    cli.main(["eval", "--model", "fastddpm_steps3", *common,
+              "--max-batches", "1"])
+    metrics = json.loads((results / "fastddpm_steps3_test_metrics.json")
+                         .read_text())
+    assert all(np.isfinite(metrics[s]["ssim_mean"]) for s in ("3mm", "6mm"))
+    bundle = str(workdir / "steps5_bundle")
+    cli.main(["export-serving", "--model", "fastddpm_steps5", *common,
+              "--quant", "int8_deep", "--calib-batches", "1", "--out",
+              bundle])
+    assert json.loads(open(os.path.join(bundle, "meta.json")).read())[
+        "sampler"] == "ddim_grid"
+
+    answers = []
+
+    def serve_one(server):
+        """In place of the blocking loop: serve in the background, answer
+        one request, then stop as Ctrl-C would."""
+        server.start_background()
+        buf = io.BytesIO()
+        np.save(buf, noise((HW, HW, 2), 8))
+        req = urllib.request.Request(
+            f"http://{server.host}:{server.port}/predict",
+            data=buf.getvalue())
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            answers.append(np.load(io.BytesIO(resp.read())))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(ServingServer, "serve_forever", serve_one)
+    cli.main(["serve", "--bundle", bundle, "--port", "0", "--batch-size",
+              "2", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "shutting down" in out
+    assert answers[0].shape == (HW, HW, 1) and np.isfinite(answers[0]).all()

@@ -326,6 +326,61 @@ def test_upconv_kernel_matches_plain(cuda, h, w, c, co, cs):
     assert torch.equal(upconv2x2_int8(x, w2, s4, b4, skip=skip), got)
 
 
+# The half-width student's (features 32) full-size sites: kernel A's
+# tensor-core Co = 32 convs at 256^2 (enc1/dec1 Conv_1 32 -> 32, dec1
+# Conv_0 64 -> 32: the 64-column tile over a 32-row weight), kernel B's
+# upconv1 C = 64 -> Co = 32 on a 128^2 input, with its 32-channel skip.
+STUDENT_CONV_SITES = [(2, 256, 256, 32, 32), (2, 256, 256, 64, 32)]
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", STUDENT_CONV_SITES)
+@pytest.mark.parametrize("out_float", [False, True])
+def test_student_conv_sites_match_plain(cuda, n, h, w, ci, co, out_float):
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+
+    assert conv_path(ci, co, 3) == "tc"
+    g = torch.Generator().manual_seed(ci * 10 + co + out_float)
+    x = _codes(g, (n, h, w, ci), cuda)
+    wp = pack_conv(_codes(g, (3, 3, ci, co), "cpu")).to(cuda)
+    acc_std = 127 * 127 / 3 * (9 * ci) ** 0.5
+    s = ((torch.rand(co, generator=g) * 2 + 0.3) * 60 / acc_std).to(cuda)
+    b = (torch.rand(co, generator=g) * 4 - 2).to(cuda)
+    before = _path_counts(conv2d_int8)
+    got = conv2d_int8(x, wp, s, b, relu=True, out_float=out_float)
+    torch.cuda.synchronize()
+    assert_launched(conv2d_int8, before, "tc")
+    want = conv2d_int8_plain(x, wp, s, b, relu=True, out_float=out_float)
+    assert got.dtype == want.dtype and got.shape == (n, h, w, co)
+    assert torch.equal(got, want)
+    assert torch.equal(conv2d_int8(x, wp, s, b, relu=True,
+                                   out_float=out_float), got)
+
+
+@pytest.mark.parametrize("out_float", [False, True])
+def test_student_upconv_site_matches_plain(cuda, out_float):
+    g = torch.Generator().manual_seed(64 + out_float)
+    h = w = 128
+    x = _codes(g, (2, h, w, 64), cuda)
+    w2, s4, b4 = pack_upconv(_codes(g, (2, 2, 64, 32), "cpu"),
+                             torch.rand(32, generator=g) * 0.2 + 0.03,
+                             torch.rand(32, generator=g) * 20 - 10)
+    w2 = w2.t().to(cuda).t()
+    s4, b4 = s4.to(cuda), b4.to(cuda)
+    # the int8 mode fuses the decoder's concat; the float mode takes none
+    skip = None if out_float else _codes(g, (2, 2 * h, 2 * w, 32), cuda)
+    before = _path_counts(upconv2x2_int8)
+    got = upconv2x2_int8(x, w2, s4, b4, skip=skip, out_float=out_float)
+    torch.cuda.synchronize()
+    assert upconv_path(64, 32) == "tc"
+    assert_launched(upconv2x2_int8, before, "tc")
+    want = upconv2x2_int8_plain(x, w2, s4, b4, skip=skip,
+                                out_float=out_float)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    assert torch.equal(upconv2x2_int8(x, w2, s4, b4, skip=skip,
+                                      out_float=out_float), got)
+
+
 def test_engine_on_card(cuda):
     from mrisr_tpu_torch.serve import InferenceEngine
 

@@ -48,6 +48,9 @@ def test_import_with_jax_blocked():
         "import mrisr_tpu_torch.models.deepcnn, mrisr_tpu_torch.models.conv\n"
         "import mrisr_tpu_torch.models.discriminator\n"
         "import mrisr_tpu_torch.models.progressive\n"
+        "import mrisr_tpu_torch.serve.distill, mrisr_tpu_torch.serve.prune\n"
+        "import mrisr_tpu_torch.serve.distill_diffusion\n"
+        "import mrisr_tpu_torch.serve.http\n"
         "from mrisr_tpu_torch.data.split import split_for\n"
         "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
         "assert not any(m == 'mrisr_tpu' or m.startswith('mrisr_tpu.')\n"
@@ -181,6 +184,52 @@ def test_train_entry_points_raise_without_cuda(no_cuda, tmp_path):
         lambda: cli.main(["train", "--preset", "unet", "--data", store.root,
                           "--features", "4", "--image-size", "16",
                           "--checkpoint-dir", str(tmp_path / "m")]),
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "m").exists()
+
+
+def test_distill_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The distillation slice's entry points: the trainer, the teacher,
+    a step-distilled student's load, the HTTP front end and the three
+    commands."""
+    import json
+
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.ckpt.torch_ckpt import reference_checkpoint
+    from mrisr_tpu_torch.config import ModelConfig, PRESETS
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_store
+    from mrisr_tpu_torch.models.diffusion import FastDDPMUNet
+    from mrisr_tpu_torch.serve.distill import (
+        DistillationTrainer,
+        make_teacher_fn,
+    )
+    from mrisr_tpu_torch.serve.http import serve_bundle
+
+    store = make_synthetic_store(str(tmp_path / "s"), num_patients=8,
+                                 slices_per_volume=5, height=16, width=16)
+    torch.manual_seed(0)
+    torch.save(reference_checkpoint(FastDDPMUNet(base_features=4,
+                                                 time_dim=8), "fastddpm"),
+               tmp_path / "fastddpm_steps3_best.pt")
+    (tmp_path / "fastddpm_steps3_grid.json").write_text(json.dumps(
+        {"base": "fastddpm", "factor": 2, "timesteps": [1, 5, 9]}))
+    common = ["--data", store.root, "--features", "4", "--image-size", "16",
+              "--checkpoint-dir", str(tmp_path / "m")]
+    for call in (
+        lambda: DistillationTrainer(PRESETS["unet_distilled"],
+                                    teacher_fn=lambda x: x[..., :1]),
+        lambda: make_teacher_fn("unet", str(tmp_path)),
+        lambda: load_model("fastddpm_steps3", str(tmp_path),
+                           cfg=ModelConfig(name="fastddpm", base_features=4,
+                                           time_dim=8)),
+        lambda: serve_bundle(str(tmp_path / "b"), port=0),
+        lambda: cli.main(["distill", *common]),
+        lambda: cli.main(["distill-steps", *common]),
+        lambda: cli.main(["serve", "--bundle", str(tmp_path / "b"),
+                          "--port", "0"]),
     ):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()

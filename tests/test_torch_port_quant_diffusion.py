@@ -193,8 +193,8 @@ def test_bad_tables_and_options_raise(setup):
         pq.quantize_fastddpm(_pv(setup), {"init_conv": 1.0})
     with pytest.raises(ValueError, match="sampler"):
         pq.calibrate_fastddpm(_pv(setup), setup["ps"], [], sampler="ddim")
-    with pytest.raises(NotImplementedError, match="ddim_grid"):
-        pb.make_bundle_apply({}, {"quant": "int8", "kind": "diffusion",
+    with pytest.raises(ValueError, match="none/int8/int8_deep"):
+        pb.make_bundle_apply({}, {"quant": "int8_fused", "kind": "diffusion",
                                   "sampler": "ddim_grid"}, device="cpu")
 
 
