@@ -168,6 +168,27 @@
    bundle's HTTP front end (127.0.0.1, port 0): answers equal to the
    engine's forward, /healthz, /stats counting the requests, 400 on a bad
    body.
+12. Ingest phase, at the size of the real data's series, from phase 8's
+   trained unet_combined and phase 9's trained deepcnn and
+   progressive_unet.  The port's write_dicom writes a tree shaped like the
+   Prostate-MRI-US-Biopsy download: 12 patients, each one T2 series of 60
+   slices of 256^2 uint16 from the seeded phantom generator (Z 1.5 mm
+   apart, pixels 0.664 mm), plus two US-modality, two 'T2 3D RENDERING'
+   and two 59-slice decoy series; zipped.  Then the CLI: extract, clean
+   --dry-run (nothing deleted), clean --yes (exactly the four US and
+   rendering series removed), pack (the 59-slice series left out; every
+   volume bit-equal to its uint16 source as float32; Z spacing 1.5).  The
+   native header scanner must have built, and its headers equal the Python
+   parser's for every file; the header scan's files/s both ways (host
+   numbers).  predict-volume --export-dicom of unet_combined, plain and
+   --hierarchical, and of progressive_unet (the window path): K1's SSIM per
+   slice within 3e-5 of the plain SSIM of the same predictions, the
+   exported series read back equal to the uint16 map of the predicted
+   volume, Z 1.5 mm.  compare of the three models live (2 batches a
+   spacing), eval of each, compare --from-results: the rows within 1e-5,
+   the CSV equal.  predict-volume --figure and triplet-figure render where
+   matplotlib imports, and otherwise must refuse with an ImportError
+   naming it.  K1 must have been launched; the phase's wall by step.
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -2055,8 +2076,9 @@ def serve_trained(preset, bundle, requests, dev, models_dir, mcfg,
 
 def families_phase(dev, card: str, keep=None):
     """Training of the five other families at full width (see the module
-    docstring, item 9); the trained ``fastddpm_best.pt`` is copied into
-    ``keep`` (phase 11's teacher).  Returns (launches, results)."""
+    docstring, item 9); the trained ``fastddpm_best.pt`` (phase 11's
+    teacher), ``deepcnn_best.pt`` and ``progressive_unet_best.pt`` (phase
+    12's models) are copied into ``keep``.  Returns (launches, results)."""
     import dataclasses
 
     import torch.nn.functional as F
@@ -2149,8 +2171,9 @@ def families_phase(dev, card: str, keep=None):
             with open(os.path.join(results_dir,
                                    f"{preset}_history.json")) as f:
                 hist = json.load(f)
-            if preset == "fastddpm" and keep is not None:
-                shutil.copy(os.path.join(models_dir, "fastddpm_best.pt"),
+            if keep is not None and preset in ("fastddpm", "deepcnn",
+                                               "progressive_unet"):
+                shutil.copy(os.path.join(models_dir, f"{preset}_best.pt"),
                             keep)
             epochs = [1.0, 2.0] if resumes else [1.0]
             if hist["epoch"] != epochs or not all(np.isfinite(
@@ -3148,6 +3171,334 @@ def distill_phase(dev, card: str, teachers: str):
     return launches, results
 
 
+INGEST_PATIENTS, INGEST_SLICES = 12, 60  # the dataset's T2 series shape
+INGEST_Z_MM = 1.5
+INGEST_MODELS = ("unet_combined", "deepcnn", "progressive_unet")
+COMPARE_BATCHES = 2  # compare/eval --max-batches: a few batches a spacing
+SCAN_ROUNDS = 3      # the header scan's rate: the best of these passes
+
+
+# the decoy series, by patient number: (folder, slices, header fields);
+# clean removes the US and 3D-rendering ones, pack leaves out the short ones
+INGEST_DECOYS = {
+    1: ("1.000-US", INGEST_SLICES, {"modality": "US",
+                                    "series_description": "US PROSTATE"}),
+    2: ("1.000-US", INGEST_SLICES, {"modality": "US",
+                                    "series_description": "US PROSTATE"}),
+    3: ("4.000-3D", INGEST_SLICES, {"series_description": "T2 3D RENDERING"}),
+    4: ("4.000-3D", INGEST_SLICES, {"series_description": "T2 3D RENDERING"}),
+    5: ("6.000-t2 short", INGEST_SLICES - 1,
+        {"series_description": "t2_tse_tra"}),
+    6: ("6.000-t2 short", INGEST_SLICES - 1,
+        {"series_description": "t2_tse_tra"}),
+}
+
+
+def write_ingest_tree(root: str):
+    """The dataset's layout: INGEST_PATIENTS patients named
+    Prostate-MRI-US-Biopsy-00NN, each with one T2 series of INGEST_SLICES
+    slices of HW^2 uint16 from the seeded phantom generator (Z 1.5 mm
+    apart, pixels 0.664 mm), written by the port's write_dicom, and the
+    INGEST_DECOYS series.  Returns ({patient: uint16 volume}, [the series
+    folders clean removes])."""
+    from mrisr_tpu_torch.data.dicom_lite import write_dicom
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_volume
+
+    def series(folder, vol, pid, uid, **kw):
+        for z in range(vol.shape[0]):
+            write_dicom(os.path.join(folder, f"1-{z + 1:02d}.dcm"), vol[z],
+                        patient_id=pid, series_uid=uid,
+                        instance_number=z + 1,
+                        image_position=(0.0, 0.0, INGEST_Z_MM * z),
+                        pixel_spacing=(0.664, 0.664), **kw)
+
+    truth, removed = {}, []
+    for p in range(1, INGEST_PATIENTS + 1):
+        pid = f"Prostate-MRI-US-Biopsy-{p:04d}"
+        study = os.path.join(root, pid, "1.3.6.1-MRI PROSTATE")
+        vol = np.clip(np.rint(make_synthetic_volume(
+            INGEST_SLICES, HW, HW, seed=100 + p)), 0, 65535).astype(np.uint16)
+        truth[pid] = vol
+        series(os.path.join(study, "3.000-t2 ax"), vol, pid,
+               f"1.2.826.0.1.{p}.3", series_description="t2_tse_tra")
+        if p in INGEST_DECOYS:
+            name, n, fields = INGEST_DECOYS[p]
+            series(os.path.join(study, name), vol[:n], pid,
+                   f"1.2.826.0.1.{p}.9", **fields)
+            if n == INGEST_SLICES:
+                removed.append(os.path.join(study, name))
+    return truth, removed
+
+
+def ingest_phase(dev, card: str, teachers: str):
+    """DICOM ingest and export, comparison tables and figures at the size
+    of the real data's series (see the module docstring, item 12):
+    ``teachers`` holds phase 8's unet_combined_best.pt and phase 9's
+    deepcnn_best.pt and progressive_unet_best.pt.  Returns (launches,
+    results)."""
+    import csv
+    import zipfile
+
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.data import dicom_fast
+    from mrisr_tpu_torch.data.clean import scan_dataset
+    from mrisr_tpu_torch.data.dicom_lite import parse_dicom_bytes, read_dicom
+    from mrisr_tpu_torch.data.discovery import (
+        check_z_spacing, read_series_volume)
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.ops.ssim import ssim
+
+    results, walls, launches = {}, {}, {}
+    t_phase = time.perf_counter()
+
+    def timed(label, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[label] = walls.get(label, 0.0) + time.perf_counter() - t0
+        return out
+
+    def main_path(fn):
+        # the user's entry point with every count from 0 just before it
+        out, counts = count_launches(fn)
+        add_counts(launches, counts)
+        return out
+
+    def series_dirs(root):
+        return {d for d, _, files in os.walk(root)
+                if any(f.endswith(".dcm") for f in files)}
+
+    with tempfile.TemporaryDirectory() as work:
+        # --- 1. the tree, zipped as the download comes
+        tree = os.path.join(work, "tree", "Prostate-MRI-US-Biopsy")
+        truth, decoys = timed("write tree", lambda: write_ingest_tree(tree))
+        zpath = os.path.join(work, "Prostate-MRI-US-Biopsy.zip")
+
+        def zip_tree():
+            with zipfile.ZipFile(zpath, "w", zipfile.ZIP_DEFLATED,
+                                 compresslevel=1) as zf:
+                for d in sorted(series_dirs(tree)):
+                    for f in sorted(os.listdir(d)):
+                        full = os.path.join(d, f)
+                        zf.write(full, os.path.relpath(full, os.path.dirname(
+                            tree)))
+        timed("zip", zip_tree)
+        n_files = sum(len(os.listdir(d)) for d in series_dirs(tree))
+        shutil.rmtree(os.path.join(work, "tree"))
+        results["tree"] = {"patients": INGEST_PATIENTS, "files": n_files,
+                           "zip_mb": os.path.getsize(zpath) / 2 ** 20}
+        print(f"ingest tree: {INGEST_PATIENTS} patients x {INGEST_SLICES} x "
+              f"{HW}^2 uint16 + 6 decoy series = {n_files} files, zip "
+              f"{results['tree']['zip_mb']:.1f} MiB")
+
+        # --- 2. extract -> clean --dry-run -> clean --yes -> pack
+        out = os.path.join(work, "extracted")
+        root = os.path.join(out, "Prostate-MRI-US-Biopsy")
+        timed("cli extract", lambda: cli.main(["extract", zpath, out]))
+        before = series_dirs(root)
+        if len(before) != INGEST_PATIENTS + 6:
+            raise AssertionError(f"extract gave {len(before)} series")
+
+        # --- 3. the native scanner against the Python parser, every file
+        if not dicom_fast.available():
+            raise AssertionError("the native DICOM scanner did not build")
+        files = sorted(os.path.join(d, f) for d in before
+                       for f in os.listdir(d))
+        blobs = [open(f, "rb").read() for f in files]
+        for f, b in zip(files, blobs):
+            want = parse_dicom_bytes(b, pixels=False).fields
+            if dicom_fast.parse_dicom_bytes_fast(b, pixels=False).fields \
+                    != want:
+                raise AssertionError(f"native header of {f} differs")
+        rates = {}
+        for label, parse in (("python", parse_dicom_bytes),
+                             ("native", dicom_fast.parse_dicom_bytes_fast)):
+            best = float("inf")
+            for _ in range(SCAN_ROUNDS):
+                t0 = time.perf_counter()
+                for b in blobs:
+                    parse(b, pixels=False)
+                best = min(best, time.perf_counter() - t0)
+            rates[label] = len(blobs) / best
+        del blobs
+        results["header_scan_files_per_s"] = rates
+        print(f"header scan (host CPU, pixels=False, {len(files)} files in "
+              f"memory, best of {SCAN_ROUNDS}): python "
+              f"{rates['python']:.0f} files/s, native {rates['native']:.0f} "
+              f"files/s ({rates['native'] / rates['python']:.2f}x); the "
+              f"host's numbers, not the card's")
+
+        listed = scan_dataset(root)
+        if sorted(t.path for t in listed[0]) != sorted(
+                os.path.join(out, os.path.relpath(d, os.path.join(
+                    work, "tree"))) for d in decoys):
+            raise AssertionError(f"scan_dataset listed {listed[0]}")
+        timed("cli clean --dry-run",
+              lambda: cli.main(["clean", root, "--dry-run"]))
+        if series_dirs(root) != before:
+            raise AssertionError("clean --dry-run deleted a series")
+        timed("cli clean --yes", lambda: cli.main(["clean", root, "--yes"]))
+        removed = before - series_dirs(root)
+        if sorted(removed) != sorted(t.path for t in listed[0]):
+            raise AssertionError(f"clean removed {sorted(removed)}")
+        store_dir = os.path.join(work, "store")
+        timed("cli pack", lambda: cli.main(["pack", root, store_dir, "--slices",
+                                            str(INGEST_SLICES)]))
+        store = VolumeStore.open(store_dir)
+        if [e.patient_id for e in store.entries] != sorted(truth):
+            raise AssertionError(f"packed {[e.series_id for e in store.entries]}")
+        for k, e in enumerate(store.entries):
+            vol = store.load_series(k, mmap=False)
+            if vol.dtype != np.float32 or not np.array_equal(
+                    vol, truth[e.patient_id].astype(np.float32)):
+                raise AssertionError(f"{e.series_id}: packed volume differs")
+            z = check_z_spacing(os.path.join(root, e.series_id))
+            if z != INGEST_Z_MM:
+                raise AssertionError(f"{e.series_id}: Z spacing {z}")
+        print(f"ingest: clean removed {len(removed)} series (2 US, 2 3D "
+              f"rendering), pack kept {len(store)} of "
+              f"{len(before) - len(removed)} (the 2 {INGEST_SLICES - 1}-slice "
+              f"series left out), every volume bit-equal to its uint16 "
+              f"source, Z {INGEST_Z_MM} mm")
+
+        # --- 4. predict-volume --export-dicom: unet_combined plain and
+        # --hierarchical, the progressive UNet (window kind)
+        models_dir = os.path.join(work, "models")
+        os.makedirs(models_dir)
+        for name in INGEST_MODELS:
+            shutil.copy(os.path.join(teachers, f"{name}_best.pt"), models_dir)
+        results_dir = os.path.join(work, "results")
+        common = ["--data", store_dir, "--checkpoint-dir", models_dir,
+                  "--results-dir", results_dir, "--features", str(FEATURES),
+                  "--image-size", str(HW), "--batch-size", str(BATCH),
+                  "--device", str(dev)]
+        volume = {}
+        for model, flag in (("unet_combined", []),
+                            ("unet_combined", ["--hierarchical"]),
+                            ("progressive_unet", [])):
+            label = " ".join([model, *flag])
+            export = os.path.join(work, "export", label.replace(" ", ""))
+            res = timed(f"cli predict-volume {label}", lambda: main_path(
+                lambda: cli.main(["predict-volume", "--model", model,
+                                  *common, *flag, "--export-dicom",
+                                  export])))[model]
+            # K1's SSIM per slice against the plain SSIM of the same
+            # predictions (outside the counted run)
+            m = res["metrics"]
+            g = torch.from_numpy(m["orig_norm"]).to(dev)
+            q = torch.from_numpy(m["pred_norm"]).to(dev)
+            k1 = ssim(g, q, data_range=1.0)
+            plain = ssim(g, q, data_range=1.0, use_kernel=False)
+            diff = float((k1 - plain).abs().max())
+            mean_diff = abs(m["ssim_mean"] - float(plain.mean()))
+            if not (diff <= SSIM_ATOL and mean_diff <= SSIM_ATOL):
+                raise AssertionError(f"predict-volume {label}: K1 vs plain "
+                                     f"{diff} a slice, {mean_diff} the mean")
+            # the exported series, read back: the uint16 map, Z 1.5 mm
+            pred = res["volume_predicted"]
+            lo, hi = float(pred.min()), float(pred.max())
+            codes = ((pred - lo) * (65535.0 / (hi - lo + 1e-8))).astype(
+                np.uint16)
+            back = read_series_volume(os.path.join(export, model))
+            z = check_z_spacing(os.path.join(export, model))
+            head = read_dicom(os.path.join(export, model, "slice_000.dcm"),
+                              pixels=False)
+            if not (back is not None and np.array_equal(
+                    back, codes.astype(np.float32)) and z == INGEST_Z_MM
+                    and head.series_description == f"mrisr-tpu {model} "
+                                                   "predicted"):
+                raise AssertionError(f"predict-volume {label}: the exported "
+                                     f"series differs (Z {z})")
+            volume[label] = {
+                "ssim": m["ssim_mean"], "psnr": m["psnr_mean"],
+                "ssim_predicted_only": res["metrics_predicted_only"][
+                    "ssim_mean"], "k1_vs_plain_max": diff,
+                "slices": int(pred.shape[0]),
+                "predicted": len(res["predicted_indices"])}
+            print(f"predict-volume {label}: SSIM {m['ssim_mean']:.6f} over "
+                  f"{pred.shape[0]} slices ({len(res['predicted_indices'])} "
+                  f"predicted), K1 vs plain {diff:.2g} a slice; exported "
+                  f"{pred.shape[0]} slices equal to the uint16 map, Z "
+                  f"{z} mm")
+        results["predict_volume"] = volume
+
+        # --- 5. compare live, then eval each and compare --from-results
+        mcommon = [*common, "--max-batches", str(COMPARE_BATCHES)]
+        rows = timed("cli compare (live)", lambda: main_path(
+            lambda: cli.main(["compare", "--model", *INGEST_MODELS,
+                              *mcommon])))
+        for name in INGEST_MODELS:
+            timed("cli eval x3", lambda: main_path(lambda: cli.main(
+                ["eval", "--model", name, *mcommon])))
+        saved = timed("cli compare --from-results", lambda: cli.main(
+            ["compare", "--from-results", "--model", *INGEST_MODELS,
+             "--results-dir", results_dir]))
+        with open(os.path.join(results_dir, "comparison_metrics.csv")) as f:
+            table = list(csv.reader(f))
+        if [r[0] for r in rows] != list(INGEST_MODELS) or table[0][0] != \
+                "Model" or [r[0] for r in table[1:]] != list(INGEST_MODELS):
+            raise AssertionError(f"compare rows {rows}, csv {table}")
+        for live, kept, line in zip(rows, saved, table[1:]):
+            if not all(np.isfinite(v) for v in live[1:]) or any(
+                    abs(a - b) > 1e-5 or abs(float(c) - b) > 0
+                    for a, b, c in zip(live[1:], kept[1:], line[1:])):
+                raise AssertionError(f"compare {live} / from results {kept}"
+                                     f" / csv {line}")
+        results["compare"] = [list(r) for r in rows]
+        print("compare (live, " + f"{COMPARE_BATCHES} batches of {BATCH} a "
+              "spacing): " + "; ".join(
+                  f"{r[0]} SSIM {r[1]:.4f}/{r[3]:.4f} PSNR {r[2]:.2f}/"
+                  f"{r[4]:.2f} (3/6 mm)" for r in rows)
+              + "; --from-results rows within 1e-5, CSV equal")
+
+        # --- 6. figures: rendered where matplotlib imports, else refused
+        # naming it (tier-1 renders them on the CPU)
+        fig = os.path.join(work, "figures")
+        figure_runs = (
+            ["predict-volume", "--model", "unet_combined",
+             "progressive_unet", *common, "--figure",
+             os.path.join(fig, "views.png"), "--view", "sagittal"],
+            ["triplet-figure", "--model", "unet_combined", "deepcnn",
+             *common, "--figure", os.path.join(fig, "triplet.png")])
+        try:
+            import matplotlib  # noqa: F401
+            have_mpl = True
+        except ImportError:
+            have_mpl = False
+        for argv in figure_runs:
+            if have_mpl:
+                timed(f"cli {argv[0]} --figure", lambda: main_path(
+                    lambda: cli.main(argv)))
+                if not os.path.getsize(argv[argv.index("--figure") + 1]):
+                    raise AssertionError(f"{argv[0]}: empty figure")
+                continue
+            try:
+                cli.main(argv)
+            except ImportError as e:
+                if "matplotlib" not in str(e):
+                    raise
+            else:
+                raise AssertionError(f"{argv[0]} --figure ran without "
+                                     "matplotlib")
+            if os.path.exists(fig):
+                raise AssertionError(f"{argv[0]} wrote {os.listdir(fig)}")
+        results["figures"] = "rendered" if have_mpl else "held on the CPU"
+        print("figures: " + ("predict-volume --figure and triplet-figure "
+                             "rendered" if have_mpl else
+                             "matplotlib is not installed on this machine: "
+                             "predict-volume --figure and triplet-figure "
+                             "refuse with an ImportError naming it, and "
+                             "rendering is held on the CPU (tier-1)"))
+    walls["phase"] = time.perf_counter() - t_phase
+    results["wall_s"], results["launches"] = walls, launches
+    if launches.get("ssim", 0) <= 0:
+        raise AssertionError("ssim was not launched in phase 12")
+    print(f"ingest phase launches {launches}")
+    print("ingest wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                          for k, v in walls.items())
+          + f" ({card})")
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -3197,6 +3548,7 @@ def main() -> int:
         family_launches, family_result = families_phase(dev, card, teachers)
         bf16_launches, bf16_result = bf16_phase(dev, card)
         distill_launches, distill_result = distill_phase(dev, card, teachers)
+        ingest_launches, ingest_result = ingest_phase(dev, card, teachers)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -3213,12 +3565,13 @@ def main() -> int:
         libs = [r["library_ms"] for r in sel]
 
         def main_path(key):
-            # the serving, eval, diffusion, training, families, bf16 and
-            # distillation paths' runs, each counted from 0 just before it
+            # the serving, eval, diffusion, training, families, bf16,
+            # distillation and ingest paths' runs, each counted from 0 just
+            # before it
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
                 train_launches, family_launches, bf16_launches,
-                distill_launches))
+                distill_launches, ingest_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -3243,7 +3596,8 @@ def main() -> int:
                        "slice": slice_result, "eval": eval_result,
                        "diffusion": diff_result, "train": train_result,
                        "families": family_result, "bf16": bf16_result,
-                       "distill": distill_result, "kernels": kernels}, f,
+                       "distill": distill_result, "ingest": ingest_result,
+                       "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

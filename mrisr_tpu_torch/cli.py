@@ -1,9 +1,15 @@
 """Command-line interface of the port (counterpart: ``mrisr_tpu/cli.py``):
 
+  python -m mrisr_tpu_torch extract <zip> <out_dir>
+  python -m mrisr_tpu_torch clean <dataset_root> [--dry-run | --yes]
+  python -m mrisr_tpu_torch pack <dicom_root> <out_store> [--slices 60]
   python -m mrisr_tpu_torch synth <out_store> [--patients 8]
   python -m mrisr_tpu_torch train --preset unet_combined --data <store> [...]
   python -m mrisr_tpu_torch eval --model unet --data <store> [...]
-  python -m mrisr_tpu_torch predict-volume --model unet --data <store> [...]
+  python -m mrisr_tpu_torch predict-volume --model unet --data <store> \
+      [--figure f.png] [--export-dicom DIR] [...]
+  python -m mrisr_tpu_torch compare --model unet deepcnn ... [--from-results]
+  python -m mrisr_tpu_torch triplet-figure --model unet --data <store> [...]
   python -m mrisr_tpu_torch export-serving --model fastddpm \
       --quant int8_deep --data <store> --out <bundle> [...]
   python -m mrisr_tpu_torch distill --teacher unet --data <store> [...]
@@ -11,23 +17,29 @@
   python -m mrisr_tpu_torch serve --bundle <bundle> [--port 8000]
 
 The arguments are the JAX CLI's, plus ``--device`` (default: the card;
-``--device cpu`` runs the plain versions on the CPU).  ``train`` trains
-every family's preset: the pair UNets, DeepCNN, the Progressive UNet (on
-5-slice windows), the UNet-GAN and both Fast-DDPM lineages; ``distill``
-trains the ``unet_distilled`` student against a teacher checkpoint, and
-``distill-steps`` the Fast-DDPM's few-step students
+``--device cpu`` runs the plain versions on the CPU).  ``extract``,
+``clean`` and ``pack`` turn the Prostate-MRI-US-Biopsy download into a
+store with the port's own DICOM reader (``data/dicom_lite.py``, struct and
+numpy only, no pydicom; the native header scanner ``data/dicom_fast.py``
+when a C compiler is there).  ``predict-volume --export-dicom`` writes each
+model's predicted volume as a DICOM series with the same reader's writer,
+and ``--figure``, ``compare`` and ``triplet-figure`` draw and tabulate the
+comparisons (the figures need matplotlib and say so when it is missing).
+``train`` trains every family's preset: the pair UNets, DeepCNN, the
+Progressive UNet (on 5-slice windows), the UNet-GAN and both Fast-DDPM
+lineages; ``distill`` trains the ``unet_distilled`` student against a
+teacher checkpoint, and ``distill-steps`` the Fast-DDPM's few-step students
 (``<teacher>_steps<N>_best.pt`` + ``_grid.json``), which ``eval``,
 ``predict-volume`` and ``export-serving`` take as ``--model
-fastddpm_steps5``.  ``--bf16``
-sets ``train.compute_dtype='bfloat16'``, as the JAX CLI does: ``train``
-then builds its models in bf16 compute (float32 parameters, loss and
-optimizer); ``eval``, ``predict-volume`` and ``export-serving`` take the
-flag and run as without it, since only the trainers read the field.
-``export-serving`` writes pair UNets as int8_fused, int8 or none (bf16)
-bundles, and ``serve`` answers HTTP requests from a bundle.  The other
-commands, ``--figure``, ``--export-dicom`` and
-data/model-parallel training come with later slices and raise
-``NotImplementedError`` naming their ROADMAP item.
+fastddpm_steps5``.  ``--bf16`` sets ``train.compute_dtype='bfloat16'``, as
+the JAX CLI does: ``train`` then builds its models in bf16 compute (float32
+parameters, loss and optimizer); ``eval``, ``predict-volume`` and
+``export-serving`` take the flag and run as without it, since only the
+trainers read the field.  ``export-serving`` writes pair UNets as
+int8_fused, int8 or none (bf16) bundles, and ``serve`` answers HTTP
+requests from a bundle.  The JAX CLI's ``bench`` comes with the port's
+benchmark, and data/model-parallel training raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -43,8 +55,10 @@ import sys
 from mrisr_tpu_torch.config import PRESETS, Config
 
 
-def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True) -> None:
-    p.add_argument("--data", required=True, help="packed VolumeStore dir")
+def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True,
+                     data_required: bool = True) -> None:
+    p.add_argument("--data", required=data_required,
+                   help="packed VolumeStore dir")
     p.add_argument("--batch-size", type=int, default=None)
     # None = "not passed": the preset's value is kept
     p.add_argument("--image-size", type=int, default=None)
@@ -154,6 +168,45 @@ def cmd_synth(args) -> None:
         seed=args.seed,
     )
     print(f"packed {len(store)} synthetic series -> {args.out}")
+
+
+def cmd_extract(args) -> None:
+    from mrisr_tpu_torch.data.extract import extract_zip
+
+    ok, failed = extract_zip(args.zip, args.out, verbose=True)
+    print(f"extracted {ok} members, {failed} failed")
+
+
+def cmd_clean(args) -> None:
+    """Delete the dataset's ultrasound and 3D-rendering series
+    (``data/clean.py``): list them, then ask, unless ``--yes`` or
+    ``--dry-run``."""
+    from mrisr_tpu_torch.data.clean import clean_dataset, scan_dataset
+
+    to_delete, total = scan_dataset(args.root)
+    print(f"total series: {total}; to delete: {len(to_delete)}")
+    for item in to_delete[:5]:
+        print(f"  {item.patient}/{item.study}/{item.series}")
+    if len(to_delete) > 5:
+        print(f"  ... and {len(to_delete) - 5} more")
+    if args.dry_run:
+        print("dry run: nothing deleted")
+        return
+    if not args.yes:
+        answer = input("Proceed with DELETION? (yes/no): ").strip().lower()
+        if answer != "yes":
+            print("cancelled")
+            return
+    removed = clean_dataset(to_delete)
+    print(f"removed {removed} series; kept {total - removed}")
+
+
+def cmd_pack(args) -> None:
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+
+    store = VolumeStore.pack_dicom_tree(args.out, args.root,
+                                        require_slices=args.slices)
+    print(f"packed {len(store)} series -> {args.out}")
 
 
 def make_trainer(cfg: Config, steps_per_epoch: int, device):
@@ -383,43 +436,68 @@ def cmd_eval(args) -> None:
     print(json.dumps(metrics, indent=2))
 
 
-def cmd_predict_volume(args) -> None:
-    import numpy as np
-
-    from mrisr_tpu_torch.api import load_model
+def _test_volume(store, seed: int):
+    """V1: a seeded random series of the test split, and the seeded
+    ``random.Random`` that picked it (``triplet-figure`` draws on)."""
     from mrisr_tpu_torch.data.split import split_for
-    from mrisr_tpu_torch.data.volumes import VolumeStore
-    from mrisr_tpu_torch.eval.volume_eval import (
-        predict_volume,
-        predict_volume_hierarchical,
-    )
 
-    if args.figure or args.export_dicom:
-        raise NotImplementedError(
-            "--figure and --export-dicom are not ported yet: they need "
-            "matplotlib and pydicom (ROADMAP.md, Queue 1 item 10 and the "
-            "DICOM item)")
-    cfg = _build_config(args, "unet")
-    store = VolumeStore.open(args.data)
-    # V1 semantics: a (seeded) random valid test-set volume
     candidates = store.series_for_patients(
         split_for(store.patient_ids, "test"))
-    random.Random(args.seed).shuffle(candidates)
+    rng = random.Random(seed)
+    rng.shuffle(candidates)
     if not candidates:
         print("no test-set series found", file=sys.stderr)
         sys.exit(1)
-    volume = np.asarray(store.load_series(candidates[0]))
+    return store.load_series(candidates[0]), rng
+
+
+def _load_for(args, name: str):
+    """``name``'s model and config: its own preset's (unet_distilled's
+    width, fastddpm's schedule) with the flags that were passed."""
+    from mrisr_tpu_torch.api import load_model
+
+    cfg = _build_config(args, _preset_for(name))
+    return load_model(name, models_dir=args.checkpoint_dir, cfg=cfg.model,
+                      device=args.device,
+                      checkpoint=None if args.allow_fresh else "required"
+                      ), cfg
+
+
+def cmd_predict_volume(args) -> dict:
+    """Predict a seeded test-split volume with each ``--model`` (a window
+    model through ``predict_volume_progressive``, a pair model through
+    ``predict_volume`` or, with ``--hierarchical``, the cascade), print its
+    metrics, and optionally export each prediction as a DICOM series
+    (``DIR/<model>/``) and draw the comparison figure.  Returns the results
+    by model."""
+    import numpy as np
+
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.eval import figures
+    from mrisr_tpu_torch.eval.volume_eval import (
+        predict_volume,
+        predict_volume_hierarchical,
+        predict_volume_progressive,
+    )
+
+    if args.figure:
+        figures.pyplot()  # before the predictions: no matplotlib, no run
+    cfg = _build_config(args, "unet")
+    volume = np.asarray(_test_volume(VolumeStore.open(args.data),
+                                     args.seed)[0])
     hw = cfg.data.image_size
+    results = {}
     for name in args.model:
-        # per-model config: unet_distilled's width lives in its preset
-        mcfg = _build_config(args, _preset_for(name)).model
-        model = load_model(name, models_dir=args.checkpoint_dir, cfg=mcfg,
-                           device=args.device,
-                           checkpoint=None if args.allow_fresh else "required")
-        predict = (predict_volume_hierarchical if args.hierarchical
-                   else predict_volume)
+        model, _ = _load_for(args, name)
+        if model.kind == "window":
+            predict = predict_volume_progressive
+        elif args.hierarchical:
+            predict = predict_volume_hierarchical
+        else:
+            predict = predict_volume
         res = predict(model.predict_nhwc, volume, image_size=hw,
                       device=model.device)
+        results[name] = res
         m = res["metrics"]
         print(
             f"{name}: SSIM {m['ssim_mean']:.4f}±{m['ssim_std']:.3f} "
@@ -430,6 +508,157 @@ def cmd_predict_volume(args) -> None:
             f"  predicted slices only: SSIM {mp['ssim_mean']:.4f} "
             f"PSNR {mp['psnr_mean']:.2f} MAE {mp['mae']:.4f}"
         )
+        if args.export_dicom:
+            from mrisr_tpu_torch.data.export import export_volume_dicom
+
+            out_dir = export_volume_dicom(
+                res["volume_predicted"],
+                os.path.join(args.export_dicom, name),
+                patient_id=f"seed{args.seed}",
+                series_description=f"mrisr-tpu {name} predicted",
+            )
+            print(f"  DICOM series -> {out_dir}")
+    if args.figure:
+        if args.view == "parallel":
+            path = figures.parallel_views_figure(
+                results, f"seed{args.seed}", save_path=args.figure,
+                sagittal_x=hw[1] // 2)
+        else:
+            # V8 single-view comparison (reference defaults X=128 / Z=30,
+            # VolumeVisualization.py:1042-1271)
+            path = figures.single_view_figure(
+                results, view=args.view, index=args.view_index,
+                patient_name=f"seed{args.seed}", save_path=args.figure)
+        print(f"figure -> {path}")
+    return results
+
+
+def _compare_row_from_metrics(name: str, m: dict):
+    """One model's test-metrics dict -> a (name, ssim3, psnr3, ssim6,
+    psnr6) table row.  Pair and diffusion models carry '3mm'/'6mm' keys;
+    the progressive model carries per-stage 'i1'/'i2'/'i3': i1 and i3
+    predict across 3 mm gaps and i2 across 6 mm, the mapping of the
+    reference README's Progressive row (`reference/README.md:129`).
+    Missing stages or keys render as 'n/a' cells: ``--from-results``
+    reads files written elsewhere."""
+    def g(stage, key):
+        v = m.get(stage)
+        return v.get(key) if isinstance(v, dict) else None
+
+    def avg(a, b):
+        return (a + b) / 2 if a is not None and b is not None else None
+
+    if "i1" in m and "i2" in m:
+        return (name,
+                avg(g("i1", "ssim_mean"), g("i3", "ssim_mean")),
+                avg(g("i1", "psnr_mean"), g("i3", "psnr_mean")),
+                g("i2", "ssim_mean"), g("i2", "psnr_mean"))
+    return (name,
+            g("3mm", "ssim_mean"), g("3mm", "psnr_mean"),
+            g("6mm", "ssim_mean"), g("6mm", "psnr_mean"))
+
+
+def cmd_compare(args) -> list:
+    """Evaluate several models on the test split and print the README-style
+    table (SSIM/PSNR per spacing, never aggregated) as markdown, and write
+    it to ``<results_dir>/comparison_metrics.csv``.  ``--from-results``
+    builds the table from the ``<model>_test_metrics.json`` files that
+    ``eval`` writes instead of evaluating.  Returns the rows."""
+    if args.from_results:
+        rows = []
+        results_dir = args.results_dir or "results"
+        for name in args.model:
+            path = os.path.join(results_dir, f"{name}_test_metrics.json")
+            if not os.path.exists(path):
+                print(f"skipping {name}: no {path}")
+                continue
+            with open(path) as f:
+                rows.append(_compare_row_from_metrics(name, json.load(f)))
+        _emit_compare_table(args, rows)
+        return rows
+    if not args.data:
+        raise SystemExit("compare: --data is required unless --from-results")
+
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.eval.runner import (
+        evaluate_pair_model_test_set,
+        evaluate_progressive_test_set,
+    )
+
+    store = VolumeStore.open(args.data)
+    rows = []
+    for name in args.model:
+        model, cfg = _load_for(args, name)
+        evaluate = (evaluate_progressive_test_set if model.kind == "window"
+                    else evaluate_pair_model_test_set)
+        m = evaluate(model.predict_nhwc, store, cfg.data,
+                     mode=args.metric_mode, max_batches=args.max_batches,
+                     backend=args.backend, device=model.device)
+        rows.append(_compare_row_from_metrics(name, m))
+    _emit_compare_table(args, rows)
+    return rows
+
+
+def _emit_compare_table(args, rows) -> None:
+    import csv
+
+    header = ("Model", "SSIM (3mm)", "PSNR (3mm)", "SSIM (6mm)", "PSNR (6mm)")
+    print("| " + " | ".join(header) + " |")
+    print("|" + "---|" * len(header))
+    for r in rows:
+        cells = [r[0]] + [
+            ("n/a" if v is None else (f"{v:.4f}" if i in (0, 2) else f"{v:.2f}"))
+            for i, v in enumerate(r[1:])
+        ]
+        print("| " + " | ".join(cells) + " |")
+    results_dir = args.results_dir or "results"
+    os.makedirs(results_dir, exist_ok=True)
+    csv_path = os.path.join(results_dir, "comparison_metrics.csv")
+    with open(csv_path, "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(header)
+        w.writerows(rows)
+    print(f"csv -> {csv_path}")
+
+
+def cmd_triplet_figure(args) -> dict:
+    """V10: one seeded mid-volume triplet of a test-split volume, predicted
+    by each pair model and drawn as PRE / POST / GT / predictions
+    (`reference/src/VolumeVisualization.py:737-881`).  Returns the
+    predictions by model."""
+    import numpy as np
+    import torch
+
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.eval import figures
+    from mrisr_tpu_torch.eval.volume_eval import normalize_volume
+
+    figures.pyplot()  # before the predictions: no matplotlib, no run
+    volume, rng = _test_volume(VolumeStore.open(args.data), args.seed)
+    vol = normalize_volume(np.asarray(volume))
+    z = vol.shape[0]
+    if z < 7:
+        print(f"volume has only {z} slices; need >= 7 for a mid-volume "
+              "triplet", file=sys.stderr)
+        sys.exit(1)
+    # a seeded mid-volume triplet (the reference picks a random central one)
+    i = rng.randrange(z // 4, 3 * z // 4 - 2)
+    pre, gt, post = vol[i], vol[i + 1], vol[i + 2]
+    preds = {}
+    for name in args.model:
+        model, _ = _load_for(args, name)
+        if model.kind == "window":
+            # the V10 grid is per triplet (2 in, 1 out); the reference's
+            # figure has no progressive column either
+            print(f"(skipping {name}: 5-slice-window models have no "
+                  "single-triplet prediction)")
+            continue
+        x = torch.from_numpy(np.stack([pre, post], axis=-1)[None])
+        preds[name] = model.predict_nhwc(x)[0, ..., 0].cpu().numpy()
+    path = figures.triplet_grid_figure(pre, post, gt, preds,
+                                       save_path=args.figure)
+    print(f"figure -> {path}")
+    return preds
 
 
 def cmd_export_serving(args) -> None:
@@ -482,6 +711,23 @@ def cmd_serve(args) -> None:
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(prog="mrisr_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    q = sub.add_parser("extract")
+    q.add_argument("zip")
+    q.add_argument("out")
+    q.set_defaults(fn=cmd_extract)
+
+    q = sub.add_parser("clean")
+    q.add_argument("root")
+    q.add_argument("--yes", action="store_true")
+    q.add_argument("--dry-run", action="store_true")
+    q.set_defaults(fn=cmd_clean)
+
+    q = sub.add_parser("pack")
+    q.add_argument("root")
+    q.add_argument("out")
+    q.add_argument("--slices", type=int, default=60)
+    q.set_defaults(fn=cmd_pack)
 
     q = sub.add_parser("synth")
     q.add_argument("out")
@@ -581,11 +827,39 @@ def main(argv=None) -> None:
     q.add_argument("--seed", type=int, default=42)
     q.add_argument("--hierarchical", action="store_true")
     q.add_argument("--figure", default=None,
-                   help="not ported yet (needs matplotlib): raises")
+                   help="draw the comparison figure here (needs "
+                        "matplotlib)")
+    q.add_argument("--view", default="parallel",
+                   choices=("parallel", "sagittal", "axial"),
+                   help="figure layout: 3-row parallel views (V7) or the "
+                        "V8 single-view all-models row")
+    q.add_argument("--view-index", type=int, default=None,
+                   help="sagittal X / axial Z index (default: mid-volume; "
+                        "reference used X=128 / Z=30)")
     q.add_argument("--export-dicom", default=None, metavar="DIR",
-                   help="not ported yet (needs pydicom): raises")
+                   help="also write each model's predicted volume as a "
+                        "DICOM series under DIR/<model>/ (data/export.py)")
     _add_common_args(q)
     q.set_defaults(fn=cmd_predict_volume)
+
+    q = sub.add_parser("compare")
+    q.add_argument("--model", nargs="+", required=True)
+    q.add_argument("--metric-mode", default="minmax-each",
+                   choices=("minmax-each", "denorm-11", "raw"))
+    q.add_argument("--max-batches", type=int, default=None)
+    q.add_argument("--from-results", action="store_true",
+                   help="assemble the table from existing "
+                        "<results_dir>/<model>_test_metrics.json artifacts "
+                        "instead of evaluating live (no --data needed)")
+    _add_common_args(q, data_required=False)
+    q.set_defaults(fn=cmd_compare)
+
+    q = sub.add_parser("triplet-figure")
+    q.add_argument("--model", nargs="+", required=True)
+    q.add_argument("--seed", type=int, default=42)
+    q.add_argument("--figure", default="results/single_triplet.png")
+    _add_common_args(q)
+    q.set_defaults(fn=cmd_triplet_figure)
 
     q = sub.add_parser("export-serving")
     q.add_argument("--model", default="unet")

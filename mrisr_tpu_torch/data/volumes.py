@@ -87,13 +87,34 @@ class VolumeStore:
         require_slices: Optional[int] = 60,
         patient_prefix: str = "Prostate-MRI-US-Biopsy-",
     ) -> "VolumeStore":
-        """Pack from a raw DICOM tree using the 60-slice discovery rule
-        (``mrisr_tpu/data/volumes.py:pack_dicom_tree``).  Not ported yet:
-        it needs ``data/discovery.py`` and a DICOM reader."""
-        raise NotImplementedError(
-            "packing a DICOM tree is not ported yet (ROADMAP.md, Queue 1: "
-            "DICOM discovery and export); pack the store with mrisr_tpu, "
-            "whose stores the port opens as they are")
+        """Pack from a raw DICOM tree using the 60-slice discovery rule.
+
+        Mirrors ``load_correct_study`` + ``load_patient_volume``
+        (`reference/src/ModelDataGenerator.py:15-61`); the manifest and
+        volumes equal the JAX package's for the same tree.
+        """
+        from mrisr_tpu_torch.data.discovery import (
+            discover_series,
+            read_series_volume,
+        )
+
+        def gen():
+            patients = sorted(
+                d
+                for d in os.listdir(dicom_root)
+                if d.startswith(patient_prefix)
+                and os.path.isdir(os.path.join(dicom_root, d))
+            )
+            for pid in patients:
+                folders = discover_series(
+                    os.path.join(dicom_root, pid), require_slices=require_slices
+                )
+                for folder in folders:
+                    vol = read_series_volume(folder)
+                    if vol is not None and vol.shape[0] >= 3:
+                        yield pid, os.path.relpath(folder, dicom_root), vol
+
+        return VolumeStore.pack(out_dir, gen(), meta={"source": dicom_root})
 
     # ------------------------------------------------------------------ open
     @staticmethod

@@ -190,12 +190,21 @@ def test_cli_predict_volume_matches_jax(workdir, capsys, hierarchical):
 
 
 def test_cli_unported_flags_raise(workdir):
-    """``--figure`` still raises (ROADMAP item 10); ``eval --bf16`` runs
-    and writes the metrics ``eval`` writes without the flag, as in the JAX
-    CLI, where only the trainers read ``compute_dtype``."""
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        cli.main(["predict-volume", *common(workdir, "r"), "--device", "cpu",
-                  "--figure", str(workdir / "f.png")])
+    """``--figure`` (once refused, ROADMAP item 10) renders the comparison
+    figure and ``--export-dicom`` writes each model's predicted series;
+    ``eval --bf16`` runs and writes the metrics ``eval`` writes without the
+    flag, as in the JAX CLI, where only the trainers read
+    ``compute_dtype``."""
+    import matplotlib.image as mpimg
+
+    from mrisr_tpu_torch.data.discovery import check_z_spacing, count_slices
+
+    png, dcm = workdir / "f.png", workdir / "flags_dicom"
+    cli.main(["predict-volume", *common(workdir, "r"), "--device", "cpu",
+              "--figure", str(png), "--export-dicom", str(dcm)])
+    assert mpimg.imread(str(png)).shape[0] > 100
+    assert count_slices(str(dcm / "unet")) == 8
+    assert check_z_spacing(str(dcm / "unet")) == pytest.approx(1.5)
     metrics = {}
     for flag in ([], ["--bf16"]):
         results = "bf16_on" if flag else "bf16_off"
@@ -487,3 +496,254 @@ def test_cli_distill_steps_eval_export_serve(workdir, capsys, monkeypatch):
     out = capsys.readouterr().out
     assert "shutting down" in out
     assert answers[0].shape == (HW, HW, 1) and np.isfinite(answers[0]).all()
+
+
+# ---------------------------------------------------------------- slice 10:
+# DICOM ingest and export, compare, triplet-figure, progressive
+# predict-volume
+
+
+def write_dicom_tree(root, n_patients=3, slices=8, hw=HW):
+    """The dataset's layout at test size: one T2 series a patient, written
+    by the port's writer from seeded arrays, plus decoys (an ultrasound and
+    a 3D-rendering series, and a series one slice short)."""
+    from mrisr_tpu_torch.data.dicom_lite import write_dicom
+
+    rng = np.random.default_rng(11)
+    truth = {}
+
+    def series(folder, n, **kw):
+        vols = (rng.random((n, hw, hw)) * 3000).astype(np.uint16)
+        for z in range(n):
+            write_dicom(str(folder / f"1-{z + 1:02d}.dcm"), vols[z],
+                        instance_number=z + 1,
+                        image_position=(0.0, 0.0, 1.5 * z), **kw)
+        return vols
+
+    for p in range(1, n_patients + 1):
+        pid = f"Prostate-MRI-US-Biopsy-{p:04d}"
+        study = root / pid / "1.3.6.1-MRI PROSTATE"
+        truth[pid] = series(study / "3.000-t2 ax", slices,
+                            series_description="t2 ax", patient_id=pid)
+    series(root / "Prostate-MRI-US-Biopsy-0001" / "us" / "1.0-US", slices,
+           modality="US")
+    series(root / "Prostate-MRI-US-Biopsy-0002" / "s" / "9.0-3D", slices,
+           series_description="T2 3D RENDERING")
+    series(root / "Prostate-MRI-US-Biopsy-0003" / "s" / "5.0-short",
+           slices - 1)
+    return truth
+
+
+def test_cli_extract_clean_pack_matches_jax(tmp_path, capsys, monkeypatch):
+    """extract -> clean (--dry-run, a declined prompt, --yes) -> pack on a
+    zipped DICOM tree: the same messages and the same store (manifest but
+    its source path, volumes bit for bit) as the JAX CLI's, each packed
+    volume equal to the array written."""
+    import zipfile
+
+    tree = tmp_path / "tree"
+    truth = write_dicom_tree(tree / "Prostate-MRI-US-Biopsy")
+    zpath = tmp_path / "dataset.zip"
+    with zipfile.ZipFile(zpath, "w") as zf:
+        for f in sorted(tree.rglob("*.dcm")):
+            zf.write(f, f.relative_to(tree))
+    outs = {}
+    for who, main in (("port", cli.main), ("jax", jax_cli.main)):
+        out = tmp_path / who
+        main(["extract", str(zpath), str(out)])
+        root = str(out / "Prostate-MRI-US-Biopsy")
+        main(["clean", root, "--dry-run"])
+        monkeypatch.setattr("builtins.input", lambda prompt: "no")
+        main(["clean", root])
+        main(["clean", root, "--yes"])
+        main(["pack", root, str(out / "store"), "--slices", "8"])
+        outs[who] = capsys.readouterr().out.replace(str(out), "<out>")
+    assert outs["port"] == outs["jax"]
+    assert "extracted 47 members, 0 failed" in outs["port"]
+    assert "total series: 6; to delete: 2" in outs["port"]
+    assert "dry run: nothing deleted" in outs["port"]
+    assert "cancelled" in outs["port"]
+    assert "removed 2 series; kept 4" in outs["port"]
+    assert "packed 3 series" in outs["port"]
+    got = json.loads((tmp_path / "port" / "store" / "manifest.json")
+                     .read_text())
+    want = json.loads((tmp_path / "jax" / "store" / "manifest.json")
+                      .read_text())
+    assert got["meta"]["source"] != want["meta"]["source"]
+    got["meta"] = want["meta"] = None
+    assert got == want
+    for e in got["series"]:
+        port_npy = tmp_path / "port" / "store" / e["file"]
+        assert port_npy.read_bytes() == (
+            tmp_path / "jax" / "store" / e["file"]).read_bytes()
+        np.testing.assert_array_equal(
+            np.load(port_npy), truth[e["patient_id"]].astype(np.float32))
+
+
+def test_cli_predict_volume_export_dicom_matches_jax(workdir, capsys):
+    """predict-volume --export-dicom from the same checkpoint: each exported
+    voxel within one uint16 code of the JAX CLI's, the same headers, Z
+    1.5 mm apart."""
+    from mrisr_tpu_torch.data.dicom_lite import read_dicom
+    from mrisr_tpu_torch.data.discovery import (
+        check_z_spacing,
+        read_series_volume,
+    )
+
+    args = ["predict-volume", *common(workdir, "r")]
+    jax_cli.main([*args, "--export-dicom", str(workdir / "jax_dicom")])
+    want_out = capsys.readouterr().out
+    results = cli.main([*args, "--export-dicom", str(workdir / "dicom"),
+                        "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.replace(str(workdir / "dicom"), "D").splitlines()[2] == \
+        want_out.replace(str(workdir / "jax_dicom"), "D").splitlines()[2]
+    got_dir, want_dir = workdir / "dicom" / "unet", workdir / "jax_dicom" / "unet"
+    got = read_series_volume(str(got_dir))
+    want = read_series_volume(str(want_dir))
+    assert got.shape == want.shape == (8, HW, HW)
+    assert np.abs(got - want).max() <= 1
+    # the uint16 map of the prediction the command returned
+    vol = results["unet"]["volume_predicted"]
+    lo, hi = float(vol.min()), float(vol.max())
+    codes = ((vol - lo) * (65535.0 / (hi - lo + 1e-8))).astype(np.uint16)
+    np.testing.assert_array_equal(got, codes.astype(np.float32))
+    assert check_z_spacing(str(got_dir)) == pytest.approx(1.5)
+    for f in sorted(os.listdir(got_dir)):
+        h = read_dicom(str(got_dir / f), pixels=False).fields
+        assert h == read_dicom(str(want_dir / f), pixels=False).fields
+        assert h["SeriesDescription"] == "mrisr-tpu unet predicted"
+
+
+@pytest.fixture(scope="module")
+def family_models(workdir):
+    """Seeded checkpoints of a pair UNet, DeepCNN and the Progressive UNet
+    in the reference's layout, which both packages load."""
+    from mrisr_tpu_torch.models.registry import init_model
+
+    models = workdir / "family_models"
+    models.mkdir()
+    write_checkpoint(str(models / "unet_best.pt"), "unet",
+                     "model_state_dict", seed=5)
+    for seed, name in enumerate(("deepcnn", "progressive_unet")):
+        module, _ = init_model(name, ModelConfig(name=name, base_features=F),
+                               seed=seed + 1)
+        torch.save(reference_checkpoint(module, name),
+                   models / f"{name}_best.pt")
+    return models
+
+
+def family_args(workdir, family_models, results="family_results"):
+    return ["--data", str(workdir / "store"), "--image-size", str(HW),
+            "--features", str(F), "--batch-size", "4", "--checkpoint-dir",
+            str(family_models), "--results-dir", str(workdir / results)]
+
+
+def test_cli_predict_volume_progressive_matches_jax(workdir, family_models,
+                                                    monkeypatch):
+    """predict-volume routes the window model through
+    predict_volume_progressive, as the JAX CLI does: the metrics within
+    1e-4 of the JAX CLI's from the same checkpoint."""
+    from mrisr_tpu.eval import volume_eval as jax_volume_eval
+
+    seen = {}
+    real = jax_volume_eval.predict_volume_progressive
+
+    def keep(*a, **kw):
+        seen["res"] = real(*a, **kw)
+        return seen["res"]
+
+    monkeypatch.setattr(jax_volume_eval, "predict_volume_progressive", keep)
+    args = ["predict-volume", "--model", "progressive_unet",
+            *family_args(workdir, family_models)]
+    jax_cli.main(args)
+    got = cli.main([*args, "--device", "cpu"])["progressive_unet"]
+    want = seen["res"]
+    assert got["predicted_indices"] == [int(i) for i in
+                                        want["predicted_indices"]]
+    for k, v in want["metrics"].items():  # PSNR inf where a slice is kept
+        np.testing.assert_allclose(got["metrics"][k], v, atol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["volume_predicted"],
+                               np.asarray(want["volume_predicted"]),
+                               atol=1e-4)
+
+
+def test_cli_triplet_figure_matches_jax(workdir, family_models, capsys,
+                                        monkeypatch):
+    """triplet-figure: the same seeded triplet, each pair model's
+    prediction within 1e-4 of the JAX CLI's, the window model skipped, the
+    figure written."""
+    import matplotlib.image as mpimg
+
+    from mrisr_tpu.eval import figures as jax_figures
+
+    seen = {}
+    monkeypatch.setattr(jax_figures, "triplet_grid_figure",
+                        lambda pre, post, gt, preds, save_path: seen.update(
+                            preds=preds, pre=pre, gt=gt))
+    args = ["triplet-figure", "--model", "unet", "deepcnn",
+            "progressive_unet", "--seed", "3",
+            *family_args(workdir, family_models)]
+    jax_cli.main([*args, "--figure", str(workdir / "jax_t.png")])
+    png = workdir / "t.png"
+    got = cli.main([*args, "--figure", str(png), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert out.count("skipping progressive_unet") == 2
+    assert set(got) == set(seen["preds"]) == {"unet", "deepcnn"}
+    for name, pred in got.items():
+        assert pred.shape == (HW, HW)
+        np.testing.assert_allclose(pred, np.asarray(seen["preds"][name]),
+                                   atol=1e-4)
+    assert mpimg.imread(str(png)).shape[0] > 100
+
+
+def test_cli_compare_matches_jax(workdir, family_models, capsys):
+    """compare, live (two batches a spacing) on a pair UNet, DeepCNN and
+    the Progressive UNet: the rows within 1e-4 of the JAX CLI's (PSNR
+    relative); then --from-results, given the same metric files (with a
+    partial one and a missing one), prints the same text and writes the
+    same CSV bytes."""
+    import csv
+
+    args = ["compare", "--model", "unet", "deepcnn", "progressive_unet",
+            "--max-batches", "2", *family_args(workdir, family_models)]
+    jax_cli.main([*args[:-1], str(workdir / "jax_compare")])
+    want_out = capsys.readouterr().out
+    rows = cli.main([*args, "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert [r[0] for r in rows] == ["unet", "deepcnn", "progressive_unet"]
+    with open(workdir / "jax_compare" / "comparison_metrics.csv") as f:
+        want_rows = list(csv.reader(f))[1:]
+    for r, w in zip(rows, want_rows):
+        assert r[0] == w[0]
+        for i in (1, 3):  # SSIM
+            assert r[i] == pytest.approx(float(w[i]), abs=1e-4), (r, w)
+        for i in (2, 4):  # PSNR, dB
+            assert r[i] == pytest.approx(float(w[i]), rel=1e-4), (r, w)
+    assert out.splitlines()[:2] == want_out.splitlines()[:2]
+
+    results = workdir / "from_results"
+    results.mkdir()
+    m = lambda s, p: {"ssim_mean": s, "psnr_mean": p}  # noqa: E731
+    files = {"unet": {"3mm": m(0.81234, 29.876), "6mm": m(0.7012, 27.5)},
+             "progressive_unet": {"i1": m(0.8, 30.0), "i2": m(0.7, 28.0),
+                                  "i3": m(0.9, 31.0)},
+             "partial": {"3mm": m(0.5, 20.0), "i1": m(0.1, 1.0)}}
+    for name, metrics in files.items():
+        (results / f"{name}_test_metrics.json").write_text(json.dumps(metrics))
+    texts, csvs = [], []
+    for main in (jax_cli.main, cli.main):
+        main(["compare", "--from-results", "--model", "unet",
+              "progressive_unet", "partial", "missing", "--results-dir",
+              str(results)])
+        texts.append(capsys.readouterr().out)
+        csvs.append((results / "comparison_metrics.csv").read_bytes())
+    assert texts[0] == texts[1] and csvs[0] == csvs[1]
+    assert "| unet | 0.8123 | 29.88 | 0.7012 | 27.50 |" in texts[1]
+    assert "| progressive_unet | 0.8500 | 30.50 | 0.7000 | 28.00 |" in \
+        texts[1]
+    assert "| partial | 0.5000 | 20.00 | n/a | n/a |" in texts[1]
+    assert "skipping missing" in texts[1]
+    with pytest.raises(SystemExit, match="--data"):
+        cli.main(["compare", "--model", "unet"])

@@ -51,6 +51,11 @@ def test_import_with_jax_blocked():
         "import mrisr_tpu_torch.serve.distill, mrisr_tpu_torch.serve.prune\n"
         "import mrisr_tpu_torch.serve.distill_diffusion\n"
         "import mrisr_tpu_torch.serve.http\n"
+        "import mrisr_tpu_torch.data.dicom_lite, mrisr_tpu_torch.data.dicom_fast\n"
+        "import mrisr_tpu_torch.data.discovery, mrisr_tpu_torch.data.clean\n"
+        "import mrisr_tpu_torch.data.extract, mrisr_tpu_torch.data.export\n"
+        "import mrisr_tpu_torch.eval.figures, mrisr_tpu_torch.utils\n"
+        "assert 'matplotlib' not in sys.modules\n"
         "from mrisr_tpu_torch.data.split import split_for\n"
         "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
         "assert not any(m == 'mrisr_tpu' or m.startswith('mrisr_tpu.')\n"
@@ -234,3 +239,33 @@ def test_distill_entry_points_raise_without_cuda(no_cuda, tmp_path):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert not (tmp_path / "m").exists()
+
+
+def test_ingest_and_compare_entry_points(no_cuda, tmp_path, capsys):
+    """The DICOM commands run on the host and need no card; predict-volume
+    (with --export-dicom), compare and triplet-figure default to the card
+    and refuse without one, writing nothing."""
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.data.dicom_lite import write_dicom
+    from mrisr_tpu_torch.data.synthetic import make_synthetic_store
+
+    series = tmp_path / "dicom" / "Prostate-MRI-US-Biopsy-0001" / "s" / "t2"
+    for z in range(3):
+        write_dicom(str(series / f"{z}.dcm"), np.full((4, 4), z, np.uint16))
+    cli.main(["clean", str(tmp_path / "dicom"), "--yes"])
+    cli.main(["pack", str(tmp_path / "dicom"), str(tmp_path / "p"),
+              "--slices", "3"])
+    assert "packed 1 series" in capsys.readouterr().out
+    store = make_synthetic_store(str(tmp_path / "s"), num_patients=8,
+                                 slices_per_volume=8, height=16, width=16)
+    common = ["--model", "unet", "--data", store.root, "--allow-fresh",
+              "--features", "4", "--image-size", "16", "--checkpoint-dir",
+              str(tmp_path / "m"), "--results-dir", str(tmp_path / "r")]
+    for argv in (
+        ["predict-volume", *common, "--export-dicom", str(tmp_path / "d")],
+        ["compare", *common],
+        ["triplet-figure", *common, "--figure", str(tmp_path / "t.png")],
+    ):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(argv)
+    assert not any((tmp_path / n).exists() for n in ("d", "r", "t.png"))
