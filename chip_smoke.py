@@ -189,6 +189,27 @@
    the CSV equal.  predict-volume --figure and triplet-figure render where
    matplotlib imports, and otherwise must refuse with an ImportError
    naming it.  K1 must have been launched; the phase's wall by step.
+13. Parallel phase, data parallelism (``parallel/mesh.py``), from phase
+   8's trained unet_combined and phase 9's trained fastddpm, on an 8 x 8 x
+   256^2 store.  (a) One float32 unet_combined step at full width (31,042,945
+   parameters), global batch 4, augmentation off, by two ranks sharing the
+   card over gloo (this script with --dp-rank, 2 rows each, cross-rank
+   BatchNorm, one gradient all-reduce) against the single-process step on
+   the card: loss rel 1e-4, BN running statistics 1e-4, each gradient
+   rel-L2 1e-3 or 10x the single step's own float32 error against float64
+   on the CPU (phase 8's bounds), both ranks reporting the same loss.
+   (b) The same for one float32 distill step (half-width student, the
+   int8_fused teacher on each rank's rows: A 19 and B 4 launches a rank,
+   on their paths).  (c) python -m torch.distributed.run --standalone
+   --nproc-per-node 1 -m mrisr_tpu_torch train --mesh-data 1 --epochs 1
+   writes one checkpoint set; --mesh-data 2 exits non-zero with the JAX
+   CLI's "requests 2x1 devices but only 1 is visible".  (d) The int8_fused
+   pair bundle served with data_parallel=True (every visible card) and with
+   two replicas on the card: bit-identical with the plain engine, A and B
+   on their paths; the int8_deep Fast-DDPM bundle over two replicas
+   (global noise draws) within rel-RMSE 0.35 of the bf16 sampler, its max
+   difference from the single engine printed.  The phase's wall by step
+   (two ranks on one card: not a scaling number).
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -3499,6 +3520,445 @@ def ingest_phase(dev, card: str, teachers: str):
     return launches, results
 
 
+# phase 13: data parallelism.  Two ranks share the one card over gloo
+# (NCCL refuses two ranks on one card), each on its half of the global
+# batch; the single-process step on the card is the reference.
+DP_RANKS = 2
+DP_BATCH = 4       # the unet_combined preset's batch: 2 rows a rank
+DP_PATIENTS, DP_SLICES = 8, 8
+DP_REQUESTS = 16   # served at batch 8
+DP_TIMEOUT = 600   # seconds for the rank pair
+
+
+def dp_rank_main(rank: int, port: int, in_path: str, out_dir: str) -> None:
+    """One rank of phase 13's pair (``chip_smoke.py --dp-rank``): the
+    unet_combined step and the distill step on this rank's rows, with the
+    kernels' launch counts of each."""
+    sys.path.insert(0, ROOT)
+    from mrisr_tpu_torch.config import Config
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.parallel.mesh import (
+        distributed_init, make_mesh, shard_batch)
+    from mrisr_tpu_torch.serve import Int8FusedUNet
+    from mrisr_tpu_torch.serve.distill import DistillationTrainer
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    inputs = torch.load(in_path, weights_only=False)
+    dev = torch.device(inputs["device"])
+    distributed_init(f"localhost:{port}", DP_RANKS, rank, backend="gloo")
+    mesh = make_mesh(device=dev)
+    out = {}
+    for case, cfg_dict in inputs["configs"].items():
+        cfg = Config.from_dict(cfg_dict)
+        if case == "unet_combined":
+            trainer = SupervisedTrainer(
+                cfg, perceptual_fn=make_perceptual_fn(cfg.loss.perceptual),
+                device=dev, mesh=mesh)
+        else:
+            teacher = Int8FusedUNet(inputs["qparams"], device=dev)
+            trainer = DistillationTrainer(
+                cfg, teacher_fn=lambda x: teacher(x).float(), device=dev,
+                mesh=mesh)
+        batch = shard_batch(inputs["batch"], mesh).to(dev)
+        (_, m), counts = count_launches(
+            lambda: trainer.train_step(trainer.state, batch))
+        out[case] = {"loss": float(m["loss"]), "counts": counts,
+                     "rows": int(batch.shape[0])}
+        if rank == 0:
+            out[case].update(step_tensors(trainer.state.module))
+        del trainer
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+
+
+def step_tensors(module):
+    """A stepped module's gradients and BatchNorm running statistics, on
+    the CPU."""
+    return {"grads": {n: p.grad.detach().cpu().double()
+                      for n, p in module.named_parameters()},
+            "stats": {n: b.detach().cpu().double()
+                      for n, b in module.named_buffers() if "running" in n}}
+
+
+def grad_rel(got, want):
+    """Per-tensor rel-L2 of ``got`` against ``want`` (name -> gradient); a
+    conv bias right before a training-mode BatchNorm (zero in exact
+    arithmetic) is measured against the same conv's weight gradient, as
+    ``grad_errors`` measures it."""
+    out = {}
+    for name, g in got.items():
+        conv, _, leaf = name.rpartition(".")
+        if leaf == "bias" and conv.endswith((".conv.0", ".conv.3")):
+            out[name] = float(g.norm() / want[conv + ".weight"].norm())
+        else:
+            out[name] = float((g - want[name]).norm() / want[name].norm())
+    return out
+
+
+def dp_step_check(what, single, rank0, loss_dp, ref64):
+    """Phase 8's bounds for the DP step against the single-process step on
+    the card: the loss within rel 1e-4, the BN running statistics within
+    1e-4, each gradient within rel-L2 1e-3 or, past it, within
+    GRAD_NOISE_FACTOR times the single step's own float32 error against
+    the same step in float64 on the CPU (``ref64()``, run only then)."""
+    loss_rel = abs(loss_dp - single["loss"]) / abs(single["loss"])
+    stats_err = max((float((rank0["stats"][n] - s).abs().max())
+                     for n, s in single["stats"].items()), default=0.0)
+    errs = grad_rel(rank0["grads"], single["grads"])
+    over = {n: e for n, e in errs.items() if not e <= GRAD_RTOL}
+    bound = {n: GRAD_RTOL for n in errs}
+    if over:
+        noise = grad_rel(single["grads"], ref64())
+        for n in over:
+            bound[n] = max(GRAD_RTOL, GRAD_NOISE_FACTOR * noise[n])
+    failed = [n for n, e in errs.items() if not e <= bound[n]]
+    worst = max(errs, key=errs.get)
+    print(f"{what}: {DP_RANKS}-rank step vs the single-process step on the "
+          f"card: loss {single['loss']:.9f}, rel {loss_rel:.3g} (bound "
+          f"1e-4); BN running stats max |diff| {stats_err:.3g} (bound "
+          f"1e-4); gradient rel-L2 worst {errs[worst]:.3g} ({worst}), "
+          f"{len(over)} of {len(errs)} over {GRAD_RTOL:g}"
+          + (f", each within {GRAD_NOISE_FACTOR:g}x the single step's "
+             "float32 error vs float64" if over and not failed else ""))
+    if not loss_rel <= 1e-4:
+        raise AssertionError(f"{what} DP loss rel {loss_rel}")
+    if not stats_err <= 1e-4:
+        raise AssertionError(f"{what} DP BN running stats {stats_err}")
+    if failed:
+        raise AssertionError(f"{what} DP gradients past their bound: "
+                             f"{[(n, errs[n], bound[n]) for n in failed]}")
+    return {"loss_rel": loss_rel, "bn_stats_err": stats_err,
+            "grad_rel_l2_max": errs[worst], "grads_over_1e-3": len(over)}
+
+
+def run_dp_ranks(inputs, work):
+    """Phase 13's rank pair (this script with ``--dp-rank``), both stopped
+    before it returns; returns each rank's results."""
+    import socket
+
+    in_path = os.path.join(work, "dp_inputs.pt")
+    torch.save(inputs, in_path)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
+         "--dp-port", str(port), "--dp-in", in_path, "--dp-out", work],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(DP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"DP rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    return [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_RANKS)]
+
+
+def parallel_phase(dev, card: str, teachers: str):
+    """Data parallelism (see the module docstring, item 13): ``teachers``
+    holds phase 8's unet_combined_best.pt and phase 9's fastddpm_best.pt.
+    Returns (launches, results)."""
+    import dataclasses
+
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.api import load_model
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.ops.conv_int8 import conv_path
+    from mrisr_tpu_torch.ops.upconv import upconv_path
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet, engine_from_bundle, load_bundle, make_bundle_apply)
+    from mrisr_tpu_torch.serve.distill import DistillationTrainer
+    from mrisr_tpu_torch.serve.engine import _rows_to
+    from mrisr_tpu_torch.serve.quant import calibrate_unet, quantize_unet
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    results, walls, launches = {}, {}, {}
+    t_phase = time.perf_counter()
+    unet_paths = {
+        "conv_int8": path_counts(conv_sites(FEATURES), lambda st: conv_path(
+            st[2], st[3], st[4])),
+        "upconv_int8": path_counts(upconv_sites(FEATURES), lambda st:
+                                   upconv_path(st[2], st[3]))}
+    with tempfile.TemporaryDirectory() as work:
+        store_dir = os.path.join(work, "store")
+        t0 = time.perf_counter()
+        cli.main(["synth", store_dir, "--patients", str(DP_PATIENTS),
+                  "--slices", str(DP_SLICES), "--size", str(HW)])
+        store = VolumeStore.open(store_dir)
+
+        # --- (a) and (b): the unet_combined and distill steps, single
+        # process on the card and two ranks on it, on one global batch
+        base = PRESETS["unet_combined"]
+        ucfg = base.replace(
+            data=dataclasses.replace(base.data, image_size=(HW, HW),
+                                     batch_size=DP_BATCH, augment=False),
+            model=dataclasses.replace(base.model, base_features=FEATURES))
+        dbase = PRESETS["unet_distilled"]
+        dcfg = dbase.replace(
+            data=dataclasses.replace(dbase.data, image_size=(HW, HW),
+                                     batch_size=DP_BATCH, augment=False),
+            model=dataclasses.replace(dbase.model,
+                                      base_features=FEATURES // 2),
+            train=dataclasses.replace(dbase.train, compute_dtype="float32"),
+            loss=dataclasses.replace(dbase.loss, distill_lambda_ssim=0.1,
+                                     distill_ema=0.999))
+        batch = next(iter(build_loader(store, "train", ucfg.data,
+                                       device="cpu")))
+        calib = [b[..., :2] for b, _ in zip(
+            build_loader(store, "val", ucfg.data, device=dev), range(2))]
+        # the int8_fused teacher (distill --teacher-quant int8_fused),
+        # calibrated on two val batches; its tables go to the ranks
+        folded = load_model("unet_combined", teachers, checkpoint="required",
+                            cfg=dataclasses.replace(ucfg.model,
+                                                    name="unet_combined"),
+                            fold_bn=True, device=dev).module
+        qparams = quantize_unet(folded, calibrate_unet(folded, calib))
+        teacher = Int8FusedUNet(qparams, device=dev)
+        xb = batch.to(dev)
+        single = {}
+        perceptual = make_perceptual_fn(ucfg.loss.perceptual)
+        for case, cfg in (("unet_combined", ucfg), ("distill", dcfg)):
+            trainer = (SupervisedTrainer(cfg, perceptual_fn=perceptual,
+                                         device=dev)
+                       if case == "unet_combined" else DistillationTrainer(
+                           cfg, teacher_fn=lambda x: teacher(x).float(),
+                           device=dev))
+            _, m = trainer.train_step(trainer.state, xb)
+            single[case] = {"loss": float(m["loss"]),
+                            **step_tensors(trainer.state.module)}
+            del trainer
+        walls["single-process steps"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks = run_dp_ranks({"device": str(dev), "batch": batch,
+                              "qparams": qparams, "configs": {
+                                  "unet_combined": json.loads(ucfg.to_json()),
+                                  "distill": json.loads(dcfg.to_json())}},
+                             work)
+        walls["2-rank steps (spawn included)"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+        def ref64(case):
+            def run():
+                cfg = ucfg if case == "unet_combined" else dcfg
+                if case == "unet_combined":
+                    tr = SupervisedTrainer(cfg, perceptual_fn=(
+                        make_perceptual_fn(cfg.loss.perceptual,
+                                           dtype=torch.float64)),
+                        device="cpu")
+                else:
+                    t_pred = teacher(xb[..., :2]).double().cpu()
+                    tr = DistillationTrainer(cfg, teacher_fn=lambda x: t_pred,
+                                             device="cpu")
+                tr.state.module.double()
+                if case == "distill":
+                    tr.state.seed_ema()
+                tr.train_step(tr.state, batch.double())
+                return {n: p.grad.detach().double()
+                        for n, p in tr.state.module.named_parameters()}
+            return run
+
+        for case in ("unet_combined", "distill"):
+            losses = [r[case]["loss"] for r in ranks]
+            if losses[0] != losses[1]:
+                raise AssertionError(f"{case}: the ranks report {losses}")
+            if [r[case]["rows"] for r in ranks] != [DP_BATCH // DP_RANKS] * 2:
+                raise AssertionError(f"{case}: rows a rank "
+                                     f"{[r[case]['rows'] for r in ranks]}")
+            results[case] = dp_step_check(case, single[case], ranks[0][case],
+                                          losses[0], ref64(case))
+            rank_counts = [r[case]["counts"] for r in ranks]
+            for c in rank_counts:
+                add_counts(launches, c)
+            if case == "distill":
+                for r, c in enumerate(rank_counts):
+                    # the int8_fused teacher on the rank's rows: one forward
+                    expect_launches(c, {"conv_int8": 19, "upconv_int8": 4}, 1,
+                                    f"distill rank {r}")
+                    check_paths(c, unet_paths, 1, f"distill rank {r}")
+                results[case]["launches_by_rank"] = rank_counts
+        n_params = sum(g.numel() for g in
+                       single["unet_combined"]["grads"].values())
+        if n_params != UNET_PARAMS:
+            raise AssertionError(f"UNet has {n_params} parameters")
+        walls["checks"] = time.perf_counter() - t0
+
+        # --- (c) the CLI under torchrun with one rank: the launcher's
+        # environment, the card of LOCAL_RANK, no process group (one rank
+        # is the unmeshed program), one checkpoint set; narrow (the width
+        # is (a)'s), so it costs the launch.  --mesh-data 2 then refuses
+        # with the JAX CLI's message, in this process (one rank here too)
+        t0 = time.perf_counter()
+        cli_features = 8
+        train_args = ["train", "--preset", "unet_combined", "--data",
+                      store_dir, "--features", str(cli_features),
+                      "--image-size", str(HW), "--epochs", "1",
+                      "--checkpoint-dir", os.path.join(work, "cli_models"),
+                      "--results-dir", os.path.join(work, "cli_results"),
+                      # the default device is the card (a CPU rehearsal asks)
+                      *([] if dev.type == "cuda" else ["--device", "cpu"])]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        one = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "1", "-m", "mrisr_tpu_torch", *train_args,
+             "--mesh-data", "1"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        if one.returncode != 0:
+            raise AssertionError(f"torchrun train --mesh-data 1 exited "
+                                 f"{one.returncode}:\n{one.stderr[-4000:]}")
+        files = sorted(os.listdir(os.path.join(work, "cli_models")))
+        want_files = [f"unet_combined_{s}.pt"
+                      for s in ("best", "epoch_1", "latest")]
+        if files != want_files:
+            raise AssertionError(f"torchrun train wrote {files}")
+        refusal = "requests 2x1 devices but only 1 is visible"
+        try:
+            cli.main([*train_args, "--mesh-data", "2"])
+            refused = "ran"
+        except SystemExit as e:
+            refused = str(e)
+        if refusal not in refused:
+            raise AssertionError(f"train --mesh-data 2: {refused}")
+        print(f"cli train under torchrun, 1 rank, features {cli_features}: "
+              f"--mesh-data 1 wrote {files}; --mesh-data 2 refused "
+              f"('{refusal}')")
+        walls["torchrun cli"] = time.perf_counter() - t0
+
+        # --- (d) data-parallel serving of the int8_fused pair bundle and
+        # the int8_deep Fast-DDPM bundle
+        t0 = time.perf_counter()
+        bundles = {}
+        common = ["--data", store_dir, "--image-size", str(HW),
+                  "--features", str(FEATURES), "--checkpoint-dir", teachers,
+                  "--device", str(dev), "--batch-size", str(BATCH),
+                  "--calib-batches", "2"]
+        for model, quant in (("unet_combined", "int8_fused"),
+                             ("fastddpm", "int8_deep"), ("fastddpm", "none")):
+            bundles[model, quant] = os.path.join(work, f"{model}_{quant}")
+            cli.main(["export-serving", "--model", model, "--quant", quant,
+                      "--out", bundles[model, quant], *common])
+        walls["export bundles"] = time.perf_counter() - t0
+        loader = build_loader(store, "train", ucfg.data, device="cpu")
+        requests = np.concatenate([b[..., :2].numpy() for b, _ in zip(
+            loader, range(DP_REQUESTS // DP_BATCH))])
+
+        def serve(bundle, steps=1, **kw):
+            with engine_from_bundle(bundle, batch_size=BATCH, device=dev,
+                                    max_delay_ms=50.0, **kw) as eng:
+                eng.predict(requests[0])
+                eng.reset_stats()
+                ys, counts = count_launches(
+                    lambda: np.stack(eng.predict_many(list(requests))))
+                return ys, counts, eng.stats.batches * steps
+
+        t0 = time.perf_counter()
+        pair = bundles["unet_combined", "int8_fused"]
+        plain_y, _, _ = serve(pair)
+        serving = {}
+        for label, kw, replicas in (
+                ("data_parallel=True (every visible card)",
+                 {"data_parallel": True}, 1),
+                (f"data_parallel=True, devices=[{dev}, {dev}]",
+                 {"data_parallel": True, "devices": [dev, dev]}, 2)):
+            y, counts, forwards = serve(pair, **kw)
+            equal = bool(np.array_equal(y, plain_y))
+            print(f"int8_fused pair bundle, {label}: {len(y)} requests, "
+                  f"bit-identical with the plain engine: {equal}; "
+                  f"launches {counts}")
+            if not equal:
+                raise AssertionError(f"DP pair engine ({label}) differs: "
+                                     f"max {np.abs(y - plain_y).max()}")
+            check_paths(counts, unet_paths, forwards * replicas,
+                        f"DP pair serving ({label})")
+            add_counts(launches, counts)
+            serving[label] = {"bit_identical": equal,
+                              "replicas": replicas}
+        deep = bundles["fastddpm", "int8_deep"]
+        single_y, _, _ = serve(deep, steps=10)
+        dp_y, counts, forwards = serve(deep, steps=10, data_parallel=True,
+                                       devices=[dev, dev])
+        expect_launches(counts, {"groupnorm_silu": 10, "conv_int8": 14,
+                                 "upconv_int8": 2}, forwards * 2,
+                        "DP int8_deep serving")
+        add_counts(launches, counts)
+        float_apply = make_bundle_apply(*load_bundle(
+            bundles["fastddpm", "none"]), dev)
+        x = torch.from_numpy(requests).to(dev)
+        y_float = torch.cat([float_apply(x[i:i + BATCH])
+                             for i in range(0, len(x), BATCH)]).cpu().numpy()
+        rel = rel_rmse(dp_y, y_float)
+        diff = float(np.abs(dp_y - single_y).max())
+        rel_single = rel_rmse(dp_y, single_y)
+        # the witness of that difference: one replica's sampler on the same
+        # batches, with its own draws, with the global batch's noise given
+        # (BATCH rows, as the single engine runs), and split in two halves
+        # on their rows of that noise (as each replica runs).  Each must be
+        # bit-identical with its engine; then all that parts the engines is
+        # the rows one forward runs (its float sites' algorithms)
+        one = make_bundle_apply(*load_bundle(deep), dev)
+        half = BATCH // 2
+        own, given, split = [], [], []
+        for i in range(0, len(x), BATCH):
+            xi = x[i:i + BATCH]
+            noise = one.draw_noise(BATCH, HW, HW)
+            own.append(one(xi))
+            given.append(one(xi, noise=noise))
+            split += [one(xi[r], noise=_rows_to(noise, r, dev)) for r in (
+                slice(0, half), slice(half, BATCH))]
+        own, given, split = (torch.cat(v).cpu().numpy()
+                             for v in (own, given, split))
+        witness = {
+            "own draws == single engine": bool(np.array_equal(own, single_y)),
+            "given noise == own draws": bool(np.array_equal(given, own)),
+            f"{half}-row halves == DP engine": bool(
+                np.array_equal(split, dp_y))}
+        rel_rows = rel_rmse(split, own)
+        print(f"int8_deep witness, one replica's sampler: {witness}; "
+              f"{half}-row halves vs {BATCH}-row batches rel-RMSE "
+              f"{rel_rows:.6g}, max |diff| "
+              f"{float(np.abs(split - own).max()):.6g}")
+        if not all(witness.values()):
+            raise AssertionError(f"DP int8_deep witness failed: {witness}")
+        rel_single_float = rel_rmse(single_y, y_float)
+        print(f"int8_deep Fast-DDPM bundle, data_parallel=True over "
+              f"[{dev}, {dev}]: vs the bf16 float sampler rel-RMSE "
+              f"{rel:.6f} (bound 0.35; the single engine "
+              f"{rel_single_float:.6f}); vs the single engine max |diff| "
+              f"{diff:.6g} (|sample| max "
+              f"{np.abs(single_y).max():.6g}), rel-RMSE {rel_single:.6g}; "
+              f"launches {counts}")
+        if not np.isfinite(dp_y).all() or not rel < 0.35:
+            raise AssertionError(f"DP int8_deep vs float sampler {rel}")
+        serving["int8_deep 2 replicas"] = {
+            "rel_rmse_float": rel, "max_diff_single": diff,
+            "rel_rmse_single": rel_single,
+            "rel_rmse_float_single": rel_single_float,
+            "witness": witness, "rel_rmse_rows": rel_rows}
+        results["serving"] = serving
+        walls["dp serving"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    results["walls"] = walls
+    for kernel in ("conv_int8", "upconv_int8", "groupnorm_silu"):
+        if launches.get(kernel, 0) <= 0:
+            raise AssertionError(f"{kernel} was not launched in phase 13")
+    print(f"parallel phase launches {launches}")
+    print("parallel wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                            for k, v in walls.items())
+          + f" ({card}; two ranks share one card: not a scaling number)")
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -3517,7 +3977,15 @@ SOURCES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sites-json", help="also write per-site numbers here")
+    # one rank of phase 13's pair, started by the phase itself
+    ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-in", help=argparse.SUPPRESS)
+    ap.add_argument("--dp-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.dp_rank is not None:
+        dp_rank_main(args.dp_rank, args.dp_port, args.dp_in, args.dp_out)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -3549,6 +4017,8 @@ def main() -> int:
         bf16_launches, bf16_result = bf16_phase(dev, card)
         distill_launches, distill_result = distill_phase(dev, card, teachers)
         ingest_launches, ingest_result = ingest_phase(dev, card, teachers)
+        parallel_launches, parallel_result = parallel_phase(dev, card,
+                                                            teachers)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -3566,12 +4036,12 @@ def main() -> int:
 
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
-            # distillation and ingest paths' runs, each counted from 0 just
-            # before it
+            # distillation, ingest and parallel paths' runs, each counted
+            # from 0 just before it (phase 13's ranks count their own)
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
                 train_launches, family_launches, bf16_launches,
-                distill_launches, ingest_launches))
+                distill_launches, ingest_launches, parallel_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -3597,7 +4067,7 @@ def main() -> int:
                        "diffusion": diff_result, "train": train_result,
                        "families": family_result, "bf16": bf16_result,
                        "distill": distill_result, "ingest": ingest_result,
-                       "kernels": kernels}, f,
+                       "parallel": parallel_result, "kernels": kernels}, f,
                       indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))

@@ -38,8 +38,23 @@ parameters, loss and optimizer); ``eval``, ``predict-volume`` and
 trainers read the field.  ``export-serving`` writes pair UNets as
 int8_fused, int8 or none (bf16) bundles, and ``serve`` answers HTTP
 requests from a bundle.  The JAX CLI's ``bench`` comes with the port's
-benchmark, and data/model-parallel training raises ``NotImplementedError``
-naming its ROADMAP item.
+benchmark.
+
+Data parallelism (``--mesh-data``, ``parallel/mesh.py``): ``train`` and
+``distill`` run one process a rank under ``torchrun``, which forms the
+process group from its environment (NCCL on the card, gloo with
+``--device cpu``)::
+
+  python -m torch.distributed.run --nproc-per-node 2 -m mrisr_tpu_torch \
+      train --preset unet_combined --data <store> --mesh-data 2 [...]
+
+the world size playing the JAX CLI's visible-device count: an explicit
+``--mesh-data N`` is honored strictly (N ranks, a batch that divides by
+N), the default shrinks to gcd(batch, world), one rank runs the unmeshed
+program.  Every command takes the JAX CLI's common flags; the others
+ignore the training ones, as the JAX CLI does.  ``--mesh-model`` > 1
+(tensor parallelism) raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -55,8 +70,11 @@ import sys
 from mrisr_tpu_torch.config import PRESETS, Config
 
 
-def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True,
+def _add_common_args(p: argparse.ArgumentParser,
                      data_required: bool = True) -> None:
+    """The JAX CLI's common flags (``mrisr_tpu/cli.py:
+    _add_common_train_args``), which every command takes, plus
+    ``--device``."""
     p.add_argument("--data", required=data_required,
                    help="packed VolumeStore dir")
     p.add_argument("--batch-size", type=int, default=None)
@@ -73,19 +91,14 @@ def _add_common_args(p: argparse.ArgumentParser, fresh: bool = True,
                    help="slice bank in host RAM or on the device")
     p.add_argument("--features", type=int, default=None,
                    help="base feature width override (default 64)")
-    if fresh:
-        p.add_argument("--allow-fresh", action="store_true",
-                       help="permit eval/predict with freshly initialized "
-                            "weights when no checkpoint exists (default: "
-                            "the CLI refuses; random-weight metrics are "
-                            "noise)")
+    p.add_argument("--allow-fresh", action="store_true",
+                   help="permit eval/predict with freshly initialized "
+                        "weights when no checkpoint exists (default: the "
+                        "CLI refuses; random-weight metrics are noise)")
     p.add_argument("--device", default=None,
-                   help="torch device (default: the CUDA card; 'cpu' runs "
-                        "the plain versions)")
-
-
-def _add_train_args(p: argparse.ArgumentParser) -> None:
-    """The JAX CLI's training flags (``mrisr_tpu/cli.py``)."""
+                   help="torch device (default: the CUDA card, under "
+                        "torchrun this rank's; 'cpu' runs the plain "
+                        "versions)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--lr", type=float, default=None,
                    help="learning rate override (default: preset value)")
@@ -102,9 +115,11 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--resume", action="store_true",
                    help="continue from the newest <preset>_epoch_<N>.pt")
     p.add_argument("--mesh-data", type=int, default=None,
-                   help="data-parallel width (not ported yet above 1)")
+                   help="data-parallel mesh axis size (-1 = all ranks; "
+                        "default: all ranks when >1 run under torchrun)")
     p.add_argument("--mesh-model", type=int, default=None,
-                   help="model-parallel width (not ported yet above 1)")
+                   help="model (tensor-parallel) mesh axis size (default "
+                        "1; > 1 is not ported)")
     p.add_argument("--shard-hosts", action="store_true",
                    help="each process loads only its own patient shard "
                         "(round-robin, rank and world size from "
@@ -145,7 +160,12 @@ def _build_config(args, preset_name: str):
     model = cfg.model
     if args.features:
         model = dataclasses.replace(model, base_features=args.features)
-    cfg = dataclasses.replace(cfg, data=data, train=train, model=model)
+    mesh = dataclasses.replace(
+        cfg.mesh, **{field: getattr(args, flag) for flag, field in (
+            ("mesh_data", "data"), ("mesh_model", "model"))
+            if getattr(args, flag, None) is not None})
+    cfg = dataclasses.replace(cfg, data=data, train=train, model=model,
+                              mesh=mesh)
     args.checkpoint_dir = cfg.train.checkpoint_dir
     args.results_dir = cfg.train.results_dir
     args.image_size = cfg.data.image_size[0]
@@ -209,11 +229,128 @@ def cmd_pack(args) -> None:
     print(f"packed {len(store)} series -> {args.out}")
 
 
-def make_trainer(cfg: Config, steps_per_epoch: int, device):
+def _training_mesh(cfg: Config, device):
+    """The data mesh of ``cfg.mesh`` (counterpart: ``mrisr_tpu/cli.py:
+    _training_mesh``), the process group's world size playing the visible
+    device count.  None for one rank: the unmeshed program.
+
+    The default (data=-1) shrinks the data axis to gcd(batch, world) and
+    takes the first ranks; an explicit ``--mesh-data`` is honored
+    strictly.  Every rank of the group calls it (a subgroup is made
+    collectively); a rank outside the mesh sits the run out."""
+    import math
+
+    from mrisr_tpu_torch.parallel.mesh import (
+        MeshSpec,
+        global_rank,
+        make_mesh,
+        world_size,
+    )
+
+    world = world_size()
+    # an explicit request is honored strictly: training on fewer ranks
+    # under the user's nose is worse than an error
+    _check_mesh(cfg.mesh.data, cfg.mesh.model, world)
+    if world == 1:
+        return None
+    if cfg.mesh.data > 0:
+        n = cfg.mesh.data
+        if cfg.data.batch_size % n != 0:
+            raise SystemExit(
+                f"batch_size {cfg.data.batch_size} is not divisible by the "
+                f"mesh's data axis ({n}); pass --batch-size k*{n} or shrink "
+                "the mesh with --mesh-data")
+        return make_mesh(MeshSpec(data=n), devices=list(range(n)),
+                         device=device)
+    n = math.gcd(cfg.data.batch_size, world)
+    if n < world and global_rank() == 0:
+        print(f"note: data axis shrunk to {n} of {world} devices (largest "
+              f"divisor of batch_size {cfg.data.batch_size}); raise "
+              "--batch-size to use all chips")
+    if n <= 1:
+        return None
+    return make_mesh(MeshSpec(data=n), devices=list(range(n)), device=device)
+
+
+def _check_mesh(data: int, model: int, world: int) -> None:
+    """The JAX CLI's refusals of a mesh the ranks cannot hold, and of a
+    'model' axis > 1, which is not ported."""
+    from mrisr_tpu_torch.parallel.mesh import TP_REFUSAL
+
+    if model > 1:
+        raise NotImplementedError(TP_REFUSAL)
+    if data > world:
+        raise SystemExit(
+            f"--mesh-data/--mesh-model requests {data}x1 devices but only 1 "
+            "is visible" if world == 1 else
+            f"--mesh-data/--mesh-model requests {data} devices but only "
+            f"{world} are visible")
+
+
+def _check_mesh_flags(args) -> None:
+    """The commands that do not train take the mesh flags and ignore them,
+    as the JAX CLI does, once they pass the training commands' rules (the
+    visible count: the process group's ranks, else torchrun's
+    ``WORLD_SIZE``)."""
+    from mrisr_tpu_torch.parallel.mesh import world_size
+
+    _check_mesh(args.mesh_data or 1, args.mesh_model or 1,
+                max(world_size(), int(os.environ.get("WORLD_SIZE", "1"))))
+
+
+def _sits_out(mesh) -> bool:
+    """A rank with no part in the run: outside the data mesh, or any rank
+    but the first when the run is unmeshed."""
+    from mrisr_tpu_torch.parallel.mesh import global_rank
+
+    if mesh is None:
+        return global_rank() != 0
+    return not mesh.member
+
+
+def _meshed(fn):
+    """Run a training command inside the process group it forms from
+    torchrun's environment (NCCL on the card, gloo for ``--device cpu``),
+    and leave the group after."""
+    import functools
+
+    @functools.wraps(fn)
+    def run(args):
+        import torch
+
+        from mrisr_tpu_torch.parallel.mesh import distributed_init_from_env
+
+        cpu = (args.device is not None
+               and torch.device(args.device).type == "cpu")
+        formed = distributed_init_from_env(backend="gloo" if cpu else None)
+        try:
+            return fn(args)
+        finally:
+            if formed:
+                import torch.distributed as dist
+
+                dist.destroy_process_group()
+
+    return run
+
+
+def _mesh_loader_args(cfg: Config, device):
+    """(mesh, sharding) of a training command, printing the mesh."""
+    from mrisr_tpu_torch.parallel.mesh import batch_sharding
+
+    mesh = _training_mesh(cfg, device)
+    if mesh is None:
+        return None, None
+    if mesh.rank == 0:
+        print(f"training mesh: {mesh.shape}")
+    return mesh, batch_sharding(mesh)
+
+
+def make_trainer(cfg: Config, steps_per_epoch: int, device, mesh=None):
     """The trainer of ``cfg``'s family, by ``loss.kind``: 'gan' ->
     ``GANTrainer``, 'diffusion' -> ``DiffusionTrainer``, else
     ``SupervisedTrainer`` (pair models, and the Progressive UNet's
-    windows)."""
+    windows); ``mesh``: data parallel over its ranks."""
     from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
     from mrisr_tpu_torch.train import (
         DiffusionTrainer,
@@ -224,24 +361,28 @@ def make_trainer(cfg: Config, steps_per_epoch: int, device):
     kind = cfg.loss.kind
     if kind == "gan":
         return GANTrainer(cfg, make_perceptual_fn(cfg.loss.perceptual),
-                          steps_per_epoch=steps_per_epoch, device=device)
+                          steps_per_epoch=steps_per_epoch, device=device,
+                          mesh=mesh)
     if kind == "diffusion":
         return DiffusionTrainer(cfg, steps_per_epoch=steps_per_epoch,
-                                device=device)
+                                device=device, mesh=mesh)
     perceptual_fn = (make_perceptual_fn(cfg.loss.perceptual)
                      if kind == "combined" else None)
     return SupervisedTrainer(cfg, perceptual_fn=perceptual_fn,
-                             steps_per_epoch=steps_per_epoch, device=device)
+                             steps_per_epoch=steps_per_epoch, device=device,
+                             mesh=mesh)
 
 
+@_meshed
 def cmd_train(args):
     """Train the preset's family on ``--device`` and write
-    ``<preset>_{best,latest,epoch_N}.pt``; returns the trainer."""
+    ``<preset>_{best,latest,epoch_N}.pt``; returns the trainer (None on a
+    rank that sits the run out).  Under torchrun, data parallel over the
+    ranks (:func:`_training_mesh`)."""
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.device import resolve_device
 
-    _refuse_parallel(args)
     cfg = _build_config(args, args.preset)
     if cfg.loss.kind == "distill":
         raise SystemExit(
@@ -250,42 +391,45 @@ def cmd_train(args):
     if args.scan_epochs and args.backend != "device":
         raise SystemExit("--scan-epochs requires --backend device")
     device = resolve_device(args.device)
+    mesh, sharding = _mesh_loader_args(cfg, device)
+    if _sits_out(mesh):
+        return None
     store = VolumeStore.open(args.data)
     kind = "window" if cfg.model.name == "progressive_unet" else "triplet"
     train_loader = build_loader(store, "train", cfg.data, kind=kind,
                                 backend=args.backend, device=device,
-                                shard_by_host=args.shard_hosts)
+                                shard_by_host=args.shard_hosts,
+                                sharding=sharding)
+    # the val loader is not sharded, as the JAX CLI builds it: every rank
+    # evaluates the whole split (its partial last batch included)
     val_loader = build_loader(store, "val", cfg.data, kind=kind,
                               backend=args.backend, device=device)
-    trainer = make_trainer(cfg, len(train_loader), device)
+    trainer = make_trainer(cfg, len(train_loader), device, mesh)
     return _fit(trainer, args, train_loader, val_loader)
-
-
-def _refuse_parallel(args) -> None:
-    if max(args.mesh_data or 1, args.mesh_model or 1) > 1:
-        raise NotImplementedError(
-            "data/model-parallel training is not ported yet (ROADMAP.md, "
-            "Queue 1 item 15: DDP with SyncBatchNorm)")
 
 
 def _fit(trainer, args, train_loader, val_loader):
     """The training commands' common tail: ``--scan-epochs``,
-    ``--resume``, fit; returns the trainer."""
+    ``--resume`` (every rank loads), fit; returns the trainer."""
     if args.scan_epochs:
         trainer.enable_device_epochs(train_loader.bank, train_loader.plan_flat)
-    if args.resume and trainer.try_resume():
+    if args.resume and trainer.try_resume() and trainer._writes:
         print(f"resumed from epoch {trainer.start_epoch - 1}")
     hist = trainer.fit(train_loader, val_loader)
-    print(f"best val loss: {hist.extra.get('best_val_loss'):.4f}")
+    if trainer._writes:
+        print(f"best val loss: {hist.extra.get('best_val_loss'):.4f}")
     return trainer
 
 
+@_meshed
 def cmd_distill(args):
     """Serving distillation (``serve/distill.py``): train the reduced-width
     UNet student against a trained teacher checkpoint on ``--device``.  The
     student lands as ``<preset>_best.pt``, so ``eval --model
     unet_distilled`` and the serving engine load it like any pair model;
-    returns the trainer."""
+    returns the trainer (None on a rank that sits the run out).  Under
+    torchrun the student trains data parallel, and the int8 teacher runs
+    on each rank's rows."""
     import itertools
 
     from mrisr_tpu_torch.config import ModelConfig
@@ -294,7 +438,6 @@ def cmd_distill(args):
     from mrisr_tpu_torch.device import resolve_device
     from mrisr_tpu_torch.serve.distill import DistillationTrainer
 
-    _refuse_parallel(args)
     cfg = _build_config(args, args.preset)
     loss_over = {field: getattr(args, flag) for flag, field in (
         ("distill_alpha", "distill_alpha"),
@@ -305,10 +448,14 @@ def cmd_distill(args):
     if args.scan_epochs and args.backend != "device":
         raise SystemExit("--scan-epochs requires --backend device")
     device = resolve_device(args.device)
+    mesh, sharding = _mesh_loader_args(cfg, device)
+    if _sits_out(mesh):
+        return None
     store = VolumeStore.open(args.data)
     train_loader = build_loader(store, "train", cfg.data, kind="triplet",
                                 backend=args.backend, device=device,
-                                shard_by_host=args.shard_hosts)
+                                shard_by_host=args.shard_hosts,
+                                sharding=sharding)
     val_loader = build_loader(store, "val", cfg.data, kind="triplet",
                               backend=args.backend, device=device)
     teacher_cfg = None
@@ -327,7 +474,7 @@ def cmd_distill(args):
         teacher_cfg=teacher_cfg, teacher_quant=args.teacher_quant,
         teacher_calibration_batches=calib_batches,
         init_from_teacher=args.init_from_teacher,
-        steps_per_epoch=len(train_loader), device=device)
+        steps_per_epoch=len(train_loader), device=device, mesh=mesh)
     return _fit(trainer, args, train_loader, val_loader)
 
 
@@ -746,8 +893,7 @@ def main(argv=None) -> None:
     q.add_argument("--scan-epochs", action="store_true",
                    help="gather each train epoch's batches on the card "
                         "(requires --backend device)")
-    _add_common_args(q, fresh=False)
-    _add_train_args(q)
+    _add_common_args(q)
     q.set_defaults(fn=cmd_train)
 
     q = sub.add_parser("distill")
@@ -781,8 +927,7 @@ def main(argv=None) -> None:
                         "serve/prune.py)")
     q.add_argument("--config", default=None)
     q.add_argument("--scan-epochs", action="store_true")
-    _add_common_args(q, fresh=False)
-    _add_train_args(q)
+    _add_common_args(q)
     q.set_defaults(fn=cmd_distill)
 
     q = sub.add_parser("distill-steps")
@@ -799,8 +944,7 @@ def main(argv=None) -> None:
                    help="skip the per-round test-set eval")
     q.add_argument("--max-eval-batches", type=int, default=None)
     q.add_argument("--config", default=None)
-    _add_common_args(q, fresh=False)
-    _add_train_args(q)
+    _add_common_args(q)
     q.set_defaults(fn=cmd_distill_steps)
 
     q = sub.add_parser("serve")
@@ -872,10 +1016,12 @@ def main(argv=None) -> None:
     q.add_argument("--percentile", type=float, default=None,
                    help="activation calibration |x| percentile "
                         "(default absmax)")
-    _add_common_args(q, fresh=False)  # a bundle needs a checkpoint
+    _add_common_args(q)  # takes --allow-fresh; a bundle needs a checkpoint
     q.set_defaults(fn=cmd_export_serving)
 
     args = p.parse_args(argv)
+    if hasattr(args, "mesh_data") and args.fn not in (cmd_train, cmd_distill):
+        _check_mesh_flags(args)
     return args.fn(args)
 
 

@@ -135,20 +135,28 @@ class _AugmentSpec:
                    vflip=cfg.vflip, rot90=cfg.rot90,
                    rotate_degrees=cfg.rotate_degrees)
 
-    def apply(self, batch: torch.Tensor,
-              generator: torch.Generator) -> torch.Tensor:
+    def apply(self, batch: torch.Tensor, generator: torch.Generator,
+              rows: Optional[slice] = None,
+              global_batch: Optional[int] = None) -> torch.Tensor:
         """``batch`` augmented with draws from ``generator``, or as it is
-        when the spec is disabled."""
+        when the spec is disabled; ``rows`` of ``global_batch``: the
+        global batch's draws, this shard's rows of them."""
         if not self.enabled:
             return batch
         return paired_augment(batch, generator, hflip=self.hflip,
                               vflip=self.vflip, rot90=self.rot90,
-                              rotate_degrees=self.rotate_degrees)
+                              rotate_degrees=self.rotate_degrees, rows=rows,
+                              global_batch=global_batch)
 
 
 class _BaseLoader:
     """Shared epoch iteration: shuffle, batch, pad or drop the tail, put on
-    the device, augment."""
+    the device, augment.
+
+    ``sharding`` (``parallel/mesh.py:batch_sharding``): every rank builds
+    the same loader (same seed, same order) and yields only its rows of
+    each global batch, gathered alone; the augmentation draws are the
+    global batch's.  ``batch_size`` stays the global one."""
 
     def __init__(
         self,
@@ -161,6 +169,7 @@ class _BaseLoader:
         pad_final: str,
         device: DeviceLike,
         augment: Optional[_AugmentSpec] = None,
+        sharding=None,
     ):
         if pad_final not in ("wrap", "partial"):
             raise ValueError(f"pad_final must be 'wrap' or 'partial', got "
@@ -173,6 +182,9 @@ class _BaseLoader:
         self.pad_final = pad_final
         self.device = resolve_device(device)
         self.augment = augment or _AugmentSpec()
+        self.sharding = sharding
+        if sharding is not None:
+            sharding.rows(batch_size)  # raises unless it divides
         self._np_rng = np.random.default_rng(seed)
         # the augmentation draws: one stream on the loader's device
         self._aug_gen = torch.Generator(self.device).manual_seed(seed)
@@ -202,6 +214,10 @@ class _BaseLoader:
                 # final batch, so batch means average as the reference's
                 # DataLoader loops did.
                 idx = np.concatenate([idx, np.resize(order, bs - idx.shape[0])])
+            n_global, rows = idx.shape[0], None
+            if self.sharding is not None:
+                rows = self.sharding.rows(n_global)
+                idx = idx[rows]
             stack = self.bank.gather(self.plan_flat[idx].reshape(-1))
             if isinstance(stack, np.ndarray):
                 stack = torch.from_numpy(stack)
@@ -211,7 +227,7 @@ class _BaseLoader:
                              non_blocking=True).reshape(
                 idx.shape[0], c, *self.bank.image_size)
             batch = stack.permute(0, 2, 3, 1).contiguous()  # NHWC
-            yield self.augment.apply(batch, self._aug_gen)
+            yield self.augment.apply(batch, self._aug_gen, rows, n_global)
 
 
 class TripletLoader(_BaseLoader):
@@ -232,6 +248,7 @@ class TripletLoader(_BaseLoader):
         pad_final: str = "wrap",
         device: DeviceLike = None,
         augment: Optional[_AugmentSpec] = None,
+        sharding=None,
     ):
         plan = TripletIndex(bank.counts, distance_filter).slice_plan()
         # [series_local, pre, mid, post, dist] -> flat [pre, post, mid]: the
@@ -240,7 +257,7 @@ class TripletLoader(_BaseLoader):
                          for j in (1, 3, 2)], axis=1)
         self.distances = plan[:, 4].copy()
         super().__init__(bank, flat, batch_size, shuffle, seed, drop_last,
-                         pad_final, device, augment)
+                         pad_final, device, augment, sharding)
 
 
 class WindowLoader(_BaseLoader):
@@ -258,12 +275,13 @@ class WindowLoader(_BaseLoader):
         pad_final: str = "wrap",
         device: DeviceLike = None,
         augment: Optional[_AugmentSpec] = None,
+        sharding=None,
     ):
         plan = WindowIndex(bank.counts).slice_plan()  # [series_local, i..i+4]
         flat = np.stack([bank.flat_ids(plan[:, 0], plan[:, 1 + j])
                          for j in range(5)], axis=1)
         super().__init__(bank, flat, batch_size, shuffle, seed, drop_last,
-                         pad_final, device, augment)
+                         pad_final, device, augment, sharding)
 
 
 class PrefetchIterator:
@@ -360,6 +378,7 @@ def build_loader(
     seed: int = 0,
     bank: Optional[SliceBank] = None,
     shard_by_host: bool = False,
+    sharding=None,
 ):
     """The ``build_dataloader`` analog: split -> bank -> loader, batches on
     ``device`` (``None``: the card).  The train split is shuffled (numpy's
@@ -369,7 +388,11 @@ def build_loader(
     ``bank``: reuse a SliceBank already built for the same split (the bank
     does not depend on ``distance_filter``, so the per-spacing eval builds
     it once).  ``shard_by_host``: this process reads only its round-robin
-    share of the split's patients (:func:`host_shard_patients`)."""
+    share of the split's patients (:func:`host_shard_patients`).
+    ``sharding`` (``parallel/mesh.py:batch_sharding``): yield this rank's
+    rows of each global batch.  With ``shard_by_host`` too, each rank
+    takes its rows of a batch of its own patients, as the JAX loader's
+    ``device_put`` of each host's batch onto the global sharding does."""
     if kind not in ("triplet", "window"):
         raise ValueError(f"unknown loader kind: {kind}")
     if bank is None:
@@ -388,11 +411,11 @@ def build_loader(
     if kind == "triplet":
         loader = TripletLoader(bank, cfg.distance_filter, cfg.batch_size,
                                shuffle=train, seed=seed, pad_final=pad_final,
-                               device=device, augment=aug)
+                               device=device, augment=aug, sharding=sharding)
     else:
         loader = WindowLoader(bank, cfg.batch_size, shuffle=train, seed=seed,
                               drop_last=train, pad_final=pad_final,
-                              device=device, augment=aug)
+                              device=device, augment=aug, sharding=sharding)
     if cfg.prefetch and train:
         return PrefetchIterator(loader, depth=cfg.prefetch)
     return loader

@@ -12,15 +12,22 @@ DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` means the card.  Without one this raises: an entry point
-    never carries on quietly on the CPU, where only the plain versions run.
-    Pass ``device="cpu"`` to ask for those explicitly."""
+    """``None`` means the card: under a process group this rank's card,
+    ``cuda:{LOCAL_RANK}`` (``parallel/mesh.py:local_rank``).  Without one
+    this raises: an entry point never carries on quietly on the CPU, where
+    only the plain versions run.  Pass ``device="cpu"`` to ask for those
+    explicitly."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device is available; pass device='cpu' to run the "
                 "plain PyTorch versions on the CPU"
             )
+        dist = torch.distributed
+        if dist.is_available() and dist.is_initialized():
+            from mrisr_tpu_torch.parallel.mesh import local_rank
+
+            return torch.device("cuda", local_rank())
         return torch.device("cuda")
     return torch.device(device)
 

@@ -52,7 +52,16 @@ class BatchNorm2d(nn.BatchNorm2d):
     momentum, eps, the eval forward and the state-dict keys are torch's.
 
     A bf16 input is normalized in float32 (statistics included) and the
-    result returned in bf16, as flax's ``BatchNorm(dtype=bfloat16)``."""
+    result returned in bf16, as flax's ``BatchNorm(dtype=bfloat16)``.
+
+    ``data_mesh`` (set by ``parallel/mesh.py:replicated``): in training
+    mode the statistics are the global batch's over the data group, as
+    under JAX's mesh: the sum all-reduced for the mean, then the sum of
+    squared deviations for the biased variance, through a collective whose
+    backward is the global one.  ``torch.nn.SyncBatchNorm`` refuses CPU
+    tensors and updates the running variance with the unbiased rule."""
+
+    data_mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
@@ -62,6 +71,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        if self.data_mesh is not None:
+            return self._forward_global(x)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             self.running_mean.lerp_(mean, self.momentum)
@@ -69,6 +80,21 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _forward_global(self, x: torch.Tensor) -> torch.Tensor:
+        from mrisr_tpu_torch.parallel.mesh import psum
+
+        mesh, shape = self.data_mesh, (1, -1, 1, 1)
+        n = x.numel() // x.shape[1] * mesh.size
+        mean = psum(x.sum(dim=(0, 2, 3)), mesh) / n
+        dev = x - mean.view(shape)
+        var = psum((dev * dev).sum(dim=(0, 2, 3)), mesh) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach(), self.momentum)
+            self.num_batches_tracked.add_(1)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return dev * scale.view(shape) + self.bias.view(shape)
 
 
 class GroupNorm(nn.GroupNorm):

@@ -30,11 +30,20 @@ def paired_augment(
     vflip: bool = True,
     rot90: bool = False,
     rotate_degrees: float = 0.0,
+    rows: Optional[slice] = None,
+    global_batch: Optional[int] = None,
 ) -> torch.Tensor:
     """Per-sample paired augmentation of an NHWC batch ``(B, H, W, C)``:
     one draw a sample for each enabled transform, from ``generator`` (on
-    the batch's device)."""
+    the batch's device).
+
+    ``batch`` may be one rank's ``rows`` of a global batch of
+    ``global_batch`` samples (``parallel/mesh.py``): the draws are then
+    made for the global batch, in the same order, and this rank's rows of
+    them applied, so the shards together get the single-process draws."""
     b, dev = batch.shape[0], batch.device
+    if rows is not None:
+        b = global_batch
 
     def uniform():
         return torch.rand(b, generator=generator, device=dev)
@@ -46,6 +55,9 @@ def paired_augment(
     angles = None
     if rotate_degrees > 0.0:
         angles = (2.0 * uniform() - 1.0) * (rotate_degrees * math.pi / 180.0)
+    if rows is not None:
+        hmask, vmask, k, angles = (None if d is None else d[rows]
+                                   for d in (hmask, vmask, k, angles))
     return apply_paired_augment(batch, hmask, vmask, k, angles)
 
 

@@ -12,6 +12,7 @@ from mrisr_tpu_torch.serve.bundle import (  # noqa: F401
 from mrisr_tpu_torch.serve.engine import (  # noqa: F401
     EngineStats,
     InferenceEngine,
+    data_parallel_apply,
     engine_from_model,
 )
 from mrisr_tpu_torch.serve.quant import (  # noqa: F401

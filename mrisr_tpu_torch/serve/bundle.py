@@ -121,7 +121,14 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
     input).  The chain is the meta's ``sampler``: the ancestral one, or
     DDIM over the bundle's grid for a step-distilled student
     (``'ddim_grid'``), which was trained to reproduce its teacher under
-    that deterministic sampler."""
+    that deterministic sampler.
+
+    ``apply.draw_noise(b, h, w)`` draws, from the same seeded generator and
+    in the sampler's order, every value the call on a ``b``-row batch
+    draws (x_T and each step's z), and ``apply(cond, noise=...)`` takes
+    them (or any rows of them) instead: data-parallel serving draws the
+    global batch's noise once and hands each replica its rows, as JAX's
+    threefry bits do not depend on the sharding."""
     from mrisr_tpu_torch.models.diffusion import (
         DiffusionSchedule,
         sample_ancestral,
@@ -149,15 +156,34 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
             params.get("timesteps"), time_dim=time_dim, gn_impl=gn_impl,
             device=device, plain=plain)
     ddim_grid = meta.get("sampler") == "ddim_grid"
+    n_chains = 3 if combine == "mean" else 1  # sample_ancestral's default
+    n_z = len(schedule.timesteps) - 1
 
     @torch.no_grad()
-    def apply(cond: torch.Tensor) -> torch.Tensor:
-        gen = torch.Generator(device=device).manual_seed(0)
+    def apply(cond: torch.Tensor, noise=None) -> torch.Tensor:
+        gen = (None if noise is not None else
+               torch.Generator(device=device).manual_seed(0))
         cond = cond.to(device, torch.float32)
         if ddim_grid:
-            return sample_ddim_grid(eps_fn, cond, gen, schedule)
-        return sample_ancestral(eps_fn, cond, gen, schedule, combine=combine)
+            return sample_ddim_grid(eps_fn, cond, gen, schedule, noise=noise)
+        return sample_ancestral(eps_fn, cond, gen, schedule, combine=combine,
+                                noise=noise)
 
+    @torch.no_grad()
+    def draw_noise(b: int, h: int, w: int):
+        gen = torch.Generator(device=device).manual_seed(0)
+
+        def draw():
+            return torch.randn((b, h, w, 1), generator=gen, device=device,
+                               dtype=torch.float32)
+
+        if ddim_grid:
+            return draw()
+        chains = [(draw(), [draw() for _ in range(n_z)])
+                  for _ in range(n_chains)]
+        return chains if combine == "mean" else chains[0]
+
+    apply.draw_noise = draw_noise
     return apply
 
 
@@ -361,17 +387,32 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
 
 def engine_from_bundle(path: str, batch_size: int = 128,
                        device: DeviceLike = None,
-                       gn_impl: Optional[str] = None, **engine_kwargs):
+                       gn_impl: Optional[str] = None,
+                       data_parallel: bool = False, devices=None,
+                       **engine_kwargs):
     """One call serving: bundle dir -> running InferenceEngine on
     ``device`` (``None``: the card); ``gn_impl`` goes to
-    :func:`make_bundle_apply`."""
-    from mrisr_tpu_torch.serve.engine import InferenceEngine
+    :func:`make_bundle_apply`.
+
+    ``data_parallel=True`` splits each micro-batch over ``devices``
+    (``None``: every visible card), one replica of the forward a device
+    (``engine.data_parallel_apply``), for pair and diffusion bundles
+    alike; ``batch_size`` must divide by the device count."""
+    from mrisr_tpu_torch.serve.engine import (
+        InferenceEngine,
+        data_parallel_apply,
+    )
 
     device = resolve_device(device)
     params, meta = load_bundle(path)
     h, w = meta["image_size"]
+
+    def make(d):
+        return make_bundle_apply(params, meta, d, gn_impl=gn_impl)
+
+    apply_fn = (data_parallel_apply(make, batch_size, devices, device)
+                if data_parallel else make(device))
     return InferenceEngine(
-        make_bundle_apply(params, meta, device, gn_impl=gn_impl),
-        batch_size=batch_size, input_shape=(h, w, 2), device=device,
-        **engine_kwargs,
+        apply_fn, batch_size=batch_size, input_shape=(h, w, 2),
+        device=device, **engine_kwargs,
     )

@@ -24,6 +24,7 @@ import torch
 from mrisr_tpu_torch.config import Config
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference
 from mrisr_tpu_torch.losses import mse, ssim_loss
+from mrisr_tpu_torch.parallel.mesh import mean_metrics
 from mrisr_tpu_torch.train.state import TrainState
 from mrisr_tpu_torch.train.steps import Metrics, _update
 from mrisr_tpu_torch.train.trainer import SupervisedTrainer
@@ -64,8 +65,9 @@ def make_distill_steps(teacher_fn: TeacherFn, alpha: float = 0.5,
             _update(state, loss)
         if ema_decay:
             state.update_ema(ema_decay)
-        return state, {"loss": loss.detach(),
-                       **{k: v.detach() for k, v in comps.items()}}
+        return state, mean_metrics(
+            {"loss": loss.detach(),
+             **{k: v.detach() for k, v in comps.items()}}, state.mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: torch.Tensor) -> Metrics:
@@ -77,7 +79,7 @@ def make_distill_steps(teacher_fn: TeacherFn, alpha: float = 0.5,
                                                (inputs,))
                     if ema_decay else module(inputs))
             loss, comps = objective(pred, t_pred, target)
-        return {"loss": loss, **comps}
+        return mean_metrics({"loss": loss, **comps}, state.mesh)
 
     return train_step, eval_step
 
@@ -149,9 +151,11 @@ class DistillationTrainer(SupervisedTrainer):
                  teacher_calibration_batches=None,
                  init_from_teacher: bool = False,
                  steps_per_epoch: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
+        # mesh: the student data parallel; the teacher, frozen and equal on
+        # every rank, runs on each rank's rows
         super().__init__(config, steps_per_epoch=steps_per_epoch,
-                         device=device)
+                         device=device, mesh=mesh)
         if self.kind != "pair":
             raise ValueError("distillation supports pair models only")
         if init_from_teacher:

@@ -340,6 +340,7 @@ def engine_from_model(
     data_parallel: bool = False,
     require_checkpoint: bool = True,
     device: DeviceLike = None,
+    devices: Optional[List] = None,
     **engine_kwargs,
 ) -> InferenceEngine:
     """A serving engine on ``device`` (``None``: the card) from a
@@ -351,14 +352,12 @@ def engine_from_model(
     3x3 conv); 'int8_fused': the int8-resident forward (kernels A and B).
     Both need ``calibration_batches`` (a few ``(B, H, W, 2)`` arrays).
     ``require_checkpoint`` (default True): a missing checkpoint raises
-    instead of serving fresh weights.  ``data_parallel=True`` raises
-    ``NotImplementedError``: data-parallel serving is not ported."""
+    instead of serving fresh weights.  ``data_parallel=True`` splits each
+    micro-batch over ``devices`` (``None``: every visible card), one
+    replica of the forward and its int8 tables a device
+    (:func:`data_parallel_apply`)."""
     from mrisr_tpu_torch.api import load_model
 
-    if data_parallel:
-        raise NotImplementedError(
-            "data-parallel serving is not ported yet (ROADMAP.md, Queue 1 "
-            "items 9 and 15: data_parallel_apply over DDP)")
     device = resolve_device(device)
     # a serving engine quietly built on random weights (a typo'd
     # models_dir) would serve garbage with no error
@@ -386,10 +385,76 @@ def engine_from_model(
             raise ValueError("int8 serving requires calibration_batches")
         qparams = quantize_unet(loaded.module, calibrate_unet(
             loaded.module, calibration_batches))
-        apply_fn = (Int8FusedUNet if quant == "int8_fused" else Int8UNet)(
-            qparams, device=device)
+        cls = Int8FusedUNet if quant == "int8_fused" else Int8UNet
+
+        def make(d):
+            return cls(qparams, device=d)
     else:
-        apply_fn = _bf16_weights_apply(loaded.module)
+        def make(d):
+            return _bf16_weights_apply(copy.deepcopy(loaded.module).to(d))
+    apply_fn = (data_parallel_apply(make, batch_size, devices, device)
+                if data_parallel else make(device))
     return InferenceEngine(apply_fn, batch_size=batch_size,
                            input_shape=(image_size[0], image_size[1], 2),
                            device=device, **engine_kwargs)
+
+
+def _dp_devices(devices, device: torch.device) -> List[torch.device]:
+    """``devices`` as torch devices; ``None``: every visible card when the
+    engine runs on one, else the engine's own device (the CPU is one)."""
+    if devices is not None:
+        return [torch.device(d) for d in devices]
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _rows_to(tree, rows: slice, device: torch.device):
+    """``rows`` of every tensor in a nest of tuples and lists, on
+    ``device``."""
+    if isinstance(tree, torch.Tensor):
+        return tree[rows].to(device)
+    return type(tree)(_rows_to(t, rows, device) for t in tree)
+
+
+def data_parallel_apply(make_apply: Callable, batch_size: int,
+                        devices: Optional[List] = None,
+                        device: DeviceLike = None) -> Callable:
+    """A ``(B, H, W, C) -> (B, H, W, C')`` forward run data parallel
+    (counterpart: ``mrisr_tpu/serve/engine.py:data_parallel_apply``).
+
+    JAX replicates one jitted forward over a mesh of the local devices;
+    here ``make_apply(device)`` builds one replica a device of
+    ``devices`` (``None``: every visible card; see :func:`_dp_devices`),
+    each with its own copy of the weights and int8 tables.  Each
+    micro-batch (on ``device``, the engine's) is split into equal
+    contiguous row blocks, block i runs on replica i, and the results are
+    gathered back in order.  A replica with ``draw_noise`` (a diffusion
+    bundle's sampler) gets its rows of the global batch's draws, made once
+    on the first replica: the answers do not depend on the split.
+    ``batch_size`` must divide by the device count."""
+    devices = _dp_devices(devices, resolve_device(device))
+    n = len(devices)
+    if batch_size % n:
+        raise ValueError(
+            f"batch_size {batch_size} must divide over {n} devices")
+    replicas = [make_apply(d) for d in devices]
+    draw = getattr(replicas[0], "draw_noise", None)
+
+    def wrapped(x: torch.Tensor) -> torch.Tensor:
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"a batch of {b} rows must divide over {n} "
+                             "devices")
+        per = b // n
+        noise = None if draw is None else draw(b, x.shape[1], x.shape[2])
+        outs = []
+        for i, (d, fwd) in enumerate(zip(devices, replicas)):
+            rows = slice(i * per, (i + 1) * per)
+            xi = x[rows].to(d)
+            outs.append(fwd(xi) if noise is None
+                        else fwd(xi, noise=_rows_to(noise, rows, d)))
+        return torch.cat([o.to(x.device) for o in outs])
+
+    return wrapped

@@ -35,11 +35,16 @@ class DeviceEpochRunner:
     plan_flat: ``(N, C)`` flat slice ids (the loader's ``plan_flat``).
     train_step: ``step(batch, generator) -> metrics``, one train step of
     the trainer's states, updated in place.
+    sharding: ``parallel/mesh.py:batch_sharding`` of a data mesh: every
+    rank draws the same permutation and augmentation (the global batch's)
+    and gathers and steps only its rows (JAX pins the gathered batch to the
+    'data' axis, and each chip reads its rows).
     """
 
     def __init__(self, bank: SliceBank, plan_flat: np.ndarray,
                  train_step: Callable, batch_size: int,
-                 augment: Optional[_AugmentSpec] = None, seed: int = 0):
+                 augment: Optional[_AugmentSpec] = None, seed: int = 0,
+                 sharding=None):
         if bank.backend != "device":
             raise ValueError("DeviceEpochRunner needs a device bank "
                              "(backend='device')")
@@ -47,6 +52,11 @@ class DeviceEpochRunner:
         self.device = self.flat.device
         self.plan = torch.as_tensor(np.asarray(plan_flat, np.int64),
                                     device=self.device)
+        self.sharding = sharding
+        if sharding is not None and batch_size % sharding.size:
+            raise ValueError(
+                f"batch_size {batch_size} not divisible by the mesh's data "
+                f"axis ({sharding.size})")
         self.batch_size = batch_size
         self.steps_per_epoch = int(plan_flat.shape[0]) // batch_size
         if self.steps_per_epoch <= 0:
@@ -65,10 +75,15 @@ class DeviceEpochRunner:
         perm = torch.randperm(self.plan.shape[0], generator=g,
                               device=self.device)
         bs, acc = self.batch_size, {}
+        mine = (slice(0, bs) if self.sharding is None
+                else self.sharding.rows(bs))
         for s in range(self.steps_per_epoch):
-            rows = self.plan[perm[s * bs:(s + 1) * bs]]        # (B, C)
+            idx = perm[s * bs:(s + 1) * bs][mine]
+            rows = self.plan[idx]                                # (B, C)
             batch = self.flat[rows].permute(0, 2, 3, 1).float()  # NHWC
-            batch = self.augment.apply(batch.contiguous(), g)
+            batch = self.augment.apply(
+                batch.contiguous(), g,
+                None if self.sharding is None else mine, bs)
             metrics = self.train_step(batch, g)
             for k, v in metrics.items():
                 acc.setdefault(k, []).append(v)

@@ -14,7 +14,9 @@ computes in the config's compute dtype; the timesteps, the noise and
 step (timesteps and noise) comes from a generator seeded from (seed,
 epoch, train or val, batch index) alone, so a resumed run draws what an
 unbroken one would; the card-side epochs (``--scan-epochs``) draw from the
-epoch's generator (``train/device_epoch.py:epoch_seed``).  Checkpoints
+epoch's generator (``train/device_epoch.py:epoch_seed``).  Under a mesh
+every rank draws the global batch's values and keeps its rows
+(``train/steps.py``).  Checkpoints
 are the single-model layout of ``train/trainer.py``.
 """
 
@@ -50,15 +52,16 @@ def batch_seed(seed: int, epoch: int, train: bool, index: int) -> int:
 
 class DiffusionTrainer(_SingleStateTrainer):
     def __init__(self, config: Config, steps_per_epoch: Optional[int] = None,
-                 device: DeviceLike = None):
-        self._init_loop(config, device)
+                 device: DeviceLike = None, mesh=None):
+        self._init_loop(config, device, mesh)
         mcfg = config.model
         self.simple = mcfg.name == "fastddpm_simple"
         module, _ = init_model("fastddpm_simple" if self.simple
                                else "fastddpm", mcfg, seed=config.train.seed,
                                dtype=compute_dtype(config))
-        self.state = create_train_state(module.to(self.device), config.train,
-                                        steps_per_epoch=steps_per_epoch)
+        self.state = self._replicate(create_train_state(
+            module.to(self.device), config.train,
+            steps_per_epoch=steps_per_epoch))
         if self.simple:
             self.schedule = FastNoiseSchedule.create(mcfg.num_inference_steps)
             steps = make_simple_diffusion_steps(self.schedule)

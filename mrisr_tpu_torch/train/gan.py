@@ -42,8 +42,9 @@ from mrisr_tpu_torch.train.trainer import (
 class GANTrainer(_EpochLoopMixin):
     def __init__(self, config: Config, perceptual_fn: Optional[Callable] = None,
                  steps_per_epoch: Optional[int] = None,
-                 device: DeviceLike = None):
-        self._init_loop(config, device)
+                 device: DeviceLike = None, mesh=None):
+        # mesh: G and D both replicated, both gradients averaged
+        self._init_loop(config, device, mesh)
         tcfg = config.train
         # G and D both in the compute dtype, as the JAX trainer builds them
         dtype = compute_dtype(config)
@@ -51,11 +52,11 @@ class GANTrainer(_EpochLoopMixin):
                             dtype=dtype)
         disc, _ = init_model("patchgan", config.model, seed=tcfg.seed + 1,
                              dtype=dtype)
-        self.g_state = create_train_state(gen.to(self.device), tcfg,
-                                          steps_per_epoch=steps_per_epoch)
-        self.d_state = create_train_state(
+        self.g_state = self._replicate(create_train_state(
+            gen.to(self.device), tcfg, steps_per_epoch=steps_per_epoch))
+        self.d_state = self._replicate(create_train_state(
             disc.to(self.device), tcfg, steps_per_epoch=steps_per_epoch,
-            learning_rate=tcfg.learning_rate_d)
+            learning_rate=tcfg.learning_rate_d))
         lcfg = config.loss
         self.train_step, self.eval_step = make_gan_steps(
             perceptual_fn=perceptual_fn, lambda_l1=lcfg.lambda_l1,

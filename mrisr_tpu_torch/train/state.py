@@ -79,7 +79,8 @@ class TrainState:
     """A module with its optimizer, its schedule (or None), the clip norm
     (0: none), the count of updates taken and, for the distillation
     student, ``ema_params``: an exponential moving average of the
-    parameters by name (None: no average).  BatchNorm running statistics
+    parameters by name (None: no average), and ``mesh``, the data group
+    the gradients are averaged over (None: one process).  BatchNorm running statistics
     are not averaged: the live module's are shared."""
 
     module: nn.Module
@@ -88,6 +89,9 @@ class TrainState:
     grad_clip_norm: float = 0.0
     step: int = 0
     ema_params: Optional[Dict[str, torch.Tensor]] = None
+    # the data group (parallel/mesh.py): the gradients are averaged over
+    # it before the clip; None or one rank: the unmeshed program
+    mesh: Optional[object] = None
 
     def seed_ema(self) -> None:
         """Start the average at the current parameters, as a copy."""

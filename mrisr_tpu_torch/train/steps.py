@@ -8,6 +8,14 @@ once instead of once a step.  Convolutions run in full float32
 step updates its states in place (module, optimizer, schedule, step count)
 and leaves each parameter's gradient in ``.grad``.
 
+Under a data mesh (``TrainState.mesh``, ``parallel/mesh.py``) each rank
+steps on its rows of the global batch: the gradients are averaged over the
+group before the clip, every random value (the diffusion timesteps and
+noise) is drawn for the global batch and sliced, and the metrics are
+averaged over the group, so every rank reports the global batch's (an
+eval step given the whole batch on every rank, as the trainers' val
+loaders give it, reports it unchanged).
+
 - :func:`make_supervised_steps`: pair models (UNet, DeepCNN), batch
   ``(B, H, W, 3)`` = [pre, post, target].
 - :func:`make_progressive_steps`: the Progressive UNet, batch
@@ -30,6 +38,7 @@ import torch
 from mrisr_tpu_torch.device import fp32_reference
 from mrisr_tpu_torch.losses import l1, lsgan_d_loss, lsgan_g_loss, mse
 from mrisr_tpu_torch.models.diffusion import q_sample
+from mrisr_tpu_torch.parallel.mesh import average_gradients, mean_metrics
 from mrisr_tpu_torch.train.state import TrainState
 
 LossFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
@@ -41,9 +50,23 @@ def _detached(loss: torch.Tensor, comps: Metrics) -> Metrics:
 
 
 def _update(state: TrainState, loss: torch.Tensor, **backward) -> None:
+    """Backward, the gradients averaged over the state's data group (one
+    flat all-reduce; a no-op for one process), then the clip and the
+    optimizer step (``TrainState.apply_gradients``)."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward(**backward)
+    average_gradients(list(state.module.parameters()), state.mesh)
     state.apply_gradients()
+
+
+def _global_draw(draw: Callable, b: int, mesh) -> torch.Tensor:
+    """``draw(n)`` for the global batch of which this rank holds ``b``
+    rows, then this rank's rows: every rank draws the same values from the
+    same stream, as JAX draws the whole batch from one key."""
+    if mesh is None or mesh.size <= 1:
+        return draw(b)
+    n = b * mesh.size
+    return draw(n)[mesh.rows(n)]
 
 
 def _steps(loss_fn: LossFn, split: Callable):
@@ -56,14 +79,14 @@ def _steps(loss_fn: LossFn, split: Callable):
         with fp32_reference():
             loss, comps = loss_fn(state.module.train()(inputs), target)
             _update(state, loss)
-        return state, _detached(loss, comps)
+        return state, mean_metrics(_detached(loss, comps), state.mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: torch.Tensor) -> Metrics:
         inputs, target = split(batch)
         with fp32_reference():
             loss, comps = loss_fn(state.module.eval()(inputs), target)
-        return {"loss": loss, **comps}
+        return mean_metrics({"loss": loss, **comps}, state.mesh)
 
     return train_step, eval_step
 
@@ -131,24 +154,31 @@ def _diffusion_steps(n_sel: int, make_input: Callable):
             x_in, t = make_input(batch, t_idx, noise)
             loss = mse(state.module.train()(x_in, t), noise)
             _update(state, loss)
-        return state, {"loss": loss.detach()}
+        return state, mean_metrics({"loss": loss.detach()}, state.mesh)
 
     @torch.no_grad()
     def eval_on(state: TrainState, batch: torch.Tensor, t_idx: torch.Tensor,
                 noise: torch.Tensor) -> Metrics:
         with fp32_reference():
             x_in, t = make_input(batch, t_idx, noise)
-            return {"loss": mse(state.module.eval()(x_in, t), noise)}
+            return mean_metrics(
+                {"loss": mse(state.module.eval()(x_in, t), noise)},
+                state.mesh)
 
-    def _noise(batch, generator):
-        return torch.randn(batch[..., 2:3].shape, generator=generator,
-                           device=batch.device, dtype=torch.float32)
+    def _noise(batch, generator, mesh=None):
+        b, h, w, _ = batch.shape
+        return _global_draw(lambda n: torch.randn(
+            (n, h, w, 1), generator=generator, device=batch.device,
+            dtype=torch.float32), b, mesh)
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    generator: torch.Generator) -> Tuple[TrainState, Metrics]:
-        t_idx = antithetic_draw(n_sel, batch.shape[0], generator,
-                                batch.device)
-        return train_on(state, batch, t_idx, _noise(batch, generator))
+        # the indices and the noise of the global batch (the antithetic
+        # mirror depends on its size), this rank's rows of each
+        t_idx = _global_draw(lambda n: antithetic_draw(
+            n_sel, n, generator, batch.device), batch.shape[0], state.mesh)
+        return train_on(state, batch, t_idx,
+                        _noise(batch, generator, state.mesh))
 
     def eval_step(state: TrainState, batch: torch.Tensor,
                   generator: torch.Generator) -> Metrics:
@@ -240,7 +270,7 @@ def make_gan_steps(perceptual_fn: Optional[Callable] = None,
             _update(g_state, g_loss, inputs=list(gen.parameters()))
         metrics = {"g": g_loss.detach(), "d": d_loss.detach(),
                    **{k: v.detach() for k, v in comps.items()}}
-        return g_state, d_state, metrics
+        return g_state, d_state, mean_metrics(metrics, g_state.mesh)
 
     @torch.no_grad()
     def eval_step(g_state: TrainState, d_state: TrainState,
@@ -257,6 +287,6 @@ def make_gan_steps(perceptual_fn: Optional[Callable] = None,
             if "perc" in comps:
                 out["perc_loss"] = comps["perc"]
             out["g_loss"] = total
-        return out
+        return mean_metrics(out, g_state.mesh)
 
     return train_step, eval_step

@@ -22,6 +22,15 @@ newest ``_epoch_<N>.pt``.
 ``train.compute_dtype='bfloat16'`` builds every model in bf16 compute
 (flax's ``dtype=``, ``models/blocks.py``), as the JAX trainers do; the
 parameters, the loss, the optimizer and the checkpoints stay float32.
+
+``mesh=`` (``parallel/mesh.py``, the JAX trainers' ``mesh=``): data
+parallel over the mesh's ranks.  The models are replicated from the first
+rank (with cross-rank BatchNorm statistics), each step averages the
+gradients, the train loader yields each rank's rows of the global batch,
+and the epoch metrics are averaged over the group, so every rank takes
+the same early-stopping decision.  Only the first rank writes checkpoints
+and the history; every rank waits at a barrier after a save, and every
+rank loads on ``--resume``.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from mrisr_tpu_torch.config import Config
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
 from mrisr_tpu_torch.losses import combined_loss, mse, progressive_loss
 from mrisr_tpu_torch.models.registry import init_model
+from mrisr_tpu_torch.parallel.mesh import batch_sharding, replicated
 from mrisr_tpu_torch.train.history import TrainingHistory
 from mrisr_tpu_torch.train.state import TrainState, create_train_state
 from mrisr_tpu_torch.train.steps import (
@@ -69,14 +79,34 @@ class _EpochLoopMixin:
     config: Config
     history: TrainingHistory
 
-    def _init_loop(self, config: Config, device: DeviceLike) -> None:
+    def _init_loop(self, config: Config, device: DeviceLike,
+                   mesh=None) -> None:
         self.config = config
         self.device = resolve_device(device)
+        self.mesh = mesh
         self._device_runner = None
         self.history = TrainingHistory(json.loads(config.to_json()))
         # one entry a run_epoch: {epoch, train, steps, seconds}, the host
         # clock up to the epoch's one metrics fetch
         self.timings: List[Dict] = []
+
+    def _replicate(self, state: TrainState) -> TrainState:
+        """``state`` replicated over the trainer's mesh (a no-op without
+        one): the module broadcast from the first rank, its BatchNorms
+        cross-rank, its gradients averaged over the group."""
+        if self.mesh is not None:
+            replicated(state.module, self.mesh)
+            state.mesh = self.mesh
+        return state
+
+    @property
+    def _writes(self) -> bool:
+        """True on the rank that writes checkpoints and the history."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def enable_device_epochs(self, bank, plan_flat) -> None:
         """Run the train epochs with the batches gathered on the card
@@ -90,7 +120,8 @@ class _EpochLoopMixin:
             bank, plan_flat, self._train,
             batch_size=self.config.data.batch_size,
             augment=_AugmentSpec.from_config(self.config.data),
-            seed=self.config.train.seed)
+            seed=self.config.train.seed,
+            sharding=None if self.mesh is None else batch_sharding(self.mesh))
 
     # a trainer defines _train and _eval (one batch, with the generator of
     # its draws) and _checkpoint / load
@@ -127,6 +158,8 @@ class _EpochLoopMixin:
                 steps += 1
             means = {k: torch.stack(v).double().mean()
                      for k, v in acc.items()}
+        # each step's metrics are already the group's mean, so every rank
+        # reads the same numbers (and takes the same early-stopping call)
         # the epoch's one host fetch
         out = (dict(zip(means, torch.stack(list(means.values())).tolist()))
                if means else {})
@@ -136,8 +169,12 @@ class _EpochLoopMixin:
 
     def save(self, path: str, epoch: int, best_loss: float, val_loss: float,
              async_: bool = False) -> None:
-        save_checkpoint(path, self._checkpoint(epoch, best_loss, val_loss),
-                        async_=async_)
+        """Write a checkpoint (the first rank of a mesh only; every rank
+        then waits at a barrier)."""
+        if self._writes:
+            save_checkpoint(path, self._checkpoint(epoch, best_loss,
+                                                   val_loss), async_=async_)
+        self._barrier()
 
     def _resume_point(self, ckpt: dict) -> None:
         self.best_loss = float(ckpt.get("best_loss", ckpt.get(
@@ -185,6 +222,7 @@ class _EpochLoopMixin:
             epochs: Optional[int] = None, verbose: bool = True
             ) -> TrainingHistory:
         epochs = epochs or self.config.train.epochs
+        verbose = verbose and self._writes  # one rank of a mesh prints
         tcfg = self.config.train
         patience = tcfg.early_stopping_patience
         best_loss = getattr(self, "best_loss", float("inf"))
@@ -250,13 +288,15 @@ class _EpochLoopMixin:
         wait_for_async_saves()
         self.best_loss = best_loss
         self.history.set(best_val_loss=best_loss)
-        rd = tcfg.results_dir
-        os.makedirs(rd, exist_ok=True)
-        self.history.save_json(os.path.join(
-            rd, f"{self.config.preset}_history.json"))
-        self.history.save_curves_png(
-            os.path.join(rd, f"{self.config.preset}_training_curves.png"),
-            title=f"{self.config.preset} training")
+        if self._writes:
+            rd = tcfg.results_dir
+            os.makedirs(rd, exist_ok=True)
+            self.history.save_json(os.path.join(
+                rd, f"{self.config.preset}_history.json"))
+            self.history.save_curves_png(
+                os.path.join(rd, f"{self.config.preset}_training_curves.png"),
+                title=f"{self.config.preset} training")
+        self._barrier()
         return self.history
 
 
@@ -316,17 +356,19 @@ class SupervisedTrainer(_SingleStateTrainer):
     or progressive-loss training of the Progressive UNet on windows, on
     ``device`` (``None``: the card), initialized as the JAX package
     initializes it (``models/registry.py:init_model``, seed
-    ``train.seed``), in the config's compute dtype."""
+    ``train.seed``), in the config's compute dtype; ``mesh``: data
+    parallel over its ranks."""
 
     def __init__(self, config: Config, perceptual_fn: Optional[Callable] = None,
                  steps_per_epoch: Optional[int] = None,
-                 device: DeviceLike = None):
-        self._init_loop(config, device)
+                 device: DeviceLike = None, mesh=None):
+        self._init_loop(config, device, mesh)
         module, self.kind = init_model(config.model.name, config.model,
                                        seed=config.train.seed,
                                        dtype=compute_dtype(config))
-        self.state = create_train_state(module.to(self.device), config.train,
-                                        steps_per_epoch=steps_per_epoch)
+        self.state = self._replicate(create_train_state(
+            module.to(self.device), config.train,
+            steps_per_epoch=steps_per_epoch))
         self.train_step, self.eval_step = self._make_steps(perceptual_fn)
 
     def _make_steps(self, perceptual_fn: Optional[Callable]):

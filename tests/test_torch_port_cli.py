@@ -304,9 +304,11 @@ def test_cli_train_unported_presets_raise(workdir, preset, item):
 
 
 def test_cli_train_unported_flags_raise(workdir):
-    """``--mesh-data 2`` (item 15) and ``--scan-epochs`` without a device
-    bank still refuse, and the distillation preset points at the distill
-    command, as in the JAX CLI; ``--bf16`` now trains in bf16 compute with
+    """``--mesh-data 2`` with one rank (the JAX CLI's refusal with one
+    visible device; data parallelism runs under torchrun,
+    ``tests/test_torch_port_parallel.py``) and ``--scan-epochs`` without a
+    device bank refuse, and the distillation preset points at the distill
+    command, as in the JAX CLI; ``--bf16`` trains in bf16 compute with
     float32 parameters and checkpoints."""
     args = train_args(workdir, "--bf16", "--epochs", "1")
     args[args.index("--checkpoint-dir") + 1] = str(workdir / "bf16_models")
@@ -318,7 +320,8 @@ def test_cli_train_unported_flags_raise(workdir):
                       weights_only=True)
     assert all(v.dtype == torch.float32 for k, v in
                ckpt["model_state_dict"].items() if "num_batches" not in k)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(SystemExit, match="requests 2x1 devices but only 1 "
+                                         "is visible"):
         cli.main(train_args(workdir, "--mesh-data", "2"))
     args = train_args(workdir)
     args[2] = "unet_distilled"
@@ -358,36 +361,88 @@ def _jax_flags(capsys, command):
     return set(re.findall(r"(--[a-z][a-z0-9-]*)", capsys.readouterr().out))
 
 
+_COMMON = {"epochs": None, "lr": None, "lr_schedule": None,
+           "patience": None, "train_seed": None, "light_checkpoints": False,
+           "resume": False, "mesh_data": None, "mesh_model": None,
+           "shard_hosts": False, "allow_fresh": False, "backend": "host"}
+
+
 @pytest.mark.parametrize("command,fn,argv,defaults", [
     ("distill", "cmd_distill", ["--data", "d"], {
         "preset": "unet_distilled", "teacher": "unet", "teacher_dir": None,
         "teacher_features": None, "distill_alpha": None,
         "distill_lambda_ssim": None, "ema": None, "teacher_quant": "none",
-        "init_from_teacher": False, "config": None, "scan_epochs": False}),
+        "init_from_teacher": False, "config": None, "scan_epochs": False,
+        **_COMMON}),
     ("distill-steps", "cmd_distill_steps", ["--data", "d"], {
         "teacher": "fastddpm", "teacher_dir": None, "factor": 2,
         "rounds": 2, "no_eval": False, "max_eval_batches": None,
-        "config": None}),
+        "config": None, **_COMMON}),
     ("serve", "cmd_serve", ["--bundle", "b"], {
         "bundle": "b", "host": "127.0.0.1", "port": 8000, "batch_size": 128,
         "max_delay_ms": 2.0}),
+    ("train", "cmd_train", ["--preset", "unet", "--data", "d"], {
+        "config": None, "scan_epochs": False, **_COMMON}),
+    ("eval", "cmd_eval", ["--model", "unet", "--data", "d"], {
+        "metric_mode": "minmax-each", "max_batches": None, **_COMMON}),
+    ("predict-volume", "cmd_predict_volume", ["--model", "unet", "--data",
+                                              "d"], {
+        "seed": 42, "hierarchical": False, "figure": None,
+        "view": "parallel", "view_index": None, "export_dicom": None,
+        **_COMMON}),
+    ("compare", "cmd_compare", ["--model", "unet"], {
+        "metric_mode": "minmax-each", "max_batches": None,
+        "from_results": False, "data": None, **_COMMON}),
+    ("triplet-figure", "cmd_triplet_figure", ["--model", "unet", "--data",
+                                              "d"], {
+        "seed": 42, "figure": "results/single_triplet.png", **_COMMON}),
+    ("export-serving", "cmd_export_serving", ["--out", "o", "--data", "d"], {
+        "model": "unet", "quant": "int8_fused", "calib_batches": 4,
+        "percentile": None, **_COMMON}),
+    ("extract", "cmd_extract", ["z", "o"], {"zip": "z", "out": "o"}),
+    ("clean", "cmd_clean", ["r"], {"root": "r", "yes": False,
+                                   "dry_run": False}),
+    ("pack", "cmd_pack", ["r", "o"], {"root": "r", "out": "o",
+                                      "slices": 60}),
+    ("synth", "cmd_synth", ["o"], {"out": "o", "patients": 8, "slices": 60,
+                                   "size": 256, "seed": 0}),
 ])
 def test_cli_distill_commands_take_jax_flags(command, fn, argv, defaults,
                                              capsys, monkeypatch):
-    """distill, distill-steps and serve take every flag of the JAX CLI's
-    commands (but its mesh/allow-fresh extras, which the port's training
-    commands leave out or refuse) with the same defaults, plus
-    ``--device``."""
+    """Every subcommand takes every flag of the JAX CLI's same command
+    with the same defaults (the common training flags included, which
+    the commands that do not train ignore, as the JAX CLI does); the only
+    flag the port adds is ``--device``."""
     args = _parsed([command, *argv], fn, monkeypatch)
     for k, v in defaults.items():
         assert args[k] == v, k
-    assert args["device"] is None
+    assert args.get("device") is None
     want = _jax_flags(capsys, command)
     with pytest.raises(SystemExit):
         cli.main([command, "--help"])
     got = set(re.findall(r"(--[a-z][a-z0-9-]*)", capsys.readouterr().out))
-    assert want - got <= {"--allow-fresh"}, want - got
-    assert got - want <= {"--device", "--shard-hosts"}, got - want
+    assert want <= got, want - got
+    assert got - want <= {"--device"}, got - want
+
+
+def test_cli_eval_ignores_training_flags(workdir, capsys):
+    """The JAX CLI's eval takes the training flags and ignores them
+    (``eval ... --epochs 5 --train-seed 3``); so does the port's, and it
+    writes the metrics JSON, as the JAX CLI does on the same input."""
+    argv = ["eval", "--model", "unet", "--image-size", str(HW),
+            "--features", str(F), "--allow-fresh", "--max-batches", "1",
+            "--epochs", "5", "--train-seed", "3"]
+    jax_dir, port_dir = workdir / "q3_jax", workdir / "q3_port"
+    jax_cli.main([*argv, "--data", str(workdir / "jax_store"),
+                  "--checkpoint-dir", str(workdir / "q3_models"),
+                  "--results-dir", str(jax_dir)])
+    cli.main([*argv, "--data", str(workdir / "store"), "--checkpoint-dir",
+              str(workdir / "q3_models"), "--results-dir", str(port_dir),
+              "--device", "cpu"])
+    for d in (jax_dir, port_dir):
+        metrics = json.loads((d / "unet_test_metrics.json").read_text())
+        assert all(np.isfinite(metrics[s]["ssim_mean"])
+                   for s in ("3mm", "6mm"))
 
 
 def test_cli_distill_resume_eval(workdir, capsys):

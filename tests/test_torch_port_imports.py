@@ -55,6 +55,7 @@ def test_import_with_jax_blocked():
         "import mrisr_tpu_torch.data.discovery, mrisr_tpu_torch.data.clean\n"
         "import mrisr_tpu_torch.data.extract, mrisr_tpu_torch.data.export\n"
         "import mrisr_tpu_torch.eval.figures, mrisr_tpu_torch.utils\n"
+        "import mrisr_tpu_torch.parallel, mrisr_tpu_torch.parallel.mesh\n"
         "assert 'matplotlib' not in sys.modules\n"
         "from mrisr_tpu_torch.data.split import split_for\n"
         "assert len(split_for([str(i) for i in range(10)], 'test')) == 2\n"
@@ -117,6 +118,19 @@ def test_entry_points_raise_without_cuda(no_cuda, tmp_path):
     with engine_from_bundle(path, batch_size=2, device="cpu") as eng:
         y = eng.predict(np.zeros((16, 16, 2), np.float32))
     assert y.shape == (16, 16, 1) and np.isfinite(y).all()
+
+
+def test_parallel_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    """The data mesh and data-parallel serving default to the card: with
+    none they raise, and the CPU runs only when asked for."""
+    from mrisr_tpu_torch.parallel import make_mesh
+    from mrisr_tpu_torch.serve import data_parallel_apply
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        data_parallel_apply(lambda d: None, 2)
+    assert make_mesh(device="cpu").shape == {"data": 1, "model": 1}
 
 
 def test_eval_entry_points_raise_without_cuda(no_cuda, tmp_path):

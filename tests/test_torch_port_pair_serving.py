@@ -312,8 +312,9 @@ def test_engine_from_model_none_rounds_batch_stats(tmp_path):
 def test_engine_from_model_refusals(checkpoint, tmp_path):
     """The JAX package's refusals: a missing checkpoint (unless
     ``require_checkpoint=False``), a window model, int8 without
-    calibration batches or on a model with no enc1 block; and
-    ``data_parallel=True``, not ported (ROADMAP items 9 and 15)."""
+    calibration batches or on a model with no enc1 block; and a
+    ``data_parallel=True`` batch that does not divide over the devices
+    (``tests/test_serve.py:159-168``)."""
     kw = dict(image_size=(HW, HW), batch_size=2, device="cpu")
     with pytest.raises(FileNotFoundError):
         engine_from_model("unet", models_dir=str(tmp_path), cfg=ModelConfig(
@@ -336,7 +337,7 @@ def test_engine_from_model_refusals(checkpoint, tmp_path):
                           quant="int8", require_checkpoint=False,
                           calibration_batches=[np.zeros((1, HW, HW, 2),
                                                         np.float32)], **kw)
-    with pytest.raises(NotImplementedError, match="items 9 and 15"):
+    with pytest.raises(ValueError, match="divide"):
         engine_from_model("unet", models_dir=str(checkpoint / "models"),
                           cfg=ModelConfig(base_features=F),
-                          data_parallel=True, **kw)
+                          data_parallel=True, devices=["cpu"] * 4, **kw)
