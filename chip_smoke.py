@@ -210,6 +210,28 @@
    (global noise draws) within rel-RMSE 0.35 of the bf16 sampler, its max
    difference from the single engine printed.  The phase's wall by step
    (two ranks on one card: not a scaling number).
+14. Model-axis phase, the 'model' mesh axis (``parallel/mesh.py``), four
+   ranks sharing the card over gloo (this script with --tp-rank).  (a)
+   shard_module at a model axis of 2 (ranks 0 and 1, a 1 x 2 mesh, the
+   default min_size: 18 of the UNet's tensors, 19 of the Fast-DDPM's) of
+   the seeded full-width M2 UNet (batch 8, 256^2) and of the seeded
+   Fast-DDPM UNet at timestep 500, float32 with TF32 off, against the
+   single-process forward on the card: rel-L2 within 1e-4, the max |diff|,
+   and the parameters and bytes each rank holds.  Each sharded conv (half
+   its output channels) timed once on its own at the forward's input
+   beside its float32 bound (67 TFLOP/s, 3.35 TB/s); any over 10x is
+   flagged.  (b) One float32 unet_combined step at full width (global
+   batch 4, augmentation off, TF32 off) on a 2 x 2 mesh of the four ranks
+   (deterministic algorithms), after one warm-up step on that mesh: the
+   two model coordinates' gradients and BatchNorm statistics bit-equal,
+   and bit-equal to the same step on phase 13's 2-rank mesh, run by ranks
+   0 and 1 in the same processes, and on the 2-rank mesh of ranks 2 and
+   3 (phase 13's bounds are checked too).  The witness compares each data
+   rank's own gradients before the all-reduce, the warm-up step's too (a
+   process's first call at dec2.conv.0's shape gets other bits from
+   cuDNN, so the first step is reported, not compared).  The steps run
+   before the forwards of (a), so all four ranks have the same history.
+   No kernel is on this path; its launch counts are printed.
 
 Prints the kernels' JSON line (A and B with their launches by path) and
 the card's name and power limit before the last line, which is
@@ -229,6 +251,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -3597,7 +3620,9 @@ def grad_rel(got, want):
     return out
 
 
-def dp_step_check(what, single, rank0, loss_dp, ref64):
+def dp_step_check(what, single, rank0, loss_dp, ref64,
+                  mine=f"{DP_RANKS}-rank step",
+                  theirs="the single-process step on the card"):
     """Phase 8's bounds for the DP step against the single-process step on
     the card: the loss within rel 1e-4, the BN running statistics within
     1e-4, each gradient within rel-L2 1e-3 or, past it, within
@@ -3615,8 +3640,8 @@ def dp_step_check(what, single, rank0, loss_dp, ref64):
             bound[n] = max(GRAD_RTOL, GRAD_NOISE_FACTOR * noise[n])
     failed = [n for n, e in errs.items() if not e <= bound[n]]
     worst = max(errs, key=errs.get)
-    print(f"{what}: {DP_RANKS}-rank step vs the single-process step on the "
-          f"card: loss {single['loss']:.9f}, rel {loss_rel:.3g} (bound "
+    print(f"{what}: {mine} vs {theirs}: loss {single['loss']:.9f}, rel "
+          f"{loss_rel:.3g} (bound "
           f"1e-4); BN running stats max |diff| {stats_err:.3g} (bound "
           f"1e-4); gradient rel-L2 worst {errs[worst]:.3g} ({worst}), "
           f"{len(over)} of {len(errs)} over {GRAD_RTOL:g}"
@@ -3959,6 +3984,389 @@ def parallel_phase(dev, card: str, teachers: str):
     return launches, results
 
 
+# phase 14: the 'model' mesh axis.  Four ranks share the one card over
+# gloo (this script with --tp-rank): a 2 x 2 mesh over all four runs a
+# warm-up step and then one training step, the 2 x 1 meshes over ranks 0
+# and 1 (phase 13's pair) and over ranks 2 and 3 the same step as the
+# reference, and a 1 x 2 mesh over ranks 0 and 1 the column-parallel
+# forwards.
+TP_RANKS = 4
+TP_STEP_BATCH = 4     # the unet_combined preset's batch: 2 rows a data rank
+TP_TIMESTEP = 500     # the Fast-DDPM forward's one timestep
+TP_REL_L2 = 1e-4      # sharded vs single-process forward: float32 rounding
+                      # of other cuDNN algorithms at half C_out, 23 layers
+TP_SITE_FLAG = 10.0   # report a sharded conv over this many times its bound
+TP_TIMEOUT = 600      # seconds for the four ranks
+# (rank, step) whose own gradients the witness keeps: the rows 0-1 of rank
+# 0's three steps, the rows 2-3 of rank 1's pair and rank 2's 2 x 2 step,
+# and the pair over ranks 2 and 3
+TP_WITNESS = {(0, "warm-up"), (0, "2x2"), (0, "pair"), (1, "pair"),
+              (2, "2x2"), (2, "pair23"), (3, "pair23")}
+
+
+def tp_models():
+    """Phase 14's forwards: (name, seeded module, its inputs on the CPU)
+    at full width, batch 8, 256^2."""
+    g = torch.Generator().manual_seed(14)
+    x = torch.randn(BATCH, HW, HW, 2, generator=g)
+    xd = torch.randn(BATCH, HW, HW, 3, generator=g)
+    t = torch.full((BATCH,), TP_TIMESTEP, dtype=torch.int32)
+    return (("unet", seeded_unet(5), (x,)),
+            ("fastddpm", seeded_fastddpm(6), (xd, t)))
+
+
+def tp_rank_main(rank: int, port: int, in_path: str, out_dir: str) -> None:
+    """One rank of phase 14 (``chip_smoke.py --tp-rank``): the warm-up and
+    the 2 x 2 step (all), the pair's step (on ranks 0 and 1, and on 2 and
+    3), then the sharded forwards (ranks 0 and 1), with the kernels'
+    launch counts."""
+    sys.path.insert(0, ROOT)
+    import torch.distributed as dist
+
+    from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.config import Config
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.parallel.mesh import (
+        MeshSpec, distributed_init, make_mesh, param_shardings, shard_batch,
+        shard_module)
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    inputs = torch.load(in_path, weights_only=False)
+    dev = torch.device(inputs["device"])
+    distributed_init(f"localhost:{port}", TP_RANKS, rank, backend="gloo")
+    meshes = {"1x2": make_mesh(MeshSpec(data=1, model=2), devices=[0, 1],
+                               device=dev),
+              "2x2": make_mesh(MeshSpec(data=2, model=2), device=dev),
+              "pair": make_mesh(MeshSpec(data=2), devices=[0, 1],
+                                device=dev),
+              "pair23": make_mesh(MeshSpec(data=2), devices=[2, 3],
+                                  device=dev)}
+    out = {"forward": {}, "step": {}}
+
+    def run():
+        # the model copies run the same program on the same rows:
+        # deterministic algorithms (cuBLAS's too, CUBLAS_WORKSPACE_CONFIG
+        # in the environment) make it the same bits.  A process's first
+        # step is not compared: cuDNN gives its first call at dec2.conv.0's
+        # shape other bits than every later one (PERF.md section 7), so
+        # each rank takes one warm-up step on the 2 x 2 mesh first, and the
+        # sharded forwards run after the steps
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        cfg = Config.from_dict(inputs["config"])
+        for label in ("warm-up", "2x2", "pair", "pair23"):
+            mesh = meshes["2x2" if label == "warm-up" else label]
+            if not mesh.member:
+                continue
+            trainer = SupervisedTrainer(
+                cfg, perceptual_fn=make_perceptual_fn(cfg.loss.perceptual),
+                device=dev, mesh=mesh)
+            # the witness: this rank's own gradients, before the step's
+            # all-reduce over the data group
+            local = {}
+            hooks = [p.register_post_accumulate_grad_hook(
+                lambda p, n=n: local.__setitem__(
+                    n, p.grad.detach().cpu().clone()))
+                for n, p in trainer.state.module.named_parameters()
+            ] if (rank, label) in TP_WITNESS else []
+            batch = shard_batch(inputs["batch"], mesh).to(dev)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _, m = trainer.train_step(trainer.state, batch)
+            for h in hooks:
+                h.remove()
+            entry = {"loss": float(m["loss"]), "rows": int(batch.shape[0]),
+                     "coords": (mesh.rank, mesh.model_rank), "local": local,
+                     "warnings": sorted({str(w.message) for w in caught})}
+            if (rank == 0 and label != "warm-up") or (rank, label) in (
+                    (1, "2x2"), (2, "pair23")):
+                entry.update(step_tensors(trainer.state.module))
+            out["step"][label] = entry
+            del trainer
+        torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
+        if meshes["1x2"].member:
+            for name, model, args in tp_models():
+                model = shard_module(model.to(dev), meshes["1x2"],
+                                     param_shardings(model, meshes["1x2"]))
+                with torch.no_grad(), fp32_reference():
+                    y = model(*(a.to(dev) for a in args)).cpu()
+                held = list(model.parameters())
+                out["forward"][name] = {
+                    "params": sum(p.numel() for p in held),
+                    "bytes": sum(p.numel() * p.element_size() for p in held),
+                    **({"y": y} if rank == 0 else {})}
+                del model
+
+    _, out["counts"] = count_launches(run)
+    torch.save(out, os.path.join(out_dir, f"tp_rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def run_tp_ranks(inputs, work):
+    """Phase 14's four ranks, all stopped before it returns; returns each
+    rank's results."""
+    import socket
+
+    in_path = os.path.join(work, "tp_inputs.pt")
+    torch.save(inputs, in_path)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+         "--dp-port", str(port), "--dp-in", in_path, "--dp-out", work],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(TP_RANKS)]
+    try:
+        logs = [p.communicate(timeout=TP_TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"TP rank {r} exited {p.returncode}:\n"
+                                 f"{log[-4000:]}")
+    return [torch.load(os.path.join(work, f"tp_rank{r}.pt"),
+                       weights_only=False) for r in range(TP_RANKS)]
+
+
+def conv_fp32_bound(layer, x, y):
+    """(bound ms, ops ms, bytes ms) of a float32 conv or transposed conv
+    ``layer`` from its input ``x`` to its output ``y`` (NCHW): 2 flops a
+    multiply-add on the CUDA cores, x, the weight, the bias and y moved
+    once."""
+    kh, kw = layer.kernel_size
+    c_in = layer.in_channels
+    if isinstance(layer, torch.nn.ConvTranspose2d):
+        ops = 2.0 * x.numel() * layer.weight.shape[1] * kh * kw
+    else:
+        ops = 2.0 * y.numel() * c_in // layer.groups * kh * kw
+    nbytes = 4.0 * (x.numel() + y.numel() + sum(
+        p.numel() for p in layer.parameters()))
+    t_ops, t_bytes = ops / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), t_ops, t_bytes
+
+
+def tp_sites(dev, name, model, args):
+    """Each conv that model coordinate 0 of a 'model' axis of 2 keeps
+    half of, timed once on its own at the forward's input (float32, TF32
+    off) beside its float32 bound; also the single-process forward's
+    output.  Returns (y, rows)."""
+    import copy
+
+    from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.parallel.mesh import (
+        Mesh, param_shardings, shard_module)
+
+    model = model.to(dev)
+    mesh = Mesh(ranks=[0], rank=0, device=dev, model=2, model_rank=0)
+    places = param_shardings(model, mesh)
+    # the column block alone: the layers' own forwards skip the hooks that
+    # would assemble the output across the group
+    sharded = shard_module(copy.deepcopy(model), mesh, places)
+    layers = dict(sharded.named_modules())
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a, n=n: seen.setdefault(n, a[0].clone()))
+        for n, m in model.named_modules()
+        if isinstance(places.get(f"{n}.weight"), tuple)
+        and isinstance(m, torch.nn.modules.conv._ConvNd)]
+    with torch.no_grad(), fp32_reference():
+        y = model(*(a.to(dev) for a in args))
+        for h in hooks:
+            h.remove()
+        rows = []
+        for n, x in seen.items():
+            layer = layers[n]
+            out = layer.forward(x)
+            ms = cuda_ms(lambda: layer.forward(x), reps=5)
+            bound, t_ops, t_bytes = conv_fp32_bound(layer, x, out)
+            rows.append({"model": name, "site": n, "in": list(x.shape),
+                         "out": list(out.shape), "ms": ms,
+                         "bound_ms": bound, "over_bound": ms / bound,
+                         "bound_by": "operations" if t_ops >= t_bytes
+                         else "bytes"})
+    del sharded, seen
+    return y.cpu(), rows
+
+
+def grads_diff(got, want):
+    """How many of ``got``'s tensors equal ``want``'s bit for bit, and the
+    worst rel-L2 of the rest, with the first differing name in ``got``'s
+    order (the backward's, for a rank's own gradients)."""
+    rel = {n: float((g.double() - want[n].double()).norm()
+                    / max(float(want[n].double().norm()), 1e-30))
+           for n, g in got.items() if not torch.equal(g, want[n])}
+    worst = max(rel, key=rel.get, default=None)
+    return {"equal": len(got) - len(rel), "of": len(got),
+            "first_diff": next(iter(rel), None), "worst": worst,
+            "worst_rel_l2": rel.get(worst, 0.0)}
+
+
+def tp_phase(dev, card: str):
+    """The 'model' mesh axis (see the module docstring, item 14).  Returns
+    (launches, results)."""
+    import dataclasses
+
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    results, walls, launches = {}, {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        # --- (a) the single-process forwards and each sharded conv alone
+        t0 = time.perf_counter()
+        single, site_rows = {}, []
+        for name, model, args in tp_models():
+            (single[name], rows), counts = count_launches(
+                lambda: tp_sites(dev, name, model, args))
+            add_counts(launches, counts)
+            site_rows += rows
+            del model
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        walls["single forwards and sites"] = time.perf_counter() - t0
+        base = PRESETS["unet_combined"]
+        ucfg = base.replace(
+            data=dataclasses.replace(base.data, image_size=(HW, HW),
+                                     batch_size=TP_STEP_BATCH,
+                                     augment=False),
+            model=dataclasses.replace(base.model, base_features=FEATURES))
+        g = torch.Generator().manual_seed(41)
+        batch = torch.randn(TP_STEP_BATCH, HW, HW, 3, generator=g)
+        t0 = time.perf_counter()
+        ranks = run_tp_ranks({"device": str(dev), "batch": batch,
+                              "config": json.loads(ucfg.to_json())}, work)
+        walls["4 ranks (spawn included)"] = time.perf_counter() - t0
+        for r in ranks:
+            add_counts(launches, r["counts"])
+
+        # (a) the column-parallel forwards against the single process
+        forward = {}
+        for name in ("unet", "fastddpm"):
+            want = single[name].numpy()
+            got = ranks[0]["forward"][name]["y"].numpy()
+            err = float(np.abs(got - want).max())
+            rel = rel_l2(got, want)
+            held = [ranks[r]["forward"][name] for r in (0, 1)]
+            full = UNET_PARAMS if name == "unet" else FASTDDPM_PARAMS
+            forward[name] = {"max_abs_err": err, "rel_l2": rel,
+                             "params_by_rank": [h["params"] for h in held],
+                             "bytes_by_rank": [h["bytes"] for h in held],
+                             "params_unsharded": full}
+            print(f"{name} column-parallel forward, model axis 2 over ranks "
+                  f"0 and 1 ({BATCH} x {HW}^2, float32): vs the "
+                  f"single-process forward on the card max |diff| "
+                  f"{err:.6g} (|y| max {np.abs(want).max():.6g}), rel-L2 "
+                  f"{rel:.6g} (bound {TP_REL_L2:g}); parameters a rank "
+                  f"{[h['params'] for h in held]} of {full}, bytes a rank "
+                  f"{[h['bytes'] for h in held]}")
+            if not (np.isfinite(got).all() and got.shape == want.shape
+                    and rel <= TP_REL_L2):
+                raise AssertionError(f"{name} sharded forward rel-L2 {rel}")
+            if not held[0]["params"] == held[1]["params"] < full:
+                raise AssertionError(f"{name} parameters held {held}")
+        flagged = [r for r in site_rows if r["over_bound"] > TP_SITE_FLAG]
+        for r in site_rows:
+            print(f"  sharded {r['model']}.{r['site']}: in {r['in']} -> "
+                  f"out {r['out']}: {r['ms']:.4f} ms, float32 bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"{r['over_bound']:.1f}x"
+                  + (" FLAGGED" if r in flagged else ""))
+        print(f"sharded convs over {TP_SITE_FLAG:g}x their float32 bound: "
+              + (", ".join(f"{r['model']}.{r['site']} "
+                           f"{r['over_bound']:.1f}x" for r in flagged)
+                 or "none") + f" ({card})")
+        results["forward"] = forward
+        results["sites"] = site_rows
+
+        # (b) the 2 x 2 step: the two model copies bit-equal, and equal
+        # to the pair's step within phase 13's bounds
+        t0 = time.perf_counter()
+        steps = [r["step"]["2x2"] for r in ranks]
+        if [s["rows"] for s in steps] != [TP_STEP_BATCH // 2] * TP_RANKS:
+            raise AssertionError(
+                f"2x2 rows a rank {[s['rows'] for s in steps]}")
+        if [s["coords"] for s in steps] != [(0, 0), (0, 1), (1, 0), (1, 1)]:
+            raise AssertionError(f"2x2 coords {[s['coords'] for s in steps]}")
+        copies = steps[0], steps[1]
+        bit_equal = (len({s["loss"] for s in steps}) == 1 and all(
+            torch.equal(copies[0][k][n], copies[1][k][n])
+            for k in ("grads", "stats") for n in copies[0][k]))
+        print(f"unet_combined step on the 2 x 2 mesh ({TP_RANKS} ranks, "
+              f"{TP_STEP_BATCH // 2} rows a data rank): losses "
+              f"{[s['loss'] for s in steps]}; the two model copies "
+              f"bit-equal: {bit_equal}")
+        if not bit_equal:
+            raise AssertionError("the 2x2 mesh's model copies differ")
+        pair = ranks[0]["step"]["pair"]
+
+        def ref64():
+            tr = SupervisedTrainer(ucfg, perceptual_fn=make_perceptual_fn(
+                ucfg.loss.perceptual, dtype=torch.float64), device="cpu")
+            tr.state.module.double()
+            tr.train_step(tr.state, batch.double())
+            return {n: p.grad.detach().double()
+                    for n, p in tr.state.module.named_parameters()}
+
+        # the witness: each data rank's own gradients before the all-reduce.
+        # Past a process's first step the mesh changes no bit: the same rows
+        # give the same local gradients on either mesh, on either rank pair
+        witness = {}
+        for what, (a, la), (b, lb) in (
+                ("rows 0-1, rank 0: its first step (the warm-up) vs the "
+                 "2x2 step", (0, "warm-up"), (0, "2x2")),
+                ("rows 0-1, rank 0: the 2x2 step vs the pair's",
+                 (0, "2x2"), (0, "pair")),
+                ("rows 2-3: rank 2 in the 2x2 vs rank 1 in the pair",
+                 (2, "2x2"), (1, "pair")),
+                ("rows 0-1: rank 2 in the pair over ranks 2-3 vs rank 0 in "
+                 "the pair", (2, "pair23"), (0, "pair")),
+                ("rows 2-3: rank 3 in the pair over ranks 2-3 vs rank 1 in "
+                 "the pair", (3, "pair23"), (1, "pair"))):
+            witness[what] = grads_diff(ranks[a]["step"][la]["local"],
+                                       ranks[b]["step"][lb]["local"])
+            print(f"witness, own gradients before the all-reduce, {what}: "
+                  f"{witness[what]}")
+        witness["pair over ranks 2-3 vs over 0-1, reduced"] = grads_diff(
+            ranks[2]["step"]["pair23"]["grads"], pair["grads"])
+        witness["2x2 vs pair, reduced"] = grads_diff(steps[0]["grads"],
+                                                     pair["grads"])
+        for what in list(witness)[-2:]:
+            print(f"witness, gradients after the all-reduce, {what}: "
+                  f"{witness[what]}")
+        caught = sorted({w for r in ranks for e in r["step"].values()
+                         for w in e["warnings"]})
+        print(f"nondeterminism warnings in the steps: {caught or 'none'}")
+        unequal = [w for w in list(witness)[1:]
+                   if witness[w]["equal"] != witness[w]["of"]]
+        if unequal:
+            raise AssertionError(f"the mesh changed the step's bits: "
+                                 f"{unequal}")
+        same = not unequal
+        results["step"] = {**dp_step_check(
+            "unet_combined", pair, steps[0], steps[0]["loss"], ref64,
+            mine="the 2 x 2 mesh's step",
+            theirs="the 2-rank pair's (phase 13's mesh)"),
+            "copies_bit_equal": bit_equal, "pair_bit_equal": same,
+            "witness": witness}
+        print(f"2 x 2 step vs the pair's (phase 13's mesh): bit-equal: "
+              f"{same}")
+        walls["checks"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    results["walls"] = walls
+    print(f"model-axis phase launches {launches} (no kernel is on this path)")
+    print("model-axis wall (s): " + ", ".join(f"{k} {v:.2f}"
+                                              for k, v in walls.items())
+          + f" ({card}; four ranks share one card: not a scaling number)")
+    return launches, results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -3977,14 +4385,19 @@ SOURCES = {
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--sites-json", help="also write per-site numbers here")
-    # one rank of phase 13's pair, started by the phase itself
+    # one rank of phase 13's pair or of phase 14's four, started by the
+    # phase itself
     ap.add_argument("--dp-rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-port", type=int, help=argparse.SUPPRESS)
     ap.add_argument("--dp-in", help=argparse.SUPPRESS)
     ap.add_argument("--dp-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.dp_rank is not None:
         dp_rank_main(args.dp_rank, args.dp_port, args.dp_in, args.dp_out)
+        return 0
+    if args.tp_rank is not None:
+        tp_rank_main(args.tp_rank, args.dp_port, args.dp_in, args.dp_out)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4019,6 +4432,7 @@ def main() -> int:
         ingest_launches, ingest_result = ingest_phase(dev, card, teachers)
         parallel_launches, parallel_result = parallel_phase(dev, card,
                                                             teachers)
+    tp_launches, tp_result = tp_phase(dev, card)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -4036,12 +4450,14 @@ def main() -> int:
 
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
-            # distillation, ingest and parallel paths' runs, each counted
-            # from 0 just before it (phase 13's ranks count their own)
+            # distillation, ingest, parallel and model-axis paths' runs,
+            # each counted from 0 just before it (phase 13's and 14's ranks
+            # count their own)
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
                 train_launches, family_launches, bf16_launches,
-                distill_launches, ingest_launches, parallel_launches))
+                distill_launches, ingest_launches, parallel_launches,
+                tp_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -4053,6 +4469,7 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in sel),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None if None in libs else sum(libs),
+            "launches_model_axis": tp_launches.get(name, 0),
         }
         if name in ("conv_int8", "upconv_int8"):
             entry["launches_by_path"] = {p: main_path(f"{name}/{p}")
@@ -4067,8 +4484,8 @@ def main() -> int:
                        "diffusion": diff_result, "train": train_result,
                        "families": family_result, "bf16": bf16_result,
                        "distill": distill_result, "ingest": ingest_result,
-                       "parallel": parallel_result, "kernels": kernels}, f,
-                      indent=1)
+                       "parallel": parallel_result, "model_axis": tp_result,
+                       "kernels": kernels}, f, indent=1)
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

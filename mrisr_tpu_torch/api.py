@@ -10,7 +10,9 @@ eval code uses.  Every eval model of the registry loads: the pair UNets
 10-step ancestral chain) and ``fastddpm_simple`` (DDIM over the compressed
 schedule).  A step-distilled student ``<base>_steps<N>`` (``cli
 distill-steps``) loads as its base architecture with the timestep grid of
-its sidecar, sampled by deterministic DDIM over that grid.
+its sidecar, sampled by deterministic DDIM over that grid.  Where the
+JAX package reads an Orbax directory ``D`` (its trainers write them), the
+port reads ``D.pt``, the conversion ``tools/orbax_to_torch.py`` writes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from mrisr_tpu_torch.ckpt.fold_bn import fold_unet_batchnorm
 from mrisr_tpu_torch.ckpt.torch_ckpt import (
     load_checkpoint_file,
     load_reference_state_dict,
+    orbax_record,
 )
 from mrisr_tpu_torch.config import PRESETS, ModelConfig
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
@@ -114,11 +117,34 @@ class LoadedModel:
         return out.permute(0, 3, 1, 2)
 
 
-def _orbax_error(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{path} is an Orbax checkpoint, which the port cannot read without "
-        "JAX (ROADMAP.md, Queue 1 item 7); convert it to the reference's "
-        "torch layout, or pass checkpoint=<file.pt>")
+def orbax_conversion(directory: str, model_name: str) -> dict:
+    """The checkpoint the port reads for the JAX package's Orbax checkpoint
+    ``directory`` of model ``model_name``: its conversion
+    ``<directory>.pt`` (``tools/orbax_to_torch.py``), when that file is
+    there and its record matches the directory (a record without the
+    metadata's hash matches nothing).  Anything else raises, with the
+    tool's command: a port-trained ``<name>_best.pt`` beside a JAX-trained
+    ``<name>_best/`` is not a conversion of it."""
+    directory = os.path.normpath(directory)
+    path = directory + ".pt"
+    if not os.path.isfile(path):
+        problem = "is missing"
+    else:
+        ckpt = load_checkpoint_file(path)
+        record = ckpt.get("orbax") if isinstance(ckpt, dict) else None
+        if record is None:
+            problem = "records no Orbax checkpoint"
+        elif record.get("sha256") is None:
+            problem = "records no hash of its metadata"
+        elif record == orbax_record(directory):
+            return ckpt
+        else:
+            problem = "records another save of it (stale)"
+    raise NotImplementedError(
+        f"{directory} is an Orbax checkpoint of the JAX package; the port "
+        f"reads its conversion {path}, which {problem}: run "
+        f"'python tools/orbax_to_torch.py {directory} --model {model_name}' "
+        "where JAX and Orbax are installed")
 
 
 def load_model(
@@ -133,7 +159,8 @@ def load_model(
     (``None``: the card).
 
     Search order, as the JAX package's: an explicit ``checkpoint`` path;
-    the Orbax dir ``<models_dir>/<name>_best`` (raises: it needs JAX); the
+    the Orbax dir ``<models_dir>/<name>_best``, read through its
+    conversion (:func:`orbax_conversion`, which raises without one); the
     reference torch file ``<models_dir>/<torch name>``; the port trainer's
     ``<models_dir>/<name>_best.pt``.  With none found,
     fresh weights (seeded), unless ``checkpoint='required'``, which raises.
@@ -160,11 +187,6 @@ def load_model(
     device = resolve_device(device)
     if cfg is None:
         cfg = PRESETS[name].model if name in PRESETS else ModelConfig(name=name)
-    kind = TRAINABLE[name]
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
-        module = create_model(name, cfg)
-
     require = checkpoint == "required"
     if require:
         checkpoint = None
@@ -173,26 +195,38 @@ def load_model(
     # the port's trainer writes <preset>_best.pt (the reference's file name
     # for every family but the simple lineage)
     own_path = os.path.join(models_dir, f"{name}_best.pt")
-    path = None
+    ckpt = None
     if checkpoint:
         # an explicit path must exist: falling back to another checkpoint
         # would report metrics for the wrong model on a typo
         if not os.path.exists(checkpoint):
             raise FileNotFoundError(f"checkpoint not found: {checkpoint}")
-        if os.path.isdir(checkpoint):
-            raise _orbax_error(checkpoint)
-        path = checkpoint
+        ckpt = (orbax_conversion(checkpoint, name)
+                if os.path.isdir(checkpoint)
+                else load_checkpoint_file(checkpoint))
     elif os.path.isdir(orbax_path):
-        raise _orbax_error(orbax_path)
+        ckpt = orbax_conversion(orbax_path, name)
     elif name in _TORCH_CKPT_FILES and os.path.isfile(torch_path):
-        path = torch_path
+        ckpt = load_checkpoint_file(torch_path)
     elif os.path.isfile(own_path):
-        path = own_path
+        ckpt = load_checkpoint_file(own_path)
     elif require:
         raise FileNotFoundError(f"Checkpoint not found for {name} in "
                                 f"{models_dir}")
-    if path is not None:
-        load_reference_state_dict(module, load_checkpoint_file(path))
+    return _loaded(name, cfg, ckpt, fold_bn, device)
+
+
+def _loaded(name: str, cfg: ModelConfig, ckpt: Optional[dict],
+            fold_bn: bool, device: torch.device) -> LoadedModel:
+    """Model ``name`` built from ``cfg`` (seeded), with the weights of the
+    reference-layout checkpoint ``ckpt`` (None: the seeded ones), in eval
+    mode on ``device``, with its sampling schedule."""
+    kind = TRAINABLE[name]
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        module = create_model(name, cfg)
+    if ckpt is not None:
+        load_reference_state_dict(module, ckpt)
     module = module.eval()
     schedule = None
     if name == "fastddpm_simple":
@@ -227,8 +261,9 @@ def _load_step_distilled(name: str, base: str, n_steps: int,
         raise ValueError(f"{name}: step-distilled students must be diffusion "
                          f"models, {base} is kind={TRAINABLE[base]!r}")
     orbax_path = os.path.join(models_dir, f"{name}_best")
-    if os.path.isdir(orbax_path):
-        raise _orbax_error(orbax_path)
+    # raises unless <name>_best.pt is the directory's conversion
+    ckpt = (orbax_conversion(orbax_path, name) if os.path.isdir(orbax_path)
+            else None)
     ckpt_path = os.path.join(models_dir, f"{name}_best.pt")
     grid_path = os.path.join(models_dir, f"{name}_grid.json")
     if not os.path.isfile(ckpt_path) or not os.path.exists(grid_path):
@@ -254,8 +289,9 @@ def _load_step_distilled(name: str, base: str, n_steps: int,
         raise ValueError(
             f"{grid_path}: timesteps must be strictly ascending, "
             f"got {timesteps}")
-    loaded = load_model(base, models_dir, checkpoint=ckpt_path, cfg=cfg,
-                        device=device)
+    if ckpt is None:
+        ckpt = load_checkpoint_file(ckpt_path)
+    loaded = _loaded(base, cfg, ckpt, False, resolve_device(device))
     schedule = replace(loaded.schedule, timesteps=torch.tensor(
         timesteps, dtype=torch.int32))
     return LoadedModel(name=name, module=loaded.module, kind="diffusion",

@@ -13,6 +13,8 @@ dict that lacks it loads with zeros.
 
 from __future__ import annotations
 
+import hashlib
+import os
 import pickle
 from typing import Any, Dict, List
 
@@ -112,3 +114,19 @@ def reference_state_dict(sd: Dict[str, torch.Tensor], model_name: str
     head = REFERENCE_HEAD.get(model_name, "final")
     return {(head + k[len("final"):] if k.startswith("final.") else k):
             v.detach().cpu() for k, v in sd.items()}
+
+
+def orbax_record(directory: str) -> Dict[str, Any]:
+    """What the conversion ``<directory>.pt`` of an Orbax checkpoint
+    records (``tools/orbax_to_torch.py``): the directory's name and the
+    sha256 of its ``_CHECKPOINT_METADATA``, which Orbax rewrites with the
+    commit time at every save (None where the file is missing).  A
+    re-saved checkpoint changes it, so a stale conversion, or another file
+    of that name, does not match."""
+    path = os.path.join(directory, "_CHECKPOINT_METADATA")
+    digest = None
+    if os.path.isfile(path):
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+    return {"dir": os.path.basename(os.path.normpath(directory)),
+            "sha256": digest}

@@ -49,12 +49,13 @@ process group from its environment (NCCL on the card, gloo with
       train --preset unet_combined --data <store> --mesh-data 2 [...]
 
 the world size playing the JAX CLI's visible-device count: an explicit
-``--mesh-data N`` is honored strictly (N ranks, a batch that divides by
-N), the default shrinks to gcd(batch, world), one rank runs the unmeshed
-program.  Every command takes the JAX CLI's common flags; the others
-ignore the training ones, as the JAX CLI does.  ``--mesh-model`` > 1
-(tensor parallelism) raises ``NotImplementedError`` naming its ROADMAP
-item.
+``--mesh-data N`` is honored strictly (N x model ranks, a batch that
+divides by N), the default shrinks to gcd(batch, world), one rank runs the
+unmeshed program.  ``--mesh-model M`` adds the JAX CLI's 'model' axis: the
+state replicated over the whole mesh and the batch sharded on 'data' only,
+as the JAX trainers run it, so the M data groups run the same program and
+the first rank writes.  Every command takes the JAX CLI's common flags;
+the others ignore the training ones, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -118,8 +119,7 @@ def _add_common_args(p: argparse.ArgumentParser,
                    help="data-parallel mesh axis size (-1 = all ranks; "
                         "default: all ranks when >1 run under torchrun)")
     p.add_argument("--mesh-model", type=int, default=None,
-                   help="model (tensor-parallel) mesh axis size (default "
-                        "1; > 1 is not ported)")
+                   help="model (tensor-parallel) mesh axis size (default 1)")
     p.add_argument("--shard-hosts", action="store_true",
                    help="each process loads only its own patient shard "
                         "(round-robin, rank and world size from "
@@ -230,14 +230,18 @@ def cmd_pack(args) -> None:
 
 
 def _training_mesh(cfg: Config, device):
-    """The data mesh of ``cfg.mesh`` (counterpart: ``mrisr_tpu/cli.py:
-    _training_mesh``), the process group's world size playing the visible
-    device count.  None for one rank: the unmeshed program.
+    """The data x model mesh of ``cfg.mesh`` (counterpart:
+    ``mrisr_tpu/cli.py:_training_mesh``), the process group's world size
+    playing the visible device count.  None for one rank: the unmeshed
+    program.
 
-    The default (data=-1) shrinks the data axis to gcd(batch, world) and
-    takes the first ranks; an explicit ``--mesh-data`` is honored
-    strictly.  Every rank of the group calls it (a subgroup is made
-    collectively); a rank outside the mesh sits the run out."""
+    An explicit ``--mesh-data d`` takes the first d * model ranks, a
+    model-only ``--mesh-model m`` every rank (data = world // m); the
+    default (data=-1, model=1) shrinks the data axis to gcd(batch, world)
+    and takes the first ranks.  The state is replicated over the whole
+    mesh, as the JAX trainers replicate it, so the ``model`` data groups
+    run the same program.  Every rank of the group calls it (the groups
+    are made collectively); a rank outside the mesh sits the run out."""
     import math
 
     from mrisr_tpu_torch.parallel.mesh import (
@@ -253,15 +257,21 @@ def _training_mesh(cfg: Config, device):
     _check_mesh(cfg.mesh.data, cfg.mesh.model, world)
     if world == 1:
         return None
-    if cfg.mesh.data > 0:
-        n = cfg.mesh.data
+    if cfg.mesh.data > 0 or cfg.mesh.model > 1:
+        model = max(cfg.mesh.model, 1)
+        if cfg.mesh.data > 0:
+            mesh = make_mesh(MeshSpec(data=cfg.mesh.data, model=model),
+                             devices=list(range(cfg.mesh.data * model)),
+                             device=device)
+        else:  # model-only request: the data axis takes every other rank
+            mesh = make_mesh(MeshSpec(data=-1, model=model), device=device)
+        n = mesh.size
         if cfg.data.batch_size % n != 0:
             raise SystemExit(
                 f"batch_size {cfg.data.batch_size} is not divisible by the "
                 f"mesh's data axis ({n}); pass --batch-size k*{n} or shrink "
                 "the mesh with --mesh-data")
-        return make_mesh(MeshSpec(data=n), devices=list(range(n)),
-                         device=device)
+        return mesh
     n = math.gcd(cfg.data.batch_size, world)
     if n < world and global_rank() == 0:
         print(f"note: data axis shrunk to {n} of {world} devices (largest "
@@ -273,18 +283,19 @@ def _training_mesh(cfg: Config, device):
 
 
 def _check_mesh(data: int, model: int, world: int) -> None:
-    """The JAX CLI's refusals of a mesh the ranks cannot hold, and of a
-    'model' axis > 1, which is not ported."""
-    from mrisr_tpu_torch.parallel.mesh import TP_REFUSAL
-
-    if model > 1:
-        raise NotImplementedError(TP_REFUSAL)
-    if data > world:
+    """The JAX CLI's refusals of an explicit mesh the ranks cannot hold
+    (``data``: -1 = all remaining ranks)."""
+    model = max(model, 1)
+    if world == 1:
+        if max(data, 1) * model > 1:
+            raise SystemExit(
+                f"--mesh-data/--mesh-model requests {max(data, 1)}x{model} "
+                "devices but only 1 is visible")
+        return
+    if data > 0 and data * model > world:
         raise SystemExit(
-            f"--mesh-data/--mesh-model requests {data}x1 devices but only 1 "
-            "is visible" if world == 1 else
-            f"--mesh-data/--mesh-model requests {data} devices but only "
-            f"{world} are visible")
+            f"--mesh-data/--mesh-model requests {data * model} devices but "
+            f"only {world} are visible")
 
 
 def _check_mesh_flags(args) -> None:
@@ -294,7 +305,7 @@ def _check_mesh_flags(args) -> None:
     ``WORLD_SIZE``)."""
     from mrisr_tpu_torch.parallel.mesh import world_size
 
-    _check_mesh(args.mesh_data or 1, args.mesh_model or 1,
+    _check_mesh(args.mesh_data or -1, args.mesh_model or 1,
                 max(world_size(), int(os.environ.get("WORLD_SIZE", "1"))))
 
 
@@ -341,7 +352,7 @@ def _mesh_loader_args(cfg: Config, device):
     mesh = _training_mesh(cfg, device)
     if mesh is None:
         return None, None
-    if mesh.rank == 0:
+    if mesh.first:
         print(f"training mesh: {mesh.shape}")
     return mesh, batch_sharding(mesh)
 

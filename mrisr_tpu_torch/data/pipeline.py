@@ -388,7 +388,8 @@ def build_loader(
     ``bank``: reuse a SliceBank already built for the same split (the bank
     does not depend on ``distance_filter``, so the per-spacing eval builds
     it once).  ``shard_by_host``: this process reads only its round-robin
-    share of the split's patients (:func:`host_shard_patients`).
+    share of the split's patients (:func:`host_shard_patients`; under a
+    ``sharding``, the share of its data coordinate).
     ``sharding`` (``parallel/mesh.py:batch_sharding``): yield this rank's
     rows of each global batch.  With ``shard_by_host`` too, each rank
     takes its rows of a batch of its own patients, as the JAX loader's
@@ -399,7 +400,11 @@ def build_loader(
         patients = split_for(store.patient_ids, split, cfg.test_val_fraction,
                              cfg.test_within_fraction, cfg.split_seed)
         if shard_by_host:
-            patients = host_shard_patients(patients)
+            # under a mesh the ranks of one data coordinate take the same
+            # rows, so the shards go by data coordinate
+            patients = host_shard_patients(
+                patients, *((sharding.rank, sharding.size)
+                            if sharding is not None else (None, None)))
         bank = SliceBank(store, store.series_for_patients(patients),
                          cfg.image_size, backend=backend, device=device,
                          value_range=cfg.value_range)

@@ -1,6 +1,7 @@
-"""Data parallelism over a process group (counterpart:
-``mrisr_tpu/parallel``): the data mesh, batch shards, replication from
-rank 0, process-group setup and the autograd-carrying collectives."""
+"""The ('data', 'model') mesh over a process group (counterpart:
+``mrisr_tpu/parallel``): batch shards, replication from rank 0, the
+'model' axis's parameter shardings and column-parallel forward,
+process-group setup and the autograd-carrying collectives."""
 
 from mrisr_tpu_torch.parallel.mesh import (  # noqa: F401
     Mesh,
@@ -14,4 +15,5 @@ from mrisr_tpu_torch.parallel.mesh import (  # noqa: F401
     psum_mean,
     replicated,
     shard_batch,
+    shard_module,
 )

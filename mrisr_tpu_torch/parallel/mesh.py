@@ -1,4 +1,4 @@
-"""Data-parallel mesh over a process group (counterpart:
+"""The ('data', 'model') mesh over a process group (counterpart:
 ``mrisr_tpu/parallel/mesh.py``).
 
 JAX drives every device from one program: a ('data', 'model') mesh, the
@@ -7,10 +7,14 @@ gradient ``psum``.  Here each rank is a process (``torchrun``, or
 ``torch.multiprocessing``) holding one replica, and the same program is
 written out:
 
-- the global batch is split into equal contiguous row blocks, rank r of
-  the data group taking block r (:func:`shard_batch`);
+- the ranks are laid out as JAX lays out its devices,
+  ``reshape(data, model)``: mesh rank r sits at data coordinate
+  ``r // model`` and model coordinate ``r % model``;
+- the global batch is split into equal contiguous row blocks, the data
+  coordinate d taking block d (:func:`shard_batch`), so the ranks of one
+  data coordinate take the same rows;
 - the parameters and buffers start equal: :func:`replicated` broadcasts
-  them from the group's first rank, and sets the group on every
+  them from the data group's first rank, and sets the group on every
   ``models/blocks.py:BatchNorm2d``, whose training-mode statistics are then
   those of the global batch, as under JAX's mesh;
 - the gradients are averaged by one flat all-reduce between the backward
@@ -18,22 +22,26 @@ written out:
 - every random value is drawn for the global batch from the same stream
   on every rank, and each rank keeps its rows.
 
-A mesh of one rank is the unmeshed program: every collective is a no-op.
-The 'model' axis (tensor parallelism) is not ported: a mesh with
-``model > 1`` raises, naming ROADMAP item 16.
+A :class:`Mesh` describes the data group of this rank's model coordinate,
+so the training code sees a data mesh; with ``model > 1`` the JAX
+trainers replicate their state over the whole mesh, and the ``model``
+data groups run the same program.  The 'model' axis shards parameters
+only where a caller asks for it, as JAX's only user of it does (a test's
+eval forward under GSPMD): :func:`param_shardings` picks JAX's kernels,
+and :func:`shard_module` runs a module column-parallel over the model
+group.  A mesh of one rank is the unmeshed program: every collective is a
+no-op.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
-
-TP_REFUSAL = ("tensor parallelism (a 'model' mesh axis > 1) is not ported "
-               "(ROADMAP.md, Queue 1 item 16)")
 
 
 @dataclass(frozen=True)
@@ -44,18 +52,24 @@ class MeshSpec:
 
 @dataclass
 class Mesh:
-    """The data group of this process.
+    """This process's place in the mesh.
 
-    ``ranks``: the global ranks of the group, in data order; ``rank``: this
-    process's place in it (-1: not a member); ``group``: the process group
-    (None: the default one, or no group at all for one rank); ``device``:
-    where this rank's replica runs."""
+    ``ranks``: the global ranks of its data group (the ranks of its model
+    coordinate), in data order; ``rank``: its data coordinate (-1: not a
+    member); ``group``: the data group's process group (None: the default
+    one, or no group at all for one rank); ``device``: where this rank's
+    replica runs.  ``model``: the 'model' axis's size; ``model_ranks``,
+    ``model_rank``, ``model_group``: the same for its model group (the
+    ranks of its data coordinate; None: this rank alone)."""
 
     ranks: List[int]
     rank: int
     group: Optional[object] = None
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     model: int = 1
+    model_ranks: Optional[List[int]] = None
+    model_rank: int = 0
+    model_group: Optional[object] = None
 
     @property
     def size(self) -> int:
@@ -69,6 +83,12 @@ class Mesh:
     def member(self) -> bool:
         return self.rank >= 0
 
+    @property
+    def first(self) -> bool:
+        """True on the mesh's first rank (data and model coordinate 0), the
+        one that writes checkpoints and histories and prints."""
+        return self.rank == 0 and self.model_rank == 0
+
     def rows(self, global_batch: int) -> slice:
         """This rank's rows of a global batch of ``global_batch`` rows."""
         if global_batch % self.size:
@@ -79,12 +99,15 @@ class Mesh:
         return slice(self.rank * n, (self.rank + 1) * n)
 
     def barrier(self) -> None:
-        """Every rank of the group waits here (a one-element all-reduce on
-        the group's device, which both backends take)."""
-        if self.size > 1:
-            t = torch.zeros(1, device=self.device)
-            dist.all_reduce(t, group=self.group)
-            t.item()
+        """Every rank of the mesh waits here: a one-element all-reduce on
+        the group's device (which both backends take) over the data group,
+        then over the model group, which together span the mesh."""
+        for size, group in ((self.size, self.group),
+                            (self.model, self.model_group)):
+            if size > 1:
+                t = torch.zeros(1, device=self.device)
+                dist.all_reduce(t, group=group)
+                t.item()
 
 
 def world_size() -> int:
@@ -103,11 +126,12 @@ def initialized() -> bool:
 def make_mesh(spec: Optional[MeshSpec] = None,
               devices: Optional[Sequence[int]] = None,
               device: Optional[torch.device] = None) -> Mesh:
-    """Build the data mesh over the given global ranks (``None``: every
-    rank of the default group) with JAX's checks.  ``device``: this rank's
+    """Build the data x model mesh over the given global ranks (``None``:
+    every rank of the default group) with JAX's checks, laid out as JAX's
+    ``np.array(devices).reshape(data, model)``.  ``device``: this rank's
     replica's device (``None``: ``device.resolve_device(None)``, the card
     of this rank).  Every rank of the default group must call it, members
-    or not (a subgroup is made collectively)."""
+    or not: the groups are made collectively."""
     from mrisr_tpu_torch.device import resolve_device
 
     spec = spec or MeshSpec()
@@ -122,20 +146,32 @@ def make_mesh(spec: Optional[MeshSpec] = None,
     assert n % model == 0, f"{n} devices not divisible by model={model}"
     data = spec.data if spec.data > 0 else n // model
     assert data * model == n, f"mesh {data}x{model} != {n} devices"
-    if model > 1:
-        raise NotImplementedError(TP_REFUSAL)
     world = world_size()
     if n > 1 and not all(0 <= r < world for r in ranks):
         raise ValueError(f"mesh ranks {ranks} are not all among the {world} "
                          "ranks of the process group")
-    group = None
-    if 1 < n < world:
-        group = dist.new_group(ranks)
+    grid = [ranks[d * model:(d + 1) * model] for d in range(data)]
+    # dist.new_group is collective: every rank makes every group, in this
+    # order, whether it is a member or not
+    data_groups = [_group([row[c] for row in grid], world)
+                   for c in range(model)]
+    model_groups = [_group(row, world) for row in grid]
     me = global_rank()
-    rank = ranks.index(me) if me in ranks else -1
-    return Mesh(ranks=ranks, rank=rank, group=group,
+    d, c = divmod(ranks.index(me), model) if me in ranks else (-1, -1)
+    return Mesh(ranks=[row[max(c, 0)] for row in grid], rank=d,
+                group=data_groups[max(c, 0)],
                 device=torch.device(device) if device is not None
-                else resolve_device(None), model=model)
+                else resolve_device(None), model=model,
+                model_ranks=grid[max(d, 0)], model_rank=c,
+                model_group=model_groups[max(d, 0)])
+
+
+def _group(members: List[int], world: int):
+    """The process group of ``members`` (None: the default group, or one
+    rank, which needs none); every rank must call it for every group."""
+    if len(members) <= 1 or members == list(range(world)):
+        return None
+    return dist.new_group(members)
 
 
 def batch_sharding(mesh: Mesh) -> Mesh:
@@ -166,15 +202,89 @@ def replicated(module: torch.nn.Module, mesh: Mesh) -> torch.nn.Module:
     return module
 
 
+def _out_dim(layer: torch.nn.Module) -> Optional[int]:
+    """The output-feature dim of ``layer``'s weight in torch's layout, the
+    dim JAX's trailing one is (HWIO's O, Dense's ``out``): 0 for a conv
+    ``(O, I, kh, kw)`` and a linear ``(out, in)``, 1 for a transposed conv
+    ``(I, O, kh, kw)``; None for any other layer."""
+    if isinstance(layer, torch.nn.ConvTranspose2d):
+        return 1
+    if isinstance(layer, (torch.nn.Conv2d, torch.nn.Linear)):
+        return 0
+    return None
+
+
 def param_shardings(module: torch.nn.Module, mesh: Mesh,
-                    min_size: int = 2**16):
-    """Per-parameter placement: every parameter replicated ('replicated'),
-    the only placement of a data mesh.  JAX shards kernels of at least
-    ``min_size`` elements on their output channels when the 'model' axis
-    is > 1; that raises here (ROADMAP item 16)."""
-    if mesh.model > 1:
-        raise NotImplementedError(TP_REFUSAL)
-    return {name: "replicated" for name, _ in module.named_parameters()}
+                    min_size: int = 2**16) -> Dict[str, object]:
+    """Per-parameter placement by JAX's rule: with a 'model' axis > 1, a
+    weight of ndim >= 2 and at least ``min_size`` elements whose output
+    dim divides by it is ``('model', dim)``, sharded on that dim (a
+    Megatron-style column split); every other parameter (biases, norms,
+    small kernels) is ``'replicated'``."""
+    out: Dict[str, object] = {}
+    for prefix, layer in module.named_modules():
+        for name, p in layer.named_parameters(recurse=False):
+            dim = _out_dim(layer) if name == "weight" else None
+            shard = (mesh.model > 1 and p.ndim >= 2 and dim is not None
+                     and p.shape[dim] % mesh.model == 0
+                     and p.numel() >= min_size)
+            out[f"{prefix}.{name}" if prefix else name] = (
+                ("model", dim) if shard else "replicated")
+    return out
+
+
+@torch.no_grad()
+def shard_module(module: torch.nn.Module, mesh: Mesh,
+                 shardings: Dict[str, object]) -> torch.nn.Module:
+    """Run ``module`` column-parallel over the mesh's model group: the
+    port's ``jax.device_put(params, shardings)`` and a jitted apply under
+    GSPMD, for the eval forward.
+
+    Each layer whose weight ``shardings`` places on 'model' keeps only this
+    rank's block of its output channels (weight and bias), computes those
+    channels, and a forward hook assembles the full output across the model
+    group; the norms, activations and every other layer run replicated on
+    the assembled tensors.  The layers keep their classes (the convs'
+    routes still apply).  The assembly is an all-reduce of a zero-filled
+    full-width buffer holding this rank's block: exact (x + 0 = x), and
+    taken by both gloo (on CUDA tensors too) and NCCL.  Returns the
+    module, in eval mode."""
+    module.eval()
+    if mesh.model <= 1:
+        return module
+    for prefix, layer in module.named_modules():
+        place = shardings.get(f"{prefix}.weight" if prefix else "weight")
+        if not isinstance(place, tuple):
+            continue
+        dim = place[1]
+        full = layer.weight.shape[dim]
+        k = full // mesh.model
+        lo = mesh.model_rank * k
+        layer.weight = torch.nn.Parameter(
+            layer.weight.narrow(dim, lo, k).contiguous(),
+            requires_grad=False)
+        if layer.bias is not None:
+            layer.bias = torch.nn.Parameter(layer.bias[lo:lo + k].clone(),
+                                            requires_grad=False)
+        if isinstance(layer, torch.nn.Linear):
+            layer.out_features, channel = k, -1
+        else:
+            layer.out_channels, channel = k, 1
+        layer.register_forward_hook(functools.partial(
+            _assemble_hook, mesh=mesh, channel=channel, full=full))
+    return module
+
+
+def _assemble_hook(layer, inputs, y, *, mesh: Mesh, channel: int, full: int
+                   ) -> torch.Tensor:
+    """A sharded layer's output block -> the full output, in the model
+    group's order (the channels stay last in memory)."""
+    y = y.movedim(channel, -1)
+    k = y.shape[-1]
+    out = y.new_zeros((*y.shape[:-1], full))
+    out[..., mesh.model_rank * k:(mesh.model_rank + 1) * k] = y
+    dist.all_reduce(out, group=mesh.model_group)
+    return out.movedim(-1, channel)
 
 
 def distributed_init(coordinator_address: Optional[str] = None,

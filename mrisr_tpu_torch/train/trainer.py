@@ -28,9 +28,10 @@ parallel over the mesh's ranks.  The models are replicated from the first
 rank (with cross-rank BatchNorm statistics), each step averages the
 gradients, the train loader yields each rank's rows of the global batch,
 and the epoch metrics are averaged over the group, so every rank takes
-the same early-stopping decision.  Only the first rank writes checkpoints
-and the history; every rank waits at a barrier after a save, and every
-rank loads on ``--resume``.
+the same early-stopping decision.  With a 'model' axis each model
+coordinate's data group runs that same program.  Only the mesh's first
+rank writes checkpoints and the history; every rank waits at a barrier
+after a save, and every rank loads on ``--resume``.
 """
 
 from __future__ import annotations
@@ -101,8 +102,9 @@ class _EpochLoopMixin:
 
     @property
     def _writes(self) -> bool:
-        """True on the rank that writes checkpoints and the history."""
-        return self.mesh is None or self.mesh.rank == 0
+        """True on the rank that writes checkpoints and the history: the
+        mesh's first (data and model coordinate 0)."""
+        return self.mesh is None or self.mesh.first
 
     def _barrier(self) -> None:
         if self.mesh is not None:

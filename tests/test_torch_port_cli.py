@@ -98,12 +98,15 @@ def test_load_model_refusals(tmp_path):
     with pytest.raises(FileNotFoundError, match="not found"):
         load_model("unet", str(tmp_path), checkpoint=str(tmp_path / "x.pt"),
                    cfg=mcfg, device="cpu")
-    # an Orbax dir is found first and cannot be read: never fresh weights
+    # an Orbax dir is found first and is read only through its conversion:
+    # a port-trained unet_best.pt beside it is not one, and never fresh
+    # weights
     write_checkpoint(str(tmp_path / "unet_best.pt"), "unet", "raw")
     (tmp_path / "unet_best").mkdir()
     for kw in ({}, {"checkpoint": "required"},
                {"checkpoint": str(tmp_path / "unet_best")}):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(NotImplementedError,
+                           match="tools/orbax_to_torch.py"):
             load_model("unet", str(tmp_path), cfg=mcfg, device="cpu", **kw)
     # every registry family loads (fresh weights here); the discriminator
     # is not an eval model

@@ -307,25 +307,32 @@ def test_make_mesh_errors_match_jax(spec, n, exc):
 
 def test_mesh_single_rank_and_tensor_parallel_refusal():
     """One process: the default mesh is one rank (every collective a
-    no-op), ranks beyond the group raise, and a 'model' axis > 1 refuses
-    naming ROADMAP item 16, in ``make_mesh``, ``param_shardings`` and the
-    CLI (training or not)."""
+    no-op), ranks beyond the group raise.  A 'model' axis > 1 is taken
+    (``tests/test_torch_port_tp.py`` runs it on four ranks): a 2 x 2 mesh
+    over ranks the group lacks raises as a 2 x 1 one does, and
+    ``param_shardings`` shards by JAX's rule; the CLI refuses
+    ``--mesh-model 2`` on one rank with the JAX CLI's message (training or
+    not)."""
     mesh = make_mesh(device="cpu")
     assert mesh.shape == {"data": 1, "model": 1} and mesh.rank == 0
+    assert mesh.first and mesh.model_rank == 0
     x = torch.arange(6.0).reshape(3, 2)
     assert torch.equal(shard_batch(x, mesh), x)
     assert set(param_shardings(torch.nn.Linear(2, 2), mesh).values()) == {
         "replicated"}
     with pytest.raises(ValueError, match="not all among"):
         make_mesh(devices=[0, 1], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="not all among"):
         make_mesh(MeshSpec(data=2, model=2), devices=[0, 1, 2, 3],
                   device="cpu")
     mesh.model = 2
-    with pytest.raises(NotImplementedError, match="item 16"):
-        param_shardings(torch.nn.Linear(2, 2), mesh)
+    assert param_shardings(torch.nn.Linear(2, 2), mesh, min_size=4) == {
+        "weight": ("model", 0), "bias": "replicated"}
+    assert set(param_shardings(torch.nn.Linear(2, 2), mesh).values()) == {
+        "replicated"}
     for command in ("train", "eval"):
-        with pytest.raises(NotImplementedError, match="item 16"):
+        with pytest.raises(SystemExit, match="requests 1x2 devices but "
+                                             "only 1 is visible"):
             cli.main([command, "--data", "d", "--device", "cpu",
                       "--mesh-model", "2",
                       *(("--preset", "unet") if command == "train"

@@ -173,6 +173,23 @@ def perturbed(variables: dict, seed: int) -> dict:
     return jax.tree_util.tree_map_with_path(perturb, dict(variables))
 
 
+def jax_seeded_variables(model, *inputs, seed: int = 0, **kw) -> dict:
+    """A flax module's variables as numpy without compiling its init: the
+    shapes from ``jax.eval_shape``, each leaf N(0, 1 / fan_in) (fan_in:
+    all dims but the last) from a seeded numpy generator, then norm
+    scales, biases and statistics as :func:`perturbed` makes them."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda *x: model.init(
+        jax.random.PRNGKey(0), *x, **kw), *inputs)
+
+    def leaf(s):
+        fan_in = max(1, int(np.prod(s.shape[:-1])))
+        return (rng.standard_normal(s.shape) / np.sqrt(fan_in)).astype(
+            np.float32)
+
+    return perturbed(jax.tree.map(leaf, shapes), seed)
+
+
 def jax_init(model, *inputs, seed: int = 0, **kw) -> dict:
     """A flax module's variables (jitted init) as perturbed numpy."""
     v = jax.jit(lambda key, *x: model.init(key, *x, **kw))(
