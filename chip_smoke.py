@@ -207,9 +207,13 @@
    pair bundle served with data_parallel=True (every visible card) and with
    two replicas on the card: bit-identical with the plain engine, A and B
    on their paths; the int8_deep Fast-DDPM bundle over two replicas
-   (global noise draws) within rel-RMSE 0.35 of the bf16 sampler, its max
-   difference from the single engine printed.  The phase's wall by step
-   (two ranks on one card: not a scaling number).
+   (global noise draws) within rel-RMSE 0.35 of the bf16 sampler and
+   bit-identical with the single engine.  Its denoiser at 8 rows and at
+   its first 4 (row_witness): every conv input (the forward's stats hook),
+   the time embedding and every dispatcher op give rows 0-3 the same bits;
+   the bf16 bundle's denoiser is traced the same way and its first
+   differing site and op printed.  The phase's wall by step (two ranks on
+   one card: not a scaling number).
 14. Model-axis phase, the 'model' mesh axis (``parallel/mesh.py``), four
    ranks sharing the card over gloo (this script with --tp-rank).  (a)
    shard_module at a model axis of 2 (ranks 0 and 1, a 1 x 2 mesh, the
@@ -232,10 +236,24 @@
    cuDNN, so the first step is reported, not compared).  The steps run
    before the forwards of (a), so all four ranks have the same history.
    No kernel is on this path; its launch counts are printed.
+15. Names phase: the JAX package's last public names in the port.  At the
+   full-width UNet's four upconv sites at batch 8 (1024 -> 512 at 16^2 ...
+   128 -> 64 at 128^2), UpConv2x2(impl='pixel_shuffle') (one matmul and
+   the phase interleave) against the ConvTranspose2d of the same state
+   dict, float32 with TF32 off (max |diff| within 1e-5) and in bf16
+   compute (within two bf16 ulps of the largest output), each one's
+   forward and forward+backward ms.  resize_bilinear (antialias off and
+   on) and resize_bilinear_nhwc on one 60 x 512^2 volume to 256^2, card
+   against CPU within 1e-5; max_pool_3x3_s1 card against CPU, exact;
+   param_count of every family at its preset's width (module and state
+   dict) against the known counts; convert_torch_vgg16 of a
+   torchvision-keyed state dict on the card, and the VGG perceptual loss
+   from its npz on the card against the CPU (rel 1e-5).  No kernel is on
+   this path; its launch counts are printed.
 
-Prints the kernels' JSON line (A and B with their launches by path) and
-the card's name and power limit before the last line, which is
-{"ok": true, "device": {...}}.  With
+Prints the whole script's wall time, the kernels' JSON line (A and B with
+their launches by path) and the card's name and power limit before the
+last line, which is {"ok": true, "device": {...}}.  With
 ``--sites-json PATH`` the per-site numbers also go to PATH.  Exits non-zero
 on any failure.
 """
@@ -243,6 +261,7 @@ on any failure.
 from __future__ import annotations
 
 import argparse
+import difflib
 import json
 import os
 import shutil
@@ -3688,6 +3707,119 @@ def run_dp_ranks(inputs, work):
             for r in range(DP_RANKS)]
 
 
+# dispatcher ops that allocate without writing: a kernel fills their
+# outputs after they return, so their values say nothing
+ALLOCATING = ("empty", "empty_like", "empty_strided", "new_empty",
+              "new_empty_strided")
+
+
+def bits_fingerprint(v: torch.Tensor) -> torch.Tensor:
+    """Two int64 sums over the bit patterns of ``v``, plain and weighted by
+    position (on v's device, no sync): equal tensors give equal pairs, and
+    a changed bit changes them."""
+    v = v.detach().contiguous().reshape(-1)
+    if v.is_floating_point():
+        v = v.view({1: torch.int8, 2: torch.int16, 4: torch.int32,
+                    8: torch.int64}[v.element_size()])
+    v = v.to(torch.int64)
+    w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+    return torch.stack([v.sum(), (v * w).sum()])
+
+
+def op_trace(fn, keep: int, capture_at: int = -1):
+    """Runs ``fn`` under a dispatch mode.  Returns, one entry an output
+    tensor of every dispatcher op: its name (with the output's position
+    where it has several), its shape, and the fingerprints of its inputs'
+    and its output's first ``keep`` rows along their first dims; and those
+    rows of the ``capture_at``-th entry's output."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    ops, caught = [], []
+
+    def first(o):
+        return o[:keep] if o.dim() else o
+
+    class Trace(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            if name in ALLOCATING:
+                return out
+            ins = [bits_fingerprint(first(a)) for a in tree_leaves(
+                (args, kwargs)) if isinstance(a, torch.Tensor)]
+            ins = torch.stack(ins) if ins else torch.zeros(0, 2)
+            outs = [o for o in tree_leaves(out) if isinstance(o, torch.Tensor)]
+            for k, o in enumerate(outs):
+                if len(ops) == capture_at:
+                    caught.append(first(o).detach().clone())
+                ops.append((f"{name}[{k}]" if len(outs) > 1 else name,
+                            tuple(o.shape), ins, bits_fingerprint(first(o))))
+            return out
+
+    with Trace():
+        fn()
+    return ([(name, shape, ins.cpu(), out.cpu())
+             for name, shape, ins, out in ops], caught)
+
+
+def row_witness(fwd, x, t, what: str):
+    """Where ``fwd`` (a :class:`FastDDPMForward`) computes its first
+    ``x.shape[0] // 2`` rows differently when it runs all of ``x``: every
+    conv input (the forward's ``stats`` hook, with ``stat_fn`` a copy) and
+    the time embedding at both row counts; then, over every dispatcher op,
+    the first whose inputs' first rows are the same at both counts and
+    whose output's are not.  Prints both with the max |diff| and returns
+    them (a kernel's output shows at the site that reads it)."""
+    n = x.shape[0]
+    half = n // 2
+    sites, outs = {}, {}
+    for rows in (n, half):
+        stats = {}
+        t_emb = fwd.time_embedding(t[:rows])
+        outs[rows] = fwd(x[:rows], t[:rows], stats=stats,
+                         stat_fn=lambda h: h.detach().clone())
+        sites[rows] = {"time embedding": t_emb, **stats}
+    site, site_diff = None, 0.0
+    for name, v in sites[n].items():
+        a, b = v[:half].float(), sites[half][name].float()
+        if not torch.equal(a, b):
+            site, site_diff = name, float((a - b).abs().max())
+            break
+    out_diff = float((outs[n][:half] - outs[half]).abs().max())
+    traces = {rows: op_trace(lambda: fwd(x[:rows], t[:rows]), half)[0]
+              for rows in (n, half)}
+    # pair the ops of the two runs by name and inputs (a forward that
+    # loops over rows runs more ops at n rows), then look for an output
+    # that differs
+    keys = {rows: [(o[0], o[2].numpy().tobytes()) for o in tr]
+            for rows, tr in traces.items()}
+    pairs = [(i + k, j + k) for i, j, size in difflib.SequenceMatcher(
+        None, keys[n], keys[half], autojunk=False).get_matching_blocks()
+        for k in range(size)]
+    differ = [(i, j) for i, j in pairs
+              if not torch.equal(traces[n][i][3], traces[half][j][3])]
+    op = None
+    if differ:
+        i, j = differ[0]
+        got = {rows: op_trace(lambda: fwd(x[:rows], t[:rows]), half,
+                              capture_at=k)[1][0].float()
+               for rows, k in ((n, i), (half, j))}
+        op = {"index": i, "of": len(traces[n]), "op": traces[n][i][0],
+              "shape": traces[n][i][1],
+              "before": [o[0] for o in traces[n][max(0, i - 3):i]],
+              "max_abs_diff": float((got[n] - got[half]).abs().max()),
+              "pairs": len(pairs)}
+    result = {"first_site": site, "site_max_abs_diff": site_diff,
+              "first_op": op, "output_max_abs_diff": out_diff,
+              "sites": list(sites[n])}
+    print(f"{what}: rows 0-{half - 1} at {half} rows vs at {n}: first conv "
+          f"input that differs {site!r} (max |diff| {site_diff:.6g}); first "
+          f"op that differs on the same inputs {op}; the output's max "
+          f"|diff| {out_diff:.6g}")
+    return result
+
+
 def parallel_phase(dev, card: str, teachers: str):
     """Data parallelism (see the module docstring, item 13): ``teachers``
     holds phase 8's unet_combined_best.pt and phase 9's fastddpm_best.pt.
@@ -3955,6 +4087,24 @@ def parallel_phase(dev, card: str, teachers: str):
               f"{float(np.abs(split - own).max()):.6g}")
         if not all(witness.values()):
             raise AssertionError(f"DP int8_deep witness failed: {witness}")
+        # one denoiser call at BATCH rows and at its first half: every conv
+        # input and every op must give those rows the same bits (the
+        # GroupNorm chain's sums are short enough to stay in one thread or
+        # warp); the bf16 bundle's is printed
+        x_in = torch.cat([x[:BATCH], one.draw_noise(BATCH, HW, HW)[0]], -1)
+        t_in = torch.full((BATCH,), int(one.eps_fn.timesteps[-1]),
+                          dtype=torch.int32, device=dev)
+        rows = row_witness(one.eps_fn, x_in, t_in,
+                           "int8_deep denoiser (each replica's forward)")
+        if rows["first_site"] or rows["first_op"] or rows[
+                "output_max_abs_diff"]:
+            raise AssertionError(f"int8_deep denoiser rows differ by the "
+                                 f"row count: {rows}")
+        rows_bf16 = row_witness(float_apply.eps_fn, x_in, t_in,
+                                "bf16 denoiser (the none bundle)")
+        if not np.array_equal(dp_y, single_y):
+            raise AssertionError(f"DP int8_deep engine differs from the "
+                                 f"single engine: max |diff| {diff}")
         rel_single_float = rel_rmse(single_y, y_float)
         print(f"int8_deep Fast-DDPM bundle, data_parallel=True over "
               f"[{dev}, {dev}]: vs the bf16 float sampler rel-RMSE "
@@ -3969,7 +4119,9 @@ def parallel_phase(dev, card: str, teachers: str):
             "rel_rmse_float": rel, "max_diff_single": diff,
             "rel_rmse_single": rel_single,
             "rel_rmse_float_single": rel_single_float,
-            "witness": witness, "rel_rmse_rows": rel_rows}
+            "witness": witness, "rel_rmse_rows": rel_rows,
+            "bit_identical": True, "rows_int8_deep": rows,
+            "rows_bf16": rows_bf16}
         results["serving"] = serving
         walls["dp serving"] = time.perf_counter() - t0
     walls["phase"] = time.perf_counter() - t_phase
@@ -4367,6 +4519,159 @@ def tp_phase(dev, card: str):
     return launches, results
 
 
+# phase 15: the JAX package's last public names in the port
+RESIZE_SHAPE = (60, 512, 512)  # one volume of 512^2 slices -> 256^2
+RESIZE_ATOL = 1e-5             # tests/test_torch_port_resize.py's bound
+BF16_ULPS = 2 ** -6            # bf16: two ulps of the largest |y|
+
+
+def names_phase(dev, card: str):
+    """The JAX package's last public names on the card (see the module
+    docstring, item 15).  Returns the results."""
+    from mrisr_tpu_torch.config import PRESETS, ModelConfig
+    from mrisr_tpu_torch.device import fp32_reference
+    from mrisr_tpu_torch.losses.vgg import (convert_torch_vgg16,
+                                            make_perceptual_fn)
+    from mrisr_tpu_torch.models.blocks import (
+        PixelShuffleUpConv, UpConv2x2, max_pool_3x3_s1, set_compute_dtype)
+    from mrisr_tpu_torch.models.registry import create_model, param_count
+    from mrisr_tpu_torch.ops.resize import (resize_bilinear,
+                                            resize_bilinear_nhwc)
+
+    results, walls = {"upconv": []}, {}
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(15)
+
+    def timed(m, x, dy):
+        def fwd():
+            with torch.no_grad():
+                m(x)
+
+        def fwd_bwd():
+            xg = x.detach().requires_grad_(True)
+            m(xg).backward(dy)
+
+        return cuda_ms(fwd, reps=10), cuda_ms(fwd_bwd, reps=10)
+
+    # --- PixelShuffleUpConv against ConvTranspose2d on one state dict at
+    # the UNet's four upconv sites, float32 (TF32 off) and bf16 compute
+    def upconv_rows():
+        for name, h, ci, co in upconv_sites(FEATURES):
+            convt = UpConv2x2(ci, co).to(dev)
+            shuffle = UpConv2x2(ci, co, impl="pixel_shuffle").to(dev)
+            shuffle.load_state_dict(convt.state_dict())
+            if not isinstance(shuffle, PixelShuffleUpConv):
+                raise AssertionError("impl='pixel_shuffle' built "
+                                     f"{type(shuffle).__name__}")
+            x = torch.randn((BATCH, ci, h, h), generator=g).to(dev)
+            dy = torch.randn((BATCH, co, 2 * h, 2 * h), generator=g).to(dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                cd = None if dtype == torch.float32 else dtype
+                for m in (convt, shuffle):
+                    set_compute_dtype(m, cd)
+                with torch.no_grad():
+                    want, got = convt(x), shuffle(x)
+                diff = float((got.float() - want.float()).abs().max())
+                bound = (1e-5 if cd is None
+                         else BF16_ULPS * float(want.float().abs().max()))
+                row = {"site": name, "shape": [BATCH, ci, h, h], "co": co,
+                       "dtype": str(dtype).split(".")[-1],
+                       "max_abs_diff": diff, "bound": bound}
+                if not diff <= bound:
+                    raise AssertionError(f"pixel_shuffle vs convt {row}")
+                for impl, m in (("convt", convt), ("pixel_shuffle", shuffle)):
+                    row[f"{impl}_ms"], row[f"{impl}_fwd_bwd_ms"] = timed(
+                        m, x, dy.to(dtype))
+                results["upconv"].append(row)
+                print(f"upconv {name} {row['dtype']:8s} x {tuple(x.shape)} "
+                      f"-> {co}: pixel_shuffle vs convt max |diff| {diff:.3g}"
+                      f" (bound {bound:.3g}); fwd ms convt "
+                      f"{row['convt_ms']:.4f} pixel_shuffle "
+                      f"{row['pixel_shuffle_ms']:.4f}; fwd+bwd ms convt "
+                      f"{row['convt_fwd_bwd_ms']:.4f} pixel_shuffle "
+                      f"{row['pixel_shuffle_fwd_bwd_ms']:.4f} ({card})")
+
+    t0 = time.perf_counter()
+    with fp32_reference():
+        upconv_rows()
+    walls["upconv"] = time.perf_counter() - t0
+
+    # --- resize_bilinear(antialias) and resize_bilinear_nhwc: the card
+    # against the same calls on the CPU, one volume 512^2 -> 256^2
+    t0 = time.perf_counter()
+    vol = torch.rand(RESIZE_SHAPE, generator=g)
+    out_hw = (RESIZE_SHAPE[1] // 2, RESIZE_SHAPE[2] // 2)
+    resize = {}
+    for label, fn, x in (
+            ("resize_bilinear", resize_bilinear, vol),
+            ("resize_bilinear_nhwc", resize_bilinear_nhwc, vol[..., None])):
+        for aa in (False, True):
+            got = fn(x.to(dev), out_hw, antialias=aa).cpu()
+            want = fn(x, out_hw, antialias=aa)
+            diff = float((got - want).abs().max())
+            resize[f"{label} antialias={aa}"] = diff
+            if got.shape != want.shape or not diff <= RESIZE_ATOL:
+                raise AssertionError(f"{label} antialias={aa}: card vs CPU "
+                                     f"{tuple(got.shape)} max |diff| {diff}")
+    if resize_bilinear(vol.to(dev), RESIZE_SHAPE[1:]).shape != vol.shape:
+        raise AssertionError("resize_bilinear to the same size")
+    print(f"resize {RESIZE_SHAPE} -> {out_hw}, card vs CPU max |diff|: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in resize.items())
+          + f" (bound {RESIZE_ATOL})")
+    results["resize"] = resize
+
+    # --- max_pool_3x3_s1 on the card against the CPU (exact), the DeepCNN
+    # stem's map at batch 8
+    x = torch.randn((BATCH, FEATURES, HW, HW), generator=g) - 3.0
+    if not torch.equal(max_pool_3x3_s1(x.to(dev)).cpu(), max_pool_3x3_s1(x)):
+        raise AssertionError("max_pool_3x3_s1: card and CPU differ")
+
+    # --- param_count of every family at its preset's width (on the meta
+    # device: no weights), the module's and its state dict's
+    counts = {}
+    for name, want in {"unet": UNET_PARAMS, **FAMILY_PARAMS}.items():
+        cfg = PRESETS[name].model if name in PRESETS else ModelConfig(
+            name=name)
+        with torch.device("meta"):
+            model = create_model(name, cfg)
+        counts[name] = (param_count(model), param_count(model.state_dict()))
+        if counts[name] != (want, want):
+            raise AssertionError(f"param_count({name}) {counts[name]}, "
+                                 f"want {want}")
+    results["param_count"] = {k: v[0] for k, v in counts.items()}
+
+    # --- convert_torch_vgg16 from a torchvision-keyed state dict on the
+    # card; the perceptual loss from its npz on the card and on the CPU
+    plan = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128),
+            (10, 128, 256), (12, 256, 256), (14, 256, 256))
+    sd = {}
+    for ti, ci, co in plan:
+        sd[f"features.{ti}.weight"] = (torch.randn(
+            (co, ci, 3, 3), generator=g) / (9 * ci) ** 0.5).to(dev)
+        sd[f"features.{ti}.bias"] = 0.05 * torch.randn(
+            (co,), generator=g).to(dev)
+    p, q = torch.randn((2, 2, 64, 64, 1), generator=g)
+    with tempfile.TemporaryDirectory() as work:
+        npz = os.path.join(work, "vgg16.npz")
+        convert_torch_vgg16(sd, npz)
+        with fp32_reference():
+            on_card = float(make_perceptual_fn(npz)(p.to(dev), q.to(dev)))
+        on_cpu = float(make_perceptual_fn(npz)(p, q))
+    if not abs(on_card - on_cpu) <= 1e-5 * abs(on_cpu):
+        raise AssertionError(f"VGG perceptual from the converted npz: card "
+                             f"{on_card} CPU {on_cpu}")
+    results["vgg_perceptual"] = {"card": on_card, "cpu": on_cpu}
+    print(f"max_pool_3x3_s1 card == CPU; param_count {results['param_count']}"
+          f"; VGG perceptual from convert_torch_vgg16's npz card {on_card:.7g}"
+          f" CPU {on_cpu:.7g}")
+    walls["resize, pool, counts, VGG"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    results["walls"] = walls
+    print("names wall (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         walls.items()) + f" ({card})")
+    return results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -4402,6 +4707,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, ROOT)
     from mrisr_tpu_torch import _build
 
@@ -4433,6 +4739,9 @@ def main() -> int:
         parallel_launches, parallel_result = parallel_phase(dev, card,
                                                             teachers)
     tp_launches, tp_result = tp_phase(dev, card)
+    # no kernel is on phase 15's path: its launches are counted all the same
+    names_result, names_launches = count_launches(
+        lambda: names_phase(dev, card))
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -4450,14 +4759,14 @@ def main() -> int:
 
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
-            # distillation, ingest, parallel and model-axis paths' runs,
-            # each counted from 0 just before it (phase 13's and 14's ranks
-            # count their own)
+            # distillation, ingest, parallel, model-axis and names paths'
+            # runs, each counted from 0 just before it (phase 13's and 14's
+            # ranks count their own)
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
                 train_launches, family_launches, bf16_launches,
                 distill_launches, ingest_launches, parallel_launches,
-                tp_launches))
+                tp_launches, names_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -4485,7 +4794,10 @@ def main() -> int:
                        "families": family_result, "bf16": bf16_result,
                        "distill": distill_result, "ingest": ingest_result,
                        "parallel": parallel_result, "model_axis": tp_result,
-                       "kernels": kernels}, f, indent=1)
+                       "names": names_result, "kernels": kernels}, f,
+                      indent=1)
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s "
+          f"(kernel build included; {card})")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

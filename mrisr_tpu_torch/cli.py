@@ -37,8 +37,8 @@ parameters, loss and optimizer); ``eval``, ``predict-volume`` and
 ``export-serving`` take the flag and run as without it, since only the
 trainers read the field.  ``export-serving`` writes pair UNets as
 int8_fused, int8 or none (bf16) bundles, and ``serve`` answers HTTP
-requests from a bundle.  The JAX CLI's ``bench`` comes with the port's
-benchmark.
+requests from a bundle.  Every subcommand of the JAX CLI is here but
+``bench``, which comes with the port's benchmark.
 
 Data parallelism (``--mesh-data``, ``parallel/mesh.py``): ``train`` and
 ``distill`` run one process a rank under ``torchrun``, which forms the

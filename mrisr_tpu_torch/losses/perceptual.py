@@ -147,7 +147,8 @@ def make_perceptual_fn(kind: str = "auto", npz_path: Optional[str] = None,
         if not have_weights:
             raise FileNotFoundError(
                 "kind='vgg' needs pretrained weights: set MRISR_VGG16_NPZ "
-                "or pass npz_path (HWIO arrays conv{i}_kernel/conv{i}_bias). "
+                "or pass npz_path (HWIO arrays conv{i}_kernel/conv{i}_bias; "
+                "converter: losses/vgg.py:convert_torch_vgg16). "
                 "Use kind='gabor' (default under 'auto') for the "
                 "weight-free distance.")
         return vgg_mod.make_perceptual_fn(npz_path=resolved, dtype=dtype)

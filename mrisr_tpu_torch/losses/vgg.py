@@ -5,7 +5,8 @@
 - A 1-channel image is replicated to 3 channels; no ImageNet
   re-normalization (inputs are already standardized).
 - Weights load from the JAX package's npz: HWIO arrays ``conv{i}_kernel``
-  and ``conv{i}_bias`` (``MRISR_VGG16_NPZ`` or an explicit path).
+  and ``conv{i}_bias`` (``MRISR_VGG16_NPZ`` or an explicit path), which
+  :func:`convert_torch_vgg16` writes from torchvision's VGG16 state dict.
 - Without weights, ``load_vgg16_params`` builds a fixed seeded init in the
   flax default form (lecun-normal kernels, zero biases) from a
   ``torch.Generator``; its draws are not the JAX package's (a
@@ -78,6 +79,26 @@ def load_vgg16_params(npz_path: Optional[str] = None,
         else:
             sd[name] = lecun_normal_(torch.empty_like(p), p[0].numel(), g)
     return sd
+
+
+# torchvision's ``vgg16().features`` indices of the first 7 convs
+_TORCHVISION_CONVS = (0, 2, 5, 7, 10, 12, 14)
+
+
+def convert_torch_vgg16(state_dict, out_npz: str) -> None:
+    """torchvision's VGG16 state dict (keys ``features.{i}.weight`` and
+    ``features.{i}.bias``) -> the npz :func:`load_vgg16_params` reads, the
+    JAX package's file: ``conv{i}_kernel`` HWIO and ``conv{i}_bias``."""
+    arrs = {}
+    for i, ti in enumerate(_TORCHVISION_CONVS):
+        w = _numpy(state_dict[f"features.{ti}.weight"])  # (O, I, H, W)
+        arrs[f"conv{i}_kernel"] = w.transpose(2, 3, 1, 0)
+        arrs[f"conv{i}_bias"] = _numpy(state_dict[f"features.{ti}.bias"])
+    np.savez(out_npz, **arrs)
+
+
+def _numpy(a) -> np.ndarray:
+    return torch.as_tensor(a).detach().cpu().numpy()
 
 
 def make_perceptual_fn(npz_path: Optional[str] = None,

@@ -197,8 +197,51 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x, 2, 2)
 
 
-def UpConv2x2(in_channels: int, features: int) -> ConvTranspose2d:
+def max_pool_3x3_s1(x: torch.Tensor) -> torch.Tensor:
+    """MaxPool2d(kernel_size=3, stride=1, padding=1) on NCHW, the DeepCNN
+    stem's; the padding is -inf, as flax's ``nn.max_pool`` pads."""
+    return F.max_pool2d(x, 3, stride=1, padding=1)
+
+
+class PixelShuffleUpConv(ConvTranspose2d):
+    """ConvTranspose2d(kernel_size=2, stride=2) computed as one matmul and
+    a pixel shuffle.  With kernel == stride the op is exactly
+
+        out[n, o, 2i + a, 2j + b] = sum_c x[n, c, i, j] W[c, o, a, b] + bias[o]
+
+    one ``(N*H*W, C_in) @ (C_in, 4*C_out)`` product, the interleave of its
+    four phases, then the bias.  Its parameters are ``ConvTranspose2d``'s
+    (``weight`` ``(C_in, C_out, 2, 2)``, ``bias``), so checkpoints, the
+    flax kernel carry (``ckpt/from_jax.py:convt_weight``) and the init are
+    the same for both forms.  In ``compute_dtype`` the product is rounded,
+    then the bias added, as flax's ``PixelShuffleUpConv(dtype=...)``."""
+
+    def __init__(self, in_channels: int, features: int):
+        super().__init__(in_channels, features, 2, stride=2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.compute_dtype
+        w = self.weight if cd is None else self.weight.to(cd)
+        x = x if cd is None else x.to(cd)
+        n, ci, h, wd = x.shape
+        co = w.shape[1]
+        y = torch.matmul(x.permute(0, 2, 3, 1).reshape(-1, ci),
+                         w.reshape(ci, co * 4))
+        y = (y.reshape(n, h, wd, co, 2, 2).permute(0, 3, 1, 4, 2, 5)
+             .reshape(n, co, 2 * h, 2 * wd))
+        return lowp_bias(y, self.bias)
+
+
+def UpConv2x2(in_channels: int, features: int,
+              impl: str = "convt") -> ConvTranspose2d:
     """ConvTranspose2d(kernel_size=2, stride=2).  Its weight is
     ``(in, out, 2, 2)``; the flax kernel is the same spatially flipped
-    (``ckpt/from_jax.py``)."""
+    (``ckpt/from_jax.py``).  ``impl='pixel_shuffle'`` computes it as
+    :class:`PixelShuffleUpConv`, with the same parameters; 'convt' (the
+    default, as in the JAX package) is ``F.conv_transpose2d``."""
+    if impl == "pixel_shuffle":
+        return PixelShuffleUpConv(in_channels, features)
+    if impl != "convt":
+        raise ValueError(f"UpConv2x2 impl must be 'convt' or "
+                         f"'pixel_shuffle', got {impl!r}")
     return ConvTranspose2d(in_channels, features, 2, stride=2)

@@ -22,6 +22,7 @@ from mrisr_tpu_torch.models.blocks import (
     BN_EPS,
     BN_MOMENTUM,
     BatchNorm2d,
+    max_pool_3x3_s1,
     set_compute_dtype,
 )
 from mrisr_tpu_torch.models.conv import Conv2d
@@ -79,7 +80,7 @@ class DeepCNN(nn.Module):
         """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out), float32 (float64
         for a float64 module)."""
         h = F.relu(self.bn1(self.conv1(x.permute(0, 3, 1, 2))))
-        h = F.max_pool2d(h, 3, stride=1, padding=1)
+        h = max_pool_3x3_s1(h)
         for i in range(self.num_layers):
             h = getattr(self, f"layer{i + 1}")(h)
         h = self.output_conv(h).permute(0, 2, 3, 1)

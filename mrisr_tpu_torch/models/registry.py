@@ -30,6 +30,9 @@ from mrisr_tpu_torch.models.discriminator import PatchGAN
 from mrisr_tpu_torch.models.progressive import ProgressiveUNet
 from mrisr_tpu_torch.models.unet import UNet
 
+# a state dict's buffers: BatchNorm's running statistics and counter (flax's
+# batch_stats, which the JAX package's param_count leaves out)
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 # truncated-normal stddev correction of flax's variance_scaling: the
 # standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -134,3 +137,13 @@ def init_model(name: str, cfg: Optional[ModelConfig] = None, seed: int = 0,
     model = create_model(name, cfg, dtype)
     init = kaiming_fan_out_init_ if name == "deepcnn" else flax_init_
     return init(model, seed), TRAINABLE[name]
+
+
+def param_count(module_or_state_dict) -> int:
+    """The number of parameters of a module, or of a state dict without
+    its buffers: what the JAX package's ``param_count(variables['params'])``
+    counts."""
+    if isinstance(module_or_state_dict, nn.Module):
+        return sum(p.numel() for p in module_or_state_dict.parameters())
+    return sum(v.numel() for k, v in module_or_state_dict.items()
+               if k.rsplit(".", 1)[-1] not in _BUFFERS)

@@ -128,7 +128,8 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
     draws (x_T and each step's z), and ``apply(cond, noise=...)`` takes
     them (or any rows of them) instead: data-parallel serving draws the
     global batch's noise once and hands each replica its rows, as JAX's
-    threefry bits do not depend on the sharding."""
+    threefry bits do not depend on the sharding.  ``apply.eps_fn`` is
+    the denoiser the chain calls (:class:`FastDDPMForward`)."""
     from mrisr_tpu_torch.models.diffusion import (
         DiffusionSchedule,
         sample_ancestral,
@@ -184,6 +185,7 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
         return chains if combine == "mean" else chains[0]
 
     apply.draw_noise = draw_noise
+    apply.eps_fn = eps_fn
     return apply
 
 

@@ -67,6 +67,9 @@ DEEP_SITES = (
     "upconv2", "dec2/conv1", "dec2/conv2", "dec2/skip",
 )
 GN_IMPLS = ("chain", "fused")
+# the most pixels in one partial sum of gn_silu_chain's statistics: short
+# enough that torch's CUDA reduction sums each partial in one thread
+_PART = 255
 
 
 def default_gn_impl(device: torch.device) -> str:
@@ -82,16 +85,35 @@ def default_gn_impl(device: torch.device) -> str:
     return "fused" if device.type == "cuda" else "chain"
 
 
+def _group_sums(v: torch.Tensor, groups: int) -> torch.Tensor:
+    """Per (row, group) sums of ``v`` ``(B, HW, C)``, each row summed the
+    same way at any row count: partial sums over ``k`` pixels (the largest
+    divisor of HW up to ``_PART``), then each group's sum of those.  Torch's
+    CUDA reduction splits a long sum across blocks by the number of
+    outputs, so one reduction over (HW, C / groups) gives a row other bits
+    at 4 rows than at 8; a sum this short stays in one thread (the
+    partials) or one warp (a group's), whatever the rows."""
+    b, hw, c = v.shape
+    k = max(d for d in range(1, min(hw, _PART) + 1) if hw % d == 0)
+    part = v.reshape(b, hw // k, k, c).sum(dim=2)
+    return part.reshape(b, -1, groups, c // groups).sum(dim=(1, 3))
+
+
 def gn_silu_chain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   groups: int, dtype: torch.dtype) -> torch.Tensor:
     """``flax.linen.GroupNorm`` then SiLU, on NHWC: float32 statistics with
     the biased variance E[x^2] - E[x]^2 (clamped at 0), the normalized
     value cast to ``dtype``, SiLU in ``dtype``.  The JAX package's 'xla'
-    path."""
+    path.  A row's statistics, and so its output, do not depend on the
+    rows beside it (:func:`_group_sums`): a data-parallel replica answers
+    as the single engine does."""
     b, hh, ww, c = h.shape
-    xf = h.reshape(b, hh * ww, groups, c // groups).float()
-    mean = xf.mean(dim=(1, 3))
-    var = torch.clamp_min((xf * xf).mean(dim=(1, 3)) - mean * mean, 0.0)
+    xf = h.reshape(b, hh * ww, c).float()
+    n = hh * ww * (c // groups)
+    mean = _group_sums(xf, groups) / n
+    var = torch.clamp_min(_group_sums(xf * xf, groups) / n - mean * mean,
+                          0.0)
+    xf = xf.reshape(b, hh * ww, groups, c // groups)
     mul = torch.rsqrt(var + GN_EPS)[..., None] * gamma.reshape(groups, -1)
     y = (xf - mean[:, None, :, None]) * mul[:, None] + beta.reshape(groups, -1)
     return F.silu(y.to(dtype).reshape(b, hh, ww, c))
@@ -243,6 +265,7 @@ class FastDDPMForward:
     def _conv(self, st: _Step, name: str, h) -> torch.Tensor:
         lq = self.q.get(name)
         if isinstance(h, _PreQuant):  # K3 already emitted the codes
+            self._record(st, name, h.q)
             q = h.q
             s = lq.scales(st.row, st.zero)[1]
         else:
@@ -293,20 +316,26 @@ class FastDDPMForward:
         return h + x
 
     @torch.no_grad()
+    def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
+        """The time MLP's output for ``(B,)`` timesteps, in ``dtype``."""
+        emb = timestep_embedding(t.to(self.device), self.time_dim)
+        w0, b0 = self.dense["Dense_0"]
+        w1, b1 = self.dense["Dense_1"]
+        return F.linear(F.silu(F.linear(emb.to(self.dtype), w0, b0)), w1, b1)
+
+    @torch.no_grad()
     def __call__(self, x: torch.Tensor, t: torch.Tensor,
                  stats: Optional[Dict] = None, stat_fn=None) -> torch.Tensor:
         """``stats``: a dict that receives each conv input's statistic
-        (``stat_fn``, absmax by default) as a device scalar."""
+        (``stat_fn``, absmax by default) as a device scalar; where K3
+        emitted a conv's input, the statistic of its int8 codes."""
         x = x.to(self.device, torch.float32)
         t = t.to(self.device)
         zero = torch.zeros(1, dtype=torch.int64, device=self.device)
         row = zero if self.timesteps is None else torch.searchsorted(
             self.timesteps, t[:1].to(torch.int64))
-        emb = timestep_embedding(t, self.time_dim).to(self.dtype)
-        w0, b0 = self.dense["Dense_0"]
-        w1, b1 = self.dense["Dense_1"]
-        t_emb = F.linear(F.silu(F.linear(emb, w0, b0)), w1, b1)
-        st = _Step(row, zero, t_emb, stats, stat_fn or _absmax)
+        st = _Step(row, zero, self.time_embedding(t), stats,
+                   stat_fn or _absmax)
 
         h = self._conv(st, "init_conv", x)
         e1 = self._block(st, "enc1", h)

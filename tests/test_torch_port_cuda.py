@@ -297,6 +297,30 @@ def test_diffusion_int8_forward_on_card_equals_plain(cuda, only):
     assert rel < 0.02, rel
 
 
+# (H, C) of the Fast-DDPM's GroupNorm sites at 256^2 (base 64) and two
+# sizes whose partial sums are not powers of two
+CHAIN_ROW_CASES = [(256, 64), (256, 128), (128, 128), (128, 192), (64, 256),
+                   (64, 384), (32, 512), (32, 768), (200, 64), (24, 96)]
+
+
+@pytest.mark.parametrize("h,c", CHAIN_ROW_CASES)
+def test_gn_silu_chain_rows_do_not_depend_on_the_batch(cuda, h, c):
+    """The plain-op GroupNorm chain at 1-7 rows gives those rows the bits
+    the 8-row call gives them, so data-parallel replicas answer as one
+    engine does."""
+    from mrisr_tpu_torch.serve.quant_diffusion import gn_silu_chain
+
+    g = torch.Generator(device=cuda).manual_seed(h + c)
+    x = torch.randn((8, h, h, c), generator=g, device=cuda) * 2 + 0.5
+    gamma = torch.rand(c, generator=g, device=cuda) + 0.5
+    beta = torch.randn(c, generator=g, device=cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        full = gn_silu_chain(x.to(dtype), gamma, beta, c // 4, dtype)
+        for rows in range(1, 8):
+            assert torch.equal(gn_silu_chain(x[:rows].to(dtype), gamma, beta,
+                                             c // 4, dtype), full[:rows])
+
+
 # (H, W, C, Co, Cs): tensor cores at the UNet's upconv1 shape, a Co = 6
 # with and without skip (ragged phases), C = 16; dp4a at C = 8
 @pytest.mark.parametrize("h,w,c,co,cs", [(4, 4, 64, 32, 32),

@@ -115,3 +115,20 @@ def test_chain_matches_flax(dtype, tol):
     np.testing.assert_allclose(got.float().numpy(),
                                _flax_ref(x, gamma, beta, 12), atol=tol,
                                rtol=tol)
+
+
+# (B, H, W, C): H*W 77 (one partial of 77 pixels), 1517 = 37 * 41 (37
+# partials of 41), 65536 (512 partials of 128), 25 (one of 25)
+@pytest.mark.parametrize("shape", [(2, 7, 11, 48), (1, 37, 41, 16),
+                                   (2, 256, 256, 8), (3, 5, 5, 64)], ids=str)
+def test_chain_partial_sums_match_flax(shape):
+    """The chain's statistics summed in partials of pixels, at sizes whose
+    partials differ, against flax's GroupNorm in float32 (that a row's
+    bits do not depend on the rows beside it is the card's reduction's
+    property: tests/test_torch_port_cuda.py)."""
+    x, gamma, beta = _case(17, *shape)
+    groups = shape[-1] // 4
+    got = gn_silu_chain(torch.from_numpy(x), *_t(gamma, beta), groups,
+                        torch.float32)
+    np.testing.assert_allclose(got.numpy(), _flax_ref(x, gamma, beta, groups),
+                               atol=1e-5, rtol=1e-5)

@@ -163,3 +163,41 @@ def test_perceptual_factory_selection(vgg_npz, monkeypatch):
     r2 = pperc.make_perceptual_fn("vgg-random")(p, t)
     assert torch.equal(r1, r2) and not torch.equal(r1, vgg)
     assert torch.isfinite(r1) and float(r1) > 0
+
+
+# torchvision's vgg16().features convs: (index, C_in, C_out)
+TORCHVISION_VGG16 = [(0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128),
+                     (10, 128, 256), (12, 256, 256), (14, 256, 256),
+                     (17, 256, 512), (19, 512, 512), (21, 512, 512),
+                     (24, 512, 512), (26, 512, 512), (28, 512, 512)]
+
+
+def test_convert_torch_vgg16_matches_jax(tmp_path):
+    """A state dict with torchvision's keys and shapes (every features conv;
+    the converter takes the first seven): the port's npz equals the JAX
+    package's array for array, bit for bit, and the perceptual loss read
+    from it matches JAX's at 32^2."""
+    rng = np.random.default_rng(4)
+    sd = {}
+    for ti, ci, co in TORCHVISION_VGG16:
+        sd[f"features.{ti}.weight"] = torch.from_numpy(
+            (rng.standard_normal((co, ci, 3, 3)) / np.sqrt(9 * ci)).astype(
+                np.float32))
+        sd[f"features.{ti}.bias"] = torch.from_numpy(
+            (0.05 * rng.standard_normal(co)).astype(np.float32))
+    jax_npz, port_npz = str(tmp_path / "jax.npz"), str(tmp_path / "port.npz")
+    jvgg.convert_torch_vgg16(sd, jax_npz)
+    pvgg.convert_torch_vgg16(sd, port_npz)
+    want, got = np.load(jax_npz), np.load(port_npz)
+    assert sorted(got.files) == sorted(want.files) == sorted(
+        f"conv{i}_{k}" for i in range(7) for k in ("kernel", "bias"))
+    for k in want.files:
+        assert got[k].dtype == want[k].dtype == np.float32
+        assert got[k].shape == want[k].shape
+        np.testing.assert_array_equal(got[k].view(np.uint32),
+                                      want[k].view(np.uint32))
+    p, t = _pair((2, 32, 32, 1), seed=11)
+    loss = pvgg.make_perceptual_fn(port_npz)(torch.from_numpy(p),
+                                             torch.from_numpy(t))
+    np.testing.assert_allclose(
+        float(loss), float(jvgg.make_perceptual_fn(jax_npz)(p, t)), rtol=RTOL)
