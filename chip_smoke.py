@@ -250,6 +250,27 @@
    torchvision-keyed state dict on the card, and the VGG perceptual loss
    from its npz on the card against the CPU (rel 1e-5).  No kernel is on
    this path; its launch counts are printed.
+16. Remat phase, activation rematerialization (``ModelConfig.remat``,
+   ``models/blocks.py:remat``) of the full-width unet_combined (features
+   64, 256^2, batch 4, float32, TF32 off).  (a) From one init and phase
+   8's batch, a plain step and a remat step on the card (cuDNN's
+   deterministic algorithms, after a warm-up step): losses equal, every
+   remat gradient within phase 8's bounds of phase 8's float64 CPU step,
+   running statistics equal to the plain step's, num_batches_tracked 1.  (b) The same pair in bf16 compute at
+   64^2, batch 2: the remat step card and CPU vs float64 under phase 10's
+   bounds, and remat vs plain on the card within them.  (c) One step's
+   peak of torch.cuda.max_memory_allocated, with the port's convs and
+   with cuDNN off, and its device ms, plain and remat, at batch 4 and 32,
+   and the largest batch of REMAT_PROBES at which one step completes
+   (only torch.cuda.OutOfMemoryError counts as not fitting): what remat's
+   step adds at its peak at batch 32 with cuDNN off at least
+   REMAT_PEAK_FACTOR below what plain's adds (with cuDNN's heuristic both
+   peaks hold one conv's workspace, 22 GB), remat's largest batch at
+   least plain's.  (d) Phase 13's rank pair takes the plain and the remat
+   step on that batch (deterministic algorithms, after a warm-up step, as
+   in phase 14): the remat step against the plain one under phase 13's
+   bounds, its running statistics bit-equal, both ranks reporting the
+   same loss.  No kernel is on this path; its launch counts are printed.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
 their launches by path) and the card's name and power limit before the
@@ -1556,10 +1577,12 @@ def fft_route_check(trainer, batch, step_ms, dev, card: str):
             "step_no_route_ms": no_route_ms}
 
 
-def train_phase(dev, card: str, keep=None):
+def train_phase(dev, card: str, keep=None, step_ref=None):
     """The port's training path at full width (see the module docstring,
     item 8); the trained ``unet_combined_best.pt`` is copied into ``keep``
-    (phase 11's teacher).  Returns (launches, results)."""
+    (phase 11's teacher), and the float32 step's batch, its float64 CPU
+    module and gradient bounds into the dict ``step_ref`` (phase 16's
+    reference).  Returns (launches, results)."""
     import dataclasses
 
     from mrisr_tpu_torch import cli, fp32_reference
@@ -1630,10 +1653,12 @@ def train_phase(dev, card: str, keep=None):
                 on_ref.state.module.buffers()) if "running" in k)
             for s, t in sides.items()}
         card_cpu = grad_errors(on_card.state.module, on_cpu.state.module)
-        del on_ref
         walls["card vs CPU step"] = time.perf_counter() - t0
         bound = {n: max(GRAD_RTOL, GRAD_NOISE_FACTOR * e)
                  for n, e in errs["CPU"].items()}
+        if step_ref is not None:
+            step_ref.update(batch=batch, f64=on_ref.state.module, bound=bound)
+        del on_ref
         over = [n for n, e in errs["card"].items() if not e <= bound[n]]
         worst = sorted(errs["card"], key=errs["card"].get, reverse=True)[:5]
         print(f"train step, float32 card and CPU vs float64 CPU ({n_params} "
@@ -3574,8 +3599,9 @@ DP_TIMEOUT = 600   # seconds for the rank pair
 
 def dp_rank_main(rank: int, port: int, in_path: str, out_dir: str) -> None:
     """One rank of phase 13's pair (``chip_smoke.py --dp-rank``): the
-    unet_combined step and the distill step on this rank's rows, with the
-    kernels' launch counts of each."""
+    unet_combined step and the distill step on this rank's rows (phase 16:
+    the unet_combined step plain and with remat), with the kernels' launch
+    counts of each."""
     sys.path.insert(0, ROOT)
     from mrisr_tpu_torch.config import Config
     from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
@@ -3590,9 +3616,18 @@ def dp_rank_main(rank: int, port: int, in_path: str, out_dir: str) -> None:
     distributed_init(f"localhost:{port}", DP_RANKS, rank, backend="gloo")
     mesh = make_mesh(device=dev)
     out = {}
-    for case, cfg_dict in inputs["configs"].items():
+    cases = list(inputs["configs"].items())
+    if inputs.get("same_bits"):
+        # phase 16 compares two steps' running statistics bit for bit:
+        # deterministic algorithms, and a warm-up step first, since cuDNN
+        # gives a process's first call at dec2.conv.0's shape other bits
+        # than every later one (as in phase 14)
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        cases.insert(0, ("unet_combined warm-up", cases[0][1]))
+    for case, cfg_dict in cases:
         cfg = Config.from_dict(cfg_dict)
-        if case == "unet_combined":
+        if case.startswith("unet_combined"):  # phase 16: and its remat
             trainer = SupervisedTrainer(
                 cfg, perceptual_fn=make_perceptual_fn(cfg.loss.perceptual),
                 device=dev, mesh=mesh)
@@ -3604,6 +3639,9 @@ def dp_rank_main(rank: int, port: int, in_path: str, out_dir: str) -> None:
         batch = shard_batch(inputs["batch"], mesh).to(dev)
         (_, m), counts = count_launches(
             lambda: trainer.train_step(trainer.state, batch))
+        if case == "unet_combined warm-up":
+            del trainer
+            continue
         out[case] = {"loss": float(m["loss"]), "counts": counts,
                      "rows": int(batch.shape[0])}
         if rank == 0:
@@ -3679,7 +3717,9 @@ def dp_step_check(what, single, rank0, loss_dp, ref64,
 
 def run_dp_ranks(inputs, work):
     """Phase 13's rank pair (this script with ``--dp-rank``), both stopped
-    before it returns; returns each rank's results."""
+    before it returns; returns each rank's results.  ``inputs["same_bits"]``
+    (phase 16): the ranks run deterministic algorithms, cuBLAS's included,
+    and take a warm-up step first."""
     import socket
 
     in_path = os.path.join(work, "dp_inputs.pt")
@@ -3687,10 +3727,12 @@ def run_dp_ranks(inputs, work):
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8") if inputs.get(
+        "same_bits") else None
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r),
          "--dp-port", str(port), "--dp-in", in_path, "--dp-out", work],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(DP_RANKS)]
     try:
         logs = [p.communicate(timeout=DP_TIMEOUT)[0] for p in procs]
@@ -4672,6 +4714,314 @@ def names_phase(dev, card: str):
     return results
 
 
+# phase 16: peaks at these batches, and the largest batch at which one
+# float32 step fits, probed largest first.  What remat's step adds at its
+# peak over what it started with (its activations, with cuDNN off) at the
+# last batch must be at least REMAT_PEAK_FACTOR below plain's: with cuDNN's
+# heuristic, one conv's workspace (dec2.conv.0, 256 -> 128 at 128^2: 22.18
+# GB at batch 32, tools/remat_memory_probe.py) sits in both steps' peaks,
+# and cuDNN takes it only because the memory is free
+REMAT_MEM_BATCHES = (4, 32)
+REMAT_PROBES = (512, 384, 256, 192, 128)
+REMAT_PEAK_FACTOR = 1.5
+
+
+def step_reference(cfg):
+    """Phase 8's reference for a float32 unet_combined step at ``cfg``,
+    for phase 16 run on its own: the first train batch of phase 8's store,
+    the same step in float64 on the CPU (its module, gradients held) and
+    each gradient's bound, max(GRAD_RTOL, GRAD_NOISE_FACTOR x the CPU
+    float32 step's error)."""
+    from mrisr_tpu_torch import cli
+    from mrisr_tpu_torch.data.pipeline import build_loader
+    from mrisr_tpu_torch.data.volumes import VolumeStore
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    with tempfile.TemporaryDirectory() as work:
+        cli.main(["synth", work, "--patients", str(TRAIN_PATIENTS),
+                  "--slices", str(TRAIN_SLICES), "--size", str(HW)])
+        batch = next(iter(build_loader(VolumeStore.open(work), "train",
+                                       cfg.data, device="cpu")))
+    on_cpu = SupervisedTrainer(cfg, perceptual_fn=make_perceptual_fn(
+        cfg.loss.perceptual), device="cpu")
+    on_ref = SupervisedTrainer(cfg, perceptual_fn=make_perceptual_fn(
+        cfg.loss.perceptual, dtype=torch.float64), device="cpu")
+    on_ref.state.module.double()
+    on_cpu.train_step(on_cpu.state, batch)
+    on_ref.train_step(on_ref.state, batch.double())
+    errs = grad_errors(on_cpu.state.module, on_ref.state.module)
+    return {"batch": batch, "f64": on_ref.state.module,
+            "bound": {n: max(GRAD_RTOL, GRAD_NOISE_FACTOR * e)
+                      for n, e in errs.items()}}
+
+
+def step_memory(trainer, batch: int, dev, g, cudnn: bool = True):
+    """One train step of ``trainer`` on a random batch of ``batch``
+    256^2 triplets: (torch.cuda.max_memory_allocated during it, the memory
+    allocated before it), in GB; ``cudnn=False``: every conv PyTorch's
+    own, so no cuDNN workspace is in the peak."""
+    import gc
+
+    x = torch.rand((batch, HW, HW, 3), generator=g, device=dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+        trainer.train_step(trainer.state, x)
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.enabled = prev
+    return torch.cuda.max_memory_allocated() / 1e9, before / 1e9
+
+
+def largest_batch(trainer, dev, g):
+    """The largest batch of REMAT_PROBES (tried largest first) at which
+    one train step completes, or None; and each probe's outcome.  Only
+    torch.cuda.OutOfMemoryError counts as not fitting."""
+    import gc
+
+    tried = {}
+    for batch in REMAT_PROBES:
+        x = None
+        try:
+            x = torch.rand((batch, HW, HW, 3), generator=g, device=dev)
+            trainer.train_step(trainer.state, x)
+            torch.cuda.synchronize()
+            tried[batch] = "fits"
+        except torch.cuda.OutOfMemoryError:
+            tried[batch] = "out of memory"
+        finally:
+            del x
+            gc.collect()
+            torch.cuda.empty_cache()
+        if tried[batch] == "fits":
+            return batch, tried
+    return None, tried
+
+
+def remat_phase(dev, card: str, step_ref=None):
+    """Activation rematerialization of the full-width UNet (see the module
+    docstring, item 16); ``step_ref``: phase 8's batch, float64 CPU module
+    and gradient bounds (made here when None).  Returns the results."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from mrisr_tpu_torch.config import PRESETS
+    from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
+    from mrisr_tpu_torch.train import SupervisedTrainer
+
+    results, walls = {}, {}
+    t_phase = time.perf_counter()
+    base = PRESETS["unet_combined"]
+    cfg = base.replace(
+        data=dataclasses.replace(base.data, image_size=(HW, HW),
+                                 batch_size=TRAIN_BATCH, augment=False),
+        model=dataclasses.replace(base.model, base_features=FEATURES))
+    configs = {"plain": cfg, "remat": cfg.replace(
+        model=dataclasses.replace(cfg.model, remat=True))}
+    if not step_ref:
+        t0 = time.perf_counter()
+        step_ref = step_reference(cfg)
+        walls["float64 reference"] = time.perf_counter() - t0
+    batch = step_ref["batch"]
+    xb = batch.to(dev)
+    perceptual = make_perceptual_fn(cfg.loss.perceptual)
+
+    # --- (a) the plain and the remat float32 step from one init and batch,
+    # with cuDNN's deterministic algorithms, after a warm-up step (a
+    # process's first call at a shape may take other bits from cuDNN than
+    # its later ones)
+    t0 = time.perf_counter()
+    torch.backends.cudnn.deterministic = True
+    try:
+        warm = SupervisedTrainer(cfg, perceptual_fn=perceptual, device=dev)
+        warm.train_step(warm.state, xb)
+        del warm
+        steps = {}
+        for label, c in configs.items():
+            tr = SupervisedTrainer(c, perceptual_fn=perceptual, device=dev)
+            _, m = tr.train_step(tr.state, xb)
+            steps[label] = (float(m["loss"]), tr.state.module)
+            del tr
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (loss0, plain), (loss1, remat) = steps["plain"], steps["remat"]
+    errs = grad_errors(remat, step_ref["f64"])
+    bound = step_ref["bound"]
+    over = [n for n, e in errs.items() if not e <= bound[n]]
+    # remat against plain: each gradient's difference, a conv bias before
+    # a training-mode BatchNorm's against its weight's gradient
+    pg = {n: p.grad.double() for n, p in plain.named_parameters()}
+    vs_plain = {}
+    for n, p in remat.named_parameters():
+        conv, _, leaf = n.rpartition(".")
+        ref = pg[conv + ".weight" if leaf == "bias" and conv.endswith(
+            (".conv.0", ".conv.3")) else n]
+        vs_plain[n] = float((p.grad.double() - pg[n]).norm() / ref.norm())
+    stats = dict(plain.named_buffers())
+    stats_diff = max(float((b.double() - stats[n].double()).abs().max())
+                     for n, b in remat.named_buffers() if "running" in n)
+    tracked = {int(b) for n, b in remat.named_buffers()
+               if n.endswith("num_batches_tracked")}
+    worst = max(errs, key=errs.get)
+    n_params = sum(p.numel() for p in remat.parameters())
+    print(f"remat step vs plain step, float32 ({n_params} parameters, "
+          f"batch {TRAIN_BATCH}, {HW}x{HW}): loss {loss1:.9f} remat, "
+          f"{loss0:.9f} plain; remat gradients vs float64 CPU worst rel-L2 "
+          f"{errs[worst]:.3g} ({worst}), {len(over)} past phase 8's "
+          f"bounds; vs the plain step worst difference rel-L2 "
+          f"{max(vs_plain.values()):.3g}; running stats max |diff| "
+          f"{stats_diff:.3g}; num_batches_tracked {sorted(tracked)} ({card})")
+    if loss1 != loss0:
+        raise AssertionError(f"remat loss {loss1} != plain {loss0}")
+    if over:
+        raise AssertionError(f"remat gradients past phase 8's bounds: "
+                             f"{[(n, errs[n], bound[n]) for n in over]}")
+    if stats_diff != 0.0:
+        raise AssertionError(f"remat running stats differ by {stats_diff}")
+    if tracked != {1}:
+        raise AssertionError(f"num_batches_tracked {tracked} after a step")
+    results["float32"] = {"loss": loss1, "grad_rel_l2_f64_max": errs[worst],
+                          "grad_rel_l2_vs_plain_max": max(vs_plain.values()),
+                          "stats_max_diff": stats_diff}
+    del steps, plain, remat
+    walls["float32 pair"] = time.perf_counter() - t0
+
+    # --- (b) the pair in bf16 compute at SMALL_HW, SMALL_BATCH (phase 10)
+    t0 = time.perf_counter()
+    small = F.avg_pool2d(batch[:SMALL_BATCH].permute(0, 3, 1, 2),
+                         HW // SMALL_HW).permute(0, 2, 3, 1).contiguous()
+    small_cfgs = {label: c.replace(data=dataclasses.replace(
+        c.data, image_size=(SMALL_HW, SMALL_HW), batch_size=SMALL_BATCH))
+        for label, c in configs.items()}
+    results["bf16_vs_f64"] = bf16_step_check(
+        "unet_combined", small_cfgs["remat"], small, dev, card)
+    pair = {}
+    for label, c in small_cfgs.items():
+        tr, _ = make_trainer("unet_combined", c.replace(
+            train=dataclasses.replace(c.train, compute_dtype="bfloat16")),
+            dev)
+        _, m = tr.train_step(tr.state, small.to(dev))
+        module = tr.state.module
+        pair[label] = (float(m["loss"]), torch.cat([
+            dict(module.named_parameters())[n].grad.double().ravel()
+            for n in weights_and_norms(module)]))
+    loss_rel = abs(pair["remat"][0] - pair["plain"][0]) / abs(pair["plain"][0])
+    grad_rel_l2 = float((pair["remat"][1] - pair["plain"][1]).norm()
+                        / pair["plain"][1].norm())
+    print(f"remat vs plain bf16 step on the card (batch {SMALL_BATCH}, "
+          f"{SMALL_HW}x{SMALL_HW}): loss rel {loss_rel:.3g} (bound "
+          f"{BF16_LOSS_RTOL:g}), weights' and norms' gradients rel-L2 "
+          f"{grad_rel_l2:.3g} (bound {BF16_GRAD_BUDGET:g}) ({card})")
+    if not (loss_rel <= BF16_LOSS_RTOL and grad_rel_l2 <= BF16_GRAD_BUDGET):
+        raise AssertionError(f"remat vs plain bf16: loss rel {loss_rel}, "
+                             f"gradients rel-L2 {grad_rel_l2}")
+    results["bf16_vs_plain"] = {"loss_rel": loss_rel,
+                                "grad_rel_l2": grad_rel_l2}
+    del pair
+    walls["bf16 pair"] = time.perf_counter() - t0
+
+    # --- (c) peak memory and step time at batch 4 and 32, and the largest
+    # batch that fits; one trainer on the card at a time
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(16)
+    memory = {}
+    for label, c in configs.items():
+        tr = SupervisedTrainer(c, perceptual_fn=perceptual, device=dev)
+        tr.train_step(tr.state, xb)  # Adam's moments allocated
+        row = {}
+        for b in REMAT_MEM_BATCHES:
+            peak, before = step_memory(tr, b, dev, g)
+            own, own_before = step_memory(tr, b, dev, g, cudnn=False)
+            x = torch.rand((b, HW, HW, 3), generator=g, device=dev)
+            ms = cuda_ms(lambda: tr.train_step(tr.state, x), reps=3,
+                         warmup=1)
+            del x
+            row[b] = {"peak_gb": peak, "before_gb": before,
+                      "peak_gb_cudnn_off": own,
+                      "before_gb_cudnn_off": own_before, "step_ms": ms}
+            print(f"{label} float32 step at batch {b}: peak {peak:.3f} GB "
+                  f"allocated, {before:.3f} GB before the step; with cuDNN "
+                  f"off {own:.3f} GB, {own_before:.3f} GB before; "
+                  f"{ms:.3f} ms ({card})")
+        row["largest_batch"], row["probes"] = largest_batch(tr, dev, g)
+        print(f"{label}: largest batch of {list(REMAT_PROBES)} at which one "
+              f"float32 step fits: {row['largest_batch']} ({row['probes']})"
+              f" ({card})")
+        memory[label] = row
+        del tr
+        torch.cuda.empty_cache()
+    results["memory"] = memory
+    b32 = REMAT_MEM_BATCHES[-1]
+    # what the step itself adds at its peak, over what it started with
+    step_gb = {label: {key: r[b32][f"peak_gb{key}"] - r[b32][f"before_gb{key}"]
+                       for key in ("", "_cudnn_off")}
+               for label, r in memory.items()}
+    ratios = {key or "_cudnn_on": step_gb["plain"][key] / step_gb["remat"][key]
+              for key in ("", "_cudnn_off")}
+    peak_ratio = ratios["_cudnn_off"]
+    slowdown = {b: memory["remat"][b]["step_ms"]
+                / memory["plain"][b]["step_ms"] for b in REMAT_MEM_BATCHES}
+    print(f"remat: the step's own peak (peak - before) at batch {b32} "
+          f"{peak_ratio:.3f}x below plain's with cuDNN off (bound "
+          f"{REMAT_PEAK_FACTOR}x), {ratios['_cudnn_on']:.3f}x with cuDNN's "
+          f"heuristic; step time "
+          + ", ".join(f"{v:.3f}x plain's at batch {b}"
+                      for b, v in slowdown.items()) + f" ({card})")
+    ceilings = [memory[k]["largest_batch"] or 0 for k in ("plain", "remat")]
+    if not peak_ratio >= REMAT_PEAK_FACTOR:
+        raise AssertionError(f"remat's own peak at batch {b32} (cuDNN "
+                             f"off) only {peak_ratio}x below plain's")
+    if not ceilings[1] >= ceilings[0]:
+        raise AssertionError(f"remat's largest batch {ceilings[1]} below "
+                             f"plain's {ceilings[0]}")
+    results.update(step_gb_b32=step_gb, peak_ratios_b32=ratios,
+                   slowdown=slowdown)
+    walls["memory and time"] = time.perf_counter() - t0
+
+    # --- (d) phase 13's rank pair: the plain and the remat step
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        ranks = run_dp_ranks({"device": str(dev), "batch": batch,
+                              "same_bits": True, "configs": {
+                                  "unet_combined": json.loads(
+                                      configs["plain"].to_json()),
+                                  "unet_combined remat": json.loads(
+                                      configs["remat"].to_json())}}, work)
+    for case in ("unet_combined", "unet_combined remat"):
+        losses = [r[case]["loss"] for r in ranks]
+        if losses[0] != losses[1]:
+            raise AssertionError(f"{case}: the ranks report {losses}")
+    plain_dp = ranks[0]["unet_combined"]
+    remat_dp = ranks[0]["unet_combined remat"]
+    results["dp"] = dp_step_check(
+        "unet_combined remat", plain_dp, remat_dp, remat_dp["loss"],
+        lambda: {n: p.grad.detach().double()
+                 for n, p in step_ref["f64"].named_parameters()},
+        mine=f"{DP_RANKS}-rank remat step",
+        theirs=f"the {DP_RANKS}-rank plain step")
+    unequal = [n for n, t in plain_dp["stats"].items()
+               if not torch.equal(t, remat_dp["stats"][n])]
+    print(f"{DP_RANKS}-rank remat vs plain running statistics: "
+          f"{len(unequal)} of {len(plain_dp['stats'])} tensors differ "
+          f"({card})")
+    if unequal:
+        raise AssertionError(f"2-rank remat running statistics differ: "
+                             f"{unequal}")
+    walls["2-rank pair (spawn included)"] = time.perf_counter() - t0
+    walls["phase"] = time.perf_counter() - t_phase
+    results["walls"] = walls
+    print("remat wall (s): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                         walls.items()) + f" ({card})")
+    return results
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -4730,8 +5080,10 @@ def main() -> int:
     eval_launches, eval_result = eval_phase(dev, qparams, card)
     k3_rows = k3_phase(dev)
     diff_launches, diff_result = diffusion_phase(dev, card)
+    step_ref = {}  # phase 8's float32 step reference, for phase 16
     with tempfile.TemporaryDirectory() as teachers:
-        train_launches, train_result = train_phase(dev, card, teachers)
+        train_launches, train_result = train_phase(dev, card, teachers,
+                                                   step_ref)
         family_launches, family_result = families_phase(dev, card, teachers)
         bf16_launches, bf16_result = bf16_phase(dev, card)
         distill_launches, distill_result = distill_phase(dev, card, teachers)
@@ -4739,9 +5091,14 @@ def main() -> int:
         parallel_launches, parallel_result = parallel_phase(dev, card,
                                                             teachers)
     tp_launches, tp_result = tp_phase(dev, card)
-    # no kernel is on phase 15's path: its launches are counted all the same
+    # no kernel is on phase 15's and 16's paths: their launches are counted
+    # all the same
     names_result, names_launches = count_launches(
         lambda: names_phase(dev, card))
+    remat_result, remat_launches = count_launches(
+        lambda: remat_phase(dev, card, step_ref))
+    print(f"remat phase kernel launches: {remat_launches} (no kernel is on "
+          "its path)")
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -4759,14 +5116,14 @@ def main() -> int:
 
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
-            # distillation, ingest, parallel, model-axis and names paths'
-            # runs, each counted from 0 just before it (phase 13's and 14's
-            # ranks count their own)
+            # distillation, ingest, parallel, model-axis, names and remat
+            # paths' runs, each counted from 0 just before it (phase 13's
+            # and 14's ranks count their own)
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
                 train_launches, family_launches, bf16_launches,
                 distill_launches, ingest_launches, parallel_launches,
-                tp_launches, names_launches))
+                tp_launches, names_launches, remat_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -4794,7 +5151,8 @@ def main() -> int:
                        "families": family_result, "bf16": bf16_result,
                        "distill": distill_result, "ingest": ingest_result,
                        "parallel": parallel_result, "model_axis": tp_result,
-                       "names": names_result, "kernels": kernels}, f,
+                       "names": names_result, "remat": remat_result,
+                       "kernels": kernels}, f,
                       indent=1)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"(kernel build included; {card})")

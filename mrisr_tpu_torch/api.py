@@ -116,6 +116,12 @@ class LoadedModel:
             return tuple(o.permute(0, 3, 1, 2) for o in out)
         return out.permute(0, 3, 1, 2)
 
+    def sample(self, cond_nchw, generator: Optional[torch.Generator] = None):
+        """A diffusion model's sample conditioned on ``(B, 2, H, W)``
+        [pre, post]: ``(B, 1, H, W)``, as ``__call__``."""
+        assert self.kind == "diffusion"
+        return self(cond_nchw, generator)
+
 
 def orbax_conversion(directory: str, model_name: str) -> dict:
     """The checkpoint the port reads for the JAX package's Orbax checkpoint

@@ -306,6 +306,10 @@ class PrefetchIterator:
         # a transparent proxy for the loader's attributes (bank, plan_flat)
         return getattr(self.loader, name)
 
+    @property
+    def num_samples(self) -> int:
+        return self.loader.num_samples
+
     def __iter__(self):
         q: "queue.Queue" = queue.Queue(maxsize=self.depth)
         end = object()

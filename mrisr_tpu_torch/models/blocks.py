@@ -30,10 +30,12 @@ SiLU between two convs would see unrounded values.
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Iterator, Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from mrisr_tpu_torch.models.conv import Conv2d, lowp_bias
@@ -59,9 +61,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     under JAX's mesh: the sum all-reduced for the mean, then the sum of
     squared deviations for the biased variance, through a collective whose
     backward is the global one.  ``torch.nn.SyncBatchNorm`` refuses CPU
-    tensors and updates the running variance with the unbiased rule."""
+    tensors and updates the running variance with the unbiased rule.
+
+    Under :func:`remat` the backward re-runs the forward to rebuild its
+    saved tensors.  That re-run (``recomputing``, set by :func:`remat`)
+    normalizes as the forward did, a data mesh's all-reduces included
+    (their sums feed the rebuilt normalization, and every rank re-runs the
+    same graph), but leaves the running statistics and the counter alone:
+    the forward committed them, once a step, as flax commits
+    ``batch_stats`` once under ``nn.remat``."""
 
     data_mesh = None
+    recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
@@ -73,11 +84,12 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         if self.data_mesh is not None:
             return self._forward_global(x)
-        with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not self.recomputing:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
 
@@ -89,12 +101,40 @@ class BatchNorm2d(nn.BatchNorm2d):
         mean = psum(x.sum(dim=(0, 2, 3)), mesh) / n
         dev = x - mean.view(shape)
         var = psum((dev * dev).sum(dim=(0, 2, 3)), mesh) / n
-        with torch.no_grad():
-            self.running_mean.lerp_(mean.detach(), self.momentum)
-            self.running_var.lerp_(var.detach(), self.momentum)
-            self.num_batches_tracked.add_(1)
+        if not self.recomputing:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean.detach(), self.momentum)
+                self.running_var.lerp_(var.detach(), self.momentum)
+                self.num_batches_tracked.add_(1)
         scale = torch.rsqrt(var + self.eps) * self.weight
         return dev * scale.view(shape) + self.bias.view(shape)
+
+
+@contextlib.contextmanager
+def _recomputing(block: nn.Module) -> Iterator[None]:
+    """Mark ``block``'s BatchNorms while the backward re-runs it."""
+    norms = [m for m in block.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
+def remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` keeping only ``x`` for the backward, which re-runs the
+    block to rebuild what it saved: flax's ``nn.remat``.  Non-reentrant,
+    so the re-run records with grad mode on, as the forward did, and every
+    conv takes the same route both times (``models/conv.py:avoids_cudnn``).
+    The re-run marks the block's BatchNorms (``recomputing``), so they
+    commit their running statistics once.  The blocks draw no random
+    numbers, so there is no RNG state to replay
+    (``preserve_rng_state=False``)."""
+    return torch.utils.checkpoint.checkpoint(
+        block, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recomputing(block)))
 
 
 class GroupNorm(nn.GroupNorm):

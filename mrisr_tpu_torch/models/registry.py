@@ -102,12 +102,14 @@ def create_model(name: str, cfg: ModelConfig,
     init) computing in ``dtype`` (None: float32), as the JAX registry
     builds it: the GAN generator and the progressive stages bias-free,
     Fast-DDPM's input [pre, post, x_noisy] whatever ``cfg.in_channels``
-    says, the simple lineage's time_dim 256."""
+    says, the simple lineage's time_dim 256, and ``cfg.remat`` read by the
+    four UNets only."""
     f = cfg.base_features
     if name in ("unet", "unet_combined", "unet_distilled", "unet_gan"):
         return UNet(features=f, use_bias=name != "unet_gan",
                     in_channels=cfg.in_channels,
-                    out_channels=cfg.out_channels, dtype=dtype)
+                    out_channels=cfg.out_channels, dtype=dtype,
+                    remat=cfg.remat)
     if name == "deepcnn":
         return DeepCNN(in_channels=cfg.in_channels,
                        out_channels=cfg.out_channels, base_features=f,

@@ -8,6 +8,11 @@ Topology: 4-level encoder f -> 2f -> 4f -> 8f with 2x2 max-pool, bottleneck
 31,042,945 parameters at f=64 (31,037,057 without conv biases).
 ``dtype=torch.bfloat16`` is flax's compute dtype (``models/blocks.py``):
 float32 parameters, bf16 activations, the output cast to float32.
+``remat=True`` is flax's ``nn.remat`` on the nine DoubleConvs: a forward
+that autograd records keeps only each block's input and output, and the
+backward re-runs the block (``models/blocks.py:remat``).  The modules and
+state-dict keys are the same either way; a no-grad forward (eval, serving,
+calibration) runs the blocks as they are.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from mrisr_tpu_torch.models.blocks import (
     DoubleConv,
     UpConv2x2,
     max_pool_2x2,
+    remat,
     set_compute_dtype,
 )
 from mrisr_tpu_torch.models.conv import Conv2d
@@ -32,11 +38,13 @@ BLOCKS_UP = ("dec4", "dec3", "dec2", "dec1")
 class UNet(nn.Module):
     def __init__(self, features: int = 64, use_bias: bool = True,
                  use_bn: bool = True, in_channels: int = 2,
-                 out_channels: int = 1, dtype: Optional[torch.dtype] = None):
+                 out_channels: int = 1, dtype: Optional[torch.dtype] = None,
+                 remat: bool = False):
         super().__init__()
         self.features = features
         self.use_bias = use_bias
         self.use_bn = use_bn
+        self.remat = remat
         f = features
 
         def dc(cin, cout):
@@ -61,16 +69,22 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, C_in) NHWC -> (B, H, W, C_out) float32 (float64
         for a float64 module; float32 from a bf16 compute dtype)."""
+        rematerialize = self.remat and torch.is_grad_enabled()
+
+        def block(name, h):
+            m = getattr(self, name)
+            return remat(m, h) if rematerialize else m(h)
+
         h = x.permute(0, 3, 1, 2)
         skips = []
         for name in BLOCKS_DOWN:
-            h = getattr(self, name)(h)
+            h = block(name, h)
             skips.append(h)
             h = max_pool_2x2(h)
-        h = self.bottleneck(h)
+        h = block("bottleneck", h)
         for name, skip in zip(BLOCKS_UP, reversed(skips)):
             h = getattr(self, f"upconv{name[-1]}")(h)
             h = torch.cat([h, skip], dim=1)
-            h = getattr(self, name)(h)
+            h = block(name, h)
         h = self.final(h).permute(0, 2, 3, 1)
         return h.to(torch.promote_types(h.dtype, torch.float32))

@@ -658,3 +658,61 @@ def test_routed_conv_matches_cudnn_on_card(cuda):
     for a, b in zip(*outs):
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1.0, float(b.abs().max()))
+
+
+def test_remat_step_keeps_conv_routes_on_card(cuda, monkeypatch):
+    """A remat train step at 64^2, batch 2 (where recorded convs take the
+    'small map' route) against the plain step from the same weights: each
+    conv's route in the backward's re-run is its route in the forward, and
+    the plain step's; gradients within rel-L2 1e-5 (a conv bias before a
+    training-mode BatchNorm against its weight's gradient), running
+    statistics equal."""
+    from mrisr_tpu_torch import fp32_reference
+    from mrisr_tpu_torch.losses import mse
+    from mrisr_tpu_torch.models import UNet, blocks
+    from mrisr_tpu_torch.models import conv as conv_mod
+
+    routes, rerun = [], {"now": False}
+    real = conv_mod.avoids_cudnn
+
+    def spy(x, conv):
+        around = real(x, conv)
+        routes.append((conv, rerun["now"], around))
+        return around
+
+    monkeypatch.setattr(conv_mod, "avoids_cudnn", spy)
+    torch.manual_seed(0)
+    state = UNet(features=8).state_dict()
+    g = torch.Generator().manual_seed(1)
+    batch = torch.rand(2, 64, 64, 3, generator=g).to(cuda)
+    runs = {}
+    for remat in (False, True):
+        routes.clear()
+        model = UNet(features=8, remat=remat).to(cuda)
+        model.load_state_dict(state)
+        for m in model.modules():  # a block's re-run marks its BatchNorms
+            if isinstance(m, blocks.DoubleConv):
+                m.register_forward_pre_hook(lambda m, i: rerun.update(
+                    now=m.conv[1].recomputing))
+        with fp32_reference():
+            mse(model.train()(batch[..., :2]), batch[..., 2:]).backward()
+        names = {m: n for n, m in model.named_modules()}
+        runs[remat] = (model, [(names[c], r, a) for c, r, a in routes])
+    (plain, plain_routes), (remat, remat_routes) = runs[False], runs[True]
+    forward = [(n, a) for n, r, a in remat_routes if not r]
+    again = {n: a for n, r, a in remat_routes if r}
+    assert forward == [(n, a) for n, _, a in plain_routes]
+    assert all(a for _, a in forward)  # 'small map' at every conv
+    block_convs = [n for n, _ in forward if n != "final"]
+    assert sorted(again) == sorted(block_convs) and len(again) == 18
+    assert all(again[n] == a for n, a in forward if n in again)
+    want = dict(plain.named_parameters())
+    for name, p in remat.named_parameters():
+        conv, _, leaf = name.rpartition(".")
+        ref = (want[conv + ".weight"] if leaf == "bias"
+               and conv.endswith((".conv.0", ".conv.3")) else want[name])
+        err = float((p.grad - want[name].grad).norm() / ref.grad.norm())
+        assert err <= 1e-5, (name, err)
+    bufs = dict(plain.named_buffers())
+    for name, b in remat.named_buffers():
+        assert torch.equal(b, bufs[name]), name

@@ -160,3 +160,24 @@ def test_sampler_generator_is_seeded(models):
     assert torch.equal(a, b) and not torch.equal(a, c)
     with pytest.raises(ValueError):
         pd.sample_ancestral(models["port"], cond, None, ps, combine="median")
+
+
+def test_loaded_model_sample_is_its_call(models):
+    """``LoadedModel.sample`` (``mrisr_tpu/api.py:LoadedModel.sample``): a
+    diffusion model's NCHW sample, the same as calling it with the same
+    generator; a pair model refuses it."""
+    from mrisr_tpu_torch.api import LoadedModel
+    from mrisr_tpu_torch.models import UNet
+
+    cpu = torch.device("cpu")
+    loaded = LoadedModel("fastddpm", models["port"], "diffusion", cpu,
+                         schedule=pd.DiffusionSchedule.create(
+                             50, 3, "linear", "linspace"))
+    cond = noise((2, 2, HW, HW), seed=11)
+    a = loaded.sample(cond, torch.Generator().manual_seed(4))
+    b = loaded(cond, torch.Generator().manual_seed(4))
+    assert a.shape == (2, 1, HW, HW) and torch.equal(a, b)
+    assert torch.equal(loaded.sample(cond), loaded(cond))
+    pair = LoadedModel("unet", UNet(features=4).eval(), "pair", cpu)
+    with pytest.raises(AssertionError):
+        pair.sample(cond)

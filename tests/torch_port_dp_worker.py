@@ -9,8 +9,10 @@ cases at once:
 
 IN holds the cases' inputs (``torch.save``), OUT the rank's results.  The
 same :func:`run_case` runs unmeshed in the test process, on the same
-inputs, as the single-process reference.  This module imports torch and
-the port only, no JAX.
+inputs, as the single-process reference.  An IN with a ``cases`` list
+runs those cases and its CLI runs only (``tests/test_torch_port_remat.py``
+takes ``supervised_remat``, the supervised step with ``UNet(remat=True)``).
+This module imports torch and the port only, no JAX.
 """
 
 import os
@@ -75,13 +77,13 @@ def run_case(name, inputs, mesh=None):
         make_supervised_steps,
     )
 
-    inp = inputs[name]
+    inp = inputs["supervised" if name == "supervised_remat" else name]
     batches = [_local(b, mesh) for b in inp["batches"]]
     out = {"train": [], "eval": []}
-    if name == "supervised":
+    if name in ("supervised", "supervised_remat"):
         from mrisr_tpu_torch.models import UNet
 
-        module = UNet(features=FEAT)
+        module = UNet(features=FEAT, remat=name == "supervised_remat")
         module.load_state_dict(inp["state_dict"])
         state = _state(module, PRESETS["unet"].train, mesh)
         train_step, eval_step = make_supervised_steps(
@@ -169,11 +171,11 @@ def _cli_train(args, out, key):
         k: list(v) for k, v in tr.history.series.items()}
 
 
-def main(argv):
+def _collectives_loader_rules(inputs, mesh, world, rank):
+    """The collectives, the sharded loader and the CLI's mesh rules at
+    this world size."""
     import contextlib
     import io
-
-    import torch.distributed as dist
 
     from mrisr_tpu_torch import cli
     from mrisr_tpu_torch.config import Config, DataConfig, MeshConfig
@@ -186,21 +188,12 @@ def main(argv):
         MeshSpec,
         all_gather_batch,
         batch_sharding,
-        distributed_init,
         make_mesh,
         psum,
         psum_mean,
     )
 
-    rank, world, port = (int(a) for a in argv[:3])
-    cli_ports = [int(p) for p in argv[3].split(",")]
-    in_path, out_dir = argv[4], argv[5]
-    torch.set_num_threads(2)
-    distributed_init(f"localhost:{port}", world, rank, backend="gloo")
-    mesh = make_mesh(device="cpu")
-    inputs = torch.load(in_path, weights_only=False)
-    out = {name: run_case(name, inputs, mesh) for name in CASES}
-
+    out = {}
     # distributed_init for real: a cross-process sum, the mean, the
     # gathered batch (and its gradient), the patient shards
     local = torch.full((1, 4), float(rank + 1))
@@ -243,18 +236,39 @@ def main(argv):
     except AssertionError as e:
         rules["make_mesh 1x1 over 2"] = ("assert", str(e), "")
     out["rules"] = rules
+    return out
+
+
+def main(argv):
+    import torch.distributed as dist
+
+    from mrisr_tpu_torch.parallel.mesh import distributed_init, make_mesh
+
+    rank, world, port = (int(a) for a in argv[:3])
+    cli_ports = [int(p) for p in argv[3].split(",")]
+    in_path, out_dir = argv[4], argv[5]
+    torch.set_num_threads(2)
+    distributed_init(f"localhost:{port}", world, rank, backend="gloo")
+    mesh = make_mesh(device="cpu")
+    inputs = torch.load(in_path, weights_only=False)
+    cases = inputs.get("cases", CASES)
+    out = {name: run_case(name, inputs, mesh) for name in cases}
+    if "cases" not in inputs:
+        out.update(_collectives_loader_rules(inputs, mesh, world, rank))
     dist.destroy_process_group()
 
     # the CLI as torchrun starts it: the group from the environment, once
-    # with the host loader and once with --scan-epochs
+    # a run of IN's "cli" (--mesh-data WORLD unless the run names a mesh)
     os.environ.update(MASTER_ADDR="localhost", WORLD_SIZE=str(world),
                       RANK=str(rank), LOCAL_RANK=str(rank))
     for cli_port, (key, extra) in zip(cli_ports, inputs["cli"].items()):
         os.environ["MASTER_PORT"] = str(cli_port)
+        mesh_args = ([] if any(a.startswith("--mesh-") for a in extra)
+                     else ["--mesh-data", str(world)])
         _cli_train([*inputs["cli_common"], "--checkpoint-dir",
                     os.path.join(out_dir, f"{key}_models"),
                     "--results-dir", os.path.join(out_dir, f"{key}_results"),
-                    "--mesh-data", str(world), *extra], out, key)
+                    *mesh_args, *extra], out, key)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
 
 
