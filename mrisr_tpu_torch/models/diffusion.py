@@ -50,6 +50,7 @@ from mrisr_tpu_torch.models.blocks import (
     silu,
 )
 from mrisr_tpu_torch.models.conv import Conv2d
+from mrisr_tpu_torch.utils.profiling import span
 
 GN_EPS = 1e-5
 
@@ -404,7 +405,8 @@ def sample_ancestral(
     the draws: ``(x_T, zs)`` with ``len(zs) == steps - 1`` in iteration
     order, or, for 'mean', a sequence of ``num_samples`` such pairs.  The
     loop never waits on the host: the constants are Python floats and t
-    is filled on the device."""
+    is filled on the device.  Each step is a span, ``sampler.step`` with
+    its device time (``utils/profiling.py:span``)."""
     b, h, w, _ = cond.shape
     device = cond.device
     steps = ancestral_steps(schedule)
@@ -420,14 +422,17 @@ def sample_ancestral(
              else torch.as_tensor(chain_noise[0], dtype=torch.float32,
                                   device=device))
         for k, (t, c1, c2, sigma) in enumerate(steps):
-            t_batch = torch.full((b,), t, dtype=torch.int32, device=device)
-            eps = eps_fn(torch.cat([cond, x], dim=-1), t_batch)
-            x = c1 * (x - c2 * eps)
-            if k < len(steps) - 1:
-                z = (draw() if chain_noise is None
-                     else torch.as_tensor(chain_noise[1][k],
-                                          dtype=torch.float32, device=device))
-                x = x + sigma * z
+            with span("sampler.step", device_time=True, step=k):
+                t_batch = torch.full((b,), t, dtype=torch.int32,
+                                     device=device)
+                eps = eps_fn(torch.cat([cond, x], dim=-1), t_batch)
+                x = c1 * (x - c2 * eps)
+                if k < len(steps) - 1:
+                    z = (draw() if chain_noise is None
+                         else torch.as_tensor(chain_noise[1][k],
+                                              dtype=torch.float32,
+                                              device=device))
+                    x = x + sigma * z
         return x
 
     if combine in ("first", "last"):

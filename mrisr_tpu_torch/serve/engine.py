@@ -10,7 +10,14 @@ while the card computes batch N.
 On the card: two pinned host input buffers (ping-pong), a dedicated CUDA
 stream, a ``non_blocking`` host-to-device copy, and the result copied back
 into a pinned buffer behind an event; resolving a batch waits on that event
-(``EngineStats.fetch_time_s``: the wait for the device result).
+(``EngineStats.sync_wait_s``) and copies the rows out of the pinned buffer
+(``EngineStats.copy_out_s``).
+
+Each phase of the dispatcher is a span (``utils/profiling.py:span``) with
+the batch's ordinal as its id: ``engine.wait_first``, ``engine.collect``,
+``engine.pad``, ``engine.dispatch``, ``engine.sync``, ``engine.copy_out``
+and ``engine.resolve``.  They record only while a ``torch.profiler``
+records; the counters of ``EngineStats`` are always on.
 
 :func:`engine_from_model` builds an engine from a checkpoint, as the
 reference's does: the BN-folded float forward over bf16-rounded weights
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
+from mrisr_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -42,9 +50,19 @@ class EngineStats:
 
     ``total_batch_time_s`` includes the first dispatch's kernel builds;
     call ``engine.reset_stats()`` after a warm-up batch when measuring
-    steady-state throughput.  ``assemble_time_s`` / ``fetch_time_s`` split
-    the host-side overhead into batch assembly (queue drain + row copies
-    into the ping-pong buffer) and the wait for the device result."""
+    steady-state throughput.  ``assemble_time_s`` is batch assembly (the
+    queue drain and the row copies into the ping-pong buffer, from the
+    first request's arrival, and the wrap-padding); ``fetch_time_s`` is
+    the wait for the device result plus the host copy of the rows out of
+    the pinned buffer, split as ``sync_wait_s + copy_out_s``.
+
+    The dispatcher's other phases, in seconds summed over batches:
+    ``wait_first_s`` blocked on a batch's first request (the queue was
+    empty); ``dispatch_s`` the call that enqueues the upload, the forward
+    and the copy back (on the CPU, the whole forward); ``resolve_s``
+    setting the futures, which runs the clients' callbacks.
+    ``queue_wait_s``: summed over requests, from ``submit`` to the close
+    of the batch that takes the request."""
 
     requests: int = 0
     batches: int = 0
@@ -52,6 +70,12 @@ class EngineStats:
     total_batch_time_s: float = 0.0
     assemble_time_s: float = 0.0
     fetch_time_s: float = 0.0
+    queue_wait_s: float = 0.0
+    wait_first_s: float = 0.0
+    dispatch_s: float = 0.0
+    sync_wait_s: float = 0.0
+    copy_out_s: float = 0.0
+    resolve_s: float = 0.0
 
     @property
     def occupancy(self) -> float:
@@ -70,6 +94,7 @@ class EngineStats:
 class _Pending:
     x: np.ndarray
     future: Future
+    t_submit: float  # time.perf_counter() at submit
 
 
 class InferenceEngine:
@@ -118,6 +143,7 @@ class InferenceEngine:
         self._buffers = [t.numpy() for t in self._inputs]
         self._outputs: List[Optional[torch.Tensor]] = [None, None]
         self._buf_idx = 0
+        self._batch_no = 0  # ordinal of the batch being collected
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
 
@@ -135,7 +161,7 @@ class InferenceEngine:
             raise ValueError(
                 f"request shape {x.shape} != engine input {self.input_shape}"
             )
-        item = _Pending(x=x, future=Future())
+        item = _Pending(x=x, future=Future(), t_submit=time.perf_counter())
         # lock against close(): a request enqueued between the closed-check
         # and put() could otherwise land after the sentinel and never resolve
         with self._close_lock:
@@ -170,29 +196,38 @@ class InferenceEngine:
     def _collect(self, buf: np.ndarray) -> Optional[List[_Pending]]:
         """Block for the first request, then drain up to batch_size within
         max_delay, copying each row straight into ``buf``."""
-        first = self._queue.get()
+        k = self._batch_no
+        t_wait = time.perf_counter()
+        with span("engine.wait_first", batch=k):
+            first = self._queue.get()
         if first is None:
             return None
         t_asm = time.perf_counter()  # the blocking wait above is idle time
-        buf[0] = first.x
-        batch = [first]
-        deadline = time.monotonic() + self.max_delay_s
-        while len(batch) < self.batch_size:
-            remaining = deadline - time.monotonic()
-            try:
-                nxt = (
-                    self._queue.get_nowait()
-                    if remaining <= 0
-                    else self._queue.get(timeout=remaining)
-                )
-            except queue.Empty:
-                break
-            if nxt is None:  # close sentinel: put it back for the loop
-                self._queue.put(None)
-                break
-            buf[len(batch)] = nxt.x
-            batch.append(nxt)
-        self.stats.assemble_time_s += time.perf_counter() - t_asm
+        self.stats.wait_first_s += t_asm - t_wait
+        with span("engine.collect", batch=k):
+            buf[0] = first.x
+            batch = [first]
+            submitted = first.t_submit
+            deadline = time.monotonic() + self.max_delay_s
+            while len(batch) < self.batch_size:
+                remaining = deadline - time.monotonic()
+                try:
+                    nxt = (
+                        self._queue.get_nowait()
+                        if remaining <= 0
+                        else self._queue.get(timeout=remaining)
+                    )
+                except queue.Empty:
+                    break
+                if nxt is None:  # close sentinel: put it back for the loop
+                    self._queue.put(None)
+                    break
+                buf[len(batch)] = nxt.x
+                batch.append(nxt)
+                submitted += nxt.t_submit
+        t_end = time.perf_counter()
+        self.stats.assemble_time_s += t_end - t_asm
+        self.stats.queue_wait_s += len(batch) * t_end - submitted
         return batch
 
     @staticmethod
@@ -225,20 +260,26 @@ class InferenceEngine:
 
     def _resolve(self, pending) -> None:
         """Wait for a dispatched batch's result and resolve its futures."""
-        host_out, done, batch, t0 = pending
+        host_out, done, batch, t0, k = pending
         n = len(batch)
         t_fetch = time.perf_counter()
         try:
             if done is not None:
-                done.synchronize()
+                with span("engine.sync", batch=k):
+                    done.synchronize()
+            t_sync = time.perf_counter()
             # copied out: the pinned buffer is reused two batches later
-            out = host_out[:n].numpy().copy()
+            with span("engine.copy_out", batch=k):
+                out = host_out[:n].numpy().copy()
         except Exception as e:
             for p in batch:
                 self._set(p.future, exception=e)
             return
-        self.stats.fetch_time_s += time.perf_counter() - t_fetch
         now = time.perf_counter()
+        sync_wait, copy_out = t_sync - t_fetch, now - t_sync
+        self.stats.sync_wait_s += sync_wait
+        self.stats.copy_out_s += copy_out
+        self.stats.fetch_time_s += sync_wait + copy_out
         self.stats.requests += n
         self.stats.batches += 1
         self.stats.padded_slots += self.batch_size - n
@@ -246,8 +287,10 @@ class InferenceEngine:
         # the non-overlapping part so slices_per_sec reflects wall-clock
         self.stats.total_batch_time_s += now - max(t0, self._busy_until)
         self._busy_until = now
-        for k, p in enumerate(batch):
-            self._set(p.future, result=out[k])
+        with span("engine.resolve", batch=k):
+            for j, p in enumerate(batch):
+                self._set(p.future, result=out[j])
+        self.stats.resolve_s += time.perf_counter() - now
 
     def _loop(self):
         pending = None
@@ -264,26 +307,31 @@ class InferenceEngine:
                 if pending is not None:
                     self._resolve(pending)
                 return
+            k = self._batch_no
+            self._batch_no += 1
             n = len(batch)
             if n < self.batch_size:
                 # wrap-pad to the static batch (results are discarded)
                 t_pad = time.perf_counter()
-                for k in range(n, self.batch_size):
-                    xs[k] = xs[k % n]
+                with span("engine.pad", batch=k):
+                    for j in range(n, self.batch_size):
+                        xs[j] = xs[j % n]
                 self.stats.assemble_time_s += time.perf_counter() - t_pad
             t0 = time.perf_counter()
             try:
-                host_out, done = self._dispatch(i)
+                with span("engine.dispatch", batch=k):
+                    host_out, done = self._dispatch(i)
             except Exception as e:  # resolve, don't kill the dispatcher
                 for p in batch:
                     self._set(p.future, exception=e)
                 continue  # buffer not in flight: reuse it
+            self.stats.dispatch_s += time.perf_counter() - t0
             # flip only after a successful dispatch: the other buffer's batch
             # (pending) resolves before that buffer is written again
             self._buf_idx ^= 1
             if pending is not None:
                 self._resolve(pending)
-            pending = (host_out, done, batch, t0)
+            pending = (host_out, done, batch, t0, k)
 
 
 def _bn_over_bf16(bn: torch.nn.BatchNorm2d, x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,12 @@ Endpoints:
                     (400 with a JSON error on a bad body)
     GET  /healthz   200 "ok"
     GET  /stats     JSON EngineStats (requests/batches/occupancy/...)
+    GET  /stats/phases
+                    JSON of the engine's time by phase, in seconds summed
+                    since the start: queue_wait_s (over requests, submit
+                    to batch), wait_first_s, assemble_time_s,
+                    dispatch_s, sync_wait_s, copy_out_s, resolve_s and
+                    total_batch_time_s, with requests and batches
 
 ``cli serve --bundle <dir>`` after ``cli export-serving``; the engine runs
 on the card unless a device is given.
@@ -36,6 +42,11 @@ import numpy as np
 
 from mrisr_tpu_torch.device import DeviceLike
 from mrisr_tpu_torch.serve.engine import InferenceEngine
+
+# the EngineStats fields that /stats/phases serves
+PHASE_KEYS = ("requests", "batches", "queue_wait_s", "wait_first_s",
+              "assemble_time_s", "dispatch_s", "sync_wait_s", "copy_out_s",
+              "resolve_s", "total_batch_time_s")
 
 
 def _make_handler(engine: InferenceEngine):
@@ -64,6 +75,11 @@ def _make_handler(engine: InferenceEngine):
                     "total_batch_time_s": round(s.total_batch_time_s, 4),
                     "slices_per_sec": round(s.slices_per_sec, 2),
                 }).encode(), "application/json")
+            elif self.path == "/stats/phases":
+                s = engine.stats
+                self._send(200, json.dumps(
+                    {k: getattr(s, k) for k in PHASE_KEYS}).encode(),
+                    "application/json")
             else:
                 self._send(404, b"not found", "text/plain")
 

@@ -45,6 +45,7 @@ from mrisr_tpu_torch.ops.upconv import (
     upconv2x2_int8,
     upconv2x2_int8_plain,
 )
+from mrisr_tpu_torch.utils.profiling import span
 
 BLOCKS = (*BLOCKS_DOWN, "bottleneck", *BLOCKS_UP)
 UPCONVS = ("upconv4", "upconv3", "upconv2", "upconv1")
@@ -278,7 +279,12 @@ class Int8FusedUNet:
     reference's fallback in ``dtype`` (bf16 upconvs and final conv, 'dual'
     emission; an explicit 'shared' raises, as in the reference).
     ``plain=True`` runs the kernels' plain versions even on the card (the
-    reference the kernels are held against)."""
+    reference the kernels are held against).
+
+    Spans (``utils/profiling.py:span``): ``unet.forward`` around a call,
+    ``unet.conv`` around each conv site (kernel A, and the final 1x1
+    conv's kernel) and ``unet.upconv`` around each kernel-B call, with
+    their device time; ``unet.pool`` around each int8 max-pool."""
 
     def __init__(self, qparams: Dict, skip_emit: Optional[str] = None,
                  device: DeviceLike = None, plain: bool = False,
@@ -378,8 +384,14 @@ class Int8FusedUNet:
         self.final = _float_final(qparams["final"], self.dtype, device)
 
     def _run(self, x: torch.Tensor, site: _Site) -> torch.Tensor:
-        return self._conv(x, site.w, site.s, site.b, relu=site.relu,
-                          out_float=site.out_float)
+        with span("unet.conv", device_time=True):
+            return self._conv(x, site.w, site.s, site.b, relu=site.relu,
+                              out_float=site.out_float)
+
+    @staticmethod
+    def _pool(x: torch.Tensor) -> torch.Tensor:
+        with span("unet.pool"):
+            return max_pool_int8(x)
 
     def _encode(self, x: torch.Tensor):
         """The int8 encoder: (the bottleneck's input codes, the skips)."""
@@ -390,23 +402,26 @@ class Int8FusedUNet:
             if len(c1) == 1:
                 t = self._run(xi, c1[0])
                 skips.append(t)
-                xi = max_pool_int8(t)
+                xi = self._pool(t)
             else:
                 skips.append(self._run(xi, c1[0]))
-                xi = max_pool_int8(self._run(xi, c1[1]))
+                xi = self._pool(self._run(xi, c1[1]))
         return xi, skips
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 2) float NHWC -> (B, H, W, 1) float32."""
-        if not self.full:
-            return self._legacy(x)
-        xi, skips = self._encode(x)
-        xi = self._run(self._run(xi, self.mid[0]), self.mid[1])
-        for ((w2, s4, b4), c0, c1), skip in zip(self.dec, reversed(skips)):
-            xi = self._upconv(xi, w2, s4, b4, skip=skip)
-            xi = self._run(self._run(xi, c0), c1)
-        return self._run(xi, self.final)
+        with span("unet.forward", device_time=True):
+            if not self.full:
+                return self._legacy(x)
+            xi, skips = self._encode(x)
+            xi = self._run(self._run(xi, self.mid[0]), self.mid[1])
+            for ((w2, s4, b4), c0, c1), skip in zip(self.dec,
+                                                    reversed(skips)):
+                with span("unet.upconv", device_time=True):
+                    xi = self._upconv(xi, w2, s4, b4, skip=skip)
+                xi = self._run(self._run(xi, c0), c1)
+            return self._run(xi, self.final)
 
     def _legacy(self, x: torch.Tensor) -> torch.Tensor:
         xi, skips = self._encode(x)

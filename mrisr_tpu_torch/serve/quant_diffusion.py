@@ -55,6 +55,7 @@ from mrisr_tpu_torch.serve.quant import (
     _quantize_conv,
     quant_input,
 )
+from mrisr_tpu_torch.utils.profiling import span
 
 UPCONVS = ("upconv3", "upconv2", "upconv1")
 
@@ -188,7 +189,13 @@ class FastDDPMForward:
     float forward in ``dtype``.  ``gn_impl``: 'chain' or 'fused'
     (:func:`default_gn_impl` when None).  ``plain=True`` runs the kernels'
     plain versions even on the card (the reference the kernels are held
-    against)."""
+    against).
+
+    Spans (``utils/profiling.py:span``): ``ddpm.gn_chain`` around each
+    float GroupNorm + SiLU chain, with its device time; host-only,
+    ``ddpm.k3`` around each K3 call, ``ddpm.conv_int8`` (kernel A) and
+    ``ddpm.conv_float`` (cuDNN) around each conv, ``ddpm.upconv`` around
+    each upconv."""
 
     def __init__(self, params: Dict, sites: Optional[Dict] = None,
                  timesteps=None, *, dtype=torch.bfloat16, time_dim: int = 128,
@@ -272,25 +279,28 @@ class FastDDPMForward:
             self._record(st, name, h)
             if lq is None:  # not quantized: a float conv in dtype
                 w, b, pad = self.convs[name]
-                return _nhwc(F.conv2d(_nchw(h.to(self.dtype)), w, b,
-                                      padding=pad))
+                with span("ddpm.conv_float"):
+                    return _nhwc(F.conv2d(_nchw(h.to(self.dtype)), w, b,
+                                          padding=pad))
             a, s = lq.scales(st.row, st.zero)
             q = quant_input(h, a)
-        y = self._conv8(q.contiguous(), lq.w, s, lq.b, relu=False,
-                        out_float=True)
-        return y.to(self.dtype)
+        with span("ddpm.conv_int8"):
+            y = self._conv8(q.contiguous(), lq.w, s, lq.b, relu=False,
+                            out_float=True)
+            return y.to(self.dtype)
 
     def _upconv(self, st: _Step, name: str, h: torch.Tensor) -> torch.Tensor:
         self._record(st, name, h)
         lq = self.q.get(name)
-        if lq is None:
-            w, b = self.upconvs[name]
-            return _nhwc(F.conv_transpose2d(_nchw(h.to(self.dtype)), w, b,
-                                            stride=2))
-        a, s = lq.scales(st.row, st.zero)
-        y = self._up8(quant_input(h, a).contiguous(), lq.w, s, lq.b,
-                      out_float=True)
-        return y.to(self.dtype)
+        with span("ddpm.upconv"):
+            if lq is None:
+                w, b = self.upconvs[name]
+                return _nhwc(F.conv_transpose2d(_nchw(h.to(self.dtype)), w,
+                                                b, stride=2))
+            a, s = lq.scales(st.row, st.zero)
+            y = self._up8(quant_input(h, a).contiguous(), lq.w, s, lq.b,
+                          out_float=True)
+            return y.to(self.dtype)
 
     def _act(self, st: _Step, site: str, norm: str, h: torch.Tensor):
         """GroupNorm + SiLU feeding conv ``site``: K3's int8 codes where
@@ -300,9 +310,11 @@ class FastDDPMForward:
         lq = self.q.get(site)
         if self.fused and lq is not None:
             a = lq.scales(st.row, st.zero)[0]
-            return _PreQuant(self._gn8(h.contiguous(), gamma, beta,
-                                       num_groups=groups, quant_scale=a))
-        return gn_silu_chain(h, gamma, beta, groups, self.dtype)
+            with span("ddpm.k3"):
+                return _PreQuant(self._gn8(h.contiguous(), gamma, beta,
+                                           num_groups=groups, quant_scale=a))
+        with span("ddpm.gn_chain", device_time=True):
+            return gn_silu_chain(h, gamma, beta, groups, self.dtype)
 
     def _block(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
         h = self._act(st, f"{name}/conv1", f"{name}/norm1", x)

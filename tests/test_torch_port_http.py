@@ -148,3 +148,27 @@ def test_endpoints_match_jax_server():
     assert seen["port"][1:] == seen["jax"][1:]
     assert seen["port"][2:5] == (1, 400, 400)
     assert seen["port"][5] == {"error"}
+
+
+def test_phases_endpoint_serves_the_engine_phase_counters():
+    """``/stats/phases``: the engine's time by phase, every documented
+    key, non-negative, the requests counted and their queue wait over
+    zero; ``/stats`` keeps the JAX server's keys."""
+    from mrisr_tpu_torch.serve.http import PHASE_KEYS
+
+    shape = (8, 8, 2)
+    x = np.random.default_rng(84).random(shape, np.float32)
+    srv = ServingServer(InferenceEngine(
+        _mean_plus_one_port, batch_size=4, input_shape=shape,
+        max_delay_ms=5.0, device="cpu"), port=0)
+    with srv.start_background():
+        url = f"http://{srv.host}:{srv.port}"
+        for _ in range(3):
+            assert _post(url, _npy(x))[0] == 200
+        status, body = _get(url, "/stats/phases")
+        phases = json.loads(body)
+        assert "queue_wait_s" not in json.loads(_get(url, "/stats")[1])
+    assert status == 200 and set(phases) == set(PHASE_KEYS)
+    assert phases["requests"] == 3 and phases["batches"] == 3
+    assert phases["queue_wait_s"] > 0
+    assert all(v >= 0 for v in phases.values())
