@@ -246,8 +246,9 @@ def make_bundle_apply(params: Dict, meta: Dict, device: DeviceLike = None,
     3x3 conv) or 'none' (the folded UNet in bf16 compute).  Diffusion
     bundles (quant none, int8 or int8_deep): the call runs the whole T-step
     chain of the meta's sampler (ancestral, or ``'ddim_grid'``);
-    ``gn_impl`` picks the int8 forward's GroupNorm path ('chain' or
-    'fused', see ``serve/quant_diffusion.py``).
+    ``gn_impl`` picks the int8 forward's GroupNorm + SiLU path ('chain',
+    or 'fused': K3 at every site, see ``serve/quant_diffusion.py``); a
+    'none' bundle takes the device's default.
     ``plain=True`` runs the kernels' plain versions on the card: the
     reference the kernels are held against."""
     device = resolve_device(device)

@@ -18,8 +18,13 @@ activations NHWC (channels_last for the float convs) and runs every int8
 conv site through kernel A (``ops/conv_int8.py``, float epilogue
 ``acc * a_scale[row] * w_scale + bias``), the int8 upconv3/upconv2 through
 kernel B's float mode (``ops/upconv.py``), and, with ``gn_impl='fused'``,
-every GroupNorm that feeds a quantized conv through K3
-(``ops/groupnorm.py``), which emits the int8 codes kernel A reads next.
+every GroupNorm + SiLU through K3 (``ops/groupnorm.py``): K3 emits what the
+next conv reads, the int8 codes where that conv is quantized, else the
+forward's float ``dtype``.  K3 rounds once, after SiLU (``bf16(silu(y))``);
+the chain ('chain', the JAX package's 'xla') rounds the normalized value
+before SiLU too (``silu(bf16(y))``).  Both take float32 statistics and hand
+the conv its input in ``dtype``; in bf16 they differ by about one bf16
+rounding an element, K3 as a rule the nearer to the float32 forward.
 """
 
 from __future__ import annotations
@@ -80,7 +85,8 @@ def default_gn_impl(device: torch.device) -> str:
     call is pinned to one layout while XLA's int8 convs wanted a
     batch-inner one, so fusing cost a full-tensor transpose on each side
     of every site.  Here there is no such conflict: K3 writes the NHWC
-    int8 codes that kernel A reads next, in the same layout.  On the CPU
+    int8 codes that kernel A reads next, or the NHWC float activation a
+    float conv reads, in the same layout.  On the CPU
     K3 is its plain version, slower than the chain and no closer to the
     reference, so the chain stays."""
     return "fused" if device.type == "cuda" else "chain"
@@ -192,8 +198,10 @@ class FastDDPMForward:
     against).
 
     Spans (``utils/profiling.py:span``): ``ddpm.gn_chain`` around each
-    float GroupNorm + SiLU chain, with its device time; host-only,
-    ``ddpm.k3`` around each K3 call, ``ddpm.conv_int8`` (kernel A) and
+    GroupNorm + SiLU that feeds a float conv (a float site), whatever
+    implements it, with its device time; host-only, ``ddpm.k3`` around
+    each K3 call (inside the ``ddpm.gn_chain`` at a float site),
+    ``ddpm.conv_int8`` (kernel A) and
     ``ddpm.conv_float`` (cuDNN) around each conv, ``ddpm.upconv`` around
     each upconv."""
 
@@ -303,18 +311,28 @@ class FastDDPMForward:
             return y.to(self.dtype)
 
     def _act(self, st: _Step, site: str, norm: str, h: torch.Tensor):
-        """GroupNorm + SiLU feeding conv ``site``: K3's int8 codes where
-        that conv is quantized and gn_impl is 'fused', else the chain."""
+        """GroupNorm + SiLU feeding conv ``site``.  'fused': K3 at every
+        site, emitting what that conv reads: int8 codes (its per-step
+        activation scale) where it is quantized, else ``dtype``, rounded
+        once after SiLU.  'chain': :func:`gn_silu_chain`, which rounds to
+        ``dtype`` before SiLU too; the quantizer of an int8 conv follows
+        in :meth:`_conv`."""
         gamma, beta = self.norms[norm]
         groups = num_groups(h.shape[-1])
         lq = self.q.get(site)
-        if self.fused and lq is not None:
-            a = lq.scales(st.row, st.zero)[0]
-            with span("ddpm.k3"):
-                return _PreQuant(self._gn8(h.contiguous(), gamma, beta,
-                                           num_groups=groups, quant_scale=a))
-        with span("ddpm.gn_chain", device_time=True):
+        if lq is None:  # a float site
+            with span("ddpm.gn_chain", device_time=True):
+                if not self.fused:
+                    return gn_silu_chain(h, gamma, beta, groups, self.dtype)
+                with span("ddpm.k3"):
+                    return self._gn8(h.contiguous(), gamma, beta,
+                                     num_groups=groups, out_dtype=self.dtype)
+        if not self.fused:
             return gn_silu_chain(h, gamma, beta, groups, self.dtype)
+        a = lq.scales(st.row, st.zero)[0]
+        with span("ddpm.k3"):
+            return _PreQuant(self._gn8(h.contiguous(), gamma, beta,
+                                       num_groups=groups, quant_scale=a))
 
     def _block(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
         h = self._act(st, f"{name}/conv1", f"{name}/norm1", x)
@@ -389,12 +407,15 @@ def fastddpm_int8_apply(qtree: Dict, x: torch.Tensor, t: torch.Tensor,
     :func:`int8_forward` once instead.
 
     ``gn_impl``: 'chain' is the JAX package's 'xla' (GroupNorm + SiLU in
-    ``dtype``, then ``clip(round(h / a))``); 'fused' is its 'pallas': K3
-    at every GroupNorm that feeds a quantized conv.  None: 'fused' on the
-    card, 'chain' on the CPU (:func:`default_gn_impl`).  At 256^2, base
-    64, ``int8_deep`` the fused sites are exactly the ones the TPU kernel
-    was eligible for; with ``quant='int8'`` the port also fuses at the
-    256^2 sites, whose blocks the TPU could not hold in VMEM."""
+    ``dtype``, then ``clip(round(h / a))``); 'fused' is K3 at every
+    GroupNorm + SiLU: its int8 codes where the conv it feeds is quantized
+    (the JAX package's 'pallas'), else ``dtype``, rounded once after SiLU
+    where the chain also rounds before it (about one bf16 rounding an
+    element apart, no precision dropped).  None: 'fused' on the card,
+    'chain' on the CPU (:func:`default_gn_impl`).  At 256^2, base 64,
+    ``int8_deep`` the int8-emitting sites are exactly the ones the TPU
+    kernel was eligible for; the port also runs K3 at the 256^2 sites,
+    whose blocks the TPU could not hold in VMEM."""
     return int8_forward(qtree, dtype=dtype, time_dim=time_dim,
                         gn_impl=gn_impl, device=x.device)(x, t)
 

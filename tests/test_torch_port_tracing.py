@@ -30,7 +30,16 @@ from mrisr_tpu_torch.serve.quant import (
     calibrate_unet,
     quantize_unet,
 )
-from mrisr_tpu_torch.serve.quant_diffusion import FastDDPMForward
+from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu_plain
+from mrisr_tpu_torch.serve.quant_diffusion import (
+    DEEP_SITES,
+    FastDDPMForward,
+    _PreQuant,
+    calibrate_fastddpm,
+    gn_silu_chain,
+    int8_forward,
+    quantize_fastddpm,
+)
 from mrisr_tpu_torch.utils.profiling import (
     RECORDER,
     profile_trace,
@@ -43,6 +52,9 @@ torch.set_num_threads(2)
 FEAT, HW, TDIM = 4, 32, 16
 # a Fast-DDPM forward: 7 blocks of two GroupNorm sites, and the final norm
 GN_SITES = 15
+# int8_deep's float sites: enc1's and dec1's norms and the final norm
+FLOAT_GN_SITES = ("enc1/norm1", "enc1/norm2", "dec1/norm1", "dec1/norm2",
+                  "final_norm")
 PHASES = {"engine.wait_first", "engine.collect", "engine.pad",
           "engine.dispatch", "engine.copy_out", "engine.resolve"}
 NEW_COUNTERS = ("queue_wait_s", "wait_first_s", "dispatch_s", "sync_wait_s",
@@ -260,6 +272,114 @@ def test_fastddpm_forward_records_each_float_site(ddpm):
     assert names["ddpm.upconv"] == 3
     assert names["ddpm.conv_float"] > 0
     assert "ddpm.k3" not in names and "ddpm.conv_int8" not in names
+
+
+@pytest.fixture(scope="module")
+def deep_tables():
+    """int8_deep tables of a seeded width-4 Fast-DDPM, calibrated on its
+    own 2-step trajectory (per-step scales)."""
+    torch.manual_seed(36)
+    params = fastddpm_flax_params(FastDDPMUNet(base_features=FEAT,
+                                               time_dim=TDIM))
+    sched = DiffusionSchedule.create(50, 2, "linear", "linspace")
+    cond = torch.from_numpy(np.random.default_rng(37).random(
+        (2, 16, 16, 2), np.float32))
+    calib = calibrate_fastddpm({"params": params}, sched, [cond],
+                               dtype=torch.float32, time_dim=TDIM)
+    q = quantize_fastddpm({"params": params}, calib, only=DEEP_SITES)
+    x = torch.from_numpy(np.random.default_rng(38).random(
+        (2, 16, 16, 3), np.float32))
+    t = torch.full((2,), int(sched.timesteps[-1]))
+    return q, x, t
+
+
+def _deep_call(q, x, t, gn_impl):
+    """One bf16 int8_deep denoiser call under the profiler, each GroupNorm
+    site's (gamma, beta, input, output) kept by norm: (output, spans,
+    sites)."""
+    fwd = int8_forward(q, time_dim=TDIM, gn_impl=gn_impl, device="cpu")
+    sites = []
+
+    def act(st, site, norm, h):
+        out = FastDDPMForward._act(fwd, st, site, norm, h)
+        sites.append((norm, *fwd.norms[norm], h, out))
+        return out
+
+    fwd._act = act
+    with _cpu_profile():
+        y = fwd(x, t)
+    return y, RECORDER.spans(), sites
+
+
+def test_fused_int8_deep_runs_k3_at_every_site(deep_tables):
+    """'fused': 15 K3 calls a denoiser call, 5 of them each alone inside
+    the ``ddpm.gn_chain`` of a float site, which emits the forward's bf16
+    (K3's plain version here); the 10 others emit int8 codes."""
+    y, spans, sites = _deep_call(*deep_tables, "fused")
+    assert y.shape == (2, 16, 16, 1) and bool(torch.isfinite(y).all())
+    names = _names(spans)
+    assert names["ddpm.k3"] == GN_SITES
+    assert names["ddpm.gn_chain"] == len(FLOAT_GN_SITES)
+    chains = {s.key for s in spans if s.name == "ddpm.gn_chain"}
+    inside = collections.Counter(s.parent for s in spans
+                                 if s.name == "ddpm.k3")
+    assert all(inside[k] == 1 for k in chains)
+    assert sum(inside[k] for k in chains) == len(FLOAT_GN_SITES)
+    for norm, gamma, beta, h, out in sites:
+        if norm in FLOAT_GN_SITES:
+            assert out.dtype == torch.bfloat16, norm
+            want = groupnorm_silu_plain(h, gamma, beta,
+                                        num_groups=max(1, h.shape[-1] // 4),
+                                        out_dtype=torch.bfloat16)
+            assert torch.equal(out, want), norm
+        else:
+            assert isinstance(out, _PreQuant), norm
+            assert out.q.dtype == torch.int8, norm
+    assert sorted(s[0] for s in sites if not isinstance(s[-1], _PreQuant)) \
+        == sorted(FLOAT_GN_SITES)
+
+
+def test_chain_int8_deep_keeps_the_chain(deep_tables):
+    """'chain': a ``ddpm.gn_chain`` at each of the 5 float sites, no K3,
+    and every site's output the bits of ``gn_silu_chain``."""
+    y, spans, sites = _deep_call(*deep_tables, "chain")
+    assert y.shape == (2, 16, 16, 1) and bool(torch.isfinite(y).all())
+    names = _names(spans)
+    assert names["ddpm.gn_chain"] == len(FLOAT_GN_SITES)
+    assert "ddpm.k3" not in names
+    assert len(sites) == GN_SITES
+    for norm, gamma, beta, h, out in sites:
+        want = gn_silu_chain(h, gamma, beta, max(1, h.shape[-1] // 4),
+                             torch.bfloat16)
+        assert torch.equal(out, want), norm
+
+
+@pytest.mark.parametrize("c", [4, 8, 12, 64, 192])
+def test_k3_bf16_and_chain_differ_by_one_rounding(c):
+    """At a float site K3 gives ``bf16(silu(y))``, the chain
+    ``bf16(silu(bf16(y)))``: each element at most one bf16 step of the
+    normalized value y apart, and K3 the nearer to the float32 answer."""
+    g = torch.Generator().manual_seed(c)
+    x = (torch.randn((2, 32, 32, c), generator=g) * 3 + 0.5).to(
+        torch.bfloat16)
+    gamma = torch.randn(c, generator=g) * 0.5 + 1.0
+    beta = torch.randn(c, generator=g) * 0.2
+    groups = c // 4
+    k3 = groupnorm_silu_plain(x, gamma, beta, num_groups=groups,
+                              out_dtype=torch.bfloat16).float()
+    chain = gn_silu_chain(x, gamma, beta, groups, torch.bfloat16).float()
+    xd = x.double().reshape(2, -1, groups, 4)
+    mean = xd.mean(dim=(1, 3), keepdim=True)
+    var = xd.var(dim=(1, 3), unbiased=False, keepdim=True)
+    y = (((xd - mean) / torch.sqrt(var + 1e-5)).reshape(x.shape)
+         * gamma.double() + beta.double())
+    ref = y * torch.sigmoid(y)
+    step = torch.exp2(torch.floor(torch.log2(y.abs().clamp_min(2.0 ** -126)))
+                      - 7)
+    diff = (k3 - chain).double().abs()
+    assert bool((diff <= step).all()), float((diff / step).max())
+    assert float((diff > 0).double().mean()) > 0.05  # two roundings, not one
+    assert float((k3 - ref).abs().mean()) < float((chain - ref).abs().mean())
 
 
 def test_profile_trace_holds_the_spans_of_every_thread(tmp_path):
