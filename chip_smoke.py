@@ -271,6 +271,19 @@
    in phase 14): the remat step against the plain one under phase 13's
    bounds, its running statistics bit-equal, both ranks reporting the
    same loss.  No kernel is on this path; its launch counts are printed.
+17. DDPM phase: the DDPM UNet that Fast-DDPM publishes
+   (``models/ddpm_unet.py``) at the fastddpm_pmub preset's widths (ch 128,
+   32 GroupNorm groups of 4 to 32 channels, eps 1e-6), seeded, calibrated
+   on one batch of 2 over the 10-step sampler and quantized int8_deep.
+   One denoiser call at batch 32, 256^2, with the launch counts set to 0
+   just before it: 71 K3, 99 A and no B launches, K3 seen at 71 sites, the
+   answer finite and the same bits on a second call, then the call timed.
+   K3 at batch 32 at each distinct (size, channels, group, SiLU or not,
+   int8 or bf16) of those 71 sites, the 256^2 x 256 sites and the six
+   attention norms without SiLU among them, against its plain version:
+   at int8 sites no code more than 1 off and under 0.1 % off by one, the
+   same bits twice; the bf16 output at every site within one bf16
+   rounding step (phase 6's tolerance); each shape's plan and time.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
 their launches by path) and the card's name and power limit before the
@@ -342,6 +355,11 @@ SMALL_HW, SMALL_BATCH = 64, 2
 GRAD_RTOL, GRAD_NOISE_FACTOR = 1e-3, 10.0
 STEADY_BATCHES = 6  # per serving setup
 GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
+# phase 17: the DDPM UNet at the fastddpm_pmub preset (ch 128) and its
+# serving batch; one int8_deep call launches K3 at all 71 GroupNorms and
+# kernel A at the 99 stride-1 convs below the 256^2 level
+DDPM_CH, DDPM_BATCH = 128, 32
+DDPM_K3, DDPM_A = 71, 99
 SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
 # fp32 operations per element of K3: 3 for the sums, 2 for the affine,
 # 5 for SiLU (exp counted as one), 3 for the quantizer
@@ -5022,6 +5040,137 @@ def remat_phase(dev, card: str, step_ref=None):
     return results
 
 
+def ddpm_phase(dev, card: str):
+    """The DDPM UNet at the fastddpm_pmub preset's widths (docstring, item
+    17): one int8_deep denoiser call at the serving batch, counted from 0,
+    then K3 against its plain version at every distinct site of that call.
+    Returns (launches of the call, results)."""
+    from collections import Counter
+
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.device import sm_count
+    from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
+    from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8, reset_launches
+    from mrisr_tpu_torch.ops.groupnorm import (
+        groupnorm_silu, groupnorm_silu_plain, plan)
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm, deep_sites, int8_forward, quantize_fastddpm)
+
+    t_phase = time.perf_counter()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(17)
+        model = DDPMUNet(base_features=DDPM_CH)
+    params = fastddpm_flax_params(model.to(dev))
+    sched = DiffusionSchedule.create(1000, 10, "linear", "nonuniform-4060")
+    g = torch.Generator(device=dev).manual_seed(1717)
+    cond = torch.randn((CHECK_BATCH, HW, HW, 2), generator=g, device=dev)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond])
+    q = quantize_fastddpm({"params": params}, calib, only=deep_sites(params))
+    fwd = int8_forward(q, device=dev)
+    sites, gn8 = [], fwd._gn8
+
+    def record(x, gamma, beta, **kw):  # (H, C, groups, silu, int8, eps)
+        sites.append((x.shape[1], x.shape[3], kw["num_groups"], kw["silu"],
+                      kw.get("quant_scale") is not None, kw["eps"]))
+        return gn8(x, gamma, beta, **kw)
+
+    fwd._gn8 = record
+    x = torch.randn((DDPM_BATCH, HW, HW, 3), generator=g, device=dev)
+    t = torch.full((DDPM_BATCH,), int(sched.timesteps[-1]), device=dev)
+    reset_launches(conv2d_int8, upconv2x2_int8)
+    groupnorm_silu.launches = 0
+    got = fwd(x, t)
+    torch.cuda.synchronize()
+    launches = {"groupnorm_silu": groupnorm_silu.launches,
+                **launch_counts(conv2d_int8, upconv2x2_int8)}
+    counted = (launches["groupnorm_silu"], launches["conv_int8"],
+               launches["upconv_int8"], len(sites))
+    if counted != (DDPM_K3, DDPM_A, 0, DDPM_K3):
+        raise AssertionError(f"DDPM int8_deep call: K3, A, B launches and K3 "
+                             f"sites {counted}, want ({DDPM_K3}, {DDPM_A}, "
+                             f"0, {DDPM_K3})")
+    if tuple(got.shape) != (DDPM_BATCH, HW, HW, 1) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"DDPM int8_deep call: {tuple(got.shape)}, "
+                             "or not finite")
+    fwd._gn8 = gn8
+    if not torch.equal(fwd(x, t), got):
+        raise AssertionError("DDPM int8_deep call: two calls differ")
+    call_ms = cuda_ms(lambda: fwd(x, t), reps=3, warmup=1)
+    del got, x, fwd
+    print(f"DDPM int8_deep call, batch {DDPM_BATCH}: {counted[0]} K3 and "
+          f"{counted[1]} A launches, the same bits twice, {call_ms:.2f} ms "
+          f"({card})")
+
+    sms, rows = sm_count(dev), []
+    for (h, c, groups, silu, int8, eps), n in sorted(Counter(sites).items()):
+        name = (f"{h}^2 C {c} groups of {c // groups} "
+                f"{'int8' if int8 else 'bf16'}{'' if silu else ' no SiLU'}")
+        gn = dict(num_groups=groups, eps=eps, silu=silu)
+        gamma, beta = 1 + 0.5 * torch.randn(c, generator=g, device=dev), (
+            0.2 * torch.randn(c, generator=g, device=dev))
+        xin = (3 * torch.randn((DDPM_BATCH, h, h, c), generator=g, device=dev)
+               + 0.5).to(torch.bfloat16)
+        ref = groupnorm_silu_plain(xin, gamma, beta, out_dtype=torch.float32,
+                                   **gn)
+        row = {"kernel": "groupnorm_silu ddpm", "site": name, "H": h, "C": c,
+               "group": c // groups, "silu": silu, "int8": int8,
+               "sites": n, "batch": DDPM_BATCH}
+        if int8:
+            scale = (ref.abs().amax() / 127).reshape(1)
+
+            def run():
+                return groupnorm_silu(xin, gamma, beta, quant_scale=scale,
+                                      **gn)
+            codes = run()
+            torch.cuda.synchronize()
+            want = groupnorm_silu_plain(xin, gamma, beta, quant_scale=scale,
+                                        **gn)
+            diff = (codes.int() - want.int()).abs()
+            worst, off1 = int(diff.max()), float((diff == 1).float().mean())
+            if worst > 1 or off1 >= 1e-3:
+                raise AssertionError(f"K3 DDPM {name}: codes differ: max "
+                                     f"{worst}, {off1:.4%} off by 1")
+            if not torch.equal(run(), codes):
+                raise AssertionError(f"K3 DDPM {name}: two launches differ")
+            row.update(max_abs_err=float(worst), off_by_one=off1)
+            del codes, want, diff
+        else:
+            def run():
+                return groupnorm_silu(xin, gamma, beta, **gn)
+        # the bf16 mode at every site (the float sites' own output): one
+        # bf16 rounding step, as phase 6 holds the notebook net's sites
+        y16 = groupnorm_silu(xin, gamma, beta, **gn)
+        err = (y16.float() - ref).abs()
+        tol = torch.clamp_min(ref.abs() * 2.0 ** -8, GN_BF16_ATOL)
+        if bool((err > tol).any()):
+            raise AssertionError(f"K3 DDPM {name}: bf16 output off by "
+                                 f"{float(err.max())} (worst "
+                                 f"{float((err / tol).max()):.3f} of its "
+                                 "tolerance)")
+        if not int8 and not torch.equal(run(), y16):
+            raise AssertionError(f"K3 DDPM {name}: two launches differ")
+        p = plan(DDPM_BATCH, h * h, c, xin.element_size(), sms)
+        row.update(bf16_err=float(err.max()),
+                   ms=cuda_ms(run, reps=10, warmup=2),
+                   form="one-read" if p.one_read else "two-read",
+                   samples_a_pass=p.spp, passes=p.passes)
+        rows.append(row)
+        del xin, ref, y16, err, tol
+        print(f"K3 DDPM {name:36s} x{n:2d}: {row['form']} "
+              f"{p.spp} a pass x {p.passes}, int8 max "
+              f"{row.get('max_abs_err', '-')}, bf16 err "
+              f"{row['bf16_err']:.3g}, {row['ms']:.4f} ms")
+    k3_ms = sum(r["ms"] * r["sites"] for r in rows)
+    print(f"K3 DDPM: {len(rows)} distinct shapes cover {len(sites)} sites "
+          f"(groups of {sorted({r['group'] for r in rows})}); {k3_ms:.3f} ms "
+          f"a call at batch {DDPM_BATCH} ({card})")
+    return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
+                      "wall_s": time.perf_counter() - t_phase}
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU.
@@ -5099,6 +5248,7 @@ def main() -> int:
         lambda: remat_phase(dev, card, step_ref))
     print(f"remat phase kernel launches: {remat_launches} (no kernel is on "
           "its path)")
+    ddpm_launches, ddpm_result = ddpm_phase(dev, card)
 
     kernels = []
     for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
@@ -5116,14 +5266,14 @@ def main() -> int:
 
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
-            # distillation, ingest, parallel, model-axis, names and remat
-            # paths' runs, each counted from 0 just before it (phase 13's
-            # and 14's ranks count their own)
+            # distillation, ingest, parallel, model-axis, names, remat and
+            # DDPM paths' runs, each counted from 0 just before it (phase
+            # 13's and 14's ranks count their own)
             return sum(launches.get(key, 0) for launches in (
                 serve_launches, eval_launches, diff_launches,
                 train_launches, family_launches, bf16_launches,
                 distill_launches, ingest_launches, parallel_launches,
-                tp_launches, names_launches, remat_launches))
+                tp_launches, names_launches, remat_launches, ddpm_launches))
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -5152,7 +5302,7 @@ def main() -> int:
                        "distill": distill_result, "ingest": ingest_result,
                        "parallel": parallel_result, "model_axis": tp_result,
                        "names": names_result, "remat": remat_result,
-                       "kernels": kernels}, f,
+                       "ddpm": ddpm_result, "kernels": kernels}, f,
                       indent=1)
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s "
           f"(kernel build included; {card})")

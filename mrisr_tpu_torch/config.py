@@ -328,4 +328,24 @@ PRESETS = {
             learning_rate=2e-4, optimizer="adamw", grad_clip_norm=1.0, epochs=20,
         ),
     ),
+    # The DDPM UNet that Fast-DDPM publishes for its PMUB task
+    # (arXiv:2405.14802; github.com/mirthAI/Fast-DDPM, its PMUB configuration:
+    # ch 128, ch_mult (1, 1, 2, 2, 4, 4), 2 ResBlocks a level, attention at
+    # 16^2, linear beta 1e-4 to 0.02 over 1000 steps; 113.7 M params,
+    # models/ddpm_unet.py), sampled as the fastddpm preset is: 10 steps of
+    # 'nonuniform-4060'.  The port's own: the JAX package has no such model.
+    # Training settings follow the fastddpm preset's.
+    "fastddpm_pmub": _preset(
+        "fastddpm_pmub",
+        data=DataConfig(batch_size=4, augment=True),
+        model=ModelConfig(
+            name="fastddpm_pmub", in_channels=3, base_features=128,
+            time_dim=512, num_timesteps=1000, num_inference_steps=10,
+            beta_schedule="linear", timestep_selection="nonuniform-4060",
+        ),
+        loss=LossConfig(kind="diffusion"),
+        train=TrainConfig(
+            learning_rate=2e-5, optimizer="adamw", grad_clip_norm=1.0, epochs=40,
+        ),
+    ),
 }

@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from mrisr_tpu_torch.config import PRESETS, ModelConfig
+from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
 from mrisr_tpu_torch.models.deepcnn import DeepCNN
 from mrisr_tpu_torch.models.diffusion import FastDDPMUNet, SimpleDiffusionUNet
 from mrisr_tpu_torch.models.discriminator import PatchGAN
@@ -39,12 +40,14 @@ _TRUNC_STD = 0.87962566103423978
 
 # name -> input kind: 'pair' (B, H, W, 2) [pre, post] (PatchGAN: the
 # (B, H, W, 3) [pre, post, candidate]), 'window' (B, H, W, 5) [i .. i+4],
-# 'diffusion' (B, H, W, 3) + (B,) t
+# 'diffusion' (B, H, W, 3) + (B,) t.  'fastddpm_pmub' (the DDPM UNet that
+# Fast-DDPM publishes, models/ddpm_unet.py) is the port's own: the JAX
+# package has no such model
 TRAINABLE = {"unet": "pair", "unet_combined": "pair",
              "unet_distilled": "pair", "unet_gan": "pair",
              "deepcnn": "pair", "progressive_unet": "window",
              "fastddpm": "diffusion", "fastddpm_simple": "diffusion",
-             "patchgan": "pair"}
+             "patchgan": "pair", "fastddpm_pmub": "diffusion"}
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -121,6 +124,9 @@ def create_model(name: str, cfg: ModelConfig,
                             out_channels=cfg.out_channels, dtype=dtype)
     if name == "fastddpm_simple":
         return SimpleDiffusionUNet(base_features=f, time_dim=256, dtype=dtype)
+    if name == "fastddpm_pmub":
+        return DDPMUNet(base_features=f, time_dim=cfg.time_dim,
+                        out_channels=cfg.out_channels, dtype=dtype)
     if name == "patchgan":
         return PatchGAN(base_features=f, dtype=dtype)
     raise ValueError(f"Unknown model: {name}. Choose from: "

@@ -10,13 +10,17 @@ tiling, in Python so that the CPU tests can check it.
 
 Semantics: ``flax.linen.GroupNorm(num_groups, epsilon)`` (float32
 statistics, biased variance E[x^2] - E[x]^2) folded into one multiply-add
-per element, then SiLU, then, with ``quant_scale``, the symmetric int8
-quantizer ``clip(round(y * (1 / scale)), -127, 127)`` that the following
-int8 conv reads.
+per element, then SiLU (``silu=False``: the identity, a GroupNorm with
+nothing after it, as an attention block's), then, with ``quant_scale``,
+the symmetric int8 quantizer ``clip(round(y * (1 / scale)), -127, 127)``
+that the following int8 conv reads.
 
 Unlike the TPU kernel there is no eligibility rule: no block has to hold
-a whole image, so every shape with group size 4 (every DiffResBlock site)
-runs, 256^2 included, in the convs' own NHWC layout.
+a whole image, so every shape whose group size is a multiple of 4 (every
+DiffResBlock site, and the DDPM UNet's 32 groups of 4 to 32 channels)
+runs, 256^2 included, in the convs' own NHWC layout.  The kernel works on
+quads of 4 channels, whatever the group size: a quad's sums are its
+partials, and a group adds its quads' (``csrc/groupnorm_silu.cu``).
 
 :func:`groupnorm_silu` launches the kernel for a CUDA tensor and runs
 :func:`groupnorm_silu_plain` for a CPU tensor; it never falls back.
@@ -32,7 +36,7 @@ import torch
 from mrisr_tpu_torch import _build
 from mrisr_tpu_torch.device import sm_count
 
-GROUP_SIZE = 4   # the kernel's group size: channels // max(1, channels // 4)
+QUAD = 4         # channels of the kernel's unit; a group size is a multiple
 THREADS = 1024   # threads a block (csrc/groupnorm_silu.cu)
 SMEM_LIMIT = 232_448  # 227 KB: a block's shared memory on Hopper
 _OUT_MODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -48,11 +52,12 @@ def _scale_tensor(quant_scale, device) -> torch.Tensor:
 def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, *, num_groups: int,
                          eps: float = 1e-5, quant_scale: Scale = None,
-                         out_dtype: torch.dtype = torch.bfloat16
-                         ) -> torch.Tensor:
+                         out_dtype: torch.dtype = torch.bfloat16,
+                         silu: bool = True) -> torch.Tensor:
     """Plain version of K3: the kernel's float32 chain with the group sums
     taken in float64, in plain torch ops.  x ``(B, H, W, C)``; returns int8
-    codes with ``quant_scale``, else ``out_dtype``."""
+    codes with ``quant_scale``, else ``out_dtype``; ``silu=False`` leaves
+    SiLU out."""
     b, h, w, c = x.shape
     gs = c // num_groups
     xg = x.to(torch.float32).reshape(b, h * w, num_groups, gs)
@@ -65,7 +70,8 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
     ga = gamma.to(torch.float32).reshape(num_groups, gs) * inv[..., None]
     be = beta.to(torch.float32).reshape(num_groups, gs) - mean[..., None] * ga
     y = xg * ga[:, None] + be[:, None]
-    y = y * torch.sigmoid(y)
+    if silu:
+        y = y * torch.sigmoid(y)
     if quant_scale is not None:
         inv_a = 1.0 / _scale_tensor(quant_scale, x.device)
         q = torch.clamp(torch.round(y * inv_a), -127, 127).to(torch.int8)
@@ -95,7 +101,7 @@ class Plan(NamedTuple):
 def _reserve(c: int) -> int:
     """Shared memory a block needs besides x: the partial sums (double2,
     max(THREADS, groups)) and gamma, beta, ga, be (float32, C each)."""
-    return 16 * max(THREADS, c // GROUP_SIZE) + 16 * c
+    return 16 * max(THREADS, c // QUAD) + 16 * c
 
 
 def _blocks(hw: int, spp: int, sms: int) -> Tuple[int, int]:
@@ -129,28 +135,31 @@ def plan(n: int, hw: int, c: int, itemsize: int, sms: int,
 def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    *, num_groups: int, eps: float = 1e-5,
                    quant_scale: Scale = None,
-                   out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                   out_dtype: torch.dtype = torch.bfloat16,
+                   silu: bool = True) -> torch.Tensor:
     """Fused GroupNorm + SiLU (+ int8 quantize) on NHWC.
 
     x ``(B, H, W, C)`` float32 or bfloat16; gamma/beta ``(C,)``.  With
     ``quant_scale`` (a float, or a one-element float32 tensor on x's device:
     the following conv's per-step activation scale, read by the kernel from
     device memory) returns int8 codes; without it, ``out_dtype`` (float32
-    or bfloat16).  On the card the group size must be 4, and a grid that
-    cannot be co-resident raises (it never falls back)."""
+    or bfloat16).  ``silu=False``: GroupNorm alone.  On the card the group
+    size must be a multiple of 4, and a grid that cannot be co-resident
+    raises (it never falls back)."""
     if x.dim() != 4 or x.shape[-1] % num_groups:
         raise ValueError(f"groupnorm_silu: x {tuple(x.shape)} does not split "
                          f"into {num_groups} groups")
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, gamma, beta, num_groups=num_groups,
                                     eps=eps, quant_scale=quant_scale,
-                                    out_dtype=out_dtype)
+                                    out_dtype=out_dtype, silu=silu)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     b, h, w, c = x.shape
-    if c // num_groups != GROUP_SIZE:
-        raise ValueError(f"groupnorm_silu: the kernel takes groups of "
-                         f"{GROUP_SIZE} channels, got {c // num_groups}")
+    group = c // num_groups
+    if group % QUAD:
+        raise ValueError(f"groupnorm_silu: the kernel takes groups of a "
+                         f"multiple of {QUAD} channels, got {group}")
     if x.dtype not in _OUT_MODE or not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("groupnorm_silu: x must be a contiguous, 16-byte "
                          "aligned float32 or bfloat16 tensor")
@@ -173,16 +182,17 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     if out.numel() == 0:
         return out
     p = plan(b, h * w, c, x.element_size(), sm_count(x.device))
-    partial = torch.empty((p.passes, p.grid, c // GROUP_SIZE, 2),
+    partial = torch.empty((p.passes, p.grid, c // QUAD, 2),
                           device=x.device, dtype=torch.float64)
     lib = _build.library("groupnorm_silu")
     stream = torch.cuda.current_stream(x.device).cuda_stream
     with torch.cuda.device(x.device):
-        err = lib.groupnorm_silu_launch(
+        err = lib.groupnorm_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), gamma.data_ptr(),
             beta.data_ptr(), None if scale is None else scale.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), mode, b, h * w, c, p.spp,
-            p.bs, p.px, p.passes, int(p.one_read), p.smem, eps, stream,
+            partial.data_ptr(), out.data_ptr(), mode, b, h * w, c, group,
+            int(silu), p.spp, p.bs, p.px, p.passes, int(p.one_read), p.smem,
+            eps, stream,
         )
     _build.check(err, "groupnorm_silu")
     groupnorm_silu.launches += 1

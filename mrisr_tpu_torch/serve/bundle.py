@@ -146,16 +146,14 @@ def _diffusion_apply(params: Dict, meta: Dict, device: torch.device,
         betas=sched["betas"].float(), alphas=sched["alphas"].float(),
         alphas_cumprod=sched["alphas_cumprod"].float(),
         timesteps=sched["timesteps"].to(torch.int32))
-    time_dim = int(meta["time_dim"])
     combine = meta.get("combine", "first")
     if quant == "none":
-        eps_fn = FastDDPMForward(params["params"], time_dim=time_dim,
-                                 device=device)
+        eps_fn = FastDDPMForward(params["params"], device=device)
     else:
         eps_fn = FastDDPMForward(
             params["params"], _reflatten_int8_sites(params["int8"]),
-            params.get("timesteps"), time_dim=time_dim, gn_impl=gn_impl,
-            device=device, plain=plain)
+            params.get("timesteps"), gn_impl=gn_impl, device=device,
+            plain=plain)
     ddim_grid = meta.get("sampler") == "ddim_grid"
     n_chains = 3 if combine == "mean" else 1  # sample_ancestral's default
     n_z = len(schedule.timesteps) - 1
@@ -282,17 +280,19 @@ def export_serving_bundle(
     computed on ``device`` (``None``: the card).  A checkpoint is required,
     as in the JAX package.  Pair UNets export quant int8_fused, int8 (the
     same tables) or none (the folded parameters in bf16); the ``fastddpm``
-    family exports its sampler with quant none, int8 or int8_deep."""
+    family and ``fastddpm_pmub`` export their sampler with quant none, int8
+    or int8_deep."""
     from mrisr_tpu_torch.api import load_model
 
     loaded = load_model(model_name, models_dir=models_dir,
                         checkpoint="required", cfg=cfg, fold_bn=True,
                         device=device)
     if loaded.name == "fastddpm_simple":
-        # M10's SimpleDiffusionUNet is another topology than the M11
-        # skeleton the int8/float sampler mirrors
-        raise ValueError("diffusion bundles cover the fastddpm (M11) family; "
-                         "fastddpm_simple has no bundle path")
+        # M10's SimpleDiffusionUNet is another topology than the two the
+        # int8/float sampler walks
+        raise ValueError("diffusion bundles cover the fastddpm (M11) family "
+                         "and fastddpm_pmub; fastddpm_simple has no bundle "
+                         "path")
     if loaded.kind == "diffusion":
         return _export_diffusion_bundle(
             out_path, loaded, quant=quant,
@@ -340,15 +340,18 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
                              image_size: Tuple[int, int],
                              percentile: Optional[float] = None) -> str:
     """Fast-DDPM serving bundle: the T-step sampler of ``loaded`` (the
-    ancestral chain, or DDIM over the grid of a step-distilled student) as
-    one artifact, quant 'none' (bf16), 'int8' (every conv) or 'int8_deep'
-    (the <= 128^2 ``DEEP_SITES``), calibrated on that sampler's
+    notebook's FastDDPMUNet or the published DDPM UNet; the ancestral
+    chain, or DDIM over the grid of a step-distilled student) as one
+    artifact, quant 'none' (bf16), 'int8' (every conv kernel A runs: all
+    but the DDPM UNet's stride-2 downsamples) or 'int8_deep' (the sites at
+    <= 128^2, ``quant_diffusion.deep_sites``), calibrated on that sampler's
     trajectory."""
     from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
     from mrisr_tpu_torch.serve.quant_diffusion import (
-        DEEP_SITES,
         bf16_params,
         calibrate_fastddpm,
+        deep_sites,
+        is_ddpm_tree,
         quantize_fastddpm,
     )
 
@@ -357,7 +360,9 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
             f"diffusion bundles support quant none/int8/int8_deep, got "
             f"{quant!r} (int8_fused is the pair-UNet path)")
     params = fastddpm_flax_params(loaded.module)
-    time_dim = int(params["time_emb"]["Dense_1"]["kernel"].shape[-1])
+    ddpm = is_ddpm_tree(params)
+    time_dim = int((params["temb"]["dense"]["1"] if ddpm else
+                    params["time_emb"]["Dense_1"])["kernel"].shape[-1])
     sampler = loaded.sampler or "ancestral"
     if quant == "none":
         tree = {"params": bf16_params(params)}
@@ -368,10 +373,10 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
         gen = torch.Generator(device=loaded.device).manual_seed(0)
         ranges = calibrate_fastddpm(
             {"params": params}, loaded.schedule, calibration_batches, gen,
-            time_dim=time_dim, percentile=percentile, sampler=sampler)
+            percentile=percentile, sampler=sampler)
         tree = quantize_fastddpm(
             {"params": params}, ranges,
-            only=DEEP_SITES if quant == "int8_deep" else None)
+            only=deep_sites(params) if quant == "int8_deep" else None)
         calib_desc = (f"{len(calibration_batches)} cond batches, trajectory "
                       + _stat_name(percentile))
     # ship the exact sampling tables: rebuilding them from a config at load
@@ -382,7 +387,8 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
                         "timesteps": sched.timesteps}
     return save_bundle(
         out_path, tree, model_name=loaded.name, quant=quant,
-        base_features=int(params["init_conv"]["kernel"].shape[-1]),
+        base_features=int(params["conv_in" if ddpm else "init_conv"]
+                          ["kernel"].shape[-1]),
         image_size=image_size, calibration=calib_desc,
         extra={"kind": "diffusion", "time_dim": time_dim, "combine": "first",
                "sampler": sampler})

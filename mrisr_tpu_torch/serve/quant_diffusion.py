@@ -10,8 +10,15 @@ bundles that carry them move between the packages:
   (:func:`calibrate_fastddpm`); the forward maps its ``t`` to the
   schedule row with ``searchsorted`` on the device;
 - GroupNorm, SiLU, the time MLP and the unquantized sites stay in the
-  float ``dtype``; ``quantize_fastddpm(only=DEEP_SITES)`` quantizes the
-  16 sites at <= 128^2 (``int8_deep``).
+  float ``dtype``; ``quantize_fastddpm(only=deep_sites(params))``
+  quantizes the sites at <= 128^2 (``int8_deep``): the notebook net's 16
+  (:data:`DEEP_SITES`), the DDPM UNet's 99 (its stride-2 downsamples
+  stay float, with the full-size level).
+
+Two networks: the notebook's FastDDPMUNet and the DDPM UNet that Fast-DDPM
+publishes (``models/ddpm_unet.py``: 32 GroupNorm groups, self-attention at
+16^2 and 8^2, stride-2 downsampling convs, nearest-2x upsampling).  One
+forward, :class:`FastDDPMForward`, serves either tree.
 
 The forward works on the flax-layout param tree (the bundle's), keeps
 activations NHWC (channels_last for the float convs) and runs every int8
@@ -30,14 +37,17 @@ rounding an element, K3 as a rule the nearer to the float32 forward.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from mrisr_tpu_torch.ckpt.from_jax import DIFFUSION_BLOCKS
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
+from mrisr_tpu_torch.models.ddpm_unet import CH_MULT, NUM_RES_BLOCKS
+from mrisr_tpu_torch.models.ddpm_unet import GN_EPS as DDPM_GN_EPS
+from mrisr_tpu_torch.models.ddpm_unet import GN_GROUPS as DDPM_GN_GROUPS
+from mrisr_tpu_torch.models.ddpm_unet import attention
 from mrisr_tpu_torch.models.diffusion import (
     GN_EPS,
     DiffusionSchedule,
@@ -107,13 +117,14 @@ def _group_sums(v: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def gn_silu_chain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
-                  groups: int, dtype: torch.dtype) -> torch.Tensor:
+                  groups: int, dtype: torch.dtype, eps: float = GN_EPS,
+                  silu: bool = True) -> torch.Tensor:
     """``flax.linen.GroupNorm`` then SiLU, on NHWC: float32 statistics with
     the biased variance E[x^2] - E[x]^2 (clamped at 0), the normalized
-    value cast to ``dtype``, SiLU in ``dtype``.  The JAX package's 'xla'
-    path.  A row's statistics, and so its output, do not depend on the
-    rows beside it (:func:`_group_sums`): a data-parallel replica answers
-    as the single engine does."""
+    value cast to ``dtype``, SiLU in ``dtype`` (``silu=False``: none).  The
+    JAX package's 'xla' path.  A row's statistics, and so its output, do
+    not depend on the rows beside it (:func:`_group_sums`): a data-parallel
+    replica answers as the single engine does."""
     b, hh, ww, c = h.shape
     xf = h.reshape(b, hh * ww, c).float()
     n = hh * ww * (c // groups)
@@ -121,9 +132,10 @@ def gn_silu_chain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     var = torch.clamp_min(_group_sums(xf * xf, groups) / n - mean * mean,
                           0.0)
     xf = xf.reshape(b, hh * ww, groups, c // groups)
-    mul = torch.rsqrt(var + GN_EPS)[..., None] * gamma.reshape(groups, -1)
+    mul = torch.rsqrt(var + eps)[..., None] * gamma.reshape(groups, -1)
     y = (xf - mean[:, None, :, None]) * mul[:, None] + beta.reshape(groups, -1)
-    return F.silu(y.to(dtype).reshape(b, hh, ww, c))
+    y = y.to(dtype).reshape(b, hh, ww, c)
+    return F.silu(y) if silu else y
 
 
 def _nchw(h: torch.Tensor) -> torch.Tensor:
@@ -186,16 +198,80 @@ class _Step:
         self.stats, self.stat_fn = stats, stat_fn
 
 
+def _layers(tree: Dict, path: Tuple[str, ...] = ()):
+    """Every layer of a flax-layout param tree as ('/'-joined name, leaves):
+    a conv, upconv or dense layer holds a ``kernel``, a GroupNorm a
+    ``scale``."""
+    for k, v in tree.items():
+        if not isinstance(v, dict):
+            continue
+        if "kernel" in v or "scale" in v:
+            yield "/".join(path + (k,)), v
+        else:
+            yield from _layers(v, path + (k,))
+
+
+def _up2(h: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsampling of NHWC (``F.interpolate(scale_factor=2)``)."""
+    b, hh, ww, c = h.shape
+    return h[:, :, None, :, None, :].expand(b, hh, 2, ww, 2, c).reshape(
+        b, 2 * hh, 2 * ww, c)
+
+
+def is_ddpm_tree(params: Dict) -> bool:
+    """Whether a flax-layout tree is the DDPM UNet's
+    (``models/ddpm_unet.py``) rather than the notebook FastDDPMUNet's."""
+    return "conv_in" in params
+
+
+def _ddpm_level(site: str) -> int:
+    """The level of the maps a DDPM UNet conv site reads (0: full size):
+    an upsample's conv reads the level above its own; the middle, the
+    deepest."""
+    parts = site.split("/")
+    if parts[0] == "mid":
+        return len(CH_MULT) - 1
+    if parts[0] in ("down", "up"):
+        return int(parts[1]) - (parts[2] == "upsample")
+    return 0  # conv_in, conv_out
+
+
+def _strided(site: str) -> bool:
+    """Whether a conv site is one of the DDPM UNet's stride-2 downsamples,
+    which kernel A does not run: they stay float in every int8 tree."""
+    return site.endswith("downsample/conv")
+
+
+def deep_sites(params: Dict) -> Tuple[str, ...]:
+    """The conv sites ``int8_deep`` quantizes.  The notebook net:
+    :data:`DEEP_SITES`.  The DDPM UNet: every stride-1 conv whose input is
+    below the full-size level (at or under 128^2 of a 256^2 input; the
+    1x1 attention projections and shortcuts too, and an upsample's conv by
+    the size of its own, upsampled, input); the full-size level, conv_in,
+    conv_out and the stride-2 downsamples stay float."""
+    if not is_ddpm_tree(params):
+        return DEEP_SITES
+    return tuple(name for name, p in _layers(params)
+                 if "kernel" in p and p["kernel"].dim() == 4
+                 and not _strided(name) and _ddpm_level(name) > 0)
+
+
 class FastDDPMForward:
-    """The FastDDPMUNet forward of a flax-layout param tree, prepared once
-    for ``device``: ``(B, H, W, 3) + (B,) t -> (B, H, W, 1)`` float32.
+    """The Fast-DDPM denoiser forward of a flax-layout param tree, prepared
+    once for ``device``: ``(B, H, W, 3) + (B,) t -> (B, H, W, 1)`` float32.
+    The tree is either network the port serves: the notebook's
+    FastDDPMUNet (``models/diffusion.py``) or the DDPM UNet that Fast-DDPM
+    publishes (``models/ddpm_unet.py``, :func:`is_ddpm_tree`); one set of
+    layers (:meth:`_conv`, :meth:`_act`, :meth:`_record`, the per-step
+    scale rows) runs both, and :meth:`_notebook` or :meth:`_ddpm` walks
+    the network.
 
     ``sites`` (``quantize_fastddpm``'s ``int8`` tables) makes those sites
     int8, with ``timesteps`` for per-step tables; without them it is the
-    float forward in ``dtype``.  ``gn_impl``: 'chain' or 'fused'
-    (:func:`default_gn_impl` when None).  ``plain=True`` runs the kernels'
-    plain versions even on the card (the reference the kernels are held
-    against).
+    float forward in ``dtype``; the sinusoids' width comes from the tree.
+    ``gn_impl``: 'chain' or 'fused' (:func:`default_gn_impl` when None).
+    ``plain=True`` runs the kernels' plain versions even on the card (the
+    reference the kernels are held against).
 
     Spans (``utils/profiling.py:span``): ``ddpm.gn_chain`` around each
     GroupNorm + SiLU that feeds a float conv (a float site), whatever
@@ -203,10 +279,14 @@ class FastDDPMForward:
     each K3 call (inside the ``ddpm.gn_chain`` at a float site),
     ``ddpm.conv_int8`` (kernel A) and
     ``ddpm.conv_float`` (cuDNN) around each conv, ``ddpm.upconv`` around
-    each upconv."""
+    each upconv.  The DDPM UNet adds ``ddpm.attn`` around each attention
+    block and ``ddpm.level`` (id ``res``, the maps' height) around the
+    work of each level, both with device time, and, host-only,
+    ``ddpm.attn_bmm`` around the attention core (two batched matmuls and
+    a float32 softmax: the path that runs)."""
 
     def __init__(self, params: Dict, sites: Optional[Dict] = None,
-                 timesteps=None, *, dtype=torch.bfloat16, time_dim: int = 128,
+                 timesteps=None, *, dtype=torch.bfloat16,
                  gn_impl: Optional[str] = None, device: DeviceLike = None,
                  plain: bool = False):
         device = resolve_device(device)
@@ -214,11 +294,13 @@ class FastDDPMForward:
         if gn_impl not in GN_IMPLS:
             raise ValueError(f"gn_impl must be one of {GN_IMPLS}, got "
                              f"{gn_impl!r}")
-        self.device, self.dtype, self.time_dim = device, dtype, time_dim
+        self.device, self.dtype = device, dtype
         self.fused = gn_impl == "fused"
         self._conv8 = conv2d_int8_plain if plain else conv2d_int8
         self._up8 = upconv2x2_int8_plain if plain else upconv2x2_int8
         self._gn8 = groupnorm_silu_plain if plain else groupnorm_silu
+        self.ddpm = is_ddpm_tree(params)
+        self.gn_eps = DDPM_GN_EPS if self.ddpm else GN_EPS
         sites = sites or {}
         per_step = any(lq["a_scale"].dim() for lq in sites.values())
         if per_step and timesteps is None:
@@ -228,47 +310,49 @@ class FastDDPMForward:
                 "came from calibrate_fastddpm)")
         self.timesteps = (None if timesteps is None else torch.as_tensor(
             timesteps).to(device=device, dtype=torch.int64))
+        for name in sites:
+            if name.endswith("downsample/conv"):
+                raise ValueError(f"{name}: kernel A runs stride 1 only; the "
+                                 "stride-2 downsamples stay float")
+            block, _, leaf = name.rpartition("/")
+            if leaf in ("q", "k", "v") and "attn" in block:
+                self._check_shared_scale(block, sites)
         self.q = {name: _QSite(name, lq, lq["a_scale"].dim() > 0, device)
                   for name, lq in sites.items()}
 
         def f(v, dt=dtype):
             return v.to(device=device, dtype=dt)
 
-        self.dense = {}
-        for key, p in (("Dense_0", params["time_emb"]["Dense_0"]),
-                       ("Dense_1", params["time_emb"]["Dense_1"])):
-            self.dense[key] = (f(p["kernel"]).t(), f(p["bias"]))
-        self.norms, self.convs = {}, {}
-        for blk in DIFFUSION_BLOCKS:
-            p = params[blk]
-            self.dense[blk] = (f(p["time_fc"]["kernel"]).t(),
-                               f(p["time_fc"]["bias"]))
-            for norm in ("norm1", "norm2"):
-                self.norms[f"{blk}/{norm}"] = (
-                    f(p[norm]["scale"], torch.float32),
-                    f(p[norm]["bias"], torch.float32))
-            for conv in ("conv1", "conv2", "skip"):
-                if conv in p:
-                    self._float_conv_weights(f"{blk}/{conv}", p[conv], f)
-        self.has_skip = {blk: "skip" in params[blk] for blk in DIFFUSION_BLOCKS}
-        self.norms["final_norm"] = (
-            f(params["final_norm"]["scale"], torch.float32),
-            f(params["final_norm"]["bias"], torch.float32))
-        for name in ("init_conv", "final_conv"):
-            self._float_conv_weights(name, params[name], f)
-        self.upconvs = {}
-        for name in UPCONVS:
-            if name not in self.q:
-                k = params[name]["kernel"]
-                self.upconvs[name] = (f(k.flip(0, 1).permute(2, 3, 0, 1))
-                                      .contiguous(), f(params[name]["bias"]))
+        self.dense, self.norms, self.convs, self.upconvs = {}, {}, {}, {}
+        for name, p in _layers(params):
+            if "scale" in p:  # GroupNorm: float32 statistics and affine
+                self.norms[name] = (f(p["scale"], torch.float32),
+                                    f(p["bias"], torch.float32))
+            elif p["kernel"].dim() == 2:
+                self.dense[name] = (f(p["kernel"]).t(), f(p["bias"]))
+            elif name in UPCONVS:
+                if name not in self.q:
+                    k = p["kernel"]
+                    self.upconvs[name] = (
+                        f(k.flip(0, 1).permute(2, 3, 0, 1)).contiguous(),
+                        f(p["bias"]))
+            elif name not in self.q:
+                w = f(p["kernel"].permute(3, 2, 0, 1)).contiguous(
+                    memory_format=torch.channels_last)
+                self.convs[name] = (w, f(p["bias"]), w.shape[-1] // 2)
+        first = "temb/dense/0" if self.ddpm else "time_emb/Dense_0"
+        self.emb_dim = int(self.dense[first][0].shape[1])  # the sinusoids
 
-    def _float_conv_weights(self, name, p, f):
-        if name in self.q:
-            return
-        w = f(p["kernel"].permute(3, 2, 0, 1)).contiguous(
-            memory_format=torch.channels_last)
-        self.convs[name] = (w, f(p["bias"]), w.shape[-1] // 2)
+    @staticmethod
+    def _check_shared_scale(block: str, sites: Dict) -> None:
+        """q, k and v read one GroupNorm output, which K3 quantizes once:
+        their per-step activation scales must be one (a calibration sees
+        the same tensor at all three)."""
+        a = [sites.get(f"{block}/{p}") for p in ("q", "k", "v")]
+        if any(lq is None for lq in a) or not all(
+                torch.equal(lq["a_scale"], a[0]["a_scale"]) for lq in a):
+            raise ValueError(f"{block}: q, k and v must be int8 together, "
+                             "with one activation scale")
 
     # ------------------------------------------------------------- layers
     def _record(self, st: _Step, name: str, h) -> None:
@@ -279,7 +363,7 @@ class FastDDPMForward:
 
     def _conv(self, st: _Step, name: str, h) -> torch.Tensor:
         lq = self.q.get(name)
-        if isinstance(h, _PreQuant):  # K3 already emitted the codes
+        if isinstance(h, _PreQuant):  # K3 (or _upsample) emitted the codes
             self._record(st, name, h.q)
             q = h.q
             s = lq.scales(st.row, st.zero)[1]
@@ -288,8 +372,11 @@ class FastDDPMForward:
             if lq is None:  # not quantized: a float conv in dtype
                 w, b, pad = self.convs[name]
                 with span("ddpm.conv_float"):
-                    return _nhwc(F.conv2d(_nchw(h.to(self.dtype)), w, b,
-                                          padding=pad))
+                    x = _nchw(h.to(self.dtype))
+                    if name.endswith("downsample/conv"):  # TF's "SAME"
+                        return _nhwc(F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b,
+                                              stride=2))
+                    return _nhwc(F.conv2d(x, w, b, padding=pad))
             a, s = lq.scales(st.row, st.zero)
             q = quant_input(h, a)
         with span("ddpm.conv_int8"):
@@ -310,48 +397,86 @@ class FastDDPMForward:
                           out_float=True)
             return y.to(self.dtype)
 
-    def _act(self, st: _Step, site: str, norm: str, h: torch.Tensor):
-        """GroupNorm + SiLU feeding conv ``site``.  'fused': K3 at every
-        site, emitting what that conv reads: int8 codes (its per-step
-        activation scale) where it is quantized, else ``dtype``, rounded
-        once after SiLU.  'chain': :func:`gn_silu_chain`, which rounds to
-        ``dtype`` before SiLU too; the quantizer of an int8 conv follows
-        in :meth:`_conv`."""
+    def _act(self, st: _Step, site: str, norm: str, h: torch.Tensor,
+             silu: bool = True):
+        """GroupNorm + SiLU (``silu=False``: GroupNorm alone) feeding conv
+        ``site``.  'fused': K3 at every site, emitting what that conv
+        reads: int8 codes (its per-step activation scale) where it is
+        quantized, else ``dtype``, rounded once after SiLU.  'chain':
+        :func:`gn_silu_chain`, which rounds to ``dtype`` before SiLU too;
+        the quantizer of an int8 conv follows in :meth:`_conv`."""
         gamma, beta = self.norms[norm]
-        groups = num_groups(h.shape[-1])
+        c = h.shape[-1]
+        groups = DDPM_GN_GROUPS if self.ddpm else num_groups(c)
+        gn = dict(num_groups=groups, eps=self.gn_eps, silu=silu)
         lq = self.q.get(site)
         if lq is None:  # a float site
             with span("ddpm.gn_chain", device_time=True):
                 if not self.fused:
-                    return gn_silu_chain(h, gamma, beta, groups, self.dtype)
+                    return gn_silu_chain(h, gamma, beta, groups, self.dtype,
+                                         self.gn_eps, silu)
                 with span("ddpm.k3"):
                     return self._gn8(h.contiguous(), gamma, beta,
-                                     num_groups=groups, out_dtype=self.dtype)
+                                     out_dtype=self.dtype, **gn)
         if not self.fused:
-            return gn_silu_chain(h, gamma, beta, groups, self.dtype)
+            return gn_silu_chain(h, gamma, beta, groups, self.dtype,
+                                 self.gn_eps, silu)
         a = lq.scales(st.row, st.zero)[0]
         with span("ddpm.k3"):
             return _PreQuant(self._gn8(h.contiguous(), gamma, beta,
-                                       num_groups=groups, quant_scale=a))
+                                       quant_scale=a, **gn))
 
-    def _block(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
+    def _block(self, st: _Step, name: str, x: torch.Tensor,
+               temb: str = "time_fc", skip: str = "skip") -> torch.Tensor:
+        """A residual block: GroupNorm, SiLU, conv1, plus the time
+        projection ``temb``, GroupNorm, SiLU, conv2, plus ``x`` or its 1x1
+        ``skip`` conv."""
         h = self._act(st, f"{name}/conv1", f"{name}/norm1", x)
         h = self._conv(st, f"{name}/conv1", h)
-        w, b = self.dense[name]
+        w, b = self.dense[f"{name}/{temb}"]
         h = h + F.linear(st.t_emb, w, b)[:, None, None, :]
         h = self._act(st, f"{name}/conv2", f"{name}/norm2", h)
         h = self._conv(st, f"{name}/conv2", h)
-        if self.has_skip[name]:
-            x = self._conv(st, f"{name}/skip", x)
+        if f"{name}/{skip}" in self.q or f"{name}/{skip}" in self.convs:
+            x = self._conv(st, f"{name}/{skip}", x)
         return h + x
+
+    def _attn(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
+        """The DDPM UNet's AttnBlock: GroupNorm (no SiLU) read by the 1x1
+        q, k and v convs, single-head attention over the pixels
+        (``models/ddpm_unet.py:attention``: bf16 operands, float32 scores
+        and softmax), 1x1 proj_out, residual."""
+        with span("ddpm.attn", device_time=True):
+            b, hh, ww, c = x.shape
+            h = self._act(st, f"{name}/q", f"{name}/norm", x, silu=False)
+            q, k, v = (self._conv(st, f"{name}/{p}", h).reshape(b, hh * ww, c)
+                       for p in ("q", "k", "v"))
+            with span("ddpm.attn_bmm"):
+                h = attention(q, k, v).reshape(b, hh, ww, c)
+            return x + self._conv(st, f"{name}/proj_out", h)
+
+    def _upsample(self, st: _Step, name: str, h: torch.Tensor
+                  ) -> torch.Tensor:
+        """Nearest 2x, then the 3x3 conv ``name``; where that conv is int8
+        the codes are taken before the repeat (4x fewer elements, the same
+        codes)."""
+        lq = self.q.get(name)
+        if lq is None:
+            return self._conv(st, name, _up2(h))
+        return self._conv(st, name, _PreQuant(_up2(quant_input(
+            h, lq.scales(st.row, st.zero)[0]))))
 
     @torch.no_grad()
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
-        """The time MLP's output for ``(B,)`` timesteps, in ``dtype``."""
-        emb = timestep_embedding(t.to(self.device), self.time_dim)
-        w0, b0 = self.dense["Dense_0"]
-        w1, b1 = self.dense["Dense_1"]
-        return F.linear(F.silu(F.linear(emb.to(self.dtype), w0, b0)), w1, b1)
+        """The time MLP's output for ``(B,)`` timesteps, in ``dtype`` (the
+        DDPM UNet's after the swish that every block applies)."""
+        emb = timestep_embedding(t.to(self.device), self.emb_dim)
+        names = (("temb/dense/0", "temb/dense/1") if self.ddpm
+                 else ("time_emb/Dense_0", "time_emb/Dense_1"))
+        w0, b0 = self.dense[names[0]]
+        w1, b1 = self.dense[names[1]]
+        out = F.linear(F.silu(F.linear(emb.to(self.dtype), w0, b0)), w1, b1)
+        return F.silu(out) if self.ddpm else out
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, t: torch.Tensor,
@@ -366,7 +491,10 @@ class FastDDPMForward:
             self.timesteps, t[:1].to(torch.int64))
         st = _Step(row, zero, self.time_embedding(t), stats,
                    stat_fn or _absmax)
+        h = self._ddpm(st, x) if self.ddpm else self._notebook(st, x)
+        return h.float()
 
+    def _notebook(self, st: _Step, x: torch.Tensor) -> torch.Tensor:
         h = self._conv(st, "init_conv", x)
         e1 = self._block(st, "enc1", h)
         e2 = self._block(st, "enc2", _max_pool(e1))
@@ -379,7 +507,49 @@ class FastDDPMForward:
         h = self._block(st, "dec1", torch.cat(
             [self._upconv(st, "upconv1", h), e1], dim=-1))
         h = self._act(st, "final_conv", "final_norm", h)
-        return self._conv(st, "final_conv", h).float()
+        return self._conv(st, "final_conv", h)
+
+    def _ddpm(self, st: _Step, x: torch.Tensor) -> torch.Tensor:
+        """The DDIM code's ``Model.forward``; each level's work (its
+        blocks, and the conv that writes its maps: conv_in, a downsample,
+        an upsample) inside one ``ddpm.level`` span."""
+        last = len(CH_MULT) - 1
+        res = x.shape[1]
+
+        def block(name, h):
+            return self._block(st, name, h, "temb_proj", "nin_shortcut")
+
+        def level(i):
+            return span("ddpm.level", device_time=True, res=res >> i)
+
+        hs = []
+        for i in range(last + 1):
+            with level(i):
+                hs.append(self._conv(st, "conv_in", x) if i == 0 else
+                          self._conv(st, f"down/{i - 1}/downsample/conv",
+                                     hs[-1]))
+                for j in range(NUM_RES_BLOCKS):
+                    h = block(f"down/{i}/block/{j}", hs[-1])
+                    if f"down/{i}/attn/{j}/norm" in self.norms:
+                        h = self._attn(st, f"down/{i}/attn/{j}", h)
+                    hs.append(h)
+        with level(last):
+            h = block("mid/block_1", hs[-1])
+            h = self._attn(st, "mid/attn_1", h)
+            h = block("mid/block_2", h)
+        for i in reversed(range(last + 1)):
+            with level(i):
+                if i != last:
+                    h = self._upsample(st, f"up/{i + 1}/upsample/conv", h)
+                for j in range(NUM_RES_BLOCKS + 1):
+                    h = block(f"up/{i}/block/{j}",
+                              torch.cat([h, hs.pop()], dim=-1))
+                    if f"up/{i}/attn/{j}/norm" in self.norms:
+                        h = self._attn(st, f"up/{i}/attn/{j}", h)
+                if i == 0:
+                    h = self._act(st, "conv_out", "norm_out", h)
+                    h = self._conv(st, "conv_out", h)
+        return h
 
 
 def int8_forward(qtree: Dict, **kwargs) -> FastDDPMForward:
@@ -389,18 +559,17 @@ def int8_forward(qtree: Dict, **kwargs) -> FastDDPMForward:
 
 
 def fastddpm_float_apply(params: Dict, x: torch.Tensor, t: torch.Tensor,
-                         dtype=torch.float32, time_dim: int = 128,
+                         dtype=torch.float32,
                          stats: Optional[Dict] = None,
                          stat_fn=None) -> torch.Tensor:
     """Float forward on the flax-layout param tree, on ``x.device``, with
     optional per-conv-input statistics (:class:`FastDDPMForward`)."""
-    fwd = FastDDPMForward(params, dtype=dtype, time_dim=time_dim,
-                          device=x.device)
+    fwd = FastDDPMForward(params, dtype=dtype, device=x.device)
     return fwd(x, t, stats=stats, stat_fn=stat_fn)
 
 
 def fastddpm_int8_apply(qtree: Dict, x: torch.Tensor, t: torch.Tensor,
-                        dtype=torch.bfloat16, time_dim: int = 128,
+                        dtype=torch.bfloat16,
                         gn_impl: Optional[str] = None) -> torch.Tensor:
     """int8-conv Fast-DDPM forward on ``x.device``: ``(B, H, W, 3) + (B,) t
     -> (B, H, W, 1)``.  Prepares the tables on every call; a server builds
@@ -416,8 +585,8 @@ def fastddpm_int8_apply(qtree: Dict, x: torch.Tensor, t: torch.Tensor,
     ``int8_deep`` the int8-emitting sites are exactly the ones the TPU
     kernel was eligible for; the port also runs K3 at the 256^2 sites,
     whose blocks the TPU could not hold in VMEM."""
-    return int8_forward(qtree, dtype=dtype, time_dim=time_dim,
-                        gn_impl=gn_impl, device=x.device)(x, t)
+    return int8_forward(qtree, dtype=dtype, gn_impl=gn_impl,
+                        device=x.device)(x, t)
 
 
 def _tree_device(tree) -> torch.device:
@@ -433,7 +602,6 @@ def calibrate_fastddpm(
     cond_batches: List,
     generator: Optional[torch.Generator] = None,
     dtype=torch.bfloat16,
-    time_dim: int = 128,
     percentile: Optional[float] = None,
     sampler: str = "ancestral",
     noise: Optional[List] = None,
@@ -455,8 +623,7 @@ def calibrate_fastddpm(
     device = _tree_device(params)
     stat_fn = (None if percentile is None
                else (lambda a: _abs_percentile(a, percentile)))
-    fwd = FastDDPMForward(params, dtype=dtype, time_dim=time_dim,
-                          device=device)
+    fwd = FastDDPMForward(params, dtype=dtype, device=device)
     ts = schedule.timesteps.numpy()
     n_steps = len(ts)
     abar_all = schedule.alphas_cumprod.numpy()
@@ -511,14 +678,12 @@ def calibrate_fastddpm(
 
 @torch.no_grad()
 def calibrate_fastddpm_inputs(variables: Dict, batches: List,
-                              dtype=torch.bfloat16,
-                              time_dim: int = 128) -> Dict[str, float]:
+                              dtype=torch.bfloat16) -> Dict[str, float]:
     """Per-conv-input absmax over given ``(x_in (B, H, W, 3), t (B,))``
     forward inputs (e.g. q_sample states), on the params' device."""
     params = variables["params"]
     device = _tree_device(params)
-    fwd = FastDDPMForward(params, dtype=dtype, time_dim=time_dim,
-                          device=device)
+    fwd = FastDDPMForward(params, dtype=dtype, device=device)
     acc: Dict[str, float] = {}
     with fp32_reference():
         for x_in, t in batches:
@@ -561,7 +726,9 @@ def quantize_fastddpm(variables: Dict, calib: Dict, only=None) -> Dict:
     """Float params + calibration -> the int8 serving tree (CPU):
     ``{"params": bf16 copy of the whole tree, "int8": {site: tables},
     ["timesteps": (T,) int32]}``.  ``only``: quantize just these sites
-    (e.g. :data:`DEEP_SITES`); the forward runs the rest in float."""
+    (:func:`deep_sites`: ``int8_deep``); None: every conv kernel A runs
+    (``int8``: all but the DDPM UNet's stride-2 downsamples).  The forward
+    runs the rest in float."""
     params = variables["params"]
     sites: Dict[str, Dict] = {}
     only_set = None if only is None else set(only)
@@ -575,14 +742,10 @@ def quantize_fastddpm(variables: Dict, calib: Dict, only=None) -> Dict:
                 "with calibrate_fastddpm on the same topology")
         sites[name] = _quantize_site(sub["kernel"], sub["bias"], calib[name])
 
-    grab("init_conv", params["init_conv"])
-    for blk in DIFFUSION_BLOCKS:
-        for conv in ("conv1", "conv2", "skip"):
-            if conv in params[blk]:
-                grab(f"{blk}/{conv}", params[blk][conv])
-    for up in UPCONVS:
-        grab(up, params[up])
-    grab("final_conv", params["final_conv"])
+    for name, sub in _layers(params):
+        if "kernel" in sub and sub["kernel"].dim() == 4:  # a conv, an upconv
+            if only_set is not None or not _strided(name):
+                grab(name, sub)
 
     out = {"params": bf16_params(params), "int8": sites}
     timesteps = calib.get("__timesteps__")

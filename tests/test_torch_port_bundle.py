@@ -171,8 +171,7 @@ def test_steps_export_reloads_as_ddim_grid(tmp_path):
     for sampler in ("ddim_grid", "ancestral"):
         ranges = calibrate_fastddpm(
             {"params": fastddpm_flax_params(loaded.module)}, loaded.schedule,
-            [cond], torch.Generator().manual_seed(0), time_dim=8,
-            sampler=sampler)
+            [cond], torch.Generator().manual_seed(0), sampler=sampler)
         same = np.array_equal(
             params["int8"]["enc2"]["conv1"]["a_scale"].numpy(),
             np.maximum(ranges["enc2/conv1"], 1e-12) / 127.0)

@@ -272,10 +272,10 @@ def test_jax_ddim_grid_bundle_serves_in_port(setup, tmp_path, quant):
     sched = params["schedule"]
     ps = pd.DiffusionSchedule(sched["betas"], sched["alphas"],
                               sched["alphas_cumprod"], sched["timesteps"])
-    fwd = (FastDDPMForward(params["params"], time_dim=TDIM, device="cpu")
+    fwd = (FastDDPMForward(params["params"], device="cpu")
            if quant == "none" else FastDDPMForward(
                params["params"], pb._reflatten_int8_sites(params["int8"]),
-               params["timesteps"], time_dim=TDIM, device="cpu"))
+               params["timesteps"], device="cpu"))
     x_t = np.array(jax.random.normal(jax.random.PRNGKey(0),
                                        (2, HW, HW, 1), jnp.float32))
     got = pdd.sample_ddim_grid(fwd, torch.from_numpy(cond), None, ps,

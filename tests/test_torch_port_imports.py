@@ -176,7 +176,7 @@ def test_diffusion_entry_points_raise_without_cuda(no_cuda, tmp_path):
     mcfg = ModelConfig(name="fastddpm", base_features=4, time_dim=8)
     for call in (
         lambda: load_model("fastddpm", str(tmp_path), cfg=mcfg),
-        lambda: FastDDPMForward(params, time_dim=8),
+        lambda: FastDDPMForward(params),
         lambda: export_serving_bundle(str(tmp_path / "b"), "fastddpm",
                                       str(tmp_path), quant="none", cfg=mcfg),
     ):

@@ -36,7 +36,7 @@ def _gn_sites():
                                 ).named_modules():
         if not isinstance(m, nn.GroupNorm):
             continue
-        assert m.num_channels // m.num_groups == groupnorm.GROUP_SIZE
+        assert m.num_channels // m.num_groups == groupnorm.QUAD
         block, norm = name.split(".")
         site = "final_norm" if block == "final" else f"{block}/{norm}"
         conv = f"{block}/conv{norm[-1]}" if block != "final" else "final_conv"

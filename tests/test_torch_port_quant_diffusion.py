@@ -73,8 +73,7 @@ def test_float_apply_and_stats_match_jax(setup):
                            jnp.asarray(t))
     stats = {}
     got = pq.fastddpm_float_apply(setup["params"], torch.from_numpy(x),
-                                  torch.from_numpy(t), time_dim=TDIM,
-                                  stats=stats)
+                                  torch.from_numpy(t), stats=stats)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                atol=1e-4)
     # init + 7 blocks x 2 + 6 skips + 3 upconvs + final
@@ -91,7 +90,7 @@ def test_calibrate_inputs_matches_jax(setup):
         setup["v"], [(jnp.asarray(x), jnp.asarray(t)) for x, t in batches],
         dtype=jnp.float32, time_dim=TDIM)
     got = pq.calibrate_fastddpm_inputs(_pv(setup), batches,
-                                       dtype=torch.float32, time_dim=TDIM)
+                                       dtype=torch.float32)
     assert set(got) == set(want)
     for k in want:
         np.testing.assert_allclose(got[k], want[k], rtol=1e-4, err_msg=k)
@@ -116,8 +115,8 @@ def test_calibrate_trajectory_matches_jax(setup, sampler, percentile, sched):
              for i, c in enumerate(conds)]
     got = pq.calibrate_fastddpm(
         _pv(setup), pd.DiffusionSchedule.create(*sched), conds,
-        dtype=torch.float32, time_dim=TDIM, percentile=percentile,
-        sampler=sampler, noise=draws)
+        dtype=torch.float32, percentile=percentile, sampler=sampler,
+        noise=draws)
     assert set(got) == set(want)
     np.testing.assert_array_equal(got["__timesteps__"],
                                   want["__timesteps__"])
@@ -170,7 +169,7 @@ def test_int8_apply_matches_jax(setup, only):
         want = np.asarray(jax_apply(q, jnp.asarray(x), jnp.asarray(t)))
         got = {gn: pq.fastddpm_int8_apply(
             qt, torch.from_numpy(x), torch.from_numpy(t), dtype=torch.float32,
-            time_dim=TDIM, gn_impl=gn).numpy() for gn in pq.GN_IMPLS}
+            gn_impl=gn).numpy() for gn in pq.GN_IMPLS}
         assert got["chain"].shape == (2, HW, HW, 1)
         assert not np.allclose(got["fused"], 0.0)
         if only is None:
@@ -185,10 +184,10 @@ def test_bad_tables_and_options_raise(setup):
     qt = pq.quantize_fastddpm(_pv(setup), setup["calib"])
     x, t = torch.zeros(1, HW, HW, 3), torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="gn_impl"):
-        pq.fastddpm_int8_apply(qt, x, t, time_dim=TDIM, gn_impl="xla")
+        pq.fastddpm_int8_apply(qt, x, t, gn_impl="xla")
     with pytest.raises(ValueError, match="timesteps"):
         pq.fastddpm_int8_apply({k: v for k, v in qt.items()
-                                if k != "timesteps"}, x, t, time_dim=TDIM)
+                                if k != "timesteps"}, x, t)
     with pytest.raises(KeyError, match="missing conv site"):
         pq.quantize_fastddpm(_pv(setup), {"init_conv": 1.0})
     with pytest.raises(ValueError, match="sampler"):
@@ -212,7 +211,7 @@ def _serve_with_jax_draws(path, cond):
                             (cond.shape[0], *cond.shape[1:3], 1), js)
     fwd = pq.FastDDPMForward(
         params["params"], pb._reflatten_int8_sites(params["int8"]),
-        params["timesteps"], time_dim=int(meta["time_dim"]), device="cpu")
+        params["timesteps"], device="cpu")
     return pd.sample_ancestral(fwd, torch.from_numpy(cond), None, ps,
                                noise=draws).numpy()
 

@@ -37,6 +37,7 @@ import torch
 
 from mrisr_tpu.config import ModelConfig as JaxModelConfig
 from mrisr_tpu.models import UNet as JaxUNet
+from mrisr_tpu.models.registry import MODEL_REGISTRY as JAX_MODELS
 from mrisr_tpu.models.registry import create_model as jax_create_model
 from mrisr_tpu_torch.ckpt import unet_state_dict_from_flax
 from mrisr_tpu_torch.config import PRESETS, Config, ModelConfig
@@ -210,14 +211,18 @@ def test_remat_step_matches_jax_remat(seeded, dtype):
 @pytest.mark.parametrize("name", sorted(TRAINABLE))
 def test_create_model_reads_remat_where_jax_does(name):
     """``cfg.remat`` reaches the model for exactly the names whose JAX
-    factory passes it on (the four UNets), and no other family."""
-    want = getattr(jax_create_model(name, JaxModelConfig(
+    factory passes it on (the four UNets), and no other family; a name
+    the JAX registry lacks (the port's own ``fastddpm_pmub``, whose 32
+    GroupNorm groups need 32 channels at the least) takes none."""
+    want = (getattr(jax_create_model(name, JaxModelConfig(
         name=name, base_features=FEAT, remat=True))[0], "remat", False)
+        if name in JAX_MODELS else False)
     assert want == (name in REMAT_NAMES)
-    model = create_model(name, ModelConfig(name=name, base_features=FEAT,
+    width = FEAT if name in JAX_MODELS else 32
+    model = create_model(name, ModelConfig(name=name, base_features=width,
                                            remat=True))
     assert any(getattr(m, "remat", False) for m in model.modules()) == want
-    plain = create_model(name, ModelConfig(name=name, base_features=FEAT))
+    plain = create_model(name, ModelConfig(name=name, base_features=width))
     assert not any(getattr(m, "remat", False) for m in plain.modules())
 
 

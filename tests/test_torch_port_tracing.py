@@ -216,7 +216,7 @@ def ddpm():
     torch.manual_seed(31)
     params = fastddpm_flax_params(FastDDPMUNet(base_features=FEAT,
                                                time_dim=TDIM))
-    return FastDDPMForward(params, time_dim=TDIM, gn_impl="chain",
+    return FastDDPMForward(params, gn_impl="chain",
                            device="cpu", dtype=torch.float32)
 
 
@@ -285,7 +285,7 @@ def deep_tables():
     cond = torch.from_numpy(np.random.default_rng(37).random(
         (2, 16, 16, 2), np.float32))
     calib = calibrate_fastddpm({"params": params}, sched, [cond],
-                               dtype=torch.float32, time_dim=TDIM)
+                               dtype=torch.float32)
     q = quantize_fastddpm({"params": params}, calib, only=DEEP_SITES)
     x = torch.from_numpy(np.random.default_rng(38).random(
         (2, 16, 16, 3), np.float32))
@@ -297,7 +297,7 @@ def _deep_call(q, x, t, gn_impl):
     """One bf16 int8_deep denoiser call under the profiler, each GroupNorm
     site's (gamma, beta, input, output) kept by norm: (output, spans,
     sites)."""
-    fwd = int8_forward(q, time_dim=TDIM, gn_impl=gn_impl, device="cpu")
+    fwd = int8_forward(q, gn_impl=gn_impl, device="cpu")
     sites = []
 
     def act(st, site, norm, h):

@@ -70,14 +70,12 @@ def main() -> int:
     cond = torch.rand((BATCH, HW, HW, 2), generator=g, device=dev)
     ranges = calibrate_fastddpm(
         {"params": params}, sched, [cond],
-        torch.Generator(device=dev).manual_seed(0), time_dim=128)
+        torch.Generator(device=dev).manual_seed(0))
     tree = quantize_fastddpm({"params": params}, ranges, only=DEEP_SITES)
     setups = {
-        "int8_deep fused": int8_forward(tree, time_dim=128, gn_impl="fused",
-                                        device=dev),
-        "int8_deep chain": int8_forward(tree, time_dim=128, gn_impl="chain",
-                                        device=dev),
-        "bf16": FastDDPMForward(tree["params"], time_dim=128, device=dev)}
+        "int8_deep fused": int8_forward(tree, gn_impl="fused", device=dev),
+        "int8_deep chain": int8_forward(tree, gn_impl="chain", device=dev),
+        "bf16": FastDDPMForward(tree["params"], device=dev)}
     ms, host_ms = {}, {}
     for label, fwd in setups.items():
         def call():
