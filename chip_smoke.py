@@ -61,8 +61,13 @@
    passes).  K3's bf16 mode at the five float GroupNorm sites of the same
    forward (256^2, C 64-192, batch 8), where 'fused' routes them and
    'chain' runs gn_silu_chain, timed beside that chain on the same input,
-   with the max |difference| of the two bf16 outputs.  Kernel A at the 14
-   diffusion sites (float epilogue, no ReLU) and kernel B's float mode at
+   with the max |difference| of the two bf16 outputs.  K3 with a shift (a
+   ResBlock's time projection, added to x in float32 as it is read) at the
+   forward's 7 norm2 sites, int8 codes where the site is int8 (bf16 at the
+   two 256^2 ones): at batch 2 the plain version's codes exactly (bf16
+   within the tolerance above), then timed at the serving batch of the
+   Fast-DDPM cells (32) beside the same site without a shift.  Kernel A at
+   the 14 diffusion sites (float epilogue, no ReLU) and kernel B's float mode at
    upconv3 and upconv2, against their plain versions (rtol 1e-5, two
    launches the same bits), and timed as in 2.
 7. Diffusion phase: a seeded full-width FastDDPMUNet (13,899,905
@@ -75,8 +80,8 @@
    of the bf16 float sampler and equal (rel-L2 0) to the same tables
    through the plain versions, on the batches the engine formed (same
    noise: every call seeds its generator with 0), K3, A and B must have
-   been launched 150, 140 and 20 times a batch, A and B all on the tensor
-   cores.  Then the steady-state slices/s beside the __dp4a design's
+   been launched 150, 140 and 20 times a batch, 70 of the K3 launches with
+   a shift (a ResBlock's norm2), A and B all on the tensor cores.  Then the steady-state slices/s beside the __dp4a design's
    (quoted from PERF.md, not measured here), the engine's fetch/assemble
    split, one sampler call's time on the card and a profiled call for
    int8_deep 'fused', int8_deep 'chain' and the bf16 bundle.
@@ -276,14 +281,18 @@
    32 GroupNorm groups of 4 to 32 channels, eps 1e-6), seeded, calibrated
    on one batch of 2 over the 10-step sampler and quantized int8_deep.
    One denoiser call at batch 32, 256^2, with the launch counts set to 0
-   just before it: 71 K3, 99 A and no B launches, K3 seen at 71 sites, the
-   answer finite and the same bits on a second call, then the call timed.
+   just before it: 71 K3 (32 of them with a shift: the ResBlocks' norm2),
+   99 A and no B launches, K3 seen at 71 sites, the answer finite and the
+   same bits on a second call, then the call timed.
    K3 at batch 32 at each distinct (size, channels, group, SiLU or not,
    int8 or bf16) of those 71 sites, the 256^2 x 256 sites and the six
    attention norms without SiLU among them, against its plain version:
    at int8 sites no code more than 1 off and under 0.1 % off by one, the
    same bits twice; the bf16 output at every site within one bf16
-   rounding step (phase 6's tolerance); each shape's plan and time.
+   rounding step (phase 6's tolerance); each shape's plan and time.  At
+   the shapes of the shifted sites, K3 with a shift too: int8 codes equal
+   to the plain version's, bf16 within that tolerance, and its time beside
+   the same shape's without a shift.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
 their launches by path) and the card's name and power limit before the
@@ -360,6 +369,7 @@ GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
 # kernel A at the 99 stride-1 convs below the 256^2 level
 DDPM_CH, DDPM_BATCH = 128, 32
 DDPM_K3, DDPM_A = 71, 99
+DDPM_SHIFTED, NOTEBOOK_SHIFTED = 32, 7  # K3 launches with a shift a call
 SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
 # fp32 operations per element of K3: 3 for the sums, 2 for the affine,
 # 5 for SiLU (exp counted as one), 3 for the quantizer
@@ -1106,6 +1116,50 @@ def k3_phase(dev):
                      "form": "one-read" if p.one_read else "two-read",
                      "samples_a_pass": p.spp, "passes": p.passes})
 
+    # K3 with a shift at the forward's norm2 sites (the time projection
+    # added as x is read), beside the same launch without one
+    float_norms = {n for n, _, _ in diffusion_float_gn_sites()}
+    for name, h, c in diffusion_gn_sites() + diffusion_float_gn_sites():
+        if not name.endswith("norm2"):
+            continue
+        groups = c // 4
+        gamma, beta = 1 + 0.5 * torch.randn(c, generator=g, device=dev), (
+            0.2 * torch.randn(c, generator=g, device=dev))
+
+        def case(n):
+            return ((3 * torch.randn((n, h, h, c), generator=g, device=dev)
+                     + 0.5).to(torch.bfloat16),
+                    torch.randn((n, c), generator=g, device=dev))
+
+        x, shift = case(CHECK_BATCH)
+        kw = dict(num_groups=groups, shift=shift)
+        ref = groupnorm_silu_plain(x, gamma, beta, out_dtype=torch.float32,
+                                   **kw)
+        if name not in float_norms:
+            kw["quant_scale"] = (ref.abs().amax() / 127).reshape(1)
+        got = groupnorm_silu(x, gamma, beta, **kw)
+        torch.cuda.synchronize()
+        if name in float_norms:
+            err = (got.float() - ref).abs()
+            if bool((err > torch.clamp_min(ref.abs() * 2.0 ** -8,
+                                           GN_BF16_ATOL)).any()):
+                raise AssertionError(f"K3 shift {name}: bf16 output off by "
+                                     f"{float(err.max())}")
+        elif not torch.equal(got, groupnorm_silu_plain(x, gamma, beta, **kw)):
+            raise AssertionError(f"K3 shift {name}: codes differ from the "
+                                 "plain version's")
+        x, shift = case(DDPM_BATCH)  # the Fast-DDPM cells' serving batch
+        kw["shift"] = shift
+        shift_ms = cuda_ms(lambda: groupnorm_silu(x, gamma, beta, **kw),
+                           reps=20, flush=scrub.zero_)
+        kw.pop("shift")
+        plain_k3_ms = cuda_ms(lambda: groupnorm_silu(x, gamma, beta, **kw),
+                              reps=20, flush=scrub.zero_)
+        rows.append({"kernel": "groupnorm_silu shift", "site": name, "H": h,
+                     "C": c, "batch": DDPM_BATCH,
+                     "out": "bf16" if name in float_norms else "int8",
+                     "shift_ms": shift_ms, "no_shift_ms": plain_k3_ms})
+
     for name, h, ci, co, k in diffusion_conv_sites():
         wp = pack_conv(codes((k, k, ci, co)))
         s = uniform(co, 0.3, 2.3) / (127 * 127 / 3 * (k * k * ci) ** 0.5)
@@ -1175,6 +1229,11 @@ def k3_phase(dev):
                   f"{r['max_abs_err']:.3g} ms {r['ms']:.4f} bound "
                   f"{r['bound_ms']:.4f} plain {r['plain_ms']:.3f} lib "
                   f"{r['library_ms']}")
+        elif r["kernel"] == "groupnorm_silu shift":
+            print(f"K3 shift {r['site']:18s} {r['H']}^2 x {r['C']} "
+                  f"{r['out']} batch {r['batch']}: {r['shift_ms']:.4f} ms "
+                  f"with the shift, {r['no_shift_ms']:.4f} without "
+                  f"({r['shift_ms'] / r['no_shift_ms']:.4f}x)")
         elif r["kernel"].startswith("groupnorm_silu bf16"):
             print(f"K3 bf16 at float site {r['site']:12s} (C {r['C']}) "
                   f"{r['form']} {r['samples_a_pass']} a pass x "
@@ -1183,6 +1242,10 @@ def k3_phase(dev):
                   f"|K3 - chain| {r['max_abs_diff']:.4g}")
         else:
             print_site(r)
+    sel = [r for r in rows if r["kernel"] == "groupnorm_silu shift"]
+    print(f"K3 at the {len(sel)} norm2 sites (batch {DDPM_BATCH}): "
+          f"{sum(r['shift_ms'] for r in sel):.4f} ms with the shift, "
+          f"{sum(r['no_shift_ms'] for r in sel):.4f} without")
     sel = [r for r in rows if r["kernel"].startswith("groupnorm_silu bf16")]
     print(f"float GroupNorm sites of one forward (batch {BATCH}): K3 bf16 "
           f"{sum(r['ms'] for r in sel):.4f} ms, gn_silu_chain "
@@ -1325,7 +1388,7 @@ def diffusion_phase(dev, card: str):
                 return y
 
             eng._apply = capture
-            groupnorm_silu.launches = 0
+            groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
             reset_launches(conv2d_int8, upconv2x2_int8)
             futures = [[], []]
 
@@ -1343,6 +1406,7 @@ def diffusion_phase(dev, card: str):
                 for j, fut in enumerate(futures[k]):
                     served[k + 2 * j] = fut.result(timeout=600)
             launches = {"groupnorm_silu": groupnorm_silu.launches,
+                        "groupnorm_silu/shift": groupnorm_silu.launches_shift,
                         **launch_counts(conv2d_int8, upconv2x2_int8)}
             main_stats = eng.stats
             eng._apply = inner
@@ -1354,8 +1418,10 @@ def diffusion_phase(dev, card: str):
             raise AssertionError("served samples are not finite")
         if main_stats.padded_slots == 0:
             raise AssertionError("no batch was wrap-padded")
-        per_batch = {"groupnorm_silu": 150, "conv_int8": 140,
-                     "upconv_int8": 20}  # 10 steps x (15, 14, 2)
+        per_batch = {"groupnorm_silu": 150,
+                     "groupnorm_silu/shift": 10 * NOTEBOOK_SHIFTED,
+                     "conv_int8": 140,
+                     "upconv_int8": 20}  # 10 steps x (15, 7, 14, 2)
         for name, n in per_batch.items():
             if launches[name] != n * main_stats.batches:
                 raise AssertionError(
@@ -5071,26 +5137,30 @@ def ddpm_phase(dev, card: str):
     fwd = int8_forward(q, device=dev)
     sites, gn8 = [], fwd._gn8
 
-    def record(x, gamma, beta, **kw):  # (H, C, groups, silu, int8, eps)
+    def record(x, gamma, beta, **kw):
+        # (H, C, groups, silu, int8, eps, shifted)
         sites.append((x.shape[1], x.shape[3], kw["num_groups"], kw["silu"],
-                      kw.get("quant_scale") is not None, kw["eps"]))
+                      kw.get("quant_scale") is not None, kw["eps"],
+                      kw.get("shift") is not None))
         return gn8(x, gamma, beta, **kw)
 
     fwd._gn8 = record
     x = torch.randn((DDPM_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((DDPM_BATCH,), int(sched.timesteps[-1]), device=dev)
     reset_launches(conv2d_int8, upconv2x2_int8)
-    groupnorm_silu.launches = 0
+    groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
     got = fwd(x, t)
     torch.cuda.synchronize()
     launches = {"groupnorm_silu": groupnorm_silu.launches,
+                "groupnorm_silu/shift": groupnorm_silu.launches_shift,
                 **launch_counts(conv2d_int8, upconv2x2_int8)}
-    counted = (launches["groupnorm_silu"], launches["conv_int8"],
-               launches["upconv_int8"], len(sites))
-    if counted != (DDPM_K3, DDPM_A, 0, DDPM_K3):
-        raise AssertionError(f"DDPM int8_deep call: K3, A, B launches and K3 "
-                             f"sites {counted}, want ({DDPM_K3}, {DDPM_A}, "
-                             f"0, {DDPM_K3})")
+    counted = (launches["groupnorm_silu"], launches["groupnorm_silu/shift"],
+               launches["conv_int8"], launches["upconv_int8"], len(sites))
+    want = (DDPM_K3, DDPM_SHIFTED, DDPM_A, 0, DDPM_K3)
+    if counted != want:
+        raise AssertionError(f"DDPM int8_deep call: K3 launches, with a "
+                             f"shift, A, B launches and K3 sites {counted}, "
+                             f"want {want}")
     if tuple(got.shape) != (DDPM_BATCH, HW, HW, 1) or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"DDPM int8_deep call: {tuple(got.shape)}, "
@@ -5100,19 +5170,24 @@ def ddpm_phase(dev, card: str):
         raise AssertionError("DDPM int8_deep call: two calls differ")
     call_ms = cuda_ms(lambda: fwd(x, t), reps=3, warmup=1)
     del got, x, fwd
-    print(f"DDPM int8_deep call, batch {DDPM_BATCH}: {counted[0]} K3 and "
-          f"{counted[1]} A launches, the same bits twice, {call_ms:.2f} ms "
-          f"({card})")
+    print(f"DDPM int8_deep call, batch {DDPM_BATCH}: {counted[0]} K3 "
+          f"({counted[1]} with a shift) and {counted[2]} A launches, the "
+          f"same bits twice, {call_ms:.2f} ms ({card})")
 
     sms, rows = sm_count(dev), []
-    for (h, c, groups, silu, int8, eps), n in sorted(Counter(sites).items()):
+    for (h, c, groups, silu, int8, eps, shifted), n in sorted(
+            Counter(sites).items()):
         name = (f"{h}^2 C {c} groups of {c // groups} "
-                f"{'int8' if int8 else 'bf16'}{'' if silu else ' no SiLU'}")
+                f"{'int8' if int8 else 'bf16'}{'' if silu else ' no SiLU'}"
+                f"{' shift' if shifted else ''}")
         gn = dict(num_groups=groups, eps=eps, silu=silu)
         gamma, beta = 1 + 0.5 * torch.randn(c, generator=g, device=dev), (
             0.2 * torch.randn(c, generator=g, device=dev))
         xin = (3 * torch.randn((DDPM_BATCH, h, h, c), generator=g, device=dev)
                + 0.5).to(torch.bfloat16)
+        if shifted:  # a ResBlock's norm2: its time projection as the shift
+            gn["shift"] = torch.randn((DDPM_BATCH, c), generator=g,
+                                      device=dev)
         ref = groupnorm_silu_plain(xin, gamma, beta, out_dtype=torch.float32,
                                    **gn)
         row = {"kernel": "groupnorm_silu ddpm", "site": name, "H": h, "C": c,
@@ -5130,7 +5205,7 @@ def ddpm_phase(dev, card: str):
                                         **gn)
             diff = (codes.int() - want.int()).abs()
             worst, off1 = int(diff.max()), float((diff == 1).float().mean())
-            if worst > 1 or off1 >= 1e-3:
+            if worst > (0 if shifted else 1) or off1 >= 1e-3:
                 raise AssertionError(f"K3 DDPM {name}: codes differ: max "
                                      f"{worst}, {off1:.4%} off by 1")
             if not torch.equal(run(), codes):
@@ -5157,17 +5232,28 @@ def ddpm_phase(dev, card: str):
                    ms=cuda_ms(run, reps=10, warmup=2),
                    form="one-read" if p.one_read else "two-read",
                    samples_a_pass=p.spp, passes=p.passes)
+        if shifted:  # the same launch without the shift: what it adds
+            gn.pop("shift")
+            row["no_shift_ms"] = cuda_ms(run, reps=10, warmup=2)
         rows.append(row)
         del xin, ref, y16, err, tol
-        print(f"K3 DDPM {name:36s} x{n:2d}: {row['form']} "
+        print(f"K3 DDPM {name:42s} x{n:2d}: {row['form']} "
               f"{p.spp} a pass x {p.passes}, int8 max "
               f"{row.get('max_abs_err', '-')}, bf16 err "
-              f"{row['bf16_err']:.3g}, {row['ms']:.4f} ms")
+              f"{row['bf16_err']:.3g}, {row['ms']:.4f} ms"
+              + (f" ({row['no_shift_ms']:.4f} without the shift)"
+                 if shifted else ""))
     k3_ms = sum(r["ms"] * r["sites"] for r in rows)
-    print(f"K3 DDPM: {len(rows)} distinct shapes cover {len(sites)} sites "
-          f"(groups of {sorted({r['group'] for r in rows})}); {k3_ms:.3f} ms "
-          f"a call at batch {DDPM_BATCH} ({card})")
+    shifted = [r for r in rows if "no_shift_ms" in r]
+    shift_ms = [sum(r[k] * r["sites"] for r in shifted)
+                for k in ("ms", "no_shift_ms")]
+    print(f"K3 DDPM: {len(rows)} distinct (shape, shift) cover {len(sites)} "
+          f"sites (groups of {sorted({r['group'] for r in rows})}); "
+          f"{k3_ms:.3f} ms a call at batch {DDPM_BATCH}, its "
+          f"{sum(r['sites'] for r in shifted)} shifted sites {shift_ms[0]:.3f} "
+          f"ms ({shift_ms[1]:.3f} without the shift) ({card})")
     return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
+                      "shifted_ms": shift_ms,
                       "wall_s": time.perf_counter() - t_phase}
 
 

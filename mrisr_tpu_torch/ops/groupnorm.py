@@ -15,6 +15,15 @@ nothing after it, as an attention block's), then, with ``quant_scale``,
 the symmetric int8 quantizer ``clip(round(y * (1 / scale)), -127, 127)``
 that the following int8 conv reads.
 
+``shift`` ``(B, C)``: the GroupNorm reads ``x.float() + shift[:, None,
+None, :]``, added in float32 as x is read (statistics and apply alike),
+never rounded to x's dtype.  The Fast-DDPM forward hands a residual
+block's time projection (plus a float conv1's bias) to its norm2 so
+(``serve/quant_diffusion.py``): K3 takes the broadcast adds that would
+otherwise write and read the sum once more through device memory.  On
+the card a shift goes with SiLU, and emits int8 codes or x's own dtype
+(what the forward emits there).
+
 Unlike the TPU kernel there is no eligibility rule: no block has to hold
 a whole image, so every shape whose group size is a multiple of 4 (every
 DiffResBlock site, and the DDPM UNet's 32 groups of 4 to 32 channels)
@@ -29,7 +38,7 @@ partials, and a group adds its quads' (``csrc/groupnorm_silu.cu``).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -53,14 +62,19 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
                          beta: torch.Tensor, *, num_groups: int,
                          eps: float = 1e-5, quant_scale: Scale = None,
                          out_dtype: torch.dtype = torch.bfloat16,
-                         silu: bool = True) -> torch.Tensor:
+                         silu: bool = True,
+                         shift: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """Plain version of K3: the kernel's float32 chain with the group sums
     taken in float64, in plain torch ops.  x ``(B, H, W, C)``; returns int8
     codes with ``quant_scale``, else ``out_dtype``; ``silu=False`` leaves
-    SiLU out."""
+    SiLU out; ``shift`` ``(B, C)`` is added to x in float32 first."""
     b, h, w, c = x.shape
     gs = c // num_groups
-    xg = x.to(torch.float32).reshape(b, h * w, num_groups, gs)
+    xf = x.to(torch.float32)
+    if shift is not None:
+        xf = xf + shift.to(torch.float32)[:, None, None, :]
+    xg = xf.reshape(b, h * w, num_groups, gs)
     xd = xg.double()
     n = h * w * gs
     mean = (xd.sum(dim=(1, 3)) / n).float()
@@ -136,23 +150,28 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    *, num_groups: int, eps: float = 1e-5,
                    quant_scale: Scale = None,
                    out_dtype: torch.dtype = torch.bfloat16,
-                   silu: bool = True) -> torch.Tensor:
+                   silu: bool = True,
+                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused GroupNorm + SiLU (+ int8 quantize) on NHWC.
 
     x ``(B, H, W, C)`` float32 or bfloat16; gamma/beta ``(C,)``.  With
     ``quant_scale`` (a float, or a one-element float32 tensor on x's device:
     the following conv's per-step activation scale, read by the kernel from
     device memory) returns int8 codes; without it, ``out_dtype`` (float32
-    or bfloat16).  ``silu=False``: GroupNorm alone.  On the card the group
-    size must be a multiple of 4, and a grid that cannot be co-resident
-    raises (it never falls back)."""
+    or bfloat16).  ``silu=False``: GroupNorm alone.  ``shift`` ``(B, C)``:
+    normalize ``x + shift[:, None, None, :]``, the sum in float32 (cast
+    once to a float32 copy on x's device; counted in ``launches_shift``
+    too); on the card with SiLU, emitting int8 codes or x's dtype.  On the card the group size must be a
+    multiple of 4, and a grid that cannot be co-resident raises (it never
+    falls back)."""
     if x.dim() != 4 or x.shape[-1] % num_groups:
         raise ValueError(f"groupnorm_silu: x {tuple(x.shape)} does not split "
                          f"into {num_groups} groups")
     if x.device.type == "cpu":
         return groupnorm_silu_plain(x, gamma, beta, num_groups=num_groups,
                                     eps=eps, quant_scale=quant_scale,
-                                    out_dtype=out_dtype, silu=silu)
+                                    out_dtype=out_dtype, silu=silu,
+                                    shift=shift)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     b, h, w, c = x.shape
@@ -167,6 +186,13 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     beta = beta.to(device=x.device, dtype=torch.float32).contiguous()
     if gamma.numel() != c or beta.numel() != c:
         raise ValueError("groupnorm_silu: gamma and beta need C values")
+    if shift is not None:
+        shift = shift.to(device=x.device, dtype=torch.float32).contiguous()
+        if (tuple(shift.shape) != (b, c) or not silu or shift.data_ptr() % 16
+                or (quant_scale is None and out_dtype != x.dtype)):
+            raise ValueError(f"groupnorm_silu: a shift is ({b}, {c}), 16-byte "
+                             "aligned, with SiLU, and the output int8 codes "
+                             "or x's dtype")
     if quant_scale is None:
         if out_dtype not in _OUT_MODE:
             raise ValueError(f"groupnorm_silu: out_dtype {out_dtype} is not "
@@ -190,13 +216,15 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         err = lib.groupnorm_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), gamma.data_ptr(),
             beta.data_ptr(), None if scale is None else scale.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), mode, b, h * w, c, group,
-            int(silu), p.spp, p.bs, p.px, p.passes, int(p.one_read), p.smem,
-            eps, stream,
+            None if shift is None else shift.data_ptr(), partial.data_ptr(),
+            out.data_ptr(), mode, b, h * w, c, group, int(silu), p.spp, p.bs,
+            p.px, p.passes, int(p.one_read), p.smem, eps, stream,
         )
     _build.check(err, "groupnorm_silu")
     groupnorm_silu.launches += 1
+    groupnorm_silu.launches_shift += int(shift is not None)
     return out
 
 
 groupnorm_silu.launches = 0
+groupnorm_silu.launches_shift = 0  # the launches that took a shift

@@ -27,11 +27,15 @@ conv site through kernel A (``ops/conv_int8.py``, float epilogue
 kernel B's float mode (``ops/upconv.py``), and, with ``gn_impl='fused'``,
 every GroupNorm + SiLU through K3 (``ops/groupnorm.py``): K3 emits what the
 next conv reads, the int8 codes where that conv is quantized, else the
-forward's float ``dtype``.  K3 rounds once, after SiLU (``bf16(silu(y))``);
-the chain ('chain', the JAX package's 'xla') rounds the normalized value
-before SiLU too (``silu(bf16(y))``).  Both take float32 statistics and hand
-the conv its input in ``dtype``; in bf16 they differ by about one bf16
-rounding an element, K3 as a rule the nearer to the float32 forward.
+forward's float ``dtype``; at a residual block's norm2 it also adds the
+block's time projection (and a float conv1's bias) to its input, in
+float32, as it reads it (the chain adds them in ``dtype`` first: cuDNN's
+bias add and a broadcast add, each through device memory).  K3 rounds
+once, after SiLU (``bf16(silu(y))``); the chain ('chain', the JAX
+package's 'xla') rounds the normalized value before SiLU too
+(``silu(bf16(y))``).  Both take float32 statistics and hand the conv its
+input in ``dtype``; in bf16 they differ by about one bf16 rounding an
+element, K3 as a rule the nearer to the float32 forward.
 """
 
 from __future__ import annotations
@@ -270,6 +274,9 @@ class FastDDPMForward:
     int8, with ``timesteps`` for per-step tables; without them it is the
     float forward in ``dtype``; the sinusoids' width comes from the tree.
     ``gn_impl``: 'chain' or 'fused' (:func:`default_gn_impl` when None).
+    A residual block's time projection goes to its norm2: 'chain' adds
+    it to conv1's output in ``dtype``, 'fused' passes it to K3 as the
+    input shift of that norm, with a float conv1's bias (:meth:`_block`).
     ``plain=True`` runs the kernels' plain versions even on the card (the
     reference the kernels are held against).
 
@@ -361,7 +368,11 @@ class FastDDPMForward:
             st.stats[name] = (torch.maximum(st.stats[name], v)
                               if name in st.stats else v)
 
-    def _conv(self, st: _Step, name: str, h) -> torch.Tensor:
+    def _conv(self, st: _Step, name: str, h, bias: bool = True
+              ) -> torch.Tensor:
+        """Conv ``name`` of ``h`` (or of K3's codes): kernel A where the
+        site is int8, else cuDNN in ``dtype``; ``bias=False`` leaves a
+        float conv's bias out (its caller adds it)."""
         lq = self.q.get(name)
         if isinstance(h, _PreQuant):  # K3 (or _upsample) emitted the codes
             self._record(st, name, h.q)
@@ -371,6 +382,7 @@ class FastDDPMForward:
             self._record(st, name, h)
             if lq is None:  # not quantized: a float conv in dtype
                 w, b, pad = self.convs[name]
+                b = b if bias else None
                 with span("ddpm.conv_float"):
                     x = _nchw(h.to(self.dtype))
                     if name.endswith("downsample/conv"):  # TF's "SAME"
@@ -398,17 +410,21 @@ class FastDDPMForward:
             return y.to(self.dtype)
 
     def _act(self, st: _Step, site: str, norm: str, h: torch.Tensor,
-             silu: bool = True):
+             silu: bool = True, shift: Optional[torch.Tensor] = None):
         """GroupNorm + SiLU (``silu=False``: GroupNorm alone) feeding conv
         ``site``.  'fused': K3 at every site, emitting what that conv
         reads: int8 codes (its per-step activation scale) where it is
-        quantized, else ``dtype``, rounded once after SiLU.  'chain':
-        :func:`gn_silu_chain`, which rounds to ``dtype`` before SiLU too;
-        the quantizer of an int8 conv follows in :meth:`_conv`."""
+        quantized, else ``dtype``, rounded once after SiLU; ``shift``
+        ``(B, C)`` (a residual block's time projection, 'fused' only) is
+        added to ``h`` by K3 as it reads it, in float32 (:meth:`_block`).
+        'chain': :func:`gn_silu_chain`, which rounds to ``dtype`` before
+        SiLU too; the quantizer of an int8 conv follows in :meth:`_conv`."""
         gamma, beta = self.norms[norm]
         c = h.shape[-1]
         groups = DDPM_GN_GROUPS if self.ddpm else num_groups(c)
         gn = dict(num_groups=groups, eps=self.gn_eps, silu=silu)
+        if shift is not None:
+            gn["shift"] = shift
         lq = self.q.get(site)
         if lq is None:  # a float site
             with span("ddpm.gn_chain", device_time=True):
@@ -430,12 +446,25 @@ class FastDDPMForward:
                temb: str = "time_fc", skip: str = "skip") -> torch.Tensor:
         """A residual block: GroupNorm, SiLU, conv1, plus the time
         projection ``temb``, GroupNorm, SiLU, conv2, plus ``x`` or its 1x1
-        ``skip`` conv."""
+        ``skip`` conv.  The projection ``(B, C)`` in ``dtype``: 'chain'
+        adds it to conv1's output in ``dtype`` (a broadcast add), 'fused'
+        hands it to norm2's K3, which adds it in float32 as it reads that
+        output; where conv1 is a float conv, its bias rides that shift too
+        (``t + bias`` in float32) instead of cuDNN's own broadcast add."""
         h = self._act(st, f"{name}/conv1", f"{name}/norm1", x)
-        h = self._conv(st, f"{name}/conv1", h)
         w, b = self.dense[f"{name}/{temb}"]
-        h = h + F.linear(st.t_emb, w, b)[:, None, None, :]
-        h = self._act(st, f"{name}/conv2", f"{name}/norm2", h)
+        t = F.linear(st.t_emb, w, b)
+        conv1 = f"{name}/conv1"
+        if self.fused:
+            float_conv = conv1 in self.convs
+            h = self._conv(st, conv1, h, bias=not float_conv)
+            if float_conv:
+                t = t.float() + self.convs[conv1][1].float()
+            h = self._act(st, f"{name}/conv2", f"{name}/norm2", h, shift=t)
+        else:
+            h = self._conv(st, conv1, h)
+            h = self._act(st, f"{name}/conv2", f"{name}/norm2",
+                          h + t[:, None, None, :])
         h = self._conv(st, f"{name}/conv2", h)
         if f"{name}/{skip}" in self.q or f"{name}/{skip}" in self.convs:
             x = self._conv(st, f"{name}/{skip}", x)

@@ -275,7 +275,7 @@ def test_groupnorm_kernel_raises_when_the_grid_cannot_be_co_resident(cuda):
                           dtype=torch.float64)
     lib = _build.library("groupnorm_silu")
     err = lib.groupnorm_launch(
-        x.data_ptr(), 1, gamma.data_ptr(), gamma.data_ptr(), None,
+        x.data_ptr(), 1, gamma.data_ptr(), gamma.data_ptr(), None, None,
         partial.data_ptr(), out.data_ptr(), 1, n, hw, c, 4, 1, n, sms, px, 1,
         1, 200_000, 1e-5, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="co-resident"):
@@ -291,6 +291,212 @@ def test_groupnorm_kernel_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="one value"):
         groupnorm_silu(x, gamma, beta, num_groups=4,
                        quant_scale=torch.ones(2, device=cuda))
+    shift = torch.zeros((1, 16), device=cuda)
+    with pytest.raises(ValueError, match="with SiLU"):
+        groupnorm_silu(x, gamma, beta, num_groups=4, shift=shift, silu=False)
+    with pytest.raises(ValueError, match="shift"):
+        groupnorm_silu(x, gamma, beta, num_groups=4, shift=shift[:, :8])
+    with pytest.raises(ValueError, match="x's dtype"):  # float32 in, bf16 out
+        groupnorm_silu(x, gamma, beta, num_groups=4, shift=shift)
+
+
+# The GroupNorm sites of one denoiser call at batch 32, 256^2: (name, H, C,
+# groups, int8 out, SiLU, eps, shifted: a ResBlock's norm2, which takes its
+# time projection as K3's shift).  The notebook net (base 64): 15 sites,
+# groups of 4, its 5 full-size ones bf16 out.
+NOTEBOOK_GN_SITES = [
+    (name, h, c, c // 4, h < 256, True, 1e-5, name.endswith("norm2"))
+    for name, h, c in (
+        ("enc1/norm1", 256, 64), ("enc1/norm2", 256, 128),
+        ("enc2/norm1", 128, 128), ("enc2/norm2", 128, 256),
+        ("enc3/norm1", 64, 256), ("enc3/norm2", 64, 512),
+        ("bottleneck/norm1", 32, 512), ("bottleneck/norm2", 32, 512),
+        ("dec3/norm1", 64, 768), ("dec3/norm2", 64, 256),
+        ("dec2/norm1", 128, 384), ("dec2/norm2", 128, 128),
+        ("dec1/norm1", 256, 192), ("dec1/norm2", 256, 64),
+        ("final_norm", 256, 64))]
+
+
+def ddpm_gn_sites():
+    """The DDPM UNet's 71 GroupNorm sites at ch 128 (32 groups, eps 1e-6;
+    the full-size level bf16 out, the attention norms without SiLU)."""
+    from mrisr_tpu_torch.models.ddpm_unet import attn_levels, level_plan
+
+    plan, sites = level_plan(128), []
+    for part in ("down", "up"):
+        for i, j, ci, co in plan[part]:
+            h = 256 >> i
+            sites += [(f"{part}/{i}/block/{j}/norm1", h, ci, 32, i > 0, True,
+                       1e-6, False),
+                      (f"{part}/{i}/block/{j}/norm2", h, co, 32, i > 0, True,
+                       1e-6, True)]
+            if i in attn_levels():
+                sites.append((f"{part}/{i}/attn/{j}/norm", h, co, 32, True,
+                              False, 1e-6, False))
+    m = plan["mid"]
+    for k in (1, 2):
+        sites += [(f"mid/block_{k}/norm1", 8, m, 32, True, True, 1e-6, False),
+                  (f"mid/block_{k}/norm2", 8, m, 32, True, True, 1e-6, True)]
+    sites += [("mid/attn_1/norm", 8, m, 32, True, False, 1e-6, False),
+              ("norm_out", 256, 128, 32, False, True, 1e-6, False)]
+    return sites
+
+
+def _distinct(sites):
+    """One site of each (H, C, groups, SiLU, eps, shifted)."""
+    seen = {}
+    for site in sites:
+        seen.setdefault((site[1:4] + site[5:]), site)
+    return list(seen.values())
+
+
+def _site_case(cuda, h, c, batch=32):
+    """A site's bf16 input, gamma, beta and time-projection shift from a
+    generator on the card seeded by the shape."""
+    g = torch.Generator(device=cuda).manual_seed(1000 * h + c)
+    x = (3 * torch.randn((batch, h, h, c), generator=g, device=cuda)
+         + 0.5).to(torch.bfloat16)
+    gamma = 1 + 0.5 * torch.randn(c, generator=g, device=cuda)
+    beta = 0.2 * torch.randn(c, generator=g, device=cuda)
+    shift = torch.randn((batch, c), generator=g, device=cuda).to(
+        torch.bfloat16)
+    return x, gamma, beta, shift
+
+
+def _two_read(n, hw, c, itemsize, sms):
+    """K3's plan in its two-read form whatever fits (what :func:`plan`
+    gives where one sample does not fit the grid's shared memory)."""
+    from mrisr_tpu_torch.ops.groupnorm import Plan, _blocks, _reserve
+
+    bs, px = _blocks(hw, 1, sms)
+    return Plan(1, bs, px, n, False, _reserve(c))
+
+
+# (name, H, C, groups, eps) of each distinct norm2 of both nets
+NORM2_CASES = [s[:4] + s[6:7] for s in _distinct(NOTEBOOK_GN_SITES)
+               + _distinct(ddpm_gn_sites()) if s[-1]]
+
+
+@pytest.mark.parametrize("name,h,c,groups,eps", NORM2_CASES, ids=str)
+def test_groupnorm_kernel_shift_matches_plain(cuda, name, h, c, groups, eps):
+    """K3 with a shift at every norm2 shape of both nets, batch 32: int8
+    codes equal to the plain version's, bf16 out within one bf16 rounding
+    step (max(0.03, 2^-8 |y|), chip_smoke.py's phase 6), the same bits
+    twice, one launch counted in ``launches_shift``."""
+    x, gamma, beta, shift = _site_case(cuda, h, c)
+    kw = dict(num_groups=groups, eps=eps, shift=shift)
+    ref = groupnorm_silu_plain(x, gamma, beta, out_dtype=torch.float32, **kw)
+    scale = (ref.abs().amax() / 127.0).reshape(1)
+    before = (groupnorm_silu.launches, groupnorm_silu.launches_shift)
+    q = groupnorm_silu(x, gamma, beta, quant_scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert (groupnorm_silu.launches, groupnorm_silu.launches_shift) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(q, groupnorm_silu_plain(x, gamma, beta,
+                                               quant_scale=scale, **kw))
+    assert torch.equal(groupnorm_silu(x, gamma, beta, quant_scale=scale,
+                                      **kw), q)
+    y16 = groupnorm_silu(x, gamma, beta, **kw)
+    tol = torch.clamp_min(ref.abs() * 2.0 ** -8, 0.03)
+    assert bool(((y16.float() - ref).abs() <= tol).all())
+    assert torch.equal(groupnorm_silu(x, gamma, beta, **kw), y16)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_groupnorm_kernel_shift_two_read_form(cuda, mode, monkeypatch):
+    """The widest norm2 (256^2 x 128, batch 32) with its plan forced into
+    the two-read form (statistics from device memory, then an apply that
+    reads x again): the plain version's int8 codes, bf16 within phase 6's
+    tolerance, and the one-read form's bits."""
+    from mrisr_tpu_torch.ops import groupnorm
+
+    x, gamma, beta, shift = _site_case(cuda, 256, 128)
+    kw = dict(num_groups=32, eps=1e-6, shift=shift)
+    ref = groupnorm_silu_plain(x, gamma, beta, out_dtype=torch.float32, **kw)
+    if mode == "int8":
+        kw["quant_scale"] = (ref.abs().amax() / 127.0).reshape(1)
+    one_read = groupnorm_silu(x, gamma, beta, **kw)
+    monkeypatch.setattr(groupnorm, "plan", _two_read)
+    got = groupnorm_silu(x, gamma, beta, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one_read)
+    if mode == "int8":
+        assert torch.equal(got, groupnorm_silu_plain(x, gamma, beta, **kw))
+    else:
+        tol = torch.clamp_min(ref.abs() * 2.0 ** -8, 0.03)
+        assert bool(((got.float() - ref).abs() <= tol).all())
+
+
+def k3_bits(cuda, sites):
+    """{site shape: sha256 of K3's int8 and bf16 outputs there without a
+    shift}, batch 32, inputs from :func:`_site_case`."""
+    import hashlib
+
+    out = {}
+    for h, c, groups, silu, eps in sorted({s[1:4] + s[5:7] for s in sites}):
+        x, gamma, beta, _ = _site_case(cuda, h, c)
+        kw = dict(num_groups=groups, eps=eps, silu=silu)
+        scale = torch.full((1,), 0.05, device=cuda)
+        digest = hashlib.sha256()
+        for y in (groupnorm_silu(x, gamma, beta, quant_scale=scale, **kw),
+                  groupnorm_silu(x, gamma, beta, **kw)):
+            digest.update(y.view(torch.uint8).cpu().numpy().tobytes())
+        out[f"{h}x{h}x{c}/{c // groups}{'' if silu else ' no SiLU'}"] = (
+            digest.hexdigest()[:16])
+    return out
+
+
+# K3 without a shift, as the kernel was before the shift form: its outputs'
+# digests (k3_bits) at the shapes of the notebook net's 15 sites (10
+# shapes) and of the DDPM UNet's 71 (20 shapes), recorded on an H100 with
+# that kernel
+K3_BITS_WITHOUT_SHIFT = {
+    "notebook": {
+        "32x32x512/4": "e530b6295be07ad1",
+        "64x64x256/4": "8fbcb173b2a88433",
+        "64x64x512/4": "7dea06e5f88af3c1",
+        "64x64x768/4": "465c7bf140e84a66",
+        "128x128x128/4": "e64e7507e11db00f",
+        "128x128x256/4": "808edeee4aae36c2",
+        "128x128x384/4": "a73061663d2e5173",
+        "256x256x64/4": "8e27c1dd08b52d6a",
+        "256x256x128/4": "8e3a9f8e60223cb1",
+        "256x256x192/4": "d31d5235ea9618db",
+    },
+    "ddpm": {
+        "8x8x512/16": "f239358e68df741f",
+        "8x8x512/16 no SiLU": "eac796ba466ecbd0",
+        "8x8x1024/32": "d9a09cc256b1315e",
+        "16x16x256/8": "20893421e032ef90",
+        "16x16x512/16": "300f1f699b0e4f70",
+        "16x16x512/16 no SiLU": "48a4d85da4d2469e",
+        "16x16x768/24": "034209c21ee46f66",
+        "16x16x1024/32": "ef0d81140af0bde6",
+        "32x32x256/8": "56b8194f3f6e7a98",
+        "32x32x512/16": "1c416af2367fb7ea",
+        "32x32x768/24": "8a01e68e210a0e39",
+        "64x64x128/4": "82139d0998b04d4b",
+        "64x64x256/8": "df79399af1933dbf",
+        "64x64x384/12": "d2cdb7d9bb6f232d",
+        "64x64x512/16": "a692abe4d8766abb",
+        "128x128x128/4": "4be50240a341cffc",
+        "128x128x256/8": "eb30910449f646a6",
+        "128x128x384/12": "55f44e2bdf5e33cc",
+        "256x256x128/4": "78a8d6e89862cf68",
+        "256x256x256/8": "28a1432eda36278f",
+    },
+}
+
+
+@pytest.mark.parametrize("net", ["notebook", "ddpm"])
+def test_groupnorm_kernel_without_shift_keeps_its_bits(cuda, net):
+    """Launches without a shift (norm1, the attention norms, the final
+    norm) run the kernel's code from before the shift form: the bits it
+    gave then, at every site shape of both nets."""
+    sites = NOTEBOOK_GN_SITES if net == "notebook" else ddpm_gn_sites()
+    got = k3_bits(cuda, sites)
+    assert len(got) == (10 if net == "notebook" else 20)
+    assert got == {k: K3_BITS_WITHOUT_SHIFT[net][k] for k in got}
 
 
 @pytest.mark.parametrize("only", ["deep", "all"])
@@ -321,13 +527,14 @@ def test_diffusion_int8_forward_on_card_equals_plain(cuda, only):
     x = torch.randn((2, 32, 32, 3), generator=g).to(cuda)
     t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
     counts = (conv2d_int8.launches, upconv2x2_int8.launches,
-              groupnorm_silu.launches)
+              groupnorm_silu.launches, groupnorm_silu.launches_shift)
     got = int8_forward(q, device=cuda)(x, t)
     # K3 at all 15 GroupNorm sites: int8 codes or, at int8_deep's 5 float
-    # sites, the forward's bf16
+    # sites, the forward's bf16; the 7 norm2 of them with a shift
     assert (conv2d_int8.launches - counts[0], upconv2x2_int8.launches
-            - counts[1], groupnorm_silu.launches - counts[2]) == (
-        (14, 2, 15) if only == "deep" else (22, 3, 15))
+            - counts[1], groupnorm_silu.launches - counts[2],
+            groupnorm_silu.launches_shift - counts[3]) == (
+        (14, 2, 15, 7) if only == "deep" else (22, 3, 15, 7))
     want = int8_forward(q, device=cuda, plain=True)(x, t)
     assert got.shape == (2, 32, 32, 1) and bool(torch.isfinite(got).all())
     rel = float((got - want).norm() / want.norm())
@@ -838,10 +1045,12 @@ def test_ddpm_unet_int8_deep_call_on_card(cuda):
     x = torch.randn((2, 64, 64, 3), generator=g).to(cuda)
     t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
     fwd = int8_forward(q, device=cuda)
-    counts = (conv2d_int8.launches, groupnorm_silu.launches)
+    counts = (conv2d_int8.launches, groupnorm_silu.launches,
+              groupnorm_silu.launches_shift)
     got = fwd(x, t)
     assert (conv2d_int8.launches - counts[0],
-            groupnorm_silu.launches - counts[1]) == (99, 71)
+            groupnorm_silu.launches - counts[1],
+            groupnorm_silu.launches_shift - counts[2]) == (99, 71, 32)
     assert torch.equal(fwd(x, t), got)
     want = int8_forward(q, device=cuda, plain=True)(x, t)
     assert got.shape == (2, 64, 64, 1) and bool(torch.isfinite(got).all())

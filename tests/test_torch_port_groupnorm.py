@@ -132,3 +132,30 @@ def test_chain_partial_sums_match_flax(shape):
                         torch.float32)
     np.testing.assert_allclose(got.numpy(), _flax_ref(x, gamma, beta, groups),
                                atol=1e-5, rtol=1e-5)
+
+
+# (group size, channels): the notebook net's groups of 4 and the DDPM
+# UNet's 32 groups (of 8 here)
+@pytest.mark.parametrize("group,c", [(4, 48), (8, 256)], ids=str)
+@pytest.mark.parametrize("silu", [True, False])
+@pytest.mark.parametrize("mode", ["int8", "bf16", "float32"])
+def test_plain_shift_is_the_float32_sum(group, c, silu, mode):
+    """``shift=s`` is GroupNorm of ``x.float() + s[:, None, None, :]``, bit
+    for bit, in every output mode, with SiLU and without; a shift moves
+    the answer (it is no per-channel constant within a group)."""
+    x, gamma, beta = _case(23 + c, 2, 6, 10, c)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    s = torch.from_numpy(np.random.default_rng(c).standard_normal(
+        (2, c)).astype(np.float32))
+    kw = {"int8": {"quant_scale": 0.03}, "bf16": {},
+          "float32": {"out_dtype": torch.float32}}[mode]
+    kw.update(num_groups=c // group, eps=1e-6 if group > 4 else 1e-5,
+              silu=silu)
+    got = groupnorm_silu_plain(xt, *_t(gamma, beta), shift=s, **kw)
+    want = groupnorm_silu_plain(xt.float() + s[:, None, None, :],
+                                *_t(gamma, beta), **kw)
+    assert torch.equal(got, want)
+    assert not torch.equal(got, groupnorm_silu_plain(xt, *_t(gamma, beta),
+                                                     **kw))
+    assert torch.equal(groupnorm_silu(xt, *_t(gamma, beta), shift=s, **kw),
+                       got)  # the wrapper on a CPU tensor

@@ -295,14 +295,14 @@ def deep_tables():
 
 def _deep_call(q, x, t, gn_impl):
     """One bf16 int8_deep denoiser call under the profiler, each GroupNorm
-    site's (gamma, beta, input, output) kept by norm: (output, spans,
-    sites)."""
+    site's (gamma, beta, input, input shift, output) kept by norm:
+    (output, spans, sites)."""
     fwd = int8_forward(q, gn_impl=gn_impl, device="cpu")
     sites = []
 
-    def act(st, site, norm, h):
-        out = FastDDPMForward._act(fwd, st, site, norm, h)
-        sites.append((norm, *fwd.norms[norm], h, out))
+    def act(st, site, norm, h, **kw):
+        out = FastDDPMForward._act(fwd, st, site, norm, h, **kw)
+        sites.append((norm, *fwd.norms[norm], h, kw.get("shift"), out))
         return out
 
     fwd._act = act
@@ -314,7 +314,8 @@ def _deep_call(q, x, t, gn_impl):
 def test_fused_int8_deep_runs_k3_at_every_site(deep_tables):
     """'fused': 15 K3 calls a denoiser call, 5 of them each alone inside
     the ``ddpm.gn_chain`` of a float site, which emits the forward's bf16
-    (K3's plain version here); the 10 others emit int8 codes."""
+    (K3's plain version here); the 10 others emit int8 codes.  The 7
+    norm2 sites take their block's time projection as K3's shift."""
     y, spans, sites = _deep_call(*deep_tables, "fused")
     assert y.shape == (2, 16, 16, 1) and bool(torch.isfinite(y).all())
     names = _names(spans)
@@ -325,12 +326,14 @@ def test_fused_int8_deep_runs_k3_at_every_site(deep_tables):
                                  if s.name == "ddpm.k3")
     assert all(inside[k] == 1 for k in chains)
     assert sum(inside[k] for k in chains) == len(FLOAT_GN_SITES)
-    for norm, gamma, beta, h, out in sites:
+    for norm, gamma, beta, h, shift, out in sites:
+        assert (shift is not None) == norm.endswith("/norm2"), norm
         if norm in FLOAT_GN_SITES:
             assert out.dtype == torch.bfloat16, norm
             want = groupnorm_silu_plain(h, gamma, beta,
                                         num_groups=max(1, h.shape[-1] // 4),
-                                        out_dtype=torch.bfloat16)
+                                        out_dtype=torch.bfloat16,
+                                        shift=shift)
             assert torch.equal(out, want), norm
         else:
             assert isinstance(out, _PreQuant), norm
@@ -348,7 +351,8 @@ def test_chain_int8_deep_keeps_the_chain(deep_tables):
     assert names["ddpm.gn_chain"] == len(FLOAT_GN_SITES)
     assert "ddpm.k3" not in names
     assert len(sites) == GN_SITES
-    for norm, gamma, beta, h, out in sites:
+    for norm, gamma, beta, h, shift, out in sites:
+        assert shift is None, norm
         want = gn_silu_chain(h, gamma, beta, max(1, h.shape[-1] // 4),
                              torch.bfloat16)
         assert torch.equal(out, want), norm
