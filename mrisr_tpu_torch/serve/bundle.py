@@ -351,7 +351,7 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
         bf16_params,
         calibrate_fastddpm,
         deep_sites,
-        is_ddpm_tree,
+        network,
         quantize_fastddpm,
     )
 
@@ -360,9 +360,7 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
             f"diffusion bundles support quant none/int8/int8_deep, got "
             f"{quant!r} (int8_fused is the pair-UNet path)")
     params = fastddpm_flax_params(loaded.module)
-    ddpm = is_ddpm_tree(params)
-    time_dim = int((params["temb"]["dense"]["1"] if ddpm else
-                    params["time_emb"]["Dense_1"])["kernel"].shape[-1])
+    net = network(params)
     sampler = loaded.sampler or "ancestral"
     if quant == "none":
         tree = {"params": bf16_params(params)}
@@ -387,11 +385,10 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
                         "timesteps": sched.timesteps}
     return save_bundle(
         out_path, tree, model_name=loaded.name, quant=quant,
-        base_features=int(params["conv_in" if ddpm else "init_conv"]
-                          ["kernel"].shape[-1]),
-        image_size=image_size, calibration=calib_desc,
-        extra={"kind": "diffusion", "time_dim": time_dim, "combine": "first",
-               "sampler": sampler})
+        base_features=net.base_features(params), image_size=image_size,
+        calibration=calib_desc,
+        extra={"kind": "diffusion", "time_dim": net.time_dim(params),
+               "combine": "first", "sampler": sampler})
 
 
 def engine_from_bundle(path: str, batch_size: int = 128,

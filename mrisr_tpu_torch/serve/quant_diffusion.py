@@ -40,8 +40,9 @@ element, K3 as a rule the nearer to the float32 forward.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -169,7 +170,7 @@ class _QSite:
     """One int8 site's tables on the device: per-step rows (R = steps) or
     one row (a static calibration)."""
 
-    def __init__(self, name: str, lq: Dict, per_step: bool, device):
+    def __init__(self, lq: Dict, per_step: bool, upconv: bool, device):
         a = lq["a_scale"].float()
         if per_step:
             s = a[:, None] * lq["w_scale"].float()[None, :]
@@ -178,7 +179,7 @@ class _QSite:
         bias = lq["bias"].float()
         self.per_step = per_step
         self.a = a.to(device)
-        if name.startswith("upconv"):
+        if upconv:
             w2, _, b4 = pack_upconv(lq["w_int8"], s[0], bias)
             self.w = w2.t().to(device).t()
             self.s = s.repeat(1, 4).contiguous().to(device)
@@ -222,10 +223,33 @@ def _up2(h: torch.Tensor) -> torch.Tensor:
         b, 2 * hh, 2 * ww, c)
 
 
-def is_ddpm_tree(params: Dict) -> bool:
-    """Whether a flax-layout tree is the DDPM UNet's
-    (``models/ddpm_unet.py``) rather than the notebook FastDDPMUNet's."""
-    return "conv_in" in params
+class Network(NamedTuple):
+    """What the port reads of one Fast-DDPM network beyond its tree's
+    layers (:func:`network` says which network a tree is): the time MLP's
+    two dense layers and whether a swish follows; a residual block's time
+    projection and shortcut leaves; the first conv; GroupNorm's eps and
+    groups at ``c`` channels; the ConvTranspose upconvs; whether a stride-1
+    conv site is ``int8_deep``'s (:func:`deep_sites`); the forward's walk."""
+
+    time_mlp: Tuple[str, str]
+    time_swish: bool
+    temb: str
+    skip: str
+    first_conv: str
+    gn_eps: float
+    groups: Callable[[int], int]
+    upconvs: Tuple[str, ...]
+    deep: Callable[[str], bool]
+    walk: Callable
+
+    def time_dim(self, params: Dict) -> int:
+        """The width of the time MLP's output."""
+        layer = dict(_layers(params))[self.time_mlp[1]]
+        return int(layer["kernel"].shape[-1])
+
+    def base_features(self, params: Dict) -> int:
+        """The first conv's output channels."""
+        return int(params[self.first_conv]["kernel"].shape[-1])
 
 
 def _ddpm_level(site: str) -> int:
@@ -247,17 +271,17 @@ def _strided(site: str) -> bool:
 
 
 def deep_sites(params: Dict) -> Tuple[str, ...]:
-    """The conv sites ``int8_deep`` quantizes.  The notebook net:
-    :data:`DEEP_SITES`.  The DDPM UNet: every stride-1 conv whose input is
-    below the full-size level (at or under 128^2 of a 256^2 input; the
-    1x1 attention projections and shortcuts too, and an upsample's conv by
-    the size of its own, upsampled, input); the full-size level, conv_in,
-    conv_out and the stride-2 downsamples stay float."""
-    if not is_ddpm_tree(params):
-        return DEEP_SITES
+    """The conv sites ``int8_deep`` quantizes, in the tree's order.  The
+    notebook net: :data:`DEEP_SITES`.  The DDPM UNet: every stride-1 conv
+    whose input is below the full-size level (at or under 128^2 of a 256^2
+    input; the 1x1 attention projections and shortcuts too, and an
+    upsample's conv by the size of its own, upsampled, input); the
+    full-size level, conv_in, conv_out and the stride-2 downsamples stay
+    float."""
+    deep = network(params).deep
     return tuple(name for name, p in _layers(params)
                  if "kernel" in p and p["kernel"].dim() == 4
-                 and not _strided(name) and _ddpm_level(name) > 0)
+                 and not _strided(name) and deep(name))
 
 
 class FastDDPMForward:
@@ -265,10 +289,10 @@ class FastDDPMForward:
     once for ``device``: ``(B, H, W, 3) + (B,) t -> (B, H, W, 1)`` float32.
     The tree is either network the port serves: the notebook's
     FastDDPMUNet (``models/diffusion.py``) or the DDPM UNet that Fast-DDPM
-    publishes (``models/ddpm_unet.py``, :func:`is_ddpm_tree`); one set of
-    layers (:meth:`_conv`, :meth:`_act`, :meth:`_record`, the per-step
-    scale rows) runs both, and :meth:`_notebook` or :meth:`_ddpm` walks
-    the network.
+    publishes (``models/ddpm_unet.py``); one set of layers (:meth:`_conv`,
+    :meth:`_act`, :meth:`_block`, :meth:`_record`, the per-step scale rows)
+    runs both, reading the tree's :class:`Network` (:func:`network`), whose
+    walk (:meth:`_notebook` or :meth:`_ddpm`) goes through the network.
 
     ``sites`` (``quantize_fastddpm``'s ``int8`` tables) makes those sites
     int8, with ``timesteps`` for per-step tables; without them it is the
@@ -306,8 +330,7 @@ class FastDDPMForward:
         self._conv8 = conv2d_int8_plain if plain else conv2d_int8
         self._up8 = upconv2x2_int8_plain if plain else upconv2x2_int8
         self._gn8 = groupnorm_silu_plain if plain else groupnorm_silu
-        self.ddpm = is_ddpm_tree(params)
-        self.gn_eps = DDPM_GN_EPS if self.ddpm else GN_EPS
+        self.net = net = network(params)
         sites = sites or {}
         per_step = any(lq["a_scale"].dim() for lq in sites.values())
         if per_step and timesteps is None:
@@ -318,13 +341,14 @@ class FastDDPMForward:
         self.timesteps = (None if timesteps is None else torch.as_tensor(
             timesteps).to(device=device, dtype=torch.int64))
         for name in sites:
-            if name.endswith("downsample/conv"):
+            if _strided(name):
                 raise ValueError(f"{name}: kernel A runs stride 1 only; the "
                                  "stride-2 downsamples stay float")
             block, _, leaf = name.rpartition("/")
             if leaf in ("q", "k", "v") and "attn" in block:
                 self._check_shared_scale(block, sites)
-        self.q = {name: _QSite(name, lq, lq["a_scale"].dim() > 0, device)
+        self.q = {name: _QSite(lq, lq["a_scale"].dim() > 0,
+                               name in net.upconvs, device)
                   for name, lq in sites.items()}
 
         def f(v, dt=dtype):
@@ -337,7 +361,7 @@ class FastDDPMForward:
                                     f(p["bias"], torch.float32))
             elif p["kernel"].dim() == 2:
                 self.dense[name] = (f(p["kernel"]).t(), f(p["bias"]))
-            elif name in UPCONVS:
+            elif name in net.upconvs:
                 if name not in self.q:
                     k = p["kernel"]
                     self.upconvs[name] = (
@@ -347,8 +371,8 @@ class FastDDPMForward:
                 w = f(p["kernel"].permute(3, 2, 0, 1)).contiguous(
                     memory_format=torch.channels_last)
                 self.convs[name] = (w, f(p["bias"]), w.shape[-1] // 2)
-        first = "temb/dense/0" if self.ddpm else "time_emb/Dense_0"
-        self.emb_dim = int(self.dense[first][0].shape[1])  # the sinusoids
+        # the sinusoids' width
+        self.emb_dim = int(self.dense[net.time_mlp[0]][0].shape[1])
 
     @staticmethod
     def _check_shared_scale(block: str, sites: Dict) -> None:
@@ -385,7 +409,7 @@ class FastDDPMForward:
                 b = b if bias else None
                 with span("ddpm.conv_float"):
                     x = _nchw(h.to(self.dtype))
-                    if name.endswith("downsample/conv"):  # TF's "SAME"
+                    if _strided(name):  # TF's "SAME"
                         return _nhwc(F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b,
                                               stride=2))
                     return _nhwc(F.conv2d(x, w, b, padding=pad))
@@ -420,39 +444,35 @@ class FastDDPMForward:
         'chain': :func:`gn_silu_chain`, which rounds to ``dtype`` before
         SiLU too; the quantizer of an int8 conv follows in :meth:`_conv`."""
         gamma, beta = self.norms[norm]
-        c = h.shape[-1]
-        groups = DDPM_GN_GROUPS if self.ddpm else num_groups(c)
-        gn = dict(num_groups=groups, eps=self.gn_eps, silu=silu)
-        if shift is not None:
-            gn["shift"] = shift
+        groups, eps = self.net.groups(h.shape[-1]), self.net.gn_eps
         lq = self.q.get(site)
-        if lq is None:  # a float site
-            with span("ddpm.gn_chain", device_time=True):
-                if not self.fused:
-                    return gn_silu_chain(h, gamma, beta, groups, self.dtype,
-                                         self.gn_eps, silu)
-                with span("ddpm.k3"):
-                    return self._gn8(h.contiguous(), gamma, beta,
-                                     out_dtype=self.dtype, **gn)
-        if not self.fused:
-            return gn_silu_chain(h, gamma, beta, groups, self.dtype,
-                                 self.gn_eps, silu)
-        a = lq.scales(st.row, st.zero)[0]
-        with span("ddpm.k3"):
-            return _PreQuant(self._gn8(h.contiguous(), gamma, beta,
-                                       quant_scale=a, **gn))
+        with (span("ddpm.gn_chain", device_time=True) if lq is None
+              else contextlib.nullcontext()):  # a float site
+            if not self.fused:
+                return gn_silu_chain(h, gamma, beta, groups, self.dtype, eps,
+                                     silu)
+            gn = dict(num_groups=groups, eps=eps, silu=silu)
+            if shift is not None:
+                gn["shift"] = shift
+            if lq is None:
+                gn["out_dtype"] = self.dtype
+            else:
+                gn["quant_scale"] = lq.scales(st.row, st.zero)[0]
+            with span("ddpm.k3"):
+                y = self._gn8(h.contiguous(), gamma, beta, **gn)
+            return y if lq is None else _PreQuant(y)
 
-    def _block(self, st: _Step, name: str, x: torch.Tensor,
-               temb: str = "time_fc", skip: str = "skip") -> torch.Tensor:
+    def _block(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
         """A residual block: GroupNorm, SiLU, conv1, plus the time
-        projection ``temb``, GroupNorm, SiLU, conv2, plus ``x`` or its 1x1
-        ``skip`` conv.  The projection ``(B, C)`` in ``dtype``: 'chain'
-        adds it to conv1's output in ``dtype`` (a broadcast add), 'fused'
-        hands it to norm2's K3, which adds it in float32 as it reads that
-        output; where conv1 is a float conv, its bias rides that shift too
-        (``t + bias`` in float32) instead of cuDNN's own broadcast add."""
+        projection (``Network.temb``), GroupNorm, SiLU, conv2, plus ``x`` or
+        its 1x1 shortcut conv (``Network.skip``).  The projection ``(B, C)``
+        in ``dtype``: 'chain' adds it to conv1's output in ``dtype`` (a
+        broadcast add), 'fused' hands it to norm2's K3, which adds it in
+        float32 as it reads that output; where conv1 is a float conv, its
+        bias rides that shift too (``t + bias`` in float32) instead of
+        cuDNN's own broadcast add."""
         h = self._act(st, f"{name}/conv1", f"{name}/norm1", x)
-        w, b = self.dense[f"{name}/{temb}"]
+        w, b = self.dense[f"{name}/{self.net.temb}"]
         t = F.linear(st.t_emb, w, b)
         conv1 = f"{name}/conv1"
         if self.fused:
@@ -466,8 +486,9 @@ class FastDDPMForward:
             h = self._act(st, f"{name}/conv2", f"{name}/norm2",
                           h + t[:, None, None, :])
         h = self._conv(st, f"{name}/conv2", h)
-        if f"{name}/{skip}" in self.q or f"{name}/{skip}" in self.convs:
-            x = self._conv(st, f"{name}/{skip}", x)
+        skip = f"{name}/{self.net.skip}"
+        if skip in self.q or skip in self.convs:
+            x = self._conv(st, skip, x)
         return h + x
 
     def _attn(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -500,12 +521,9 @@ class FastDDPMForward:
         """The time MLP's output for ``(B,)`` timesteps, in ``dtype`` (the
         DDPM UNet's after the swish that every block applies)."""
         emb = timestep_embedding(t.to(self.device), self.emb_dim)
-        names = (("temb/dense/0", "temb/dense/1") if self.ddpm
-                 else ("time_emb/Dense_0", "time_emb/Dense_1"))
-        w0, b0 = self.dense[names[0]]
-        w1, b1 = self.dense[names[1]]
+        (w0, b0), (w1, b1) = (self.dense[n] for n in self.net.time_mlp)
         out = F.linear(F.silu(F.linear(emb.to(self.dtype), w0, b0)), w1, b1)
-        return F.silu(out) if self.ddpm else out
+        return F.silu(out) if self.net.time_swish else out
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor, t: torch.Tensor,
@@ -520,8 +538,7 @@ class FastDDPMForward:
             self.timesteps, t[:1].to(torch.int64))
         st = _Step(row, zero, self.time_embedding(t), stats,
                    stat_fn or _absmax)
-        h = self._ddpm(st, x) if self.ddpm else self._notebook(st, x)
-        return h.float()
+        return self.net.walk(self, st, x).float()
 
     def _notebook(self, st: _Step, x: torch.Tensor) -> torch.Tensor:
         h = self._conv(st, "init_conv", x)
@@ -545,9 +562,6 @@ class FastDDPMForward:
         last = len(CH_MULT) - 1
         res = x.shape[1]
 
-        def block(name, h):
-            return self._block(st, name, h, "temb_proj", "nin_shortcut")
-
         def level(i):
             return span("ddpm.level", device_time=True, res=res >> i)
 
@@ -558,27 +572,46 @@ class FastDDPMForward:
                           self._conv(st, f"down/{i - 1}/downsample/conv",
                                      hs[-1]))
                 for j in range(NUM_RES_BLOCKS):
-                    h = block(f"down/{i}/block/{j}", hs[-1])
+                    h = self._block(st, f"down/{i}/block/{j}", hs[-1])
                     if f"down/{i}/attn/{j}/norm" in self.norms:
                         h = self._attn(st, f"down/{i}/attn/{j}", h)
                     hs.append(h)
         with level(last):
-            h = block("mid/block_1", hs[-1])
+            h = self._block(st, "mid/block_1", hs[-1])
             h = self._attn(st, "mid/attn_1", h)
-            h = block("mid/block_2", h)
+            h = self._block(st, "mid/block_2", h)
         for i in reversed(range(last + 1)):
             with level(i):
                 if i != last:
                     h = self._upsample(st, f"up/{i + 1}/upsample/conv", h)
                 for j in range(NUM_RES_BLOCKS + 1):
-                    h = block(f"up/{i}/block/{j}",
-                              torch.cat([h, hs.pop()], dim=-1))
+                    h = self._block(st, f"up/{i}/block/{j}",
+                                    torch.cat([h, hs.pop()], dim=-1))
                     if f"up/{i}/attn/{j}/norm" in self.norms:
                         h = self._attn(st, f"up/{i}/attn/{j}", h)
                 if i == 0:
                     h = self._act(st, "conv_out", "norm_out", h)
                     h = self._conv(st, "conv_out", h)
         return h
+
+
+NOTEBOOK = Network(
+    time_mlp=("time_emb/Dense_0", "time_emb/Dense_1"), time_swish=False,
+    temb="time_fc", skip="skip", first_conv="init_conv", gn_eps=GN_EPS,
+    groups=num_groups, upconvs=UPCONVS, deep=lambda site: site in DEEP_SITES,
+    walk=FastDDPMForward._notebook)
+DDPM = Network(
+    time_mlp=("temb/dense/0", "temb/dense/1"), time_swish=True,
+    temb="temb_proj", skip="nin_shortcut", first_conv="conv_in",
+    gn_eps=DDPM_GN_EPS, groups=lambda c: DDPM_GN_GROUPS, upconvs=(),
+    deep=lambda site: _ddpm_level(site) > 0, walk=FastDDPMForward._ddpm)
+
+
+def network(params: Dict) -> Network:
+    """The network of a flax-layout tree: :data:`DDPM`, the DDPM UNet's
+    (``models/ddpm_unet.py``), or :data:`NOTEBOOK`, the notebook
+    FastDDPMUNet's (``models/diffusion.py``)."""
+    return DDPM if "conv_in" in params else NOTEBOOK
 
 
 def int8_forward(qtree: Dict, **kwargs) -> FastDDPMForward:

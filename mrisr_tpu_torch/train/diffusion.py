@@ -7,6 +7,10 @@
   fixed linspace validation draws, ancestral sampling.
 - 'fastddpm_simple' (M10): ``SimpleDiffusionUNet``, the compressed-T
   ``FastNoiseSchedule``, ``[x, cond]`` input order, DDIM sampling.
+- 'fastddpm_pmub' (the port's own): ``DDPMUNet``, Fast-DDPM's published
+  network, trained as the 'fastddpm' lineage is.
+
+The module is the registry's build of the config's model name.
 
 AdamW with a global-norm clip of 1.0 (``train/state.py``).  The model
 computes in the config's compute dtype; the timesteps, the noise and
@@ -56,8 +60,7 @@ class DiffusionTrainer(_SingleStateTrainer):
         self._init_loop(config, device, mesh)
         mcfg = config.model
         self.simple = mcfg.name == "fastddpm_simple"
-        module, _ = init_model("fastddpm_simple" if self.simple
-                               else "fastddpm", mcfg, seed=config.train.seed,
+        module, _ = init_model(mcfg.name, mcfg, seed=config.train.seed,
                                dtype=compute_dtype(config))
         self.state = self._replicate(create_train_state(
             module.to(self.device), config.train,

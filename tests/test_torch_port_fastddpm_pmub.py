@@ -4,7 +4,9 @@ registered ``fastddpm_pmub``) against its plain reference
 the port), on the benchmark's seeded weights, on the CPU at ch 32 and 64^2
 (all six levels and the attention level), and its int8_deep serving path:
 ``FastDDPMForward`` over its tree with kernel A's and K3's plain versions,
-the bundle, and the benchmark's site counts."""
+the bundle, and the benchmark's site counts.  For both Fast-DDPM networks:
+the ``Network`` description that the forward, the quantizer and the
+exporter read, and the trainer building each diffusion preset's network."""
 
 import collections
 import dataclasses
@@ -19,16 +21,25 @@ from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
 from mrisr_tpu_torch.config import PRESETS
 from mrisr_tpu_torch.models import ddpm_unet
 from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet, attention
-from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+from mrisr_tpu_torch.models.diffusion import (
+    DiffusionSchedule,
+    FastDDPMUNet,
+    SimpleDiffusionUNet,
+)
 from mrisr_tpu_torch.models.registry import TRAINABLE, init_model
 from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu_plain
 from mrisr_tpu_torch.serve.quant_diffusion import (
+    DDPM,
+    DEEP_SITES,
+    NOTEBOOK,
     FastDDPMForward,
     calibrate_fastddpm,
     deep_sites,
     int8_forward,
+    network,
     quantize_fastddpm,
 )
+from mrisr_tpu_torch.train import DiffusionTrainer
 from mrisr_tpu_torch.utils.profiling import RECORDER
 from portbench.families.fastddpm_pmub import _rule
 from portbench.reference import counts, counts_pmub
@@ -395,3 +406,97 @@ def test_int8_bundle_serves_with_the_downsamples_float(tmp_path):
     with engine_from_bundle(path, batch_size=2, device="cpu") as eng:
         y = eng.predict(cond[0])
     assert y.shape == (32, 32, 1) and np.isfinite(y).all()
+
+
+def _tree_layers(tree, path=()):
+    """A flax-layout tree's layers (a dict that holds a ``kernel`` or a
+    GroupNorm's ``scale``) as ('/'-joined name, leaves)."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            if "kernel" in v or "scale" in v:
+                yield "/".join(path + (k,)), v
+            else:
+                yield from _tree_layers(v, path + (k,))
+
+
+# network -> (its description, its input's H = W, int8_deep's site count,
+# the stride-2 convs that int8 leaves float)
+NETWORKS = {
+    "notebook": (NOTEBOOK, 16, 16, set()),
+    "ddpm": (DDPM, 32, 99, {f"down/{i}/downsample/conv" for i in range(5)}),
+}
+
+
+@pytest.mark.parametrize("net", sorted(NETWORKS))
+def test_network_description(net):
+    """``network`` names each tree's network (the notebook FastDDPMUNet at
+    base 8, the DDPM UNet at ch 32) and every layer its description names
+    is in the tree; its GroupNorm eps and groups are the model's; the
+    forward that reads it is the model's in float32 (1e-5); ``deep_sites``
+    gives the notebook's :data:`DEEP_SITES` and the DDPM UNet's 99;
+    ``quantize_fastddpm(only=None)`` leaves exactly the DDPM UNet's five
+    downsamples float; the exporter's ``time_dim`` and ``base_features``
+    are the widths the model was built with."""
+    desc, hw, n_deep, strided = NETWORKS[net]
+    torch.manual_seed(31)
+    if net == "notebook":
+        model, base, tdim = FastDDPMUNet(base_features=8, time_dim=16), 8, 16
+    else:
+        model, base, tdim = DDPMUNet(base_features=CH), CH, 4 * CH
+    params = fastddpm_flax_params(model.eval())
+    assert network(params) is desc
+    layers = dict(_tree_layers(params))
+    names = set(layers)
+    assert {*desc.time_mlp, desc.first_conv, *desc.upconvs} <= names
+    leaves = collections.Counter(n.rpartition("/")[2] for n in names)
+    assert leaves[desc.temb] == leaves["conv2"] and leaves[desc.skip] > 0
+    norms = [m for m in model.modules() if isinstance(m, torch.nn.GroupNorm)]
+    assert norms and all(
+        (m.eps, m.num_groups) == (desc.gn_eps, desc.groups(m.num_channels))
+        for m in norms)
+    g = torch.Generator().manual_seed(32)
+    x, t = torch.randn((BATCH, hw, hw, 3), generator=g), torch.tensor([9, 700])
+    fwd = FastDDPMForward(params, dtype=torch.float32, device="cpu")
+    assert fwd.net is desc
+    with torch.no_grad():
+        assert _rel(fwd(x, t), model(x, t)) < 1e-5
+    deep = deep_sites(params)
+    assert len(deep) == n_deep
+    if net == "notebook":
+        assert set(deep) == set(DEEP_SITES)
+    convs = {n for n, p in layers.items()
+             if "kernel" in p and p["kernel"].dim() == 4}
+    calib = {n: np.ones(2, np.float32) for n in convs}
+    q = quantize_fastddpm({"params": params}, calib)
+    assert convs - set(q["int8"]) == strided
+    assert (desc.time_dim(params), desc.base_features(params)) == (tdim, base)
+
+
+@pytest.mark.parametrize("preset,cls,count", [
+    ("fastddpm", FastDDPMUNet, 3_588_353),
+    ("fastddpm_simple", SimpleDiffusionUNet, 676_865),
+    ("fastddpm_pmub", DDPMUNet, ddpm_unet.num_parameters(CH)),
+])
+def test_trainer_builds_the_presets_network(preset, cls, count):
+    """``DiffusionTrainer`` trains the network its preset names, at base
+    32: ``fastddpm_pmub`` the DDPM UNet (it built the notebook net once),
+    the other two the modules they always had (class, parameter count and
+    state-dict keys); one train step runs and moves the weights."""
+    cfg = PRESETS[preset]
+    tdim = 4 * CH if preset == "fastddpm_pmub" else cfg.model.time_dim
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, base_features=CH, time_dim=tdim))
+    tr = DiffusionTrainer(cfg, device="cpu")
+    module = tr.state.module
+    assert type(module) is cls
+    assert sum(p.numel() for p in module.parameters()) == count
+    kwargs = {} if cls is SimpleDiffusionUNet else {"time_dim": tdim}
+    assert list(module.state_dict()) == list(
+        cls(base_features=CH, **kwargs).state_dict())
+    before = [p.detach().clone() for p in module.parameters()]
+    batch = torch.rand((2, 32, 32, 3), generator=torch.Generator()
+                       .manual_seed(33))
+    metrics = tr._train(batch, tr._generator(0, True, 0))
+    assert np.isfinite(float(metrics["loss"]))
+    assert any(not torch.equal(a, b)
+               for a, b in zip(before, module.parameters()))

@@ -126,9 +126,11 @@ def test_no_broadcast_add_on_the_fused_path(trees, net):
         assert adds.count == want, gn_impl
 
 
-def _parent_block(self, st, name, x, temb="time_fc", skip="skip"):
+def _parent_block(self, st, name, x):
     """``FastDDPMForward._block`` as it was before the shift: the
-    projection added to conv1's output in ``dtype``, then norm2."""
+    projection added to conv1's output in ``dtype``, then norm2 (the
+    leaf names from the tree's ``Network``)."""
+    temb, skip = self.net.temb, self.net.skip
     h = self._act(st, f"{name}/conv1", f"{name}/norm1", x)
     h = self._conv(st, f"{name}/conv1", h)
     w, b = self.dense[f"{name}/{temb}"]
