@@ -79,8 +79,9 @@
    sampler.  The samples must be finite (256, 256, 1), within rel-RMSE 0.35
    of the bf16 float sampler and equal (rel-L2 0) to the same tables
    through the plain versions, on the batches the engine formed (same
-   noise: every call seeds its generator with 0), K3, A and B must have
-   been launched 150, 140 and 20 times a batch, 70 of the K3 launches with
+   noise: every call seeds its generator with 0), K3, A, B and the
+   quantizer must have been launched 150, 140, 20 and 60 times a batch,
+   70 of the K3 launches with
    a shift (a ResBlock's norm2), A and B all on the tensor cores.  Then the steady-state slices/s beside the __dp4a design's
    (quoted from PERF.md, not measured here), the engine's fetch/assemble
    split, one sampler call's time on the card and a profiled call for
@@ -282,8 +283,9 @@
    on one batch of 2 over the 10-step sampler and quantized int8_deep.
    One denoiser call at batch 32, 256^2, with the launch counts set to 0
    just before it: 71 K3 (32 of them with a shift: the ResBlocks' norm2),
-   99 A and no B launches, K3 seen at 71 sites, the answer finite and the
-   same bits on a second call, then the call timed.
+   99 A, no B and 27 quantizer launches, K3 seen at 71 sites and the
+   quantizer at 27, the answer finite and the same bits on a second call,
+   then the call timed.
    K3 at batch 32 at each distinct (size, channels, group, SiLU or not,
    int8 or bf16) of those 71 sites, the 256^2 x 256 sites and the six
    attention norms without SiLU among them, against its plain version:
@@ -292,7 +294,11 @@
    rounding step (phase 6's tolerance); each shape's plan and time.  At
    the shapes of the shifted sites, K3 with a shift too: int8 codes equal
    to the plain version's, bf16 within that tolerance, and its time beside
-   the same shape's without a shift.
+   the same shape's without a shift.  The quantizer at batch 32 at each
+   distinct (size, channels) of its inputs in that call and in the
+   notebook net's int8_deep call, from bf16 and float32: the plain
+   version's codes bit for bit (saturating both ends), the same codes
+   twice, its time against its byte bound and the plain version's time.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
 their launches by path) and the card's name and power limit before the
@@ -368,7 +374,7 @@ GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
 # serving batch; one int8_deep call launches K3 at all 71 GroupNorms and
 # kernel A at the 99 stride-1 convs below the 256^2 level
 DDPM_CH, DDPM_BATCH = 128, 32
-DDPM_K3, DDPM_A = 71, 99
+DDPM_K3, DDPM_A, DDPM_QUANT = 71, 99, 27
 DDPM_SHIFTED, NOTEBOOK_SHIFTED = 32, 7  # K3 launches with a shift a call
 SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
 # fp32 operations per element of K3: 3 for the sums, 2 for the affine,
@@ -598,10 +604,23 @@ def path_counts(sites, path_of):
     return counts
 
 
+def reset_counts(conv, up):
+    """Set the launch counts of kernels A (``conv``) and B (``up``), every
+    path's, and the quantizer's to 0."""
+    from mrisr_tpu_torch.ops.conv_int8 import reset_launches
+    from mrisr_tpu_torch.ops.quantize import quantize_int8
+
+    reset_launches(conv, up)
+    quantize_int8.launches = 0
+
+
 def launch_counts(conv, up):
-    """Launches of kernels A (``conv``) and B (``up``) since their counts
-    were last reset: all, and by path (``"conv_int8/tc"``, ...)."""
-    out = {}
+    """Launches of kernels A (``conv``) and B (``up``) since
+    ``reset_counts``: all, and by path (``"conv_int8/tc"``, ...); and the
+    quantizer's."""
+    from mrisr_tpu_torch.ops.quantize import quantize_int8
+
+    out = {"quantize_int8": quantize_int8.launches}
     for name, fn in (("conv_int8", conv), ("upconv_int8", up)):
         out[name] = fn.launches
         for p in ("tc", "dp4a"):
@@ -658,7 +677,7 @@ def slice_phase(dev, card: str):
     from mrisr_tpu_torch import fp32_reference
     from mrisr_tpu_torch.ckpt import fold_unet_batchnorm
     from mrisr_tpu_torch.ops.conv_int8 import (
-        conv2d_int8, conv_path, reset_launches)
+        conv2d_int8, conv_path)
     from mrisr_tpu_torch.ops.upconv import upconv2x2_int8, upconv_path
     from mrisr_tpu_torch.serve import (
         Int8FusedUNet, calibrate_unet, engine_from_bundle, quantize_unet,
@@ -684,7 +703,7 @@ def slice_phase(dev, card: str):
             eng.predict(requests[0])  # warm-up: allocator, pinned buffers
             eng.reset_stats()
             # --- the main path: counts from 0, two client threads
-            reset_launches(conv2d_int8, upconv2x2_int8)
+            reset_counts(conv2d_int8, upconv2x2_int8)
             futures = [[], []]
 
             def client(k):
@@ -839,7 +858,7 @@ def eval_phase(dev, qparams, card: str):
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.eval.runner import evaluate_pair_model_test_set
-    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8, reset_launches
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
     from mrisr_tpu_torch.ops.ssim import ssim
     from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
     from mrisr_tpu_torch.ops.stats import minmax_normalize
@@ -882,7 +901,7 @@ def eval_phase(dev, qparams, card: str):
 
         # --- the main path: counts from 0, the user's entry points
         ssim_fused.launches = 0
-        reset_launches(conv2d_int8, upconv2x2_int8)
+        reset_counts(conv2d_int8, upconv2x2_int8)
         walls = {}
         with fp32_reference():
             t0 = time.perf_counter()
@@ -989,6 +1008,16 @@ def diffusion_conv_sites():
         if ci != co:
             sites.append((f"{blk}/skip", h, ci, co, 1))
     return sites
+
+
+def diffusion_quant_sites(f: int = FEATURES, hw: int = HW):
+    """(name, H, C) of the 6 quantizer launches of one int8_deep forward of
+    the notebook net at base ``f`` on ``hw``^2 maps: the int8 convs' inputs
+    that K3 does not emit (the skips read their block's input; the
+    upconvs)."""
+    return [("enc2/skip", hw // 2, 2 * f), ("enc3/skip", hw // 4, 4 * f),
+            ("upconv3", hw // 8, 8 * f), ("dec3/skip", hw // 4, 12 * f),
+            ("upconv2", hw // 4, 4 * f), ("dec2/skip", hw // 2, 6 * f)]
 
 
 def diffusion_upconv_sites():
@@ -1331,7 +1360,7 @@ def diffusion_phase(dev, card: str):
     from mrisr_tpu_torch.data.pipeline import build_loader
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.ops.conv_int8 import (
-        conv2d_int8, conv_path, reset_launches)
+        conv2d_int8, conv_path)
     from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
     from mrisr_tpu_torch.ops.upconv import upconv2x2_int8, upconv_path
     from mrisr_tpu_torch.serve import (
@@ -1389,7 +1418,7 @@ def diffusion_phase(dev, card: str):
 
             eng._apply = capture
             groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
-            reset_launches(conv2d_int8, upconv2x2_int8)
+            reset_counts(conv2d_int8, upconv2x2_int8)
             futures = [[], []]
 
             def client(k):
@@ -1421,7 +1450,9 @@ def diffusion_phase(dev, card: str):
         per_batch = {"groupnorm_silu": 150,
                      "groupnorm_silu/shift": 10 * NOTEBOOK_SHIFTED,
                      "conv_int8": 140,
-                     "upconv_int8": 20}  # 10 steps x (15, 7, 14, 2)
+                     "upconv_int8": 20,
+                     "quantize_int8": 10 * len(diffusion_quant_sites())
+                     }  # 10 steps x (15, 7, 14, 2, 6)
         for name, n in per_batch.items():
             if launches[name] != n * main_stats.batches:
                 raise AssertionError(
@@ -1676,7 +1707,7 @@ def train_phase(dev, card: str, keep=None, step_ref=None):
     from mrisr_tpu_torch.data.volumes import VolumeStore
     from mrisr_tpu_torch.losses.perceptual import make_perceptual_fn
     from mrisr_tpu_torch.ops.conv_int8 import (
-        conv2d_int8, conv_path, reset_launches)
+        conv2d_int8, conv_path)
     from mrisr_tpu_torch.ops.ssim import ssim
     from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
     from mrisr_tpu_torch.ops.stats import minmax_normalize
@@ -1902,7 +1933,7 @@ def train_phase(dev, card: str, keep=None, step_ref=None):
         with engine_from_bundle(bundle, batch_size=BATCH, device=dev) as eng:
             eng.predict(requests[0])
             eng.reset_stats()
-            reset_launches(conv2d_int8, upconv2x2_int8)
+            reset_counts(conv2d_int8, upconv2x2_int8)
             served = np.stack([f.result(timeout=600) for f in
                                [eng.submit(r) for r in requests]])
             launches.update(launch_counts(conv2d_int8, upconv2x2_int8))
@@ -2088,13 +2119,13 @@ def profile_step(fn):
 def count_launches(fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before it;
     returns (fn's result, the counts just after)."""
-    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8, reset_launches
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
     from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
     from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
     from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
 
     ssim_fused.launches = groupnorm_silu.launches = 0
-    reset_launches(conv2d_int8, upconv2x2_int8)
+    reset_counts(conv2d_int8, upconv2x2_int8)
     result = fn()
     return result, {"ssim": ssim_fused.launches,
                     "groupnorm_silu": groupnorm_silu.launches,
@@ -5117,7 +5148,7 @@ def ddpm_phase(dev, card: str):
     from mrisr_tpu_torch.device import sm_count
     from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
     from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
-    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8, reset_launches
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
     from mrisr_tpu_torch.ops.groupnorm import (
         groupnorm_silu, groupnorm_silu_plain, plan)
     from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
@@ -5135,7 +5166,7 @@ def ddpm_phase(dev, card: str):
     calib = calibrate_fastddpm({"params": params}, sched, [cond])
     q = quantize_fastddpm({"params": params}, calib, only=deep_sites(params))
     fwd = int8_forward(q, device=dev)
-    sites, gn8 = [], fwd._gn8
+    sites, gn8, quant_sites, q8 = [], fwd._gn8, [], fwd._q8
 
     def record(x, gamma, beta, **kw):
         # (H, C, groups, silu, int8, eps, shifted)
@@ -5144,10 +5175,14 @@ def ddpm_phase(dev, card: str):
                       kw.get("shift") is not None))
         return gn8(x, gamma, beta, **kw)
 
-    fwd._gn8 = record
+    def record_quant(x, a):  # (H, C) of the quantizer's input
+        quant_sites.append((x.shape[1], x.shape[3]))
+        return q8(x, a)
+
+    fwd._gn8, fwd._q8 = record, record_quant
     x = torch.randn((DDPM_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((DDPM_BATCH,), int(sched.timesteps[-1]), device=dev)
-    reset_launches(conv2d_int8, upconv2x2_int8)
+    reset_counts(conv2d_int8, upconv2x2_int8)
     groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
     got = fwd(x, t)
     torch.cuda.synchronize()
@@ -5155,24 +5190,26 @@ def ddpm_phase(dev, card: str):
                 "groupnorm_silu/shift": groupnorm_silu.launches_shift,
                 **launch_counts(conv2d_int8, upconv2x2_int8)}
     counted = (launches["groupnorm_silu"], launches["groupnorm_silu/shift"],
-               launches["conv_int8"], launches["upconv_int8"], len(sites))
-    want = (DDPM_K3, DDPM_SHIFTED, DDPM_A, 0, DDPM_K3)
+               launches["conv_int8"], launches["upconv_int8"], len(sites),
+               launches["quantize_int8"], len(quant_sites))
+    want = (DDPM_K3, DDPM_SHIFTED, DDPM_A, 0, DDPM_K3, DDPM_QUANT, DDPM_QUANT)
     if counted != want:
         raise AssertionError(f"DDPM int8_deep call: K3 launches, with a "
-                             f"shift, A, B launches and K3 sites {counted}, "
-                             f"want {want}")
+                             f"shift, A, B launches, K3 sites, quantizer "
+                             f"launches and sites {counted}, want {want}")
     if tuple(got.shape) != (DDPM_BATCH, HW, HW, 1) or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"DDPM int8_deep call: {tuple(got.shape)}, "
                              "or not finite")
-    fwd._gn8 = gn8
+    fwd._gn8, fwd._q8 = gn8, q8
     if not torch.equal(fwd(x, t), got):
         raise AssertionError("DDPM int8_deep call: two calls differ")
     call_ms = cuda_ms(lambda: fwd(x, t), reps=3, warmup=1)
     del got, x, fwd
     print(f"DDPM int8_deep call, batch {DDPM_BATCH}: {counted[0]} K3 "
-          f"({counted[1]} with a shift) and {counted[2]} A launches, the "
-          f"same bits twice, {call_ms:.2f} ms ({card})")
+          f"({counted[1]} with a shift), {counted[2]} A and {counted[5]} "
+          f"quantizer launches, the same bits twice, {call_ms:.2f} ms "
+          f"({card})")
 
     sms, rows = sm_count(dev), []
     for (h, c, groups, silu, int8, eps, shifted), n in sorted(
@@ -5252,14 +5289,74 @@ def ddpm_phase(dev, card: str):
           f"{k3_ms:.3f} ms a call at batch {DDPM_BATCH}, its "
           f"{sum(r['sites'] for r in shifted)} shifted sites {shift_ms[0]:.3f} "
           f"ms ({shift_ms[1]:.3f} without the shift) ({card})")
+    quant_rows = quant_check(dev, g, Counter(quant_sites), card)
     return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
-                      "shifted_ms": shift_ms,
+                      "shifted_ms": shift_ms, "quant_sites": quant_rows,
                       "wall_s": time.perf_counter() - t_phase}
+
+
+def quant_check(dev, g, ddpm_sites, card: str):
+    """The quantizer at batch 32 at each distinct (H, C) of its inputs in
+    one int8_deep call of the DDPM UNet (``ddpm_sites``: Counter of (H, C))
+    and of the notebook net (:func:`diffusion_quant_sites`), from bf16
+    (what the forwards quantize) and float32, at a scale at which both ends
+    of x saturate: the plain version's codes bit for bit, the same codes on a
+    second launch, its ms against the byte bound (2 or 4 B read and 1 B
+    written an element) and the plain version's ms.  Returns the rows."""
+    from collections import Counter
+
+    from mrisr_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
+
+    notebook = Counter((h, c) for _, h, c in diffusion_quant_sites())
+    rows = []
+    for h, c in sorted(set(ddpm_sites) | set(notebook)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (3 * torch.randn((DDPM_BATCH, h, h, c), generator=g,
+                                 device=dev)).to(dtype)
+            # 127 a lies below both the largest and the smallest x
+            a = (torch.minimum(x.amax(), -x.amin()).float() / 130.0
+                 ).reshape(1)
+            got = quantize_int8(x, a)
+            want = quantize_int8_plain(x, a)
+            what = f"quantizer {h}^2 x {c} {dtype}"
+            check_exact(got, want, quantize_int8(x, a), what)
+            if not (bool((want == 127).any()) and bool((want == -127).any())):
+                raise AssertionError(f"{what}: no code saturates")
+            del got, want
+            nbytes = x.numel() * (x.element_size() + 1)
+            bound, t_ops, t_bytes = bound_ms(0, nbytes)
+            row = {"kernel": "quantize_int8", "site": f"{h}^2 C {c}",
+                   "H": h, "C": c, "dtype": str(dtype).split(".")[-1],
+                   "batch": DDPM_BATCH, "notebook_sites": notebook[(h, c)],
+                   "ddpm_sites": ddpm_sites[(h, c)], "bytes": nbytes,
+                   "max_abs_err": 0.0,
+                   "ms": cuda_ms(lambda: quantize_int8(x, a), reps=10),
+                   "plain_ms": cuda_ms(lambda: quantize_int8_plain(x, a),
+                                       reps=10),
+                   "library_ms": None, "bound_ms": bound, "ops_ms": t_ops,
+                   "bytes_ms": t_bytes}
+            row["pct_of_bound"] = 100.0 * bound / row["ms"]
+            rows.append(row)
+            del x
+            print(f"quantizer {row['site']:12s} {row['dtype']:8s} x"
+                  f"{row['notebook_sites']} notebook x{row['ddpm_sites']:2d} "
+                  f"DDPM: equal to plain, {row['ms']:.4f} ms, bound "
+                  f"{bound:.4f} ({row['pct_of_bound']:.1f} %), plain "
+                  f"{row['plain_ms']:.3f} ms")
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
+    print("quantizer a batch-32 int8_deep call, bf16: " + ", ".join(
+        f"{net} {sum(r['ms'] * r[key] for r in bf16):.3f} ms (bound "
+        f"{sum(r['bound_ms'] * r[key] for r in bf16):.3f}, plain "
+        f"{sum(r['plain_ms'] * r[key] for r in bf16):.3f})"
+        for net, key in (("notebook", "notebook_sites"),
+                         ("DDPM", "ddpm_sites"))) + f" ({card})")
+    return rows
 
 
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
-# requantizing epilogue (_requant_epilogue at :204) on the TPU.
+# requantizing epilogue (_requant_epilogue at :204) on the TPU; nor does
+# the quantizer: XLA fused _quant_input (:236) into the conv reading it.
 SOURCES = {
     "conv_int8": ("mrisr_tpu_torch/csrc/conv_int8.cu",
                   "mrisr_tpu/serve/quant.py:66"),
@@ -5269,6 +5366,8 @@ SOURCES = {
              "mrisr_tpu/ops/ssim_pallas.py:91"),
     "groupnorm_silu": ("mrisr_tpu_torch/csrc/groupnorm_silu.cu",
                        "mrisr_tpu/ops/groupnorm_pallas.py:205"),
+    "quantize_int8": ("mrisr_tpu_torch/csrc/quantize_int8.cu",
+                      "mrisr_tpu/serve/quant.py:236"),
 }
 
 
@@ -5337,15 +5436,29 @@ def main() -> int:
     ddpm_launches, ddpm_result = ddpm_phase(dev, card)
 
     kernels = []
-    for name in ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu"):
+    quant_rows = ddpm_result["quant_sites"]
+    phases = {"serve": serve_launches, "eval": eval_launches,
+              "diffusion": diff_launches, "train": train_launches,
+              "families": family_launches, "bf16": bf16_launches,
+              "distill": distill_launches, "ingest": ingest_launches,
+              "parallel": parallel_launches, "model_axis": tp_launches,
+              "names": names_launches, "remat": remat_launches,
+              "ddpm": ddpm_launches}
+    for name in SOURCES:
         # A and B: all sites of one batch-8 UNet forward, summed; K1: one
         # call at N = 174, the eval's 3 mm test split; K3: the 10 sites of
-        # one batch-8 int8_deep Fast-DDPM forward, summed
+        # one batch-8 int8_deep Fast-DDPM forward, summed; the quantizer:
+        # the 6 bf16 sites of one batch-32 int8_deep notebook-net forward,
+        # summed, checked at both nets' shapes
         sel = ([r for r in rows if r["kernel"] == name] if name in
                ("conv_int8", "upconv_int8") else
                [r for r in ssim_rows if r["N"] == 174] if name == "ssim" else
+               [r for r in quant_rows if r["dtype"] == "bfloat16"
+                for _ in range(r["notebook_sites"])]
+               if name == "quantize_int8" else
                [r for r in k3_rows if r["kernel"] == name])
-        checked = sel + [r for r in k3_rows if r["kernel"] == name]
+        checked = sel + [r for r in k3_rows + quant_rows
+                         if r["kernel"] == name]
         ops_ms = sum(r["ops_ms"] for r in sel)
         bytes_ms = sum(r["bytes_ms"] for r in sel)
         libs = [r["library_ms"] for r in sel]
@@ -5355,11 +5468,7 @@ def main() -> int:
             # distillation, ingest, parallel, model-axis, names, remat and
             # DDPM paths' runs, each counted from 0 just before it (phase
             # 13's and 14's ranks count their own)
-            return sum(launches.get(key, 0) for launches in (
-                serve_launches, eval_launches, diff_launches,
-                train_launches, family_launches, bf16_launches,
-                distill_launches, ingest_launches, parallel_launches,
-                tp_launches, names_launches, remat_launches, ddpm_launches))
+            return sum(launches.get(key, 0) for launches in phases.values())
 
         entry = {
             "name": name, "route": "cuda", "source": SOURCES[name][0],
@@ -5372,6 +5481,8 @@ def main() -> int:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
             "library_ms": None if None in libs else sum(libs),
             "launches_model_axis": tp_launches.get(name, 0),
+            "launches_by_phase": {k: v.get(name, 0)
+                                  for k, v in phases.items()},
         }
         if name in ("conv_int8", "upconv_int8"):
             entry["launches_by_path"] = {p: main_path(f"{name}/{p}")

@@ -24,7 +24,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-KERNELS = ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu")
+KERNELS = ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu",
+           "quantize_int8")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of the launchers (each returns cudaGetLastError()) and of
 # their int-valued helpers
 SIGNATURES = {
@@ -44,6 +46,7 @@ SIGNATURES = {
     "ssim_blocks_per_sm": [_I],
     "groupnorm_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "quantize_int8_launch": [_P, _I, _P, _P, _L, _I, _P],
 }
 
 

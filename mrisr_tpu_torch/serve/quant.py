@@ -18,7 +18,7 @@ bundles that carry them) move between the two packages:
   at the bottleneck and at each decoder block's second conv, the upconvs
   and the final 1x1 conv in bf16, and 'dual' skip emission.
 - ``unet_int8_apply``: the plain int8 forward.  Each 3x3 conv quantizes
-  its input with ``quant_input`` and runs kernel A with the float epilogue
+  its input with ``quantize_int8`` and runs kernel A with the float epilogue
   and ReLU; its output is cast to bf16, and max-pool, the upconvs and the
   final 1x1 conv run in bf16.
 """
@@ -40,6 +40,7 @@ from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8_plain,
     pack_conv,
 )
+from mrisr_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
 from mrisr_tpu_torch.ops.upconv import (
     pack_upconv,
     upconv2x2_int8,
@@ -208,11 +209,6 @@ def max_pool_int8(x: torch.Tensor) -> torch.Tensor:
     return x.view(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
 
 
-def quant_input(x: torch.Tensor, a_scale: torch.Tensor) -> torch.Tensor:
-    return torch.clamp(torch.round(x.float() / a_scale), -127,
-                       127).to(torch.int8)
-
-
 def _float_upconv(ent: Dict, dtype: torch.dtype, device):
     """An upconv's float ``kernel``/``bias`` (the reference's bf16 copies)
     as a ConvTranspose2d weight ``(I, O, 2, 2)`` and bias in ``dtype``."""
@@ -302,6 +298,7 @@ class Int8FusedUNet:
         self.dtype = dtype
         self._conv = conv2d_int8_plain if plain else conv2d_int8
         self._upconv = upconv2x2_int8_plain if plain else upconv2x2_int8
+        self._quant = quantize_int8_plain if plain else quantize_int8
         a = {f"{blk}/{cn}": _f32(qparams[blk][cn]["a_scale"])
              for blk in BLOCKS for cn in CONVS}
         shared = skip_emit == "shared"
@@ -368,7 +365,7 @@ class Int8FusedUNet:
                         device) -> None:
         """The pre-r3 fallback's bottleneck and decoder: the bottleneck's
         Conv_1 through the float epilogue, each decoder block a float
-        upconv, ``quant_input`` at its Conv_0 scale, the int8 concat, a
+        upconv, ``quantize_int8`` at its Conv_0 scale, the int8 concat, a
         requantizing Conv_0 and a float Conv_1."""
         self.mid = (c0, _float_site(qparams["bottleneck"]["Conv_1"], device))
         self.dec = []
@@ -395,7 +392,7 @@ class Int8FusedUNet:
 
     def _encode(self, x: torch.Tensor):
         """The int8 encoder: (the bottleneck's input codes, the skips)."""
-        xi = quant_input(x, self.a_in)
+        xi = self._quant(x.contiguous(), self.a_in)
         skips = []
         for c0, c1 in self.enc:
             xi = self._run(xi, c0)
@@ -427,8 +424,8 @@ class Int8FusedUNet:
         xi, skips = self._encode(x)
         xf = self._run(self._run(xi, self.mid[0]), self.mid[1]).to(self.dtype)
         for (up, a0, c0, c1), skip in zip(self.dec, reversed(skips)):
-            xi = torch.cat([quant_input(upconv_float(xf, up), a0), skip],
-                           dim=-1)
+            xi = torch.cat([self._quant(upconv_float(xf, up).contiguous(),
+                                        a0), skip], dim=-1)
             xf = self._run(self._run(xi, c0), c1).to(self.dtype)
         return final_float(xf, self.final)
 
@@ -448,13 +445,14 @@ class Int8UNet:
     """``unet_int8_apply`` with its tables packed once for a device: the
     plain int8 forward, each 3x3 conv's float output cast to ``dtype``
     (bf16 by default) between the convs.  ``plain=True`` runs kernel A's
-    plain version even on the card."""
+    and the quantizer's plain versions even on the card."""
 
     def __init__(self, qparams: Dict, dtype: torch.dtype = torch.bfloat16,
                  device: DeviceLike = None, plain: bool = False):
         device = resolve_device(device)
         self.dtype = dtype
         self._conv = conv2d_int8_plain if plain else conv2d_int8
+        self._quant = quantize_int8_plain if plain else quantize_int8
         self.blocks = {
             name: [(_f32(qparams[name][cn]["a_scale"]).to(device),
                     _float_site(qparams[name][cn], device)) for cn in CONVS]
@@ -465,14 +463,14 @@ class Int8UNet:
 
     def _block(self, name: str, h: torch.Tensor) -> torch.Tensor:
         for a, site in self.blocks[name]:
-            h = self._conv(quant_input(h, a), site.w, site.s, site.b,
+            h = self._conv(self._quant(h, a), site.w, site.s, site.b,
                            relu=True, out_float=True).to(self.dtype)
         return h
 
     @torch.no_grad()
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, H, W, 2) float NHWC -> (B, H, W, 1) float32."""
-        h, skips = x, []
+        h, skips = x.contiguous(), []
         for name in BLOCKS_DOWN:
             h = self._block(name, h)
             skips.append(h)

@@ -65,6 +65,7 @@ from mrisr_tpu_torch.ops.conv_int8 import (
     pack_conv,
 )
 from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_plain
+from mrisr_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
 from mrisr_tpu_torch.ops.upconv import (
     pack_upconv,
     upconv2x2_int8,
@@ -73,7 +74,6 @@ from mrisr_tpu_torch.ops.upconv import (
 from mrisr_tpu_torch.serve.quant import (
     _abs_percentile,
     _quantize_conv,
-    quant_input,
 )
 from mrisr_tpu_torch.utils.profiling import span
 
@@ -308,7 +308,8 @@ class FastDDPMForward:
     GroupNorm + SiLU that feeds a float conv (a float site), whatever
     implements it, with its device time; host-only, ``ddpm.k3`` around
     each K3 call (inside the ``ddpm.gn_chain`` at a float site),
-    ``ddpm.conv_int8`` (kernel A) and
+    ``ddpm.quant`` around each quantizer call (the codes of an int8 conv's
+    input that K3 does not emit), ``ddpm.conv_int8`` (kernel A) and
     ``ddpm.conv_float`` (cuDNN) around each conv, ``ddpm.upconv`` around
     each upconv.  The DDPM UNet adds ``ddpm.attn`` around each attention
     block and ``ddpm.level`` (id ``res``, the maps' height) around the
@@ -330,6 +331,7 @@ class FastDDPMForward:
         self._conv8 = conv2d_int8_plain if plain else conv2d_int8
         self._up8 = upconv2x2_int8_plain if plain else upconv2x2_int8
         self._gn8 = groupnorm_silu_plain if plain else groupnorm_silu
+        self._q8 = quantize_int8_plain if plain else quantize_int8
         self.net = net = network(params)
         sites = sites or {}
         per_step = any(lq["a_scale"].dim() for lq in sites.values())
@@ -414,11 +416,16 @@ class FastDDPMForward:
                                               stride=2))
                     return _nhwc(F.conv2d(x, w, b, padding=pad))
             a, s = lq.scales(st.row, st.zero)
-            q = quant_input(h, a)
+            q = self._quant(h, a)
         with span("ddpm.conv_int8"):
             y = self._conv8(q.contiguous(), lq.w, s, lq.b, relu=False,
                             out_float=True)
             return y.to(self.dtype)
+
+    def _quant(self, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+        """The int8 codes of an int8 conv's input that no K3 emitted."""
+        with span("ddpm.quant"):
+            return self._q8(h, a)
 
     def _upconv(self, st: _Step, name: str, h: torch.Tensor) -> torch.Tensor:
         self._record(st, name, h)
@@ -429,7 +436,7 @@ class FastDDPMForward:
                 return _nhwc(F.conv_transpose2d(_nchw(h.to(self.dtype)), w,
                                                 b, stride=2))
             a, s = lq.scales(st.row, st.zero)
-            y = self._up8(quant_input(h, a).contiguous(), lq.w, s, lq.b,
+            y = self._up8(self._quant(h, a).contiguous(), lq.w, s, lq.b,
                           out_float=True)
             return y.to(self.dtype)
 
@@ -513,7 +520,7 @@ class FastDDPMForward:
         lq = self.q.get(name)
         if lq is None:
             return self._conv(st, name, _up2(h))
-        return self._conv(st, name, _PreQuant(_up2(quant_input(
+        return self._conv(st, name, _PreQuant(_up2(self._quant(
             h, lq.scales(st.row, st.zero)[0]))))
 
     @torch.no_grad()

@@ -19,6 +19,7 @@ from mrisr_tpu_torch.ops.groupnorm import (
     groupnorm_silu,
     groupnorm_silu_plain,
 )
+from mrisr_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
 from mrisr_tpu_torch.ops.ssim import ssim
 from mrisr_tpu_torch.ops.ssim_fused import ssim_fused, ssim_fused_plain
 from mrisr_tpu_torch.ops.upconv import (
@@ -27,6 +28,7 @@ from mrisr_tpu_torch.ops.upconv import (
     upconv2x2_int8_plain,
     upconv_path,
 )
+from torch_port_quant_cases import quant_edge_values, quant_sites
 
 pytestmark = pytest.mark.gpu
 
@@ -1056,3 +1058,129 @@ def test_ddpm_unet_int8_deep_call_on_card(cuda):
     assert got.shape == (2, 64, 64, 1) and bool(torch.isfinite(got).all())
     rel = float((got - want).norm() / want.norm())
     assert rel < 0.02, rel
+
+
+# the distinct (H, C) of the quantizer's inputs in both nets' int8_deep
+# call at 256^2 (the notebook net at base 64, the DDPM UNet at ch 128)
+QUANT_SHAPES = sorted({s[1:] for net, ch in (("notebook", 64), ("ddpm", 128))
+                       for s in quant_sites(net, ch, 256)})
+
+
+@pytest.mark.parametrize("h,c", QUANT_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_quantize_kernel_matches_plain_at_site_shapes(cuda, h, c, dtype):
+    """The quantizer kernel at every input shape of both nets' int8_deep
+    call, batch 32, from bf16 (what the forward quantizes) and float32,
+    at a scale that saturates the top of |x|: the plain version's codes,
+    twice, one launch each."""
+    g = torch.Generator(device=cuda).manual_seed(1000 * h + c)
+    x = (3 * torch.randn((32, h, h, c), generator=g, device=cuda)).to(dtype)
+    a = (x.float().abs().amax() / 150.0).reshape(1)
+    before = quantize_int8.launches
+    got = quantize_int8(x, a)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches == before + 1
+    want = quantize_int8_plain(x, a)
+    assert bool((want == 127).any()) and bool((want == -127).any())
+    assert torch.equal(got, want)
+    assert torch.equal(quantize_int8(x, a), got)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_quantize_kernel_edges_tails_and_unaligned_bases(cuda, dtype, offset):
+    """Ties, near-ties, the saturation edges, +-inf and NaN
+    (:func:`quant_edge_values`) at three scales, a per-step scale row
+    taken by ``index_select``; lengths 1 to 17 and others that are not a
+    multiple of 8 or 16 (the scalar tail), from a base ``offset`` elements
+    past 16-byte alignment (1, 3: the scalar path throughout): the plain
+    version's codes."""
+    g = torch.Generator().manual_seed(offset)
+    table = torch.tensor([0.5, 0.1, 0.25, 0.0371], device=cuda)
+    for row in (1, 2, 3):
+        a = table.index_select(0, torch.tensor([row], device=cuda))
+        vals = quant_edge_values(float(a), dtype)
+        rand = (60 * float(a) * torch.randn(5000, generator=g)).to(dtype)
+        buf = torch.cat([vals, torch.tensor([float("nan")], dtype=dtype),
+                         rand]).to(cuda)
+        for n in (1, 7, 9, 15, 17, 1023, buf.numel() - offset):
+            x = buf[offset:offset + n]
+            assert (x.data_ptr() % 16 != 0) == (offset != 0)
+            assert torch.equal(quantize_int8(x, a), quantize_int8_plain(x, a))
+
+
+def kernels_in_spans(prof, name, path):
+    """The names of the kernels that start inside each device-side range
+    of the record_function ``name`` (the trace's ``gpu_user_annotation``,
+    which runs from the first to the last kernel launched inside the
+    range), read from the profiler's trace written to ``path``."""
+    import json
+
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return [[k["name"] for k in kernels
+             if s["ts"] - 1e-3 <= k["ts"] < s["ts"] + s["dur"]]
+            for s in events if s.get("cat") == "gpu_user_annotation"
+            and s.get("name") == name]
+
+
+@pytest.mark.parametrize("net", ["notebook", "ddpm"])
+def test_quantizer_in_an_int8_deep_sampler_call(cuda, net, tmp_path):
+    """One int8_deep sampler call (10 steps) of each net through the
+    kernels: the quantizer launches 6 (notebook net) or 27 (DDPM UNet)
+    times a step, 60 or 270 a call, and the call has the same bits with
+    the quantizer's plain version in its place.  Under a profiler each of a
+    denoiser call's ``ddpm.quant`` spans holds the quantizer kernel and no
+    other kernel (no copy, divide, round or clamp)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
+    from mrisr_tpu_torch.models.diffusion import (
+        DiffusionSchedule,
+        FastDDPMUNet,
+        sample_ancestral,
+    )
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm,
+        deep_sites,
+        int8_forward,
+        quantize_fastddpm,
+    )
+
+    torch.manual_seed(0)
+    model, hw, per_step = ((FastDDPMUNet(base_features=16, time_dim=32), 32,
+                            6) if net == "notebook" else
+                           (DDPMUNet(base_features=128), 64, 27))
+    params = fastddpm_flax_params(model.to(cuda))
+    sched = DiffusionSchedule.create(1000, 10, "linear", "nonuniform-4060")
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((2, hw, hw, 2), generator=g).to(cuda)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond])
+    q = quantize_fastddpm({"params": params}, calib,
+                          only=deep_sites(params))
+    fwd, ref = (int8_forward(q, device=cuda) for _ in range(2))
+    ref._q8 = quantize_int8_plain
+    before = quantize_int8.launches
+    got = sample_ancestral(fwd, cond, torch.Generator(cuda).manual_seed(2),
+                           sched)
+    torch.cuda.synchronize()
+    assert quantize_int8.launches - before == 10 * per_step
+    want = sample_ancestral(ref, cond, torch.Generator(cuda).manual_seed(2),
+                            sched)
+    assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
+
+    x = torch.randn((2, hw, hw, 3), generator=g).to(cuda)
+    t = torch.full((2,), int(sched.timesteps[0]), device=cuda)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fwd(x, t)
+        torch.cuda.synchronize()
+    spans = [e for e in prof.events() if e.name == "ddpm.quant"
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    assert len(spans) == per_step
+    kernels = kernels_in_spans(prof, "ddpm.quant", tmp_path / "trace.json")
+    assert len(kernels) == per_step
+    assert all(len(k) == 1 and "quantize_kernel" in k[0] for k in kernels), (
+        kernels)

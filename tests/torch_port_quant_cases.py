@@ -1,0 +1,54 @@
+"""The quantizer's test cases, shared by its CPU tests
+(``test_torch_port_quantize.py``) and its card tests
+(``test_torch_port_cuda.py``): the quantizer sites of both Fast-DDPM
+networks' int8_deep forward, and inputs at its rounding and saturation
+edges.  Imports neither jax nor mrisr_tpu, as the card tests must not."""
+
+import torch
+
+from mrisr_tpu_torch.models.ddpm_unet import CH_MULT, attn_levels, level_plan
+
+
+def quant_sites(net, ch, hw):
+    """(name, H, C) of each quantizer call in one int8_deep denoiser call
+    of the notebook net (base ``ch``) or the DDPM UNet (``ch``) on
+    ``hw``^2 maps: every int8 conv input that K3 does not emit (a skip or
+    nin_shortcut reads its block's input, an upconv, an upsample's conv,
+    whose codes are taken before the nearest-2x repeat, an attention
+    block's proj_out).  6 sites a notebook call, 27 a DDPM UNet call."""
+    if net == "notebook":
+        return [("enc2/skip", hw // 2, 2 * ch), ("enc3/skip", hw // 4, 4 * ch),
+                ("upconv3", hw // 8, 8 * ch), ("dec3/skip", hw // 4, 12 * ch),
+                ("upconv2", hw // 4, 4 * ch), ("dec2/skip", hw // 2, 6 * ch)]
+    plan, sites = level_plan(ch), []
+    for part in ("down", "up"):
+        for i, j, ci, co in plan[part]:
+            if i > 0 and ci != co:
+                sites.append((f"{part}/{i}/block/{j}/nin_shortcut", hw >> i,
+                              ci))
+            if i in attn_levels():
+                sites.append((f"{part}/{i}/attn/{j}/proj_out", hw >> i, co))
+    last = len(CH_MULT) - 1
+    sites.append(("mid/attn_1/proj_out", hw >> last, plan["mid"]))
+    sites += [(f"up/{i}/upsample/conv", hw >> i, ch * CH_MULT[i])
+              for i in range(2, last + 1)]
+    return sites
+
+
+def quant_edge_values(a, dtype):
+    """Inputs whose int8 codes at scale ``a`` test the quantizer's rounding,
+    in ``dtype`` on the CPU: x / a at every integer and tie k + 0.5 from
+    -131 to 130.5, their neighbours one unit in the last place either side
+    (near-ties, where a multiply by 1 / a in place of the division moves
+    codes), the +-127 saturation edges, +-inf and +-0."""
+    k = torch.arange(-131, 131, dtype=torch.float64)
+    grid = torch.cat([k, k + 0.5]) * a
+    x = grid[grid != 0].to(dtype)
+    bits = x.view(torch.int16 if dtype == torch.bfloat16 else torch.int32)
+    edges = torch.tensor([126.5, 127.0, 127.49, 127.5, 128.0, 1e6],
+                         dtype=torch.float64) * a
+    return torch.cat([x, (bits + 1).view(dtype), (bits - 1).view(dtype),
+                      edges.to(dtype), (-edges).to(dtype),
+                      torch.tensor([float("inf"), float("-inf"), 0.0, -0.0],
+                                   dtype=dtype)])
+

@@ -21,7 +21,8 @@ presets' networks at full width, the registry's seeded init, 256^2): one
 ``int8_deep`` sampler call of each (the preset's schedule, batch 32,
 'fused', calibrated on 4 of the conds), run twice: the digests of its
 output and of the calibration tables, and the launches of kernels A, B and
-K3 (and K3's shifted launches) in one call.
+K3 (and K3's shifted launches) and of the quantizer kernel (where DIR's
+package has it) in one call.
 
 Prints one JSON line; two checkouts compute the same when their lines are
 equal.
@@ -130,6 +131,8 @@ def cpu_digests() -> dict:
 
 
 def card_digests() -> dict:
+    import importlib.util
+
     import torch
 
     from mrisr_tpu_torch import _build
@@ -157,6 +160,10 @@ def card_digests() -> dict:
                 "groupnorm_silu.launches": (groupnorm_silu, "launches"),
                 "groupnorm_silu.launches_shift": (groupnorm_silu,
                                                   "launches_shift")}
+    if importlib.util.find_spec("mrisr_tpu_torch.ops.quantize"):
+        from mrisr_tpu_torch.ops.quantize import quantize_int8
+
+        counters["quantize_int8.launches"] = (quantize_int8, "launches")
     out = {"card": torch.cuda.get_device_name(0)}
     for name in ("fastddpm", "fastddpm_pmub"):
         mcfg = PRESETS[name].model
