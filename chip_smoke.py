@@ -299,6 +299,22 @@
    notebook net's int8_deep call, from bf16 and float32: the plain
    version's codes bit for bit (saturating both ends), the same codes
    twice, its time against its byte bound and the plain version's time.
+   Then ADM's UNet (``models/adm_unet.py``) at the fastddpm_adm preset's
+   widths (ch 256, 32 groups of 8 to 64 channels, eps 1e-5), seeded,
+   calibrated and quantized as the DDPM UNet is: one denoiser call at
+   batch 2 with the counts set to 0 just before it: 101 K3 (42 of them in
+   the scale-shift mode: the ResBlocks' out_layers norms; none with a
+   shift), 121 A, no B and 38 quantizer launches, the 16 attention cores
+   on torch's fused path, both channels out and finite, the same bits on a
+   second call, and within 2 % (rel L2) of the same tables through the
+   kernels' plain versions.  K3 at batch 32 at each of that call's
+   distinct shapes that the DDPM UNet lacks (the scale-shift norms, with
+   their (32, 2 C) rows, and the groups of 48 and 64 channels at 1536 and
+   2048): int8 codes equal to the plain version's, bf16 within one
+   rounding step, the same bits twice, one launch counted (in
+   ``launches_scale_shift`` too where it scale-shifts), and its time
+   against its bound (the rows' 8 n C bytes counted).  The quantizer
+   check above covers ADM's (size, channels) too.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
 their launches by path) and the card's name and power limit before the
@@ -376,6 +392,13 @@ GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
 DDPM_CH, DDPM_BATCH = 128, 32
 DDPM_K3, DDPM_A, DDPM_QUANT = 71, 99, 27
 DDPM_SHIFTED, NOTEBOOK_SHIFTED = 32, 7  # K3 launches with a shift a call
+# ADM's UNet (the fastddpm_adm preset): one int8_deep call's launches of
+# K3 (all 101 GroupNorms; the 42 out_layers norms scale-shift), A, the
+# quantizer and the fused attention core; its answer against the plain
+# versions' (rel L2)
+ADM_CH = 256
+ADM_K3, ADM_SCALE_SHIFT, ADM_A, ADM_QUANT, ADM_ATTN = 101, 42, 121, 38, 16
+ADM_PLAIN_REL = 0.02
 SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
 # fp32 operations per element of K3: 3 for the sums, 2 for the affine,
 # 5 for SiLU (exp counted as one), 3 for the quantizer
@@ -606,11 +629,15 @@ def path_counts(sites, path_of):
 
 def reset_counts(conv, up):
     """Set the launch counts of kernels A (``conv``) and B (``up``), every
-    path's, and the quantizer's to 0."""
+    path's, K3's (all, with a shift, with a scale-shift) and the
+    quantizer's to 0."""
     from mrisr_tpu_torch.ops.conv_int8 import reset_launches
+    from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
     from mrisr_tpu_torch.ops.quantize import quantize_int8
 
     reset_launches(conv, up)
+    groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
+    groupnorm_silu.launches_scale_shift = 0
     quantize_int8.launches = 0
 
 
@@ -1417,7 +1444,6 @@ def diffusion_phase(dev, card: str):
                 return y
 
             eng._apply = capture
-            groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
             reset_counts(conv2d_int8, upconv2x2_int8)
             futures = [[], []]
 
@@ -2124,7 +2150,7 @@ def count_launches(fn):
     from mrisr_tpu_torch.ops.ssim_fused import ssim_fused
     from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
 
-    ssim_fused.launches = groupnorm_silu.launches = 0
+    ssim_fused.launches = 0
     reset_counts(conv2d_int8, upconv2x2_int8)
     result = fn()
     return result, {"ssim": ssim_fused.launches,
@@ -5183,20 +5209,20 @@ def ddpm_phase(dev, card: str):
     x = torch.randn((DDPM_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((DDPM_BATCH,), int(sched.timesteps[-1]), device=dev)
     reset_counts(conv2d_int8, upconv2x2_int8)
-    groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
     got = fwd(x, t)
     torch.cuda.synchronize()
-    launches = {"groupnorm_silu": groupnorm_silu.launches,
-                "groupnorm_silu/shift": groupnorm_silu.launches_shift,
-                **launch_counts(conv2d_int8, upconv2x2_int8)}
+    launches = k3_counts(conv2d_int8, upconv2x2_int8)
     counted = (launches["groupnorm_silu"], launches["groupnorm_silu/shift"],
-               launches["conv_int8"], launches["upconv_int8"], len(sites),
+               launches["groupnorm_silu/scale_shift"], launches["conv_int8"],
+               launches["upconv_int8"], len(sites),
                launches["quantize_int8"], len(quant_sites))
-    want = (DDPM_K3, DDPM_SHIFTED, DDPM_A, 0, DDPM_K3, DDPM_QUANT, DDPM_QUANT)
+    want = (DDPM_K3, DDPM_SHIFTED, 0, DDPM_A, 0, DDPM_K3, DDPM_QUANT,
+            DDPM_QUANT)
     if counted != want:
         raise AssertionError(f"DDPM int8_deep call: K3 launches, with a "
-                             f"shift, A, B launches, K3 sites, quantizer "
-                             f"launches and sites {counted}, want {want}")
+                             f"shift, with a scale-shift, A, B launches, K3 "
+                             f"sites, quantizer launches and sites "
+                             f"{counted}, want {want}")
     if tuple(got.shape) != (DDPM_BATCH, HW, HW, 1) or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"DDPM int8_deep call: {tuple(got.shape)}, "
@@ -5289,16 +5315,207 @@ def ddpm_phase(dev, card: str):
           f"{k3_ms:.3f} ms a call at batch {DDPM_BATCH}, its "
           f"{sum(r['sites'] for r in shifted)} shifted sites {shift_ms[0]:.3f} "
           f"ms ({shift_ms[1]:.3f} without the shift) ({card})")
-    quant_rows = quant_check(dev, g, Counter(quant_sites), card)
+    del model, params, calib, q
+    adm = adm_check(dev, g, sms, card)
+    quant_rows = quant_check(dev, g, Counter(quant_sites), card,
+                             adm.pop("quant_sites"))
     return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
                       "shifted_ms": shift_ms, "quant_sites": quant_rows,
-                      "wall_s": time.perf_counter() - t_phase}
+                      "adm": adm, "wall_s": time.perf_counter() - t_phase}
 
 
-def quant_check(dev, g, ddpm_sites, card: str):
+def k3_counts(conv, up):
+    """:func:`launch_counts` with K3's: all, with a shift, with a
+    scale-shift."""
+    from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
+
+    return {"groupnorm_silu": groupnorm_silu.launches,
+            "groupnorm_silu/shift": groupnorm_silu.launches_shift,
+            "groupnorm_silu/scale_shift": groupnorm_silu.launches_scale_shift,
+            **launch_counts(conv, up)}
+
+
+def adm_check(dev, g, sms, card: str):
+    """ADM's UNet (``models/adm_unet.py``, the fastddpm_adm preset's ch 256,
+    256^2), seeded, calibrated on one batch of 2 over the 10-step sampler
+    and quantized int8_deep: one denoiser call at batch 2, counted from 0
+    (ADM_K3 K3 launches, ADM_SCALE_SHIFT of them scale-shift, ADM_A A, no
+    B, ADM_QUANT quantizer launches, ADM_ATTN attention cores on the fused
+    path), the same bits on a second call and within ADM_PLAIN_REL of the
+    same tables through the kernels' plain versions.  Then K3 at batch 32
+    at each distinct shape of that call that the DDPM UNet does not have:
+    the scale-shift norms (their ``(32, 2 C)`` rows) and the groups over
+    32 channels (1536 in groups of 48, 2048 in 64): int8 codes equal to
+    the plain version's, bf16 within one rounding step, the same bits
+    twice, one launch counted a call, its time against its bound (the
+    rows' 8 n C bytes counted).  Returns the call's launches, the K3 rows
+    and the quantizer's (H, C) sites (a Counter) for :func:`quant_check`."""
+    from collections import Counter
+
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.adm_unet import ADMUNet, qkv_attention
+    from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+    from mrisr_tpu_torch.ops.conv_int8 import conv2d_int8
+    from mrisr_tpu_torch.ops.groupnorm import (
+        groupnorm_silu, groupnorm_silu_plain, plan)
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm, deep_sites, int8_forward, quantize_fastddpm)
+
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]), \
+            torch.device(dev):
+        torch.manual_seed(23)
+        params = fastddpm_flax_params(ADMUNet(base_features=ADM_CH))
+    sched = DiffusionSchedule.create(1000, 10, "linear", "nonuniform-4060")
+    cond = torch.randn((CHECK_BATCH, HW, HW, 2), generator=g, device=dev)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond])
+    q = quantize_fastddpm({"params": params}, calib, only=deep_sites(params))
+    del params, calib
+    fwd = int8_forward(q, device=dev)
+    sites, gn8, quant_sites, q8 = [], fwd._gn8, Counter(), fwd._q8
+
+    def record(x, gamma, beta, **kw):
+        # (H, C, groups, silu, int8, eps, scale-shift)
+        sites.append((x.shape[1], x.shape[3], kw["num_groups"], kw["silu"],
+                      kw.get("quant_scale") is not None, kw["eps"],
+                      kw.get("scale_shift") is not None))
+        return gn8(x, gamma, beta, **kw)
+
+    def record_quant(x, a):
+        quant_sites[(x.shape[1], x.shape[3])] += 1
+        return q8(x, a)
+
+    fwd._gn8, fwd._q8 = record, record_quant
+    x = torch.randn((CHECK_BATCH, HW, HW, 3), generator=g, device=dev)
+    t = torch.full((CHECK_BATCH,), int(sched.timesteps[-1]), device=dev)
+    reset_counts(conv2d_int8, upconv2x2_int8)
+    attn = (qkv_attention.calls_fused, qkv_attention.calls_float)
+    got = fwd(x, t)
+    torch.cuda.synchronize()
+    launches = k3_counts(conv2d_int8, upconv2x2_int8)
+    counted = (launches["groupnorm_silu"], launches["groupnorm_silu/shift"],
+               launches["groupnorm_silu/scale_shift"], launches["conv_int8"],
+               launches["upconv_int8"], len(sites),
+               launches["quantize_int8"], sum(quant_sites.values()),
+               qkv_attention.calls_fused - attn[0],
+               qkv_attention.calls_float - attn[1])
+    want = (ADM_K3, 0, ADM_SCALE_SHIFT, ADM_A, 0, ADM_K3, ADM_QUANT,
+            ADM_QUANT, ADM_ATTN, 0)
+    if counted != want:
+        raise AssertionError(f"ADM int8_deep call: K3 launches, with a "
+                             f"shift, with a scale-shift, A, B launches, K3 "
+                             f"sites, quantizer launches and sites, fused "
+                             f"and float attention cores {counted}, want "
+                             f"{want}")
+    fwd._gn8, fwd._q8 = gn8, q8
+    if tuple(got.shape) != (CHECK_BATCH, HW, HW, 2) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"ADM int8_deep call: {tuple(got.shape)}, or "
+                             "not finite")
+    if not torch.equal(fwd(x, t), got):
+        raise AssertionError("ADM int8_deep call: two calls differ")
+    plain = int8_forward(q, device=dev, plain=True)(x, t)
+    rel = float((got - plain).norm() / plain.norm())
+    if rel >= ADM_PLAIN_REL:
+        raise AssertionError(f"ADM int8_deep call: rel L2 {rel:.4g} from the "
+                             "plain versions' call")
+    del fwd, q, got, plain, x
+    call_s = time.perf_counter() - t0
+    print(f"ADM int8_deep call, batch {CHECK_BATCH}: {counted[0]} K3 "
+          f"({counted[2]} scale-shift), {counted[3]} A, {counted[6]} "
+          f"quantizer launches, {counted[8]} fused attention cores, the "
+          f"same bits twice, rel L2 {rel:.4g} from the plain versions' "
+          f"({call_s:.1f} s with calibration; {card})")
+
+    scrub = torch.empty(16 * 2 ** 20, device=dev)
+    rows = []
+    for (h, c, groups, silu, int8, eps, post), n in sorted(
+            Counter(sites).items()):
+        if not post and c // groups <= 32:
+            continue  # the DDPM UNet's shapes: checked above
+        name = (f"{h}^2 C {c} groups of {c // groups} "
+                f"{'int8' if int8 else 'bf16'}"
+                f"{' scale-shift' if post else ''}")
+        gn = dict(num_groups=groups, eps=eps, silu=silu)
+        gamma, beta = 1 + 0.5 * torch.randn(c, generator=g, device=dev), (
+            0.2 * torch.randn(c, generator=g, device=dev))
+        xin = (3 * torch.randn((DDPM_BATCH, h, h, c), generator=g, device=dev)
+               + 0.5).to(torch.bfloat16)
+        if post:  # a ResBlock's (scale, shift) row, as the forward hands it
+            gn["scale_shift"] = (0.5 * torch.randn(
+                (DDPM_BATCH, 2 * c), generator=g, device=dev)).to(
+                    torch.bfloat16)
+        ref = groupnorm_silu_plain(xin, gamma, beta, out_dtype=torch.float32,
+                                   **gn)
+        if int8:
+            gn["quant_scale"] = (ref.abs().amax() / 127).reshape(1)
+            want = groupnorm_silu_plain(xin, gamma, beta, **gn)
+        before = (groupnorm_silu.launches, groupnorm_silu.launches_scale_shift)
+        out = groupnorm_silu(xin, gamma, beta, **gn)
+        torch.cuda.synchronize()
+        moved = (groupnorm_silu.launches - before[0],
+                 groupnorm_silu.launches_scale_shift - before[1])
+        if moved != (1, int(post)):
+            raise AssertionError(f"K3 ADM {name}: launches counted, with a "
+                                 f"scale-shift: {moved}")
+        if int8:
+            check_exact(out, want, groupnorm_silu(xin, gamma, beta, **gn),
+                        f"K3 ADM {name}")
+            del want
+            y16 = groupnorm_silu(xin, gamma, beta,
+                                 **{k: v for k, v in gn.items()
+                                    if k != "quant_scale"})
+        else:
+            y16 = out
+            if not torch.equal(groupnorm_silu(xin, gamma, beta, **gn), out):
+                raise AssertionError(f"K3 ADM {name}: two launches differ")
+        # the bf16 mode at every shape: one bf16 rounding step
+        err = (y16.float() - ref).abs()
+        tol = torch.clamp_min(ref.abs() * 2.0 ** -8, GN_BF16_ATOL)
+        if bool((err > tol).any()):
+            raise AssertionError(f"K3 ADM {name}: bf16 output off by "
+                                 f"{float(err.max())} (worst "
+                                 f"{float((err / tol).max()):.3f} of its "
+                                 "tolerance)")
+        elems = DDPM_BATCH * h * h * c
+        ops = (GN_OPS_PER_ELEM - (0 if int8 else 3)) * elems
+        t_ops = ops / PEAK_FP32_OPS * 1e3
+        nbytes = ((3 if int8 else 4) * elems + 8 * c + 4
+                  + 8 * DDPM_BATCH * c * post)
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        p = plan(DDPM_BATCH, h * h, c, xin.element_size(), sms)
+        ms = cuda_ms(lambda: groupnorm_silu(xin, gamma, beta, **gn), reps=10,
+                     flush=scrub.zero_)
+        row = {"kernel": "groupnorm_silu adm", "site": name, "H": h, "C": c,
+               "group": c // groups, "silu": silu, "int8": int8,
+               "scale_shift": post, "sites": n, "batch": DDPM_BATCH,
+               "max_abs_err": 0.0, "bf16_err": float(err.max()), "ms": ms,
+               "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+               "ops_ms": t_ops, "bytes_ms": t_bytes,
+               "pct_of_bound": 100.0 * max(t_ops, t_bytes) / ms,
+               "form": "one-read" if p.one_read else "two-read",
+               "samples_a_pass": p.spp, "passes": p.passes}
+        rows.append(row)
+        del xin, ref, y16, out, err, tol
+        print(f"K3 ADM {name:44s} x{n:2d}: {row['form']} {p.spp} a pass x "
+              f"{p.passes}, int8 {'equal' if int8 else '-'}, bf16 err "
+              f"{row['bf16_err']:.3g}, {ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f} %)")
+    print(f"K3 ADM: {len(rows)} shapes ({sum(r['sites'] for r in rows)} of "
+          f"{len(sites)} sites) checked at batch {DDPM_BATCH}, "
+          f"{sum(r['ms'] * r['sites'] for r in rows):.3f} ms for their "
+          f"sites, bound {sum(r['bound_ms'] * r['sites'] for r in rows):.3f} "
+          f"ms ({card})")
+    return {"launches": launches, "rel_to_plain": rel, "sites": rows,
+            "quant_sites": quant_sites, "wall_s": time.perf_counter() - t0}
+
+
+def quant_check(dev, g, ddpm_sites, card: str, adm_sites):
     """The quantizer at batch 32 at each distinct (H, C) of its inputs in
-    one int8_deep call of the DDPM UNet (``ddpm_sites``: Counter of (H, C))
-    and of the notebook net (:func:`diffusion_quant_sites`), from bf16
+    one int8_deep call of the DDPM UNet (``ddpm_sites``: Counter of (H, C)),
+    of ADM's UNet (``adm_sites``, the same) and of the notebook net
+    (:func:`diffusion_quant_sites`), from bf16
     (what the forwards quantize) and float32, at a scale at which both ends
     of x saturate: the plain version's codes bit for bit, the same codes on a
     second launch, its ms against the byte bound (2 or 4 B read and 1 B
@@ -5309,7 +5526,7 @@ def quant_check(dev, g, ddpm_sites, card: str):
 
     notebook = Counter((h, c) for _, h, c in diffusion_quant_sites())
     rows = []
-    for h, c in sorted(set(ddpm_sites) | set(notebook)):
+    for h, c in sorted(set(ddpm_sites) | set(adm_sites) | set(notebook)):
         for dtype in (torch.bfloat16, torch.float32):
             x = (3 * torch.randn((DDPM_BATCH, h, h, c), generator=g,
                                  device=dev)).to(dtype)
@@ -5328,7 +5545,8 @@ def quant_check(dev, g, ddpm_sites, card: str):
             row = {"kernel": "quantize_int8", "site": f"{h}^2 C {c}",
                    "H": h, "C": c, "dtype": str(dtype).split(".")[-1],
                    "batch": DDPM_BATCH, "notebook_sites": notebook[(h, c)],
-                   "ddpm_sites": ddpm_sites[(h, c)], "bytes": nbytes,
+                   "ddpm_sites": ddpm_sites[(h, c)],
+                   "adm_sites": adm_sites[(h, c)], "bytes": nbytes,
                    "max_abs_err": 0.0,
                    "ms": cuda_ms(lambda: quantize_int8(x, a), reps=10),
                    "plain_ms": cuda_ms(lambda: quantize_int8_plain(x, a),
@@ -5340,7 +5558,8 @@ def quant_check(dev, g, ddpm_sites, card: str):
             del x
             print(f"quantizer {row['site']:12s} {row['dtype']:8s} x"
                   f"{row['notebook_sites']} notebook x{row['ddpm_sites']:2d} "
-                  f"DDPM: equal to plain, {row['ms']:.4f} ms, bound "
+                  f"DDPM x{row['adm_sites']:2d} ADM: equal to plain, "
+                  f"{row['ms']:.4f} ms, bound "
                   f"{bound:.4f} ({row['pct_of_bound']:.1f} %), plain "
                   f"{row['plain_ms']:.3f} ms")
     bf16 = [r for r in rows if r["dtype"] == "bfloat16"]
@@ -5349,7 +5568,8 @@ def quant_check(dev, g, ddpm_sites, card: str):
         f"{sum(r['bound_ms'] * r[key] for r in bf16):.3f}, plain "
         f"{sum(r['plain_ms'] * r[key] for r in bf16):.3f})"
         for net, key in (("notebook", "notebook_sites"),
-                         ("DDPM", "ddpm_sites"))) + f" ({card})")
+                         ("DDPM", "ddpm_sites"), ("ADM", "adm_sites")))
+          + f" ({card})")
     return rows
 
 
@@ -5443,7 +5663,7 @@ def main() -> int:
               "distill": distill_launches, "ingest": ingest_launches,
               "parallel": parallel_launches, "model_axis": tp_launches,
               "names": names_launches, "remat": remat_launches,
-              "ddpm": ddpm_launches}
+              "ddpm": ddpm_launches, "adm": ddpm_result["adm"]["launches"]}
     for name in SOURCES:
         # A and B: all sites of one batch-8 UNet forward, summed; K1: one
         # call at N = 174, the eval's 3 mm test split; K3: the 10 sites of
@@ -5465,9 +5685,9 @@ def main() -> int:
 
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
-            # distillation, ingest, parallel, model-axis, names, remat and
-            # DDPM paths' runs, each counted from 0 just before it (phase
-            # 13's and 14's ranks count their own)
+            # distillation, ingest, parallel, model-axis, names, remat,
+            # DDPM and ADM paths' runs, each counted from 0 just before it
+            # (phase 13's and 14's ranks count their own)
             return sum(launches.get(key, 0) for launches in phases.values())
 
         entry = {

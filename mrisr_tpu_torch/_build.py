@@ -44,8 +44,8 @@ SIGNATURES = {
                            _I, _I, _P],
     "ssim_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "ssim_blocks_per_sm": [_I],
-    "groupnorm_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "groupnorm_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "quantize_int8_launch": [_P, _I, _P, _P, _L, _I, _P],
 }
 

@@ -262,9 +262,9 @@ def fastddpm_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 
 def fastddpm_flax_params(model) -> Dict:
-    """A port ``FastDDPMUNet`` -> the flax param tree (torch tensors on the
-    model's device, float32): the layout the serving tables, bundles and
-    ``serve/quant_diffusion.py`` read."""
+    """A port ``FastDDPMUNet`` (or ``DDPMUNet``, ``ADMUNet``) -> the flax
+    param tree (torch tensors on the model's device, float32): the layout
+    the serving tables, bundles and ``serve/quant_diffusion.py`` read."""
     sd = {k: v.detach() for k, v in model.state_dict().items()}
     tree: Dict = {}
 
@@ -288,6 +288,8 @@ def fastddpm_flax_params(model) -> Dict:
             put(path + ("kernel",), w.t().contiguous())
         elif path[0].startswith("upconv"):
             put(path + ("kernel",), convt_kernel_hwio(w).contiguous())
+        elif w.ndim == 3:  # ADM's 1x1 Conv1d: a 1x1 conv of the maps
+            put(path + ("kernel",), conv_kernel_hwio(w[..., None]).contiguous())
         else:
             put(path + ("kernel",), conv_kernel_hwio(w).contiguous())
     return tree

@@ -348,4 +348,25 @@ PRESETS = {
             learning_rate=2e-5, optimizer="adamw", grad_clip_norm=1.0, epochs=40,
         ),
     ),
+    # ADM's 256^2 diffusion UNet (Dhariwal & Nichol 2021, arXiv:2105.05233;
+    # github.com/openai/guided-diffusion unet.py: num_channels 256,
+    # channel_mult (1, 1, 2, 2, 4, 4), 2 ResBlocks a level, resblock_updown,
+    # use_scale_shift_norm, attention at 32^2, 16^2 and 8^2 in heads of 64
+    # channels, learn_sigma; 552.8 M params, models/adm_unet.py), sampled as
+    # the fastddpm_pmub preset is: linear beta 1e-4 to 0.02 over 1000 steps,
+    # 10 steps of 'nonuniform-4060'.  The port's own.  Training settings
+    # follow the fastddpm preset's.
+    "fastddpm_adm": _preset(
+        "fastddpm_adm",
+        data=DataConfig(batch_size=4, augment=True),
+        model=ModelConfig(
+            name="fastddpm_adm", in_channels=3, base_features=256,
+            time_dim=1024, num_timesteps=1000, num_inference_steps=10,
+            beta_schedule="linear", timestep_selection="nonuniform-4060",
+        ),
+        loss=LossConfig(kind="diffusion"),
+        train=TrainConfig(
+            learning_rate=2e-5, optimizer="adamw", grad_clip_norm=1.0, epochs=40,
+        ),
+    ),
 }

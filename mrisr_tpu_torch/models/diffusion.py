@@ -60,17 +60,20 @@ def timestep_embedding(t: torch.Tensor, dim: int,
     """Sinusoidal timestep embedding, ``(B,) -> (B, dim)`` float32.
 
     'ddpm':   freq = exp(-log(1e4) i / (half - 1))  (Fixed notebook);
-    'simple': freq = exp(-log(1e4) i / half)        (ModelLoader)."""
+    'simple': freq = exp(-log(1e4) i / half)        (ModelLoader);
+    'adm':    'simple''s frequencies, ``[cos, sin]`` where the other two
+              give ``[sin, cos]`` (guided-diffusion ``nn.py``)."""
     half = dim // 2
     i = torch.arange(half, dtype=torch.float32, device=t.device)
     if variant == "ddpm":
         freqs = torch.exp(-math.log(10000.0) * i / (half - 1))
-    elif variant == "simple":
+    elif variant in ("simple", "adm"):
         freqs = torch.exp(-math.log(10000.0) * i / half)
     else:
         raise ValueError(variant)
     args = t.to(torch.float32)[:, None] * freqs[None, :]
-    emb = torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+    parts = [torch.sin(args), torch.cos(args)]
+    emb = torch.cat(parts[::-1] if variant == "adm" else parts, dim=-1)
     if dim % 2 == 1:
         emb = F.pad(emb, (0, 1))
     return emb
@@ -395,7 +398,9 @@ def sample_ancestral(
     posterior mean uses abar_t where vanilla DDPM uses alpha_t; the
     posterior variance uses beta_t = 1 - alpha_t, clamped at 1e-20.
 
-    eps_fn(x_in (B, H, W, 3), t (B,) int32) -> (B, H, W, 1); cond
+    eps_fn(x_in (B, H, W, 3), t (B,) int32) -> (B, H, W, 1), or more
+    channels of which the first is the noise (ADM's ``learn_sigma``
+    UNet, whose second is its variance: not read); cond
     ``(B, H, W, 2) = [pre, post]`` on the device the chain runs on.
     Returns ``(B, H, W, 1)`` float32.
 
@@ -425,7 +430,7 @@ def sample_ancestral(
             with span("sampler.step", device_time=True, step=k):
                 t_batch = torch.full((b,), t, dtype=torch.int32,
                                      device=device)
-                eps = eps_fn(torch.cat([cond, x], dim=-1), t_batch)
+                eps = eps_fn(torch.cat([cond, x], dim=-1), t_batch)[..., :1]
                 x = c1 * (x - c2 * eps)
                 if k < len(steps) - 1:
                     z = (draw() if chain_noise is None

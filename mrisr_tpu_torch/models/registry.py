@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from mrisr_tpu_torch.config import PRESETS, ModelConfig
+from mrisr_tpu_torch.models.adm_unet import ADMUNet
 from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
 from mrisr_tpu_torch.models.deepcnn import DeepCNN
 from mrisr_tpu_torch.models.diffusion import FastDDPMUNet, SimpleDiffusionUNet
@@ -41,13 +42,15 @@ _TRUNC_STD = 0.87962566103423978
 # name -> input kind: 'pair' (B, H, W, 2) [pre, post] (PatchGAN: the
 # (B, H, W, 3) [pre, post, candidate]), 'window' (B, H, W, 5) [i .. i+4],
 # 'diffusion' (B, H, W, 3) + (B,) t.  'fastddpm_pmub' (the DDPM UNet that
-# Fast-DDPM publishes, models/ddpm_unet.py) is the port's own: the JAX
-# package has no such model
+# Fast-DDPM publishes, models/ddpm_unet.py) and 'fastddpm_adm' (ADM's
+# UNet, models/adm_unet.py) are the port's own: the JAX package has no
+# such models
 TRAINABLE = {"unet": "pair", "unet_combined": "pair",
              "unet_distilled": "pair", "unet_gan": "pair",
              "deepcnn": "pair", "progressive_unet": "window",
              "fastddpm": "diffusion", "fastddpm_simple": "diffusion",
-             "patchgan": "pair", "fastddpm_pmub": "diffusion"}
+             "patchgan": "pair", "fastddpm_pmub": "diffusion",
+             "fastddpm_adm": "diffusion"}
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -105,7 +108,8 @@ def create_model(name: str, cfg: ModelConfig,
     init) computing in ``dtype`` (None: float32), as the JAX registry
     builds it: the GAN generator and the progressive stages bias-free,
     Fast-DDPM's input [pre, post, x_noisy] whatever ``cfg.in_channels``
-    says, the simple lineage's time_dim 256, and ``cfg.remat`` read by the
+    says, the simple lineage's time_dim 256, ADM's two outputs a channel
+    (the noise, then the learned variance), and ``cfg.remat`` read by the
     four UNets only."""
     f = cfg.base_features
     if name in ("unet", "unet_combined", "unet_distilled", "unet_gan"):
@@ -127,6 +131,9 @@ def create_model(name: str, cfg: ModelConfig,
     if name == "fastddpm_pmub":
         return DDPMUNet(base_features=f, time_dim=cfg.time_dim,
                         out_channels=cfg.out_channels, dtype=dtype)
+    if name == "fastddpm_adm":  # learn_sigma: the noise and a variance
+        return ADMUNet(base_features=f, time_dim=cfg.time_dim,
+                       out_channels=2 * cfg.out_channels, dtype=dtype)
     if name == "patchgan":
         return PatchGAN(base_features=f, dtype=dtype)
     raise ValueError(f"Unknown model: {name}. Choose from: "

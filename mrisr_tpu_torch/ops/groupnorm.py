@@ -24,6 +24,14 @@ otherwise write and read the sum once more through device memory.  On
 the card a shift goes with SiLU, and emits int8 codes or x's own dtype
 (what the forward emits there).
 
+``scale_shift`` ``(B, 2 C)``: ADM's ``use_scale_shift_norm``, applied after
+the GroupNorm: ``y (1 + scale[b, c]) + shift[b, c]`` with ``scale, shift
+= scale_shift.chunk(2, dim=1)`` (a ResBlock's time projection, which the
+Fast-DDPM forward hands to its out_layers norm), then SiLU.  The kernel
+folds ``(1 + scale)`` and ``shift`` into each sample's per-channel
+multiply-add, so it costs no pass over x; like a shift it comes with
+SiLU, and emits int8 codes or x's own dtype.
+
 Unlike the TPU kernel there is no eligibility rule: no block has to hold
 a whole image, so every shape whose group size is a multiple of 4 (every
 DiffResBlock site, and the DDPM UNet's 32 groups of 4 to 32 channels)
@@ -63,12 +71,16 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
                          eps: float = 1e-5, quant_scale: Scale = None,
                          out_dtype: torch.dtype = torch.bfloat16,
                          silu: bool = True,
-                         shift: Optional[torch.Tensor] = None
+                         shift: Optional[torch.Tensor] = None,
+                         scale_shift: Optional[torch.Tensor] = None
                          ) -> torch.Tensor:
     """Plain version of K3: the kernel's float32 chain with the group sums
     taken in float64, in plain torch ops.  x ``(B, H, W, C)``; returns int8
     codes with ``quant_scale``, else ``out_dtype``; ``silu=False`` leaves
-    SiLU out; ``shift`` ``(B, C)`` is added to x in float32 first."""
+    SiLU out; ``shift`` ``(B, C)`` is added to x in float32 first;
+    ``scale_shift`` ``(B, 2 C)`` folds ``(1 + scale)`` and ``shift`` into
+    each sample's multiply-add after the statistics, in float32, as the
+    kernel does (``ga (1 + s)``, ``be (1 + s) + shift``, each rounded)."""
     b, h, w, c = x.shape
     gs = c // num_groups
     xf = x.to(torch.float32)
@@ -83,6 +95,10 @@ def groupnorm_silu_plain(x: torch.Tensor, gamma: torch.Tensor,
     inv = 1.0 / torch.sqrt(var + eps)
     ga = gamma.to(torch.float32).reshape(num_groups, gs) * inv[..., None]
     be = beta.to(torch.float32).reshape(num_groups, gs) - mean[..., None] * ga
+    if scale_shift is not None:
+        ss = scale_shift.to(torch.float32).reshape(b, 2, num_groups, gs)
+        k = 1.0 + ss[:, 0]
+        ga, be = ga * k, be * k + ss[:, 1]
     y = xg * ga[:, None] + be[:, None]
     if silu:
         y = y * torch.sigmoid(y)
@@ -151,7 +167,9 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                    quant_scale: Scale = None,
                    out_dtype: torch.dtype = torch.bfloat16,
                    silu: bool = True,
-                   shift: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   shift: Optional[torch.Tensor] = None,
+                   scale_shift: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """Fused GroupNorm + SiLU (+ int8 quantize) on NHWC.
 
     x ``(B, H, W, C)`` float32 or bfloat16; gamma/beta ``(C,)``.  With
@@ -161,9 +179,12 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     or bfloat16).  ``silu=False``: GroupNorm alone.  ``shift`` ``(B, C)``:
     normalize ``x + shift[:, None, None, :]``, the sum in float32 (cast
     once to a float32 copy on x's device; counted in ``launches_shift``
-    too); on the card with SiLU, emitting int8 codes or x's dtype.  On the card the group size must be a
-    multiple of 4, and a grid that cannot be co-resident raises (it never
-    falls back)."""
+    too); on the card with SiLU, emitting int8 codes or x's dtype.
+    ``scale_shift`` ``(B, 2 C)``: ``GN(x) (1 + scale) + shift`` before SiLU
+    (ADM's scale-shift norm; counted in ``launches_scale_shift``), under
+    the same conditions as a shift, and not with one.  On the card the
+    group size must be a multiple of 4, and a grid that cannot be
+    co-resident raises (it never falls back)."""
     if x.dim() != 4 or x.shape[-1] % num_groups:
         raise ValueError(f"groupnorm_silu: x {tuple(x.shape)} does not split "
                          f"into {num_groups} groups")
@@ -171,7 +192,7 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         return groupnorm_silu_plain(x, gamma, beta, num_groups=num_groups,
                                     eps=eps, quant_scale=quant_scale,
                                     out_dtype=out_dtype, silu=silu,
-                                    shift=shift)
+                                    shift=shift, scale_shift=scale_shift)
     if x.device.type != "cuda":
         raise ValueError(f"groupnorm_silu: unsupported device {x.device}")
     b, h, w, c = x.shape
@@ -193,6 +214,15 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
             raise ValueError(f"groupnorm_silu: a shift is ({b}, {c}), 16-byte "
                              "aligned, with SiLU, and the output int8 codes "
                              "or x's dtype")
+    if scale_shift is not None:
+        scale_shift = scale_shift.to(device=x.device,
+                                     dtype=torch.float32).contiguous()
+        if (tuple(scale_shift.shape) != (b, 2 * c) or not silu
+                or shift is not None or scale_shift.data_ptr() % 16
+                or (quant_scale is None and out_dtype != x.dtype)):
+            raise ValueError(f"groupnorm_silu: a scale_shift is ({b}, "
+                             f"{2 * c}), 16-byte aligned, with SiLU and no "
+                             "shift, and the output int8 codes or x's dtype")
     if quant_scale is None:
         if out_dtype not in _OUT_MODE:
             raise ValueError(f"groupnorm_silu: out_dtype {out_dtype} is not "
@@ -216,15 +246,19 @@ def groupnorm_silu(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         err = lib.groupnorm_launch(
             x.data_ptr(), int(x.dtype == torch.bfloat16), gamma.data_ptr(),
             beta.data_ptr(), None if scale is None else scale.data_ptr(),
-            None if shift is None else shift.data_ptr(), partial.data_ptr(),
+            None if shift is None else shift.data_ptr(),
+            None if scale_shift is None else scale_shift.data_ptr(),
+            partial.data_ptr(),
             out.data_ptr(), mode, b, h * w, c, group, int(silu), p.spp, p.bs,
             p.px, p.passes, int(p.one_read), p.smem, eps, stream,
         )
     _build.check(err, "groupnorm_silu")
     groupnorm_silu.launches += 1
     groupnorm_silu.launches_shift += int(shift is not None)
+    groupnorm_silu.launches_scale_shift += int(scale_shift is not None)
     return out
 
 
 groupnorm_silu.launches = 0
 groupnorm_silu.launches_shift = 0  # the launches that took a shift
+groupnorm_silu.launches_scale_shift = 0  # those that took a scale_shift

@@ -13,12 +13,17 @@ bundles that carry them move between the packages:
   float ``dtype``; ``quantize_fastddpm(only=deep_sites(params))``
   quantizes the sites at <= 128^2 (``int8_deep``): the notebook net's 16
   (:data:`DEEP_SITES`), the DDPM UNet's 99 (its stride-2 downsamples
-  stay float, with the full-size level).
+  stay float, with the full-size level), ADM's every conv whose input,
+  after any pool or repeat, is at 128^2 or less.
 
-Two networks: the notebook's FastDDPMUNet and the DDPM UNet that Fast-DDPM
+Three networks: the notebook's FastDDPMUNet, the DDPM UNet that Fast-DDPM
 publishes (``models/ddpm_unet.py``: 32 GroupNorm groups, self-attention at
-16^2 and 8^2, stride-2 downsampling convs, nearest-2x upsampling).  One
-forward, :class:`FastDDPMForward`, serves either tree.
+16^2 and 8^2, stride-2 downsampling convs, nearest-2x upsampling) and ADM's
+UNet (``models/adm_unet.py``: the time projection as a scale and shift
+after a ResBlock's second GroupNorm, resampling inside the ResBlocks,
+multi-head attention at 32^2, 16^2 and 8^2, two outputs, of which the
+sampler reads the first).  One forward, :class:`FastDDPMForward`, serves
+each tree.
 
 The forward works on the flax-layout param tree (the bundle's), keeps
 activations NHWC (channels_last for the float convs) and runs every int8
@@ -49,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
+from mrisr_tpu_torch.models import adm_unet
 from mrisr_tpu_torch.models.ddpm_unet import CH_MULT, NUM_RES_BLOCKS
 from mrisr_tpu_torch.models.ddpm_unet import GN_EPS as DDPM_GN_EPS
 from mrisr_tpu_torch.models.ddpm_unet import GN_GROUPS as DDPM_GN_GROUPS
@@ -123,13 +129,18 @@ def _group_sums(v: torch.Tensor, groups: int) -> torch.Tensor:
 
 def gn_silu_chain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                   groups: int, dtype: torch.dtype, eps: float = GN_EPS,
-                  silu: bool = True) -> torch.Tensor:
+                  silu: bool = True,
+                  scale_shift: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
     """``flax.linen.GroupNorm`` then SiLU, on NHWC: float32 statistics with
     the biased variance E[x^2] - E[x]^2 (clamped at 0), the normalized
     value cast to ``dtype``, SiLU in ``dtype`` (``silu=False``: none).  The
-    JAX package's 'xla' path.  A row's statistics, and so its output, do
-    not depend on the rows beside it (:func:`_group_sums`): a data-parallel
-    replica answers as the single engine does."""
+    JAX package's 'xla' path.  ``scale_shift`` ``(B, 2 C)``: ADM's ``y (1 +
+    scale) + shift`` between the cast and SiLU, in ``dtype``, as
+    guided-diffusion applies it to its GroupNorm32's output.  A row's
+    statistics, and so its output, do not depend on the rows beside it
+    (:func:`_group_sums`): a data-parallel replica answers as the single
+    engine does."""
     b, hh, ww, c = h.shape
     xf = h.reshape(b, hh * ww, c).float()
     n = hh * ww * (c // groups)
@@ -140,6 +151,9 @@ def gn_silu_chain(h: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     mul = torch.rsqrt(var + eps)[..., None] * gamma.reshape(groups, -1)
     y = (xf - mean[:, None, :, None]) * mul[:, None] + beta.reshape(groups, -1)
     y = y.to(dtype).reshape(b, hh, ww, c)
+    if scale_shift is not None:
+        scale, shift = scale_shift.to(dtype)[:, None, None, :].chunk(2, -1)
+        y = y * (1 + scale) + shift
     return F.silu(y) if silu else y
 
 
@@ -154,6 +168,12 @@ def _nhwc(h: torch.Tensor) -> torch.Tensor:
 def _max_pool(h: torch.Tensor) -> torch.Tensor:
     n, hh, ww, c = h.shape
     return h.reshape(n, hh // 2, 2, ww // 2, 2, c).amax(dim=(2, 4))
+
+
+def _avg_pool(h: torch.Tensor) -> torch.Tensor:
+    """2x2 average pool of NHWC (``models/adm_unet.py:avg_pool_2x2``), in
+    h's type (a float32 sum)."""
+    return _nhwc(adm_unet.avg_pool_2x2(_nchw(h)))
 
 
 def _absmax(a: torch.Tensor) -> torch.Tensor:
@@ -217,10 +237,11 @@ def _layers(tree: Dict, path: Tuple[str, ...] = ()):
 
 
 def _up2(h: torch.Tensor) -> torch.Tensor:
-    """Nearest 2x upsampling of NHWC (``F.interpolate(scale_factor=2)``)."""
+    """Nearest 2x upsampling of NHWC (``F.interpolate(scale_factor=2)``),
+    contiguous (from a 1x1 map the reshape alone is a view)."""
     b, hh, ww, c = h.shape
     return h[:, :, None, :, None, :].expand(b, hh, 2, ww, 2, c).reshape(
-        b, 2 * hh, 2 * ww, c)
+        b, 2 * hh, 2 * ww, c).contiguous()
 
 
 class Network(NamedTuple):
@@ -229,7 +250,8 @@ class Network(NamedTuple):
     two dense layers and whether a swish follows; a residual block's time
     projection and shortcut leaves; the first conv; GroupNorm's eps and
     groups at ``c`` channels; the ConvTranspose upconvs; whether a stride-1
-    conv site is ``int8_deep``'s (:func:`deep_sites`); the forward's walk."""
+    conv site is ``int8_deep``'s (:func:`deep_sites`); the forward's walk;
+    the time sinusoids' variant (``models/diffusion.py:timestep_embedding``)."""
 
     time_mlp: Tuple[str, str]
     time_swish: bool
@@ -241,6 +263,7 @@ class Network(NamedTuple):
     upconvs: Tuple[str, ...]
     deep: Callable[[str], bool]
     walk: Callable
+    t_embed: str = "ddpm"
 
     def time_dim(self, params: Dict) -> int:
         """The width of the time MLP's output."""
@@ -249,7 +272,8 @@ class Network(NamedTuple):
 
     def base_features(self, params: Dict) -> int:
         """The first conv's output channels."""
-        return int(params[self.first_conv]["kernel"].shape[-1])
+        layer = dict(_layers(params))[self.first_conv]
+        return int(layer["kernel"].shape[-1])
 
 
 def _ddpm_level(site: str) -> int:
@@ -262,6 +286,9 @@ def _ddpm_level(site: str) -> int:
     if parts[0] in ("down", "up"):
         return int(parts[1]) - (parts[2] == "upsample")
     return 0  # conv_in, conv_out
+
+
+_ADM_LEVELS = adm_unet.conv_levels()
 
 
 def _strided(site: str) -> bool:
@@ -277,7 +304,9 @@ def deep_sites(params: Dict) -> Tuple[str, ...]:
     input; the 1x1 attention projections and shortcuts too, and an
     upsample's conv by the size of its own, upsampled, input); the
     full-size level, conv_in, conv_out and the stride-2 downsamples stay
-    float."""
+    float.  ADM: every conv whose input, after a down-ResBlock's pool or an
+    up-ResBlock's repeat, is below the full-size level (the 1x1 ``qkv``,
+    ``proj_out`` and skips too)."""
     deep = network(params).deep
     return tuple(name for name, p in _layers(params)
                  if "kernel" in p and p["kernel"].dim() == 4
@@ -287,12 +316,15 @@ def deep_sites(params: Dict) -> Tuple[str, ...]:
 class FastDDPMForward:
     """The Fast-DDPM denoiser forward of a flax-layout param tree, prepared
     once for ``device``: ``(B, H, W, 3) + (B,) t -> (B, H, W, 1)`` float32.
-    The tree is either network the port serves: the notebook's
-    FastDDPMUNet (``models/diffusion.py``) or the DDPM UNet that Fast-DDPM
-    publishes (``models/ddpm_unet.py``); one set of layers (:meth:`_conv`,
-    :meth:`_act`, :meth:`_block`, :meth:`_record`, the per-step scale rows)
-    runs both, reading the tree's :class:`Network` (:func:`network`), whose
-    walk (:meth:`_notebook` or :meth:`_ddpm`) goes through the network.
+    The tree is a network the port serves: the notebook's FastDDPMUNet
+    (``models/diffusion.py``), the DDPM UNet that Fast-DDPM publishes
+    (``models/ddpm_unet.py``) or ADM's UNet (``models/adm_unet.py``);
+    one set of layers (:meth:`_conv`, :meth:`_act`, :meth:`_block`,
+    :meth:`_record`, the per-step scale rows) runs them, reading the tree's
+    :class:`Network` (:func:`network`), whose walk (:meth:`_notebook`,
+    :meth:`_ddpm` or :meth:`_adm`) goes through the network.  A call
+    returns every output channel: the noise estimate first (ADM's second
+    is its learned variance, which the samplers do not read).
 
     ``sites`` (``quantize_fastddpm``'s ``int8`` tables) makes those sites
     int8, with ``timesteps`` for per-step tables; without them it is the
@@ -315,7 +347,12 @@ class FastDDPMForward:
     block and ``ddpm.level`` (id ``res``, the maps' height) around the
     work of each level, both with device time, and, host-only,
     ``ddpm.attn_bmm`` around the attention core (two batched matmuls and
-    a float32 softmax: the path that runs)."""
+    a float32 softmax: the path that runs).  ADM records ``ddpm.attn`` and
+    ``ddpm.level`` as the DDPM UNet does (a level's span holds the ResBlock
+    that resamples into it), and ``ddpm.updown`` (device time, id ``dir``:
+    'down' or 'up') around each resampling ResBlock; its attention core
+    counts its path in ``adm_unet.qkv_attention.calls_fused`` or
+    ``.calls_float``."""
 
     def __init__(self, params: Dict, sites: Optional[Dict] = None,
                  timesteps=None, *, dtype=torch.bfloat16,
@@ -441,15 +478,19 @@ class FastDDPMForward:
             return y.to(self.dtype)
 
     def _act(self, st: _Step, site: str, norm: str, h: torch.Tensor,
-             silu: bool = True, shift: Optional[torch.Tensor] = None):
+             silu: bool = True, shift: Optional[torch.Tensor] = None,
+             scale_shift: Optional[torch.Tensor] = None, codes: bool = True):
         """GroupNorm + SiLU (``silu=False``: GroupNorm alone) feeding conv
         ``site``.  'fused': K3 at every site, emitting what that conv
         reads: int8 codes (its per-step activation scale) where it is
-        quantized, else ``dtype``, rounded once after SiLU; ``shift``
-        ``(B, C)`` (a residual block's time projection, 'fused' only) is
-        added to ``h`` by K3 as it reads it, in float32 (:meth:`_block`).
-        'chain': :func:`gn_silu_chain`, which rounds to ``dtype`` before
-        SiLU too; the quantizer of an int8 conv follows in :meth:`_conv`."""
+        quantized and ``codes``, else ``dtype``, rounded once after SiLU;
+        ``shift`` ``(B, C)`` (a residual block's time projection, 'fused'
+        only) is added to ``h`` by K3 as it reads it, in float32
+        (:meth:`_block`); ``scale_shift`` ``(B, 2 C)`` (an ADM ResBlock's
+        time projection) scales and shifts the GroupNorm's output before
+        SiLU (:meth:`_adm_block`).  'chain': :func:`gn_silu_chain`, which
+        rounds to ``dtype`` before SiLU too; the quantizer of an int8 conv
+        follows in :meth:`_conv`."""
         gamma, beta = self.norms[norm]
         groups, eps = self.net.groups(h.shape[-1]), self.net.gn_eps
         lq = self.q.get(site)
@@ -457,17 +498,19 @@ class FastDDPMForward:
               else contextlib.nullcontext()):  # a float site
             if not self.fused:
                 return gn_silu_chain(h, gamma, beta, groups, self.dtype, eps,
-                                     silu)
+                                     silu, scale_shift)
             gn = dict(num_groups=groups, eps=eps, silu=silu)
             if shift is not None:
                 gn["shift"] = shift
-            if lq is None:
+            if scale_shift is not None:
+                gn["scale_shift"] = scale_shift
+            if lq is None or not codes:
                 gn["out_dtype"] = self.dtype
             else:
                 gn["quant_scale"] = lq.scales(st.row, st.zero)[0]
             with span("ddpm.k3"):
                 y = self._gn8(h.contiguous(), gamma, beta, **gn)
-            return y if lq is None else _PreQuant(y)
+            return _PreQuant(y) if "quant_scale" in gn else y
 
     def _block(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
         """A residual block: GroupNorm, SiLU, conv1, plus the time
@@ -512,6 +555,53 @@ class FastDDPMForward:
                 h = attention(q, k, v).reshape(b, hh, ww, c)
             return x + self._conv(st, f"{name}/proj_out", h)
 
+    def _adm_block(self, st: _Step, name: str, x: torch.Tensor,
+                   resample: Optional[str] = None) -> torch.Tensor:
+        """An ADM ResBlock: GroupNorm, SiLU, (with ``resample`` 'down' or
+        'up': the 2x2 average pool or nearest-2x repeat of h and of x),
+        conv, then GroupNorm, ``(1 + scale)`` and ``shift`` from the time
+        projection (``Network.temb``, ``(B, 2 C)``), SiLU, conv, plus x or
+        its 1x1 skip.  Going down, K3 emits ``dtype`` where the conv is
+        int8 (the mean of codes is not the code of the mean): the pooled
+        maps go through the quantizer.  Coming up, the codes are repeated
+        (the same codes).  A resampling block is one ``ddpm.updown`` span
+        (device time, id ``dir``)."""
+        with (span("ddpm.updown", device_time=True, dir=resample)
+              if resample else contextlib.nullcontext()):
+            conv1, conv2 = f"{name}/in_layers/2", f"{name}/out_layers/3"
+            w, b = self.dense[f"{name}/{self.net.temb}"]
+            scale_shift = F.linear(st.t_emb, w, b)
+            h = self._act(st, conv1, f"{name}/in_layers/0", x,
+                          codes=resample != "down")
+            if resample == "down":
+                h, x = _avg_pool(h), _avg_pool(x)
+            elif resample == "up":
+                h = (_PreQuant(_up2(h.q)) if isinstance(h, _PreQuant)
+                     else _up2(h))
+                x = _up2(x)
+            h = self._conv(st, conv1, h)
+            h = self._act(st, conv2, f"{name}/out_layers/0", h,
+                          scale_shift=scale_shift)
+            h = self._conv(st, conv2, h)
+            skip = f"{name}/{self.net.skip}"
+            if skip in self.q or skip in self.convs:
+                x = self._conv(st, skip, x)
+            return h + x
+
+    def _adm_attn(self, st: _Step, name: str, x: torch.Tensor
+                  ) -> torch.Tensor:
+        """ADM's AttentionBlock: GroupNorm (no SiLU) read by the 1x1
+        ``qkv`` conv, guided-diffusion's legacy multi-head attention over
+        the pixels (``adm_unet.qkv_attention``, heads of
+        ``adm_unet.HEAD_CHANNELS``), 1x1 ``proj_out``, residual."""
+        with span("ddpm.attn", device_time=True):
+            b, hh, ww, c = x.shape
+            h = self._act(st, f"{name}/qkv", f"{name}/norm", x, silu=False)
+            qkv = self._conv(st, f"{name}/qkv", h).reshape(b, hh * ww, 3 * c)
+            h = adm_unet.qkv_attention(qkv, c // adm_unet.HEAD_CHANNELS)
+            return x + self._conv(st, f"{name}/proj_out",
+                                  h.reshape(b, hh, ww, c))
+
     def _upsample(self, st: _Step, name: str, h: torch.Tensor
                   ) -> torch.Tensor:
         """Nearest 2x, then the 3x3 conv ``name``; where that conv is int8
@@ -527,7 +617,8 @@ class FastDDPMForward:
     def time_embedding(self, t: torch.Tensor) -> torch.Tensor:
         """The time MLP's output for ``(B,)`` timesteps, in ``dtype`` (the
         DDPM UNet's after the swish that every block applies)."""
-        emb = timestep_embedding(t.to(self.device), self.emb_dim)
+        emb = timestep_embedding(t.to(self.device), self.emb_dim,
+                                 self.net.t_embed)
         (w0, b0), (w1, b1) = (self.dense[n] for n in self.net.time_mlp)
         out = F.linear(F.silu(F.linear(emb.to(self.dtype), w0, b0)), w1, b1)
         return F.silu(out) if self.net.time_swish else out
@@ -602,6 +693,57 @@ class FastDDPMForward:
         return h
 
 
+    def _adm(self, st: _Step, x: torch.Tensor) -> torch.Tensor:
+        """guided-diffusion's ``UNetModel.forward``; each level's work (its
+        blocks, and the first conv or the ResBlock that resamples into it)
+        inside one ``ddpm.level`` span, as :meth:`_ddpm` does."""
+        inputs, _, outputs = adm_unet.layout()
+        last = len(adm_unet.CH_MULT) - 1
+        res = x.shape[1]
+
+        def level(i):
+            return span("ddpm.level", device_time=True, res=res >> i)
+
+        hs, h = [], x
+        for i in range(last + 1):
+            with level(i):
+                for k, blk in enumerate(inputs):
+                    name = f"input_blocks/{k}"
+                    if blk.level != i:
+                        continue
+                    if blk.kind == "conv":
+                        h = self._conv(st, f"{name}/0", x)
+                    else:
+                        h = self._adm_block(
+                            st, f"{name}/0", h,
+                            "down" if blk.kind == "down" else None)
+                    if blk.attn:
+                        h = self._adm_attn(st, f"{name}/1", h)
+                    hs.append(h)
+        with level(last):
+            h = self._adm_block(st, "middle_block/0", h)
+            h = self._adm_attn(st, "middle_block/1", h)
+            h = self._adm_block(st, "middle_block/2", h)
+        up = None  # an up-ResBlock, run in the span of the level it writes
+        for i in reversed(range(last + 1)):
+            with level(i):
+                if up is not None:
+                    h = self._adm_block(st, up, h, "up")
+                for k, blk in enumerate(outputs):
+                    name = f"output_blocks/{k}"
+                    if blk.level != i:
+                        continue
+                    h = self._adm_block(st, f"{name}/0",
+                                        torch.cat([h, hs.pop()], dim=-1))
+                    if blk.attn:
+                        h = self._adm_attn(st, f"{name}/1", h)
+                    up = f"{name}/{1 + blk.attn}" if blk.up else None
+                if i == 0:
+                    h = self._act(st, "out/2", "out/0", h)
+                    h = self._conv(st, "out/2", h)
+        return h
+
+
 NOTEBOOK = Network(
     time_mlp=("time_emb/Dense_0", "time_emb/Dense_1"), time_swish=False,
     temb="time_fc", skip="skip", first_conv="init_conv", gn_eps=GN_EPS,
@@ -612,12 +754,22 @@ DDPM = Network(
     temb="temb_proj", skip="nin_shortcut", first_conv="conv_in",
     gn_eps=DDPM_GN_EPS, groups=lambda c: DDPM_GN_GROUPS, upconvs=(),
     deep=lambda site: _ddpm_level(site) > 0, walk=FastDDPMForward._ddpm)
+ADM = Network(
+    time_mlp=("time_embed/0", "time_embed/2"), time_swish=True,
+    temb="emb_layers/1", skip="skip_connection",
+    first_conv="input_blocks/0/0", gn_eps=adm_unet.GN_EPS,
+    groups=lambda c: adm_unet.GN_GROUPS, upconvs=(),
+    deep=lambda site: _ADM_LEVELS[site] > 0, walk=FastDDPMForward._adm,
+    t_embed="adm")
 
 
 def network(params: Dict) -> Network:
-    """The network of a flax-layout tree: :data:`DDPM`, the DDPM UNet's
+    """The network of a flax-layout tree: :data:`ADM`, ADM's UNet's
+    (``models/adm_unet.py``), :data:`DDPM`, the DDPM UNet's
     (``models/ddpm_unet.py``), or :data:`NOTEBOOK`, the notebook
     FastDDPMUNet's (``models/diffusion.py``)."""
+    if "input_blocks" in params:
+        return ADM
     return DDPM if "conv_in" in params else NOTEBOOK
 
 
@@ -719,7 +871,7 @@ def calibrate_fastddpm(
                 eps = fwd(torch.cat([cond, x], dim=-1),
                           torch.full((b,), t_val, dtype=torch.int32,
                                      device=device),
-                          stats=stats, stat_fn=stat_fn)
+                          stats=stats, stat_fn=stat_fn)[..., :1]
                 values = torch.stack(list(stats.values())).cpu().numpy()
                 for name, v in zip(stats, values):
                     row = acc.setdefault(name, np.zeros(n_steps, np.float32))

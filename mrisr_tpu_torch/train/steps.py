@@ -144,7 +144,8 @@ def linspace_draw(n_sel: int, b: int, device: torch.device) -> torch.Tensor:
 
 def _diffusion_steps(n_sel: int, make_input: Callable):
     """``make_input(batch, t_idx, noise) -> (x_in, t)``; the loss is the
-    MSE of the predicted noise.  Returns ``(train_step, eval_step)`` with
+    MSE of the predicted noise (a model's first output channel: ADM's
+    second, its learned variance, takes no loss here).  Returns ``(train_step, eval_step)`` with
     ``train_on``/``eval_on`` attached, the inner functions of the drawn
     values."""
 
@@ -152,7 +153,7 @@ def _diffusion_steps(n_sel: int, make_input: Callable):
                  noise: torch.Tensor) -> Tuple[TrainState, Metrics]:
         with fp32_reference():
             x_in, t = make_input(batch, t_idx, noise)
-            loss = mse(state.module.train()(x_in, t), noise)
+            loss = mse(state.module.train()(x_in, t)[..., :1], noise)
             _update(state, loss)
         return state, mean_metrics({"loss": loss.detach()}, state.mesh)
 
@@ -162,7 +163,7 @@ def _diffusion_steps(n_sel: int, make_input: Callable):
         with fp32_reference():
             x_in, t = make_input(batch, t_idx, noise)
             return mean_metrics(
-                {"loss": mse(state.module.eval()(x_in, t), noise)},
+                {"loss": mse(state.module.eval()(x_in, t)[..., :1], noise)},
                 state.mesh)
 
     def _noise(batch, generator, mesh=None):

@@ -278,7 +278,7 @@ def test_groupnorm_kernel_raises_when_the_grid_cannot_be_co_resident(cuda):
     lib = _build.library("groupnorm_silu")
     err = lib.groupnorm_launch(
         x.data_ptr(), 1, gamma.data_ptr(), gamma.data_ptr(), None, None,
-        partial.data_ptr(), out.data_ptr(), 1, n, hw, c, 4, 1, n, sms, px, 1,
+        None, partial.data_ptr(), out.data_ptr(), 1, n, hw, c, 4, 1, n, sms, px, 1,
         1, 200_000, 1e-5, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="co-resident"):
         _build.check(err, "groupnorm_silu")
@@ -1184,3 +1184,150 @@ def test_quantizer_in_an_int8_deep_sampler_call(cuda, net, tmp_path):
     assert len(kernels) == per_step
     assert all(len(k) == 1 and "quantize_kernel" in k[0] for k in kernels), (
         kernels)
+
+
+def adm_gn_sites():
+    """ADM's 101 GroupNorm sites at ch 256, 256^2 (models/adm_unet.py; 32
+    groups of 8 to 64 channels, eps 1e-5): (name, H, C, groups, int8 out,
+    SiLU, eps, scale-shift: a ResBlock's out_layers norm).  A
+    down-ResBlock's first norm emits bf16 (its maps are pooled before the
+    quantizer); the full-size level and the final norm bf16 too."""
+    from mrisr_tpu_torch.models.adm_unet import layout
+
+    inputs, mid, outputs = layout(256)
+    sites = []
+
+    def res(name, lvl_in, lvl_out, ci, co, codes=True):
+        sites.extend([
+            (f"{name}/in_layers/0", 256 >> lvl_in, ci, 32,
+             codes and lvl_out > 0, True, 1e-5, False),
+            (f"{name}/out_layers/0", 256 >> lvl_out, co, 32, lvl_out > 0,
+             True, 1e-5, True)])
+
+    def attn(name, lvl, c):
+        sites.append((f"{name}/norm", 256 >> lvl, c, 32, True, False, 1e-5,
+                      False))
+
+    for k, blk in enumerate(inputs[1:], start=1):
+        down = blk.kind == "down"
+        res(f"input_blocks/{k}/0", blk.level - down, blk.level, blk.ci,
+            blk.co, not down)
+        if blk.attn:
+            attn(f"input_blocks/{k}/1", blk.level, blk.co)
+    res("middle_block/0", 5, 5, mid, mid)
+    attn("middle_block/1", 5, mid)
+    res("middle_block/2", 5, 5, mid, mid)
+    for k, blk in enumerate(outputs):
+        res(f"output_blocks/{k}/0", blk.level, blk.level, blk.ci, blk.co)
+        if blk.attn:
+            attn(f"output_blocks/{k}/1", blk.level, blk.co)
+        if blk.up:
+            res(f"output_blocks/{k}/{1 + blk.attn}", blk.level,
+                blk.level - 1, blk.co, blk.co)
+    sites.append(("out/0", 256, 256, 32, False, True, 1e-5, False))
+    return sites
+
+
+# (name, H, C) of each distinct out_layers norm shape of ADM, and of each
+# distinct other norm shape
+ADM_SCALE_SHIFT_CASES = [s[:3] for s in _distinct(adm_gn_sites()) if s[-1]]
+ADM_GN_CASES = [s[:3] + s[5:6] for s in _distinct(adm_gn_sites())
+                if not s[-1]]
+
+
+@pytest.mark.parametrize("name,h,c", ADM_SCALE_SHIFT_CASES, ids=str)
+def test_groupnorm_kernel_scale_shift_matches_plain(cuda, name, h, c):
+    """K3 in its scale-shift mode at every out_layers norm shape of ADM
+    (256^2 x 256 to 8^2 x 1024, groups of 8 to 32), batch 32: int8 codes
+    equal to the plain version's, bf16 out within one bf16 rounding step
+    (max(0.03, 2^-8 |y|)), the same bits twice, one launch counted in
+    ``launches_scale_shift``."""
+    x, gamma, beta, _ = _site_case(cuda, h, c)
+    g = torch.Generator(device=cuda).manual_seed(c + h)
+    ss = (0.5 * torch.randn((32, 2 * c), generator=g, device=cuda)).to(
+        torch.bfloat16)
+    kw = dict(num_groups=32, eps=1e-5, scale_shift=ss)
+    ref = groupnorm_silu_plain(x, gamma, beta, out_dtype=torch.float32, **kw)
+    scale = (ref.abs().amax() / 127.0).reshape(1)
+    before = (groupnorm_silu.launches, groupnorm_silu.launches_shift,
+              groupnorm_silu.launches_scale_shift)
+    q = groupnorm_silu(x, gamma, beta, quant_scale=scale, **kw)
+    torch.cuda.synchronize()
+    assert (groupnorm_silu.launches, groupnorm_silu.launches_shift,
+            groupnorm_silu.launches_scale_shift) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert torch.equal(q, groupnorm_silu_plain(x, gamma, beta,
+                                               quant_scale=scale, **kw))
+    assert torch.equal(groupnorm_silu(x, gamma, beta, quant_scale=scale,
+                                      **kw), q)
+    y16 = groupnorm_silu(x, gamma, beta, **kw)
+    tol = torch.clamp_min(ref.abs() * 2.0 ** -8, 0.03)
+    assert bool(((y16.float() - ref).abs() <= tol).all())
+    assert torch.equal(groupnorm_silu(x, gamma, beta, **kw), y16)
+    with pytest.raises(ValueError, match="scale_shift"):
+        groupnorm_silu(x, gamma, beta, num_groups=32, scale_shift=ss,
+                       shift=ss[:, :c])
+
+
+@pytest.mark.parametrize("name,h,c,silu", ADM_GN_CASES, ids=str)
+def test_groupnorm_kernel_adm_groups_match_plain(cuda, name, h, c, silu):
+    """K3 without a scale-shift at ADM's other norm shapes, up to 2048
+    channels in groups of 64 and 1536 in groups of 48 (the decoder's
+    concatenations), batch 32: the plain version's int8 codes, bf16
+    within one rounding step."""
+    x, gamma, beta, _ = _site_case(cuda, h, c)
+    kw = dict(num_groups=32, eps=1e-5, silu=silu)
+    ref = groupnorm_silu_plain(x, gamma, beta, out_dtype=torch.float32, **kw)
+    scale = (ref.abs().amax() / 127.0).reshape(1)
+    q = groupnorm_silu(x, gamma, beta, quant_scale=scale, **kw)
+    assert torch.equal(q, groupnorm_silu_plain(x, gamma, beta,
+                                               quant_scale=scale, **kw))
+    y16 = groupnorm_silu(x, gamma, beta, **kw)
+    tol = torch.clamp_min(ref.abs() * 2.0 ** -8, 0.03)
+    assert bool(((y16.float() - ref).abs() <= tol).all())
+
+
+def test_adm_unet_int8_deep_call_on_card(cuda):
+    """One int8_deep denoiser call of ADM's UNet (models/adm_unet.py at
+    its published ch 256 and heads of 64, 256^2, batch 2) through K3,
+    kernel A, the quantizer and torch's fused attention: 121 A and 101 K3
+    launches, 42 of them in the scale-shift mode, the 16 attention cores
+    all on the fused path (8 heads at 32^2), both channels out, the
+    same bits twice, and within 2 % (rel L2) of the same tables through
+    the kernels' plain versions."""
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.adm_unet import ADMUNet, qkv_attention
+    from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm,
+        deep_sites,
+        int8_forward,
+        quantize_fastddpm,
+    )
+
+    torch.manual_seed(0)
+    params = fastddpm_flax_params(ADMUNet(base_features=256).to(cuda))
+    sched = DiffusionSchedule.create(1000, 2, "linear", "nonuniform-4060")
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((2, 256, 256, 2), generator=g).to(cuda)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond])
+    q = quantize_fastddpm({"params": params}, calib,
+                          only=deep_sites(params))
+    x = torch.randn((2, 256, 256, 3), generator=g).to(cuda)
+    t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
+    fwd = int8_forward(q, device=cuda)
+    counts = (conv2d_int8.launches, groupnorm_silu.launches,
+              groupnorm_silu.launches_scale_shift,
+              qkv_attention.calls_fused, qkv_attention.calls_float)
+    got = fwd(x, t)
+    torch.cuda.synchronize()
+    assert (conv2d_int8.launches - counts[0],
+            groupnorm_silu.launches - counts[1],
+            groupnorm_silu.launches_scale_shift - counts[2],
+            qkv_attention.calls_fused - counts[3],
+            qkv_attention.calls_float - counts[4]) == (121, 101, 42, 16, 0)
+    assert torch.equal(fwd(x, t), got)
+    want = int8_forward(q, device=cuda, plain=True)(x, t)
+    assert got.shape == (2, 256, 256, 2) and bool(torch.isfinite(got).all())
+    rel = float((got - want).norm() / want.norm())
+    assert rel < 0.02, rel
