@@ -283,9 +283,10 @@
    on one batch of 2 over the 10-step sampler and quantized int8_deep.
    One denoiser call at batch 32, 256^2, with the launch counts set to 0
    just before it: 71 K3 (32 of them with a shift: the ResBlocks' norm2),
-   99 A, no B and 27 quantizer launches, K3 seen at 71 sites and the
-   quantizer at 27, the answer finite and the same bits on a second call,
-   then the call timed.
+   99 A, no B, 27 quantizer and 12 kernel E launches (5 of E's with a
+   residual: the 256^2 ResBlocks' closing adds), K3 seen at 71 sites, the
+   quantizer at 27 and E at 12, the answer finite and the same bits on a
+   second call, then the call timed.
    K3 at batch 32 at each distinct (size, channels, group, SiLU or not,
    int8 or bf16) of those 71 sites, the 256^2 x 256 sites and the six
    attention norms without SiLU among them, against its plain version:
@@ -299,12 +300,19 @@
    notebook net's int8_deep call, from bf16 and float32: the plain
    version's codes bit for bit (saturating both ends), the same codes
    twice, its time against its byte bound and the plain version's time.
+   Kernel E (a float conv's bias, with a ResBlock's residual and its
+   shortcut conv's bias) at batch 32 at each distinct (size, channels,
+   mode) of its calls in that call: the plain version's bits, in place, r
+   untouched, the same bits twice, its time against its byte bound (2 B
+   read and written an element of y, 2 B read of r; the L2 flushed before
+   each launch) and the plain version's time.
    Then ADM's UNet (``models/adm_unet.py``) at the fastddpm_adm preset's
    widths (ch 256, 32 groups of 8 to 64 channels, eps 1e-5), seeded,
    calibrated and quantized as the DDPM UNet is: one denoiser call at
    batch 2 with the counts set to 0 just before it: 101 K3 (42 of them in
    the scale-shift mode: the ResBlocks' out_layers norms; none with a
-   shift), 121 A, no B and 38 quantizer launches, the 16 attention cores
+   shift), 121 A, no B, 38 quantizer and 13 kernel E launches (6 with a
+   residual), the 16 attention cores
    on torch's fused path, both channels out and finite, the same bits on a
    second call, and within 2 % (rel L2) of the same tables through the
    kernels' plain versions.  K3 at batch 32 at each of that call's
@@ -391,6 +399,9 @@ GN_BF16_ATOL = 0.03  # K3's bf16 output vs its plain version, |y| < 8
 # kernel A at the 99 stride-1 convs below the 256^2 level
 DDPM_CH, DDPM_BATCH = 128, 32
 DDPM_K3, DDPM_A, DDPM_QUANT = 71, 99, 27
+# kernel E's launches a denoiser call, and those with a residual: the
+# notebook net's, the DDPM UNet's, ADM's
+NOTEBOOK_E, DDPM_E, ADM_E = (4, 2), (12, 5), (13, 6)
 DDPM_SHIFTED, NOTEBOOK_SHIFTED = 32, 7  # K3 launches with a shift a call
 # ADM's UNet (the fastddpm_adm preset): one int8_deep call's launches of
 # K3 (all 101 GroupNorms; the 42 out_layers norms scale-shift), A, the
@@ -629,8 +640,9 @@ def path_counts(sites, path_of):
 
 def reset_counts(conv, up):
     """Set the launch counts of kernels A (``conv``) and B (``up``), every
-    path's, K3's (all, with a shift, with a scale-shift) and the
-    quantizer's to 0."""
+    path's, K3's (all, with a shift, with a scale-shift), the quantizer's
+    and kernel E's (all, with a residual) to 0."""
+    from mrisr_tpu_torch.ops.bias_residual import bias_residual
     from mrisr_tpu_torch.ops.conv_int8 import reset_launches
     from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
     from mrisr_tpu_torch.ops.quantize import quantize_int8
@@ -639,15 +651,19 @@ def reset_counts(conv, up):
     groupnorm_silu.launches = groupnorm_silu.launches_shift = 0
     groupnorm_silu.launches_scale_shift = 0
     quantize_int8.launches = 0
+    bias_residual.launches = bias_residual.launches_residual = 0
 
 
 def launch_counts(conv, up):
     """Launches of kernels A (``conv``) and B (``up``) since
-    ``reset_counts``: all, and by path (``"conv_int8/tc"``, ...); and the
-    quantizer's."""
+    ``reset_counts``: all, and by path (``"conv_int8/tc"``, ...); the
+    quantizer's; kernel E's, all and with a residual."""
+    from mrisr_tpu_torch.ops.bias_residual import bias_residual
     from mrisr_tpu_torch.ops.quantize import quantize_int8
 
-    out = {"quantize_int8": quantize_int8.launches}
+    out = {"quantize_int8": quantize_int8.launches,
+           "bias_residual": bias_residual.launches,
+           "bias_residual/residual": bias_residual.launches_residual}
     for name, fn in (("conv_int8", conv), ("upconv_int8", up)):
         out[name] = fn.launches
         for p in ("tc", "dp4a"):
@@ -1477,8 +1493,10 @@ def diffusion_phase(dev, card: str):
                      "groupnorm_silu/shift": 10 * NOTEBOOK_SHIFTED,
                      "conv_int8": 140,
                      "upconv_int8": 20,
-                     "quantize_int8": 10 * len(diffusion_quant_sites())
-                     }  # 10 steps x (15, 7, 14, 2, 6)
+                     "quantize_int8": 10 * len(diffusion_quant_sites()),
+                     "bias_residual": 10 * NOTEBOOK_E[0],
+                     "bias_residual/residual": 10 * NOTEBOOK_E[1],
+                     }  # 10 steps x (15, 7, 14, 2, 6, 4, 2)
         for name, n in per_batch.items():
             if launches[name] != n * main_stats.batches:
                 raise AssertionError(
@@ -5193,6 +5211,7 @@ def ddpm_phase(dev, card: str):
     q = quantize_fastddpm({"params": params}, calib, only=deep_sites(params))
     fwd = int8_forward(q, device=dev)
     sites, gn8, quant_sites, q8 = [], fwd._gn8, [], fwd._q8
+    bias_sites, e = [], fwd._bias
 
     def record(x, gamma, beta, **kw):
         # (H, C, groups, silu, int8, eps, shifted)
@@ -5205,7 +5224,11 @@ def ddpm_phase(dev, card: str):
         quant_sites.append((x.shape[1], x.shape[3]))
         return q8(x, a)
 
-    fwd._gn8, fwd._q8 = record, record_quant
+    def record_bias(y, b, r=None, rb=None):  # (H, C, mode) of E's call
+        bias_sites.append((y.shape[1], y.shape[3], bias_mode(r, rb)))
+        return e(y, b, r, rb)
+
+    fwd._gn8, fwd._q8, fwd._bias = record, record_quant, record_bias
     x = torch.randn((DDPM_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((DDPM_BATCH,), int(sched.timesteps[-1]), device=dev)
     reset_counts(conv2d_int8, upconv2x2_int8)
@@ -5215,27 +5238,30 @@ def ddpm_phase(dev, card: str):
     counted = (launches["groupnorm_silu"], launches["groupnorm_silu/shift"],
                launches["groupnorm_silu/scale_shift"], launches["conv_int8"],
                launches["upconv_int8"], len(sites),
-               launches["quantize_int8"], len(quant_sites))
+               launches["quantize_int8"], len(quant_sites),
+               launches["bias_residual"], launches["bias_residual/residual"],
+               len(bias_sites))
     want = (DDPM_K3, DDPM_SHIFTED, 0, DDPM_A, 0, DDPM_K3, DDPM_QUANT,
-            DDPM_QUANT)
+            DDPM_QUANT, *DDPM_E, DDPM_E[0])
     if counted != want:
         raise AssertionError(f"DDPM int8_deep call: K3 launches, with a "
                              f"shift, with a scale-shift, A, B launches, K3 "
-                             f"sites, quantizer launches and sites "
+                             f"sites, quantizer launches and sites, E "
+                             f"launches, with a residual, E sites "
                              f"{counted}, want {want}")
     if tuple(got.shape) != (DDPM_BATCH, HW, HW, 1) or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"DDPM int8_deep call: {tuple(got.shape)}, "
                              "or not finite")
-    fwd._gn8, fwd._q8 = gn8, q8
+    fwd._gn8, fwd._q8, fwd._bias = gn8, q8, e
     if not torch.equal(fwd(x, t), got):
         raise AssertionError("DDPM int8_deep call: two calls differ")
     call_ms = cuda_ms(lambda: fwd(x, t), reps=3, warmup=1)
     del got, x, fwd
     print(f"DDPM int8_deep call, batch {DDPM_BATCH}: {counted[0]} K3 "
-          f"({counted[1]} with a shift), {counted[2]} A and {counted[5]} "
-          f"quantizer launches, the same bits twice, {call_ms:.2f} ms "
-          f"({card})")
+          f"({counted[1]} with a shift), {counted[3]} A, {counted[6]} "
+          f"quantizer and {counted[8]} E launches ({counted[9]} with a "
+          f"residual), the same bits twice, {call_ms:.2f} ms ({card})")
 
     sms, rows = sm_count(dev), []
     for (h, c, groups, silu, int8, eps, shifted), n in sorted(
@@ -5319,9 +5345,11 @@ def ddpm_phase(dev, card: str):
     adm = adm_check(dev, g, sms, card)
     quant_rows = quant_check(dev, g, Counter(quant_sites), card,
                              adm.pop("quant_sites"))
+    bias_rows = bias_check(dev, g, Counter(bias_sites), card)
     return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
                       "shifted_ms": shift_ms, "quant_sites": quant_rows,
-                      "adm": adm, "wall_s": time.perf_counter() - t_phase}
+                      "bias_sites": bias_rows, "adm": adm,
+                      "wall_s": time.perf_counter() - t_phase}
 
 
 def k3_counts(conv, up):
@@ -5341,7 +5369,7 @@ def adm_check(dev, g, sms, card: str):
     and quantized int8_deep: one denoiser call at batch 2, counted from 0
     (ADM_K3 K3 launches, ADM_SCALE_SHIFT of them scale-shift, ADM_A A, no
     B, ADM_QUANT quantizer launches, ADM_ATTN attention cores on the fused
-    path), the same bits on a second call and within ADM_PLAIN_REL of the
+    path, ADM_E kernel E launches, all and with a residual), the same bits on a second call and within ADM_PLAIN_REL of the
     same tables through the kernels' plain versions.  Then K3 at batch 32
     at each distinct shape of that call that the DDPM UNet does not have:
     the scale-shift norms (their ``(32, 2 C)`` rows) and the groups over
@@ -5399,14 +5427,16 @@ def adm_check(dev, g, sms, card: str):
                launches["upconv_int8"], len(sites),
                launches["quantize_int8"], sum(quant_sites.values()),
                qkv_attention.calls_fused - attn[0],
-               qkv_attention.calls_float - attn[1])
+               qkv_attention.calls_float - attn[1],
+               launches["bias_residual"], launches["bias_residual/residual"])
     want = (ADM_K3, 0, ADM_SCALE_SHIFT, ADM_A, 0, ADM_K3, ADM_QUANT,
-            ADM_QUANT, ADM_ATTN, 0)
+            ADM_QUANT, ADM_ATTN, 0, *ADM_E)
     if counted != want:
         raise AssertionError(f"ADM int8_deep call: K3 launches, with a "
                              f"shift, with a scale-shift, A, B launches, K3 "
                              f"sites, quantizer launches and sites, fused "
-                             f"and float attention cores {counted}, want "
+                             f"and float attention cores, E launches and "
+                             f"those with a residual {counted}, want "
                              f"{want}")
     fwd._gn8, fwd._q8 = gn8, q8
     if tuple(got.shape) != (CHECK_BATCH, HW, HW, 2) or not bool(
@@ -5424,7 +5454,8 @@ def adm_check(dev, g, sms, card: str):
     call_s = time.perf_counter() - t0
     print(f"ADM int8_deep call, batch {CHECK_BATCH}: {counted[0]} K3 "
           f"({counted[2]} scale-shift), {counted[3]} A, {counted[6]} "
-          f"quantizer launches, {counted[8]} fused attention cores, the "
+          f"quantizer and {counted[10]} E launches ({counted[11]} with a "
+          f"residual), {counted[8]} fused attention cores, the "
           f"same bits twice, rel L2 {rel:.4g} from the plain versions' "
           f"({call_s:.1f} s with calibration; {card})")
 
@@ -5573,10 +5604,90 @@ def quant_check(dev, g, ddpm_sites, card: str, adm_sites):
     return rows
 
 
+def bias_mode(r, rb) -> str:
+    """Kernel E's mode of a call: 'bias' alone, with a 'residual' (the
+    block's input), or with a 'shortcut' conv's output and its bias."""
+    return "bias" if r is None else "residual" if rb is None else "shortcut"
+
+
+def bias_check(dev, g, ddpm_sites, card: str):
+    """Kernel E at batch 32 at each distinct (H, C, mode) of its calls in
+    one int8_deep call of the DDPM UNet (``ddpm_sites``: Counter of them),
+    bf16: the plain version's bits, in place (the same tensor back), r
+    untouched, the same bits on a second launch, its ms against the byte
+    bound (y read and written, r read: 4 or 6 B an element, the bias rows
+    besides; the L2 flushed before each launch, as a 256^2 map is far
+    past it) and the plain version's ms (torch's adds: the bias, the
+    shortcut's bias, the residual).  Returns the rows."""
+    from mrisr_tpu_torch.ops.bias_residual import (
+        bias_residual, bias_residual_plain)
+
+    def bits(t):
+        return t.view(torch.int16)
+
+    scrub, rows = torch.empty(32 * 2 ** 20, device=dev), []
+    for (h, c, mode), n in sorted(ddpm_sites.items()):
+        shape = (DDPM_BATCH, h, h, c)
+
+        def draw(*s, scale=1.0):
+            return (scale * torch.randn(s, generator=g, device=dev)).to(
+                torch.bfloat16)
+
+        y0, b = draw(*shape, scale=3.0), draw(c)
+        r = None if mode == "bias" else draw(*shape, scale=2.0)
+        rb = draw(c) if mode == "shortcut" else None
+        r0 = None if r is None else r.clone()
+        want = bias_residual_plain(y0.clone(), b, r, rb)
+        y = y0.clone()
+        got = bias_residual(y, b, r, rb)
+        what = f"E {h}^2 x {c} {mode}"
+        if got is not y or not torch.equal(bits(got), bits(want)):
+            raise AssertionError(f"{what}: not the plain version's bits in "
+                                 "place")
+        if r is not None and not torch.equal(bits(r), bits(r0)):
+            raise AssertionError(f"{what}: r was written")
+        if not torch.equal(bits(bias_residual(y0.clone(), b, r, rb)),
+                           bits(got)):
+            raise AssertionError(f"{what}: two launches differ")
+        del want, got, r0
+        elems = y0.numel()
+        nbytes = 2 * elems * (2 + (r is not None)) + 2 * c * (1 + (
+            rb is not None))
+        bound, t_ops, t_bytes = bound_ms(0, nbytes)
+        row = {"kernel": "bias_residual", "site": f"{h}^2 C {c} {mode}",
+               "H": h, "C": c, "mode": mode, "batch": DDPM_BATCH,
+               "ddpm_sites": n, "bytes": nbytes, "max_abs_err": 0.0,
+               # each launch writes y in place: its sums grow from launch
+               # to launch, which costs nothing in an add
+               "ms": cuda_ms(lambda: bias_residual(y, b, r, rb), reps=10,
+                             flush=scrub.zero_),
+               "plain_ms": cuda_ms(lambda: bias_residual_plain(y, b, r, rb),
+                                   reps=10, flush=scrub.zero_),
+               "library_ms": None, "bound_ms": bound, "ops_ms": t_ops,
+               "bytes_ms": t_bytes}
+        row["pct_of_bound"] = 100.0 * bound / row["ms"]
+        rows.append(row)
+        del y, y0, r
+        print(f"E {row['site']:24s} x{n:2d} DDPM: equal to plain, "
+              f"{row['ms']:.4f} ms, bound {bound:.4f} "
+              f"({row['pct_of_bound']:.1f} %), plain {row['plain_ms']:.3f} "
+              "ms")
+    full = [r for r in rows if r["H"] == HW]
+    print(f"E a batch-32 int8_deep DDPM call: "
+          f"{sum(r['ms'] * r['ddpm_sites'] for r in rows):.3f} ms (bound "
+          f"{sum(r['bound_ms'] * r['ddpm_sites'] for r in rows):.3f}, plain "
+          f"{sum(r['plain_ms'] * r['ddpm_sites'] for r in rows):.3f}); at "
+          f"{HW}^2 {sum(r['ms'] * r['ddpm_sites'] for r in full):.3f} ms "
+          f"(bound {sum(r['bound_ms'] * r['ddpm_sites'] for r in full):.3f})"
+          f" ({card})")
+    return rows
+
+
 # kernel -> (CUDA source, what it replaces).  Kernel A replaces no
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU; nor does
-# the quantizer: XLA fused _quant_input (:236) into the conv reading it.
+# the quantizer: XLA fused _quant_input (:236) into the conv reading it;
+# nor does kernel E: XLA fused a float site's bias (:509) into its conv.
 SOURCES = {
     "conv_int8": ("mrisr_tpu_torch/csrc/conv_int8.cu",
                   "mrisr_tpu/serve/quant.py:66"),
@@ -5588,6 +5699,8 @@ SOURCES = {
                        "mrisr_tpu/ops/groupnorm_pallas.py:205"),
     "quantize_int8": ("mrisr_tpu_torch/csrc/quantize_int8.cu",
                       "mrisr_tpu/serve/quant.py:236"),
+    "bias_residual": ("mrisr_tpu_torch/csrc/bias_residual.cu",
+                      "mrisr_tpu/serve/quant_diffusion.py:509"),
 }
 
 
@@ -5657,6 +5770,7 @@ def main() -> int:
 
     kernels = []
     quant_rows = ddpm_result["quant_sites"]
+    bias_rows = ddpm_result["bias_sites"]
     phases = {"serve": serve_launches, "eval": eval_launches,
               "diffusion": diff_launches, "train": train_launches,
               "families": family_launches, "bf16": bf16_launches,
@@ -5669,15 +5783,20 @@ def main() -> int:
         # call at N = 174, the eval's 3 mm test split; K3: the 10 sites of
         # one batch-8 int8_deep Fast-DDPM forward, summed; the quantizer:
         # the 6 bf16 sites of one batch-32 int8_deep notebook-net forward,
-        # summed, checked at both nets' shapes
+        # summed, checked at both nets' shapes; E: the 256^2 sites of one
+        # batch-32 int8_deep DDPM UNet forward, summed, checked at all of
+        # its sites
         sel = ([r for r in rows if r["kernel"] == name] if name in
                ("conv_int8", "upconv_int8") else
                [r for r in ssim_rows if r["N"] == 174] if name == "ssim" else
                [r for r in quant_rows if r["dtype"] == "bfloat16"
                 for _ in range(r["notebook_sites"])]
                if name == "quantize_int8" else
+               [r for r in bias_rows if r["H"] == HW
+                for _ in range(r["ddpm_sites"])]
+               if name == "bias_residual" else
                [r for r in k3_rows if r["kernel"] == name])
-        checked = sel + [r for r in k3_rows + quant_rows
+        checked = sel + [r for r in k3_rows + quant_rows + bias_rows
                          if r["kernel"] == name]
         ops_ms = sum(r["ops_ms"] for r in sel)
         bytes_ms = sum(r["bytes_ms"] for r in sel)

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu",
-           "quantize_int8")
+           "quantize_int8", "bias_residual")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +47,7 @@ SIGNATURES = {
     "groupnorm_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "quantize_int8_launch": [_P, _I, _P, _P, _L, _I, _P],
+    "bias_residual_launch": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
 }
 
 

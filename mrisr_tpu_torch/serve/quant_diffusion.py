@@ -65,6 +65,11 @@ from mrisr_tpu_torch.models.diffusion import (
     num_groups,
     timestep_embedding,
 )
+from mrisr_tpu_torch.ops.bias_residual import (
+    MAX_C,
+    bias_residual,
+    bias_residual_plain,
+)
 from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8,
     conv2d_int8_plain,
@@ -333,6 +338,11 @@ class FastDDPMForward:
     A residual block's time projection goes to its norm2: 'chain' adds
     it to conv1's output in ``dtype``, 'fused' passes it to K3 as the
     input shift of that norm, with a float conv1's bias (:meth:`_block`).
+    'fused' on the card runs every other float conv of ``C % 8 == 0``
+    channels without its bias, which kernel E (``ops/bias_residual.py``)
+    adds in one pass, with a residual block's closing add and its float
+    shortcut's bias where the conv is the block's conv2
+    (:meth:`_residual`): torch's own roundings, the same bits.
     ``plain=True`` runs the kernels' plain versions even on the card (the
     reference the kernels are held against).
 
@@ -369,6 +379,13 @@ class FastDDPMForward:
         self._up8 = upconv2x2_int8_plain if plain else upconv2x2_int8
         self._gn8 = groupnorm_silu_plain if plain else groupnorm_silu
         self._q8 = quantize_int8_plain if plain else quantize_int8
+        self._bias = bias_residual_plain if plain else bias_residual
+        # cuDNN runs a conv without its bias and torch adds it after, in a
+        # broadcast add of its own; 'fused' on the card leaves it out and
+        # kernel E adds it (with the block's residual, :meth:`_residual`).
+        # The CPU's conv folds the bias into its sum (one rounding), so
+        # there the convs keep it.
+        self._e = self.fused and device.type == "cuda"
         self.net = net = network(params)
         sites = sites or {}
         per_step = any(lq["a_scale"].dim() for lq in sites.values())
@@ -431,11 +448,34 @@ class FastDDPMForward:
             st.stats[name] = (torch.maximum(st.stats[name], v)
                               if name in st.stats else v)
 
+    def _e_bias(self, name: str) -> Optional[torch.Tensor]:
+        """The bias of float conv or upconv ``name`` where kernel E adds
+        it (:attr:`_e`, and its ``C`` a multiple of 8 up to E's
+        ``MAX_C``), else None (int8 sites, the 1- and 2-channel output
+        convs, 'chain', the CPU)."""
+        layer = self.convs.get(name) or self.upconvs.get(name)
+        if not self._e or layer is None:
+            return None
+        c = layer[1].numel()
+        return layer[1] if c % 8 == 0 and c <= MAX_C else None
+
+    def _add_bias(self, y: torch.Tensor, b: Optional[torch.Tensor],
+                  r: Optional[torch.Tensor] = None,
+                  rb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``y`` (a bias-less float conv's output) plus its bias ``b`` by
+        kernel E, and ``r`` (plus its bias ``rb``) where given; ``b`` None:
+        y as it is (its conv took its bias)."""
+        if b is None:
+            return y
+        return self._bias(y.contiguous(), b,
+                          None if r is None else r.contiguous(), rb)
+
     def _conv(self, st: _Step, name: str, h, bias: bool = True
               ) -> torch.Tensor:
         """Conv ``name`` of ``h`` (or of K3's codes): kernel A where the
-        site is int8, else cuDNN in ``dtype``; ``bias=False`` leaves a
-        float conv's bias out (its caller adds it)."""
+        site is int8, else cuDNN in ``dtype`` (its bias added by kernel E
+        where :meth:`_e_bias` gives it); ``bias=False`` leaves a float
+        conv's bias out (its caller adds it)."""
         lq = self.q.get(name)
         if isinstance(h, _PreQuant):  # K3 (or _upsample) emitted the codes
             self._record(st, name, h.q)
@@ -445,13 +485,15 @@ class FastDDPMForward:
             self._record(st, name, h)
             if lq is None:  # not quantized: a float conv in dtype
                 w, b, pad = self.convs[name]
-                b = b if bias else None
+                e = self._e_bias(name) if bias else None
+                b = b if bias and e is None else None
                 with span("ddpm.conv_float"):
                     x = _nchw(h.to(self.dtype))
                     if _strided(name):  # TF's "SAME"
-                        return _nhwc(F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b,
-                                              stride=2))
-                    return _nhwc(F.conv2d(x, w, b, padding=pad))
+                        y = F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b, stride=2)
+                    else:
+                        y = F.conv2d(x, w, b, padding=pad)
+                    return self._add_bias(_nhwc(y), e)
             a, s = lq.scales(st.row, st.zero)
             q = self._quant(h, a)
         with span("ddpm.conv_int8"):
@@ -470,8 +512,10 @@ class FastDDPMForward:
         with span("ddpm.upconv"):
             if lq is None:
                 w, b = self.upconvs[name]
-                return _nhwc(F.conv_transpose2d(_nchw(h.to(self.dtype)), w,
-                                                b, stride=2))
+                e = self._e_bias(name)
+                y = F.conv_transpose2d(_nchw(h.to(self.dtype)), w,
+                                       b if e is None else None, stride=2)
+                return self._add_bias(_nhwc(y), e)
             a, s = lq.scales(st.row, st.zero)
             y = self._up8(self._quant(h, a).contiguous(), lq.w, s, lq.b,
                           out_float=True)
@@ -535,11 +579,22 @@ class FastDDPMForward:
             h = self._conv(st, conv1, h)
             h = self._act(st, f"{name}/conv2", f"{name}/norm2",
                           h + t[:, None, None, :])
-        h = self._conv(st, f"{name}/conv2", h)
-        skip = f"{name}/{self.net.skip}"
+        return self._residual(st, f"{name}/conv2",
+                              f"{name}/{self.net.skip}", h, x)
+
+    def _residual(self, st: _Step, conv2: str, skip: str, h, x
+                  ) -> torch.Tensor:
+        """A residual block's close: conv ``conv2`` of ``h`` plus ``x`` or
+        the 1x1 shortcut conv ``skip`` of x where the tree has one.  Where
+        kernel E takes conv2's bias, the add is E's pass too: conv2 and a
+        float shortcut run without their biases, and E adds both biases and
+        the residual at once; else ``h + x`` as torch adds it."""
+        b = self._e_bias(conv2)
+        h = self._conv(st, conv2, h, bias=b is None)
+        rb = None if b is None else self._e_bias(skip)
         if skip in self.q or skip in self.convs:
-            x = self._conv(st, skip, x)
-        return h + x
+            x = self._conv(st, skip, x, bias=rb is None)
+        return h + x if b is None else self._add_bias(h, b, x, rb)
 
     def _attn(self, st: _Step, name: str, x: torch.Tensor) -> torch.Tensor:
         """The DDPM UNet's AttnBlock: GroupNorm (no SiLU) read by the 1x1
@@ -582,11 +637,8 @@ class FastDDPMForward:
             h = self._conv(st, conv1, h)
             h = self._act(st, conv2, f"{name}/out_layers/0", h,
                           scale_shift=scale_shift)
-            h = self._conv(st, conv2, h)
-            skip = f"{name}/{self.net.skip}"
-            if skip in self.q or skip in self.convs:
-                x = self._conv(st, skip, x)
-            return h + x
+            return self._residual(st, conv2, f"{name}/{self.net.skip}", h,
+                                  x)
 
     def _adm_attn(self, st: _Step, name: str, x: torch.Tensor
                   ) -> torch.Tensor:

@@ -10,6 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from mrisr_tpu_torch.ops.bias_residual import (
+    bias_residual,
+    bias_residual_plain,
+)
 from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8,
     conv2d_int8_plain,
@@ -28,7 +32,11 @@ from mrisr_tpu_torch.ops.upconv import (
     upconv2x2_int8_plain,
     upconv_path,
 )
-from torch_port_quant_cases import quant_edge_values, quant_sites
+from torch_port_quant_cases import (
+    bias_sites,
+    quant_edge_values,
+    quant_sites,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -1331,3 +1339,219 @@ def test_adm_unet_int8_deep_call_on_card(cuda):
     assert got.shape == (2, 256, 256, 2) and bool(torch.isfinite(got).all())
     rel = float((got - want).norm() / want.norm())
     assert rel < 0.02, rel
+
+
+# kernel E's (H, C, mode) at 256^2 in one int8_deep call of each network
+# at its published width (batch 32 in the served call): 'bias' alone, with
+# the block input as 'residual', or with a 1x1 'shortcut' conv's output and
+# its bias.  The notebook net at base 64: init_conv, upconv1 (bias), enc1,
+# dec1 (shortcut); the DDPM UNet at ch 128: conv_in and up/1's upsample
+# conv (bias), the two down-blocks (residual), the three up-blocks
+# (shortcut), the five stride-2 downsamples (bias, 128^2 x 128 down to
+# 8^2 x 512); ADM at ch 256: conv_in and six conv1 (bias), three
+# residual, three shortcut.
+BIAS_SHAPES = [(256, 64, "bias"), (256, 64, "shortcut"),
+               (256, 128, "bias"), (256, 128, "residual"),
+               (256, 128, "shortcut"), (128, 128, "bias"), (64, 128, "bias"),
+               (32, 256, "bias"), (16, 256, "bias"), (8, 512, "bias"),
+               (256, 256, "bias"), (256, 256, "residual"),
+               (256, 256, "shortcut")]
+
+
+def _bits(t):
+    """Bit patterns, so that a NaN equals itself."""
+    return t.contiguous().view(torch.int16 if t.element_size() == 2
+                               else torch.int32)
+
+
+def _bias_case(g, shape, mode, dtype, device):
+    """(y, b, r, rb) of ``mode`` at NHWC ``shape``."""
+    c = shape[-1]
+
+    def draw(*s, scale=1.0):
+        return (scale * torch.randn(s, generator=g, device=device)).to(dtype)
+
+    y, b = draw(*shape, scale=3.0), draw(c)
+    r = None if mode == "bias" else draw(*shape, scale=2.0)
+    rb = draw(c) if mode == "shortcut" else None
+    return y, b, r, rb
+
+
+@pytest.mark.parametrize("h,c,mode", BIAS_SHAPES, ids=str)
+def test_bias_residual_kernel_matches_plain_at_site_shapes(cuda, h, c, mode):
+    """Kernel E at every (H, C, mode) of the three networks' int8_deep
+    call, batch 32, bf16: the plain version's bits, in place into y (the
+    same tensor back), r untouched, the same bits on a second launch, one
+    launch counted (with a residual: counted as such too)."""
+    g = torch.Generator(device=cuda).manual_seed(100 * h + c)
+    y, b, r, rb = _bias_case(g, (32, h, h, c), mode, torch.bfloat16, cuda)
+    r_before = None if r is None else r.clone()
+    want = bias_residual_plain(y.clone(), b, r, rb)
+    again = y.clone()
+    before = (bias_residual.launches, bias_residual.launches_residual)
+    got = bias_residual(y, b, r, rb)
+    torch.cuda.synchronize()
+    assert got is y
+    assert (bias_residual.launches - before[0],
+            bias_residual.launches_residual - before[1]) == (
+                1, int(r is not None))
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(bias_residual(again, b, r, rb)), _bits(got))
+    if r is not None:
+        assert torch.equal(_bits(r), _bits(r_before))
+
+
+@pytest.mark.parametrize("mode", ["bias", "residual", "shortcut"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("offset", [0, 1, 3, 8])
+def test_bias_residual_kernel_ragged_and_unaligned(cuda, offset, dtype,
+                                                   mode):
+    """Pixel counts 1, 3, 37 and 1001 (no whole grid stride), rows of 8 to
+    1024 channels, from a base ``offset`` elements past 16-byte alignment
+    (1, 3: the scalar path throughout; 8: 16 bytes on in bf16, 32 in
+    float32, the vector path), float32 too, with +-inf and NaN in y: the
+    plain version's bits, r untouched."""
+    g = torch.Generator(device=cuda).manual_seed(offset)
+    for pixels, c in ((1, 8), (3, 24), (37, 64), (1001, 1024)):
+        n = pixels * c
+        y, b, r, rb = _bias_case(g, (n + offset,), mode, dtype, cuda)
+        y[offset + 3:offset + 6] = torch.tensor(
+            [float("inf"), float("-inf"), float("nan")], dtype=dtype)
+        b, rb = (torch.randn(c, generator=g, device=cuda).to(dtype),
+                 None if rb is None else
+                 torch.randn(c, generator=g, device=cuda).to(dtype))
+        ys = y[offset:].view(pixels, c)
+        rs = None if r is None else r[offset:].view(pixels, c)
+        assert (ys.data_ptr() % 16 != 0) == (offset in (1, 3))
+        r_before = None if rs is None else rs.clone()
+        want = bias_residual_plain(ys.clone(), b, rs, rb)
+        assert torch.equal(_bits(bias_residual(ys, b, rs, rb)), _bits(want))
+        if rs is not None:
+            assert torch.equal(_bits(rs), _bits(r_before))
+
+
+@pytest.mark.parametrize("mode", ["bias", "residual", "shortcut"])
+@pytest.mark.parametrize("c", [64, 128, 256])
+def test_bias_residual_after_cudnn_is_its_conv_with_bias(cuda, c, mode):
+    """On the card, cuDNN's bf16 conv without its bias, then E, is
+    ``F.conv2d(h, w, b)`` (``+ x``, ``+ F.conv2d(x, ws, bs)``) bit for bit:
+    torch adds a cuDNN conv's bias in a pass of its own, and E repeats its
+    roundings; and the transposed conv (the notebook net's upconv1)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=cuda).manual_seed(c)
+
+    def draw(*s, scale=1.0):
+        return (scale * torch.randn(s, generator=g, device=cuda)).to(
+            torch.bfloat16)
+
+    cl = torch.channels_last
+    h = draw(4, c, 64, 64).contiguous(memory_format=cl)
+    w = draw(c, c, 3, 3, scale=0.05).contiguous(memory_format=cl)
+    x = draw(4, 2 * c, 64, 64).contiguous(memory_format=cl)
+    ws = draw(c, 2 * c, 1, 1, scale=0.1).contiguous(memory_format=cl)
+    b, bs = draw(c), draw(c)
+    want = F.conv2d(h, w, b, padding=1)
+    r = rb = None
+    if mode == "residual":
+        r = draw(4, 64, 64, c)
+        want = want + r.permute(0, 3, 1, 2)
+    elif mode == "shortcut":
+        want = want + F.conv2d(x, ws, bs)
+        r, rb = F.conv2d(x, ws).permute(0, 2, 3, 1), bs
+    y = F.conv2d(h, w, padding=1).permute(0, 2, 3, 1)
+    got = bias_residual(y, b, r, rb)
+    assert torch.equal(_bits(got), _bits(want.permute(0, 2, 3, 1)))
+    wt = draw(c, c, 2, 2, scale=0.1)
+    want_t = F.conv_transpose2d(h, wt, b, stride=2)
+    got_t = bias_residual(F.conv_transpose2d(h, wt, stride=2).permute(
+        0, 2, 3, 1).contiguous(), b)
+    assert torch.equal(_bits(got_t), _bits(want_t.permute(0, 2, 3, 1)))
+
+
+def _adds(prof):
+    """(torch's non-vectorized adds, its vectorized adds) among the
+    kernels a profiled run launched."""
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    adds = [n for n in names if "add" in n.lower()
+            and "elementwise_kernel" in n]
+    plain = [n for n in adds if "elementwise_kernel<128, 4" in n
+             and "vectorized" not in n]
+    return len(plain), sum("vectorized_elementwise_kernel" in n
+                           for n in adds)
+
+
+@pytest.mark.parametrize("net", ["notebook", "ddpm", "adm"])
+def test_bias_residual_in_an_int8_deep_call(cuda, net):
+    """One int8_deep denoiser call of each network at its published width,
+    256^2, batch 2, through the kernels: E launched 4 / 12 / 13 times, 2 /
+    5 / 6 of them with a residual (``bias_sites``); the same bits with E's
+    plain version in its place, and with E's routing off (cuDNN's biases
+    and torch's residual add, as before E); under a profiler, torch's
+    non-vectorized adds fall by E's launches and its shortcut biases (each
+    a bias add of cuDNN's conv that E took) to the output conv's one (1
+    or 2 channels), its vectorized adds by the residuals E took."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.adm_unet import ADMUNet
+    from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
+    from mrisr_tpu_torch.models.diffusion import (
+        DiffusionSchedule,
+        FastDDPMUNet,
+    )
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm,
+        deep_sites,
+        int8_forward,
+        quantize_fastddpm,
+    )
+
+    torch.manual_seed(0)
+    model = {"notebook": lambda: FastDDPMUNet(base_features=64),
+             "ddpm": lambda: DDPMUNet(base_features=128),
+             "adm": lambda: ADMUNet(base_features=256)}[net]()
+    params = fastddpm_flax_params(model.to(cuda))
+    del model
+    sched = DiffusionSchedule.create(1000, 2, "linear", "nonuniform-4060")
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((2, 256, 256, 2), generator=g).to(cuda)
+    q = quantize_fastddpm({"params": params},
+                          calibrate_fastddpm({"params": params}, sched,
+                                             [cond]),
+                          only=deep_sites(params))
+    del params
+    x = torch.randn((2, 256, 256, 3), generator=g).to(cuda)
+    t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
+    fwd = int8_forward(q, device=cuda)
+    assert fwd._e
+    sites = bias_sites(net)
+    before = (bias_residual.launches, bias_residual.launches_residual)
+    got = fwd(x, t)
+    torch.cuda.synchronize()
+    assert (bias_residual.launches - before[0],
+            bias_residual.launches_residual - before[1]) == (
+                len(sites), sum(r for _, _, r in sites))
+    assert bool(torch.isfinite(got).all())
+    fwd._bias = bias_residual_plain
+    assert torch.equal(fwd(x, t), got)
+    fwd._bias, fwd._e = bias_residual, False
+    assert torch.equal(fwd(x, t), got)
+    counts = {}
+    for on in (True, False):
+        fwd._e = on
+        fwd(x, t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fwd(x, t)
+            torch.cuda.synchronize()
+        counts[on] = _adds(prof)
+    shortcuts = sum(s is not None for _, s, _ in sites)
+    print(f"{net}: torch's adds (non-vectorized, vectorized) a call with E "
+          f"{counts[True]}, without {counts[False]}")
+    assert counts[False][0] - counts[True][0] == len(sites) + shortcuts
+    assert counts[True][0] == 1
+    assert counts[False][1] - counts[True][1] == sum(
+        r for _, _, r in sites)

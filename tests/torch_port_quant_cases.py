@@ -2,7 +2,9 @@
 (``test_torch_port_quantize.py``) and its card tests
 (``test_torch_port_cuda.py``): the quantizer sites of both Fast-DDPM
 networks' int8_deep forward, and inputs at its rounding and saturation
-edges.  Imports neither jax nor mrisr_tpu, as the card tests must not."""
+edges; and kernel E's sites in the three networks' int8_deep forward
+(``test_torch_port_bias_residual.py`` and the card tests).  Imports
+neither jax nor mrisr_tpu, as the card tests must not."""
 
 import torch
 
@@ -52,3 +54,39 @@ def quant_edge_values(a, dtype):
                       torch.tensor([float("inf"), float("-inf"), 0.0, -0.0],
                                    dtype=dtype)])
 
+
+
+def bias_sites(net):
+    """Kernel E's calls in one int8_deep denoiser call on the card
+    (``FastDDPMForward`` with 'fused'), in order: (the float conv whose
+    bias it adds, the float shortcut conv whose bias it adds too or None,
+    whether it takes a residual).  ``net``: 'notebook', 'ddpm' (the DDPM
+    UNet) or 'adm'.  4, 12 and 13 calls, of which 2, 5 and 6 take a
+    residual; the names do not depend on the widths."""
+    if net == "notebook":
+        return [("init_conv", None, False),
+                ("enc1/conv2", "enc1/skip", True),
+                ("upconv1", None, False),
+                ("dec1/conv2", "dec1/skip", True)]
+    if net == "ddpm":
+        last = len(CH_MULT) - 1
+        return ([("conv_in", None, False)]
+                + [(f"down/0/block/{j}/conv2", None, True) for j in (0, 1)]
+                + [(f"down/{i}/downsample/conv", None, False)
+                   for i in range(last)]
+                + [("up/1/upsample/conv", None, False)]
+                + [(f"up/0/block/{j}/conv2", f"up/0/block/{j}/nin_shortcut",
+                    True) for j in (0, 1, 2)])
+    sites = [("input_blocks/0/0", None, False)]
+    for k in (1, 2):  # the two ResBlocks of the full-size level
+        sites += [(f"input_blocks/{k}/0/in_layers/2", None, False),
+                  (f"input_blocks/{k}/0/out_layers/3", None, True)]
+    # the up-ResBlock into the full-size level (no skip), then that level's
+    # three ResBlocks, each reading a concatenation (a 1x1 skip)
+    sites += [("output_blocks/14/1/in_layers/2", None, False),
+              ("output_blocks/14/1/out_layers/3", None, True)]
+    for k in (15, 16, 17):
+        sites += [(f"output_blocks/{k}/0/in_layers/2", None, False),
+                  (f"output_blocks/{k}/0/out_layers/3",
+                   f"output_blocks/{k}/0/skip_connection", True)]
+    return sites

@@ -16,13 +16,14 @@ SHA-256 of ``FastDDPMForward``'s bf16 output for gn_impl 'chain' and
 names, ids and parents of the spans one ``int8_deep`` call records under a
 profiler, for each gn_impl.
 
-With ``--card`` (one CUDA card; the ``fastddpm`` and ``fastddpm_pmub``
-presets' networks at full width, the registry's seeded init, 256^2): one
-``int8_deep`` sampler call of each (the preset's schedule, batch 32,
-'fused', calibrated on 4 of the conds), run twice: the digests of its
-output and of the calibration tables, and the launches of kernels A, B and
-K3 (and K3's shifted launches) and of the quantizer kernel (where DIR's
-package has it) in one call.
+With ``--card`` (one CUDA card; the ``fastddpm``, ``fastddpm_pmub`` and
+``fastddpm_adm`` presets' networks at full width, the registry's seeded
+init, 256^2): one ``int8_deep`` sampler call of each (the preset's
+schedule, batch 32, 'fused', calibrated on 4 of the conds), run twice: the
+digests of its output and of the calibration tables, and the launches of
+kernels A, B and K3 (and K3's shifted launches), of the quantizer kernel
+and of kernel E (all, and with a residual), where DIR's package has them,
+in one call.
 
 Prints one JSON line; two checkouts compute the same when their lines are
 equal.
@@ -164,8 +165,13 @@ def card_digests() -> dict:
         from mrisr_tpu_torch.ops.quantize import quantize_int8
 
         counters["quantize_int8.launches"] = (quantize_int8, "launches")
+    if importlib.util.find_spec("mrisr_tpu_torch.ops.bias_residual"):
+        from mrisr_tpu_torch.ops.bias_residual import bias_residual
+
+        for a in ("launches", "launches_residual"):
+            counters[f"bias_residual.{a}"] = (bias_residual, a)
     out = {"card": torch.cuda.get_device_name(0)}
-    for name in ("fastddpm", "fastddpm_pmub"):
+    for name in ("fastddpm", "fastddpm_pmub", "fastddpm_adm"):
         mcfg = PRESETS[name].model
         model, _ = init_model(name, mcfg, seed=6)
         params = fastddpm_flax_params(model.to(dev))
