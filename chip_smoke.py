@@ -323,9 +323,23 @@
    ``launches_scale_shift`` too where it scale-shifts), and its time
    against its bound (the rows' 8 n C bytes counted).  The quantizer
    check above covers ADM's (size, channels) too.
+   Then DiT-XL/8 (``models/dit.py``, 256^2: 1024 tokens of 1152
+   channels), seeded with torch's default init, calibrated and quantized
+   int8_deep: one denoiser call at batch 2 with the counts set to 0 just
+   before it: 112 A (28 in the GELU form), 57 kernel L (56 emitting
+   codes), 28 quantizer and 56 gated kernel E launches, the 28 attention
+   cores on torch's fused path and none on the float one, the same bits
+   twice, within 2 % (rel L2) of the plain versions'.  At batch 32 at
+   DiT's shapes, one launch counted each: L emitting codes and bf16 (the
+   plain version's bits, bf16 within one rounding of the float64
+   formula), A's GELU form at fc1 (1152 -> 4608; within one code of the
+   plain version's, fewer than 1e-4 apart) and E's gated form (the plain
+   version's bits, in place), each the same bits twice, timed against its
+   bound and the plain version.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
-their launches by path) and the card's name and power limit before the
+their launches by path; A's GELU and E's gated form at DiT's shape under
+``forms``; L over the 57 sites of a batch-32 DiT call) and the card's name and power limit before the
 last line, which is {"ok": true, "device": {...}}.  With
 ``--sites-json PATH`` the per-site numbers also go to PATH.  Exits non-zero
 on any failure.
@@ -410,6 +424,14 @@ DDPM_SHIFTED, NOTEBOOK_SHIFTED = 32, 7  # K3 launches with a shift a call
 ADM_CH = 256
 ADM_K3, ADM_SCALE_SHIFT, ADM_A, ADM_QUANT, ADM_ATTN = 101, 42, 121, 38, 16
 ADM_PLAIN_REL = 0.02
+# DiT-XL/8 (the fastddpm_dit preset): one int8_deep call's launches of A
+# (the 112 block linears, the 28 fc1 in the GELU form), L (57: 56 emitting
+# codes, the final layer's bf16), the quantizer (28: each proj's input),
+# E's gated form (56) and the fused attention core (28); its answer
+# against the plain versions' (rel L2)
+DIT_A, DIT_GELU, DIT_L, DIT_L_CODES = 112, 28, 57, 56
+DIT_QUANT, DIT_GATE, DIT_ATTN = 28, 56, 28
+DIT_PLAIN_REL = 0.02
 SLEEP_CYCLES = 20_000_000  # cuda_ms's head start for the host, ~10 ms
 # fp32 operations per element of K3: 3 for the sums, 2 for the affine,
 # 5 for SiLU (exp counted as one), 3 for the quantizer
@@ -640,11 +662,13 @@ def path_counts(sites, path_of):
 
 def reset_counts(conv, up):
     """Set the launch counts of kernels A (``conv``) and B (``up``), every
-    path's, K3's (all, with a shift, with a scale-shift), the quantizer's
-    and kernel E's (all, with a residual) to 0."""
+    path's and form's, K3's (all, with a shift, with a scale-shift), the
+    quantizer's, kernel E's (all, with a residual, gated) and kernel L's
+    (all, emitting codes) to 0."""
     from mrisr_tpu_torch.ops.bias_residual import bias_residual
     from mrisr_tpu_torch.ops.conv_int8 import reset_launches
     from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu
+    from mrisr_tpu_torch.ops.layernorm import layernorm_modulate
     from mrisr_tpu_torch.ops.quantize import quantize_int8
 
     reset_launches(conv, up)
@@ -652,18 +676,26 @@ def reset_counts(conv, up):
     groupnorm_silu.launches_scale_shift = 0
     quantize_int8.launches = 0
     bias_residual.launches = bias_residual.launches_residual = 0
+    bias_residual.launches_gate = 0
+    layernorm_modulate.launches = layernorm_modulate.launches_codes = 0
 
 
 def launch_counts(conv, up):
     """Launches of kernels A (``conv``) and B (``up``) since
-    ``reset_counts``: all, and by path (``"conv_int8/tc"``, ...); the
-    quantizer's; kernel E's, all and with a residual."""
+    ``reset_counts``: all, and by path (``"conv_int8/tc"``, ...), A's GELU
+    form; the quantizer's; kernel E's, all, with a residual and gated;
+    kernel L's, all and emitting codes."""
     from mrisr_tpu_torch.ops.bias_residual import bias_residual
+    from mrisr_tpu_torch.ops.layernorm import layernorm_modulate
     from mrisr_tpu_torch.ops.quantize import quantize_int8
 
     out = {"quantize_int8": quantize_int8.launches,
            "bias_residual": bias_residual.launches,
-           "bias_residual/residual": bias_residual.launches_residual}
+           "bias_residual/residual": bias_residual.launches_residual,
+           "bias_residual/gate": bias_residual.launches_gate,
+           "layernorm_modulate": layernorm_modulate.launches,
+           "layernorm_modulate/codes": layernorm_modulate.launches_codes,
+           "conv_int8/gelu": conv.launches_gelu}
     for name, fn in (("conv_int8", conv), ("upconv_int8", up)):
         out[name] = fn.launches
         for p in ("tc", "dp4a"):
@@ -5184,8 +5216,11 @@ def remat_phase(dev, card: str, step_ref=None):
 def ddpm_phase(dev, card: str):
     """The DDPM UNet at the fastddpm_pmub preset's widths (docstring, item
     17): one int8_deep denoiser call at the serving batch, counted from 0,
-    then K3 against its plain version at every distinct site of that call.
-    Returns (launches of the call, results)."""
+    then K3 against its plain version at every distinct site of that call;
+    then ADM's call and shapes (:func:`adm_check`), the quantizer's and
+    E's sites (:func:`quant_check`, :func:`bias_check`) and DiT's call and
+    new kernel forms (:func:`dit_check`).  Returns (launches of the call,
+    results)."""
     from collections import Counter
 
     from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
@@ -5346,9 +5381,10 @@ def ddpm_phase(dev, card: str):
     quant_rows = quant_check(dev, g, Counter(quant_sites), card,
                              adm.pop("quant_sites"))
     bias_rows = bias_check(dev, g, Counter(bias_sites), card)
+    dit_result = dit_check(dev, g, card)
     return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
                       "shifted_ms": shift_ms, "quant_sites": quant_rows,
-                      "bias_sites": bias_rows, "adm": adm,
+                      "bias_sites": bias_rows, "adm": adm, "dit": dit_result,
                       "wall_s": time.perf_counter() - t_phase}
 
 
@@ -5542,6 +5578,240 @@ def adm_check(dev, g, sms, card: str):
             "quant_sites": quant_sites, "wall_s": time.perf_counter() - t0}
 
 
+def dit_check(dev, g, card: str):
+    """DiT-XL/8 (``models/dit.py``, the fastddpm_dit preset's widths,
+    256^2: 1024 tokens of 1152 channels), seeded with torch's default init
+    (the adaLN linears and the final layer non-zero), calibrated on one
+    batch of 2 over the 10-step sampler and quantized int8_deep: one
+    denoiser call at batch 2, counted from 0 (DIT_A A, DIT_GELU of them in
+    the GELU form, DIT_L L, DIT_L_CODES of them emitting codes, DIT_QUANT
+    quantizer launches, DIT_GATE gated E, DIT_ATTN attention cores on the
+    fused path and none on the float one), the same bits on a second call
+    and within DIT_PLAIN_REL of the same tables through the kernels' plain
+    versions.  Then the three new forms at batch 32 at DiT's shapes, each
+    one launch counted: L (codes, as before ``qkv`` and ``fc1``, and bf16,
+    as before the final linear) the plain version's bits, bf16 also within
+    one rounding of the float64 formula; A's GELU form at ``fc1`` (1152 ->
+    4608) within one code of its plain version's, fewer than 1e-4 of the
+    codes apart; E's gated form the plain version's bits, in place.  Each
+    the same bits twice, its time (the L2 flushed before each launch)
+    against its bound and the plain version's.  Returns the call's
+    launches and the rows."""
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models import dit
+    from mrisr_tpu_torch.models.adm_unet import qkv_attention
+    from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+    from mrisr_tpu_torch.ops.bias_residual import (
+        bias_residual, gated_residual, gated_residual_plain)
+    from mrisr_tpu_torch.ops.conv_int8 import (
+        conv2d_int8, conv2d_int8_plain, pack_conv)
+    from mrisr_tpu_torch.ops.layernorm import (
+        layernorm_modulate, layernorm_modulate_plain)
+    from mrisr_tpu_torch.ops.upconv import upconv2x2_int8
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm, deep_sites, int8_forward, quantize_fastddpm)
+
+    t0 = time.perf_counter()
+    with torch.random.fork_rng(devices=[torch.cuda.current_device()]), \
+            torch.device(dev):
+        torch.manual_seed(25)
+        params = fastddpm_flax_params(dit.DiT())
+    sched = DiffusionSchedule.create(1000, 10, "linear", "nonuniform-4060")
+    cond = torch.randn((CHECK_BATCH, HW, HW, 2), generator=g, device=dev)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond])
+    q = quantize_fastddpm({"params": params}, calib, only=deep_sites(params))
+    del params, calib
+    fwd = int8_forward(q, device=dev)
+    x = torch.randn((CHECK_BATCH, HW, HW, 3), generator=g, device=dev)
+    t = torch.full((CHECK_BATCH,), int(sched.timesteps[-1]), device=dev)
+    reset_counts(conv2d_int8, upconv2x2_int8)
+    attn = (qkv_attention.calls_fused, qkv_attention.calls_float)
+    got = fwd(x, t)
+    torch.cuda.synchronize()
+    launches = launch_counts(conv2d_int8, upconv2x2_int8)
+    counted = (launches["conv_int8"], launches["conv_int8/gelu"],
+               launches["layernorm_modulate"],
+               launches["layernorm_modulate/codes"],
+               launches["quantize_int8"], launches["bias_residual"],
+               launches["bias_residual/gate"],
+               qkv_attention.calls_fused - attn[0],
+               qkv_attention.calls_float - attn[1])
+    want = (DIT_A, DIT_GELU, DIT_L, DIT_L_CODES, DIT_QUANT, DIT_GATE,
+            DIT_GATE, DIT_ATTN, 0)
+    if counted != want:
+        raise AssertionError(f"DiT int8_deep call: A launches, in the GELU "
+                             f"form, L launches, emitting codes, quantizer "
+                             f"launches, E launches, gated, fused and float "
+                             f"attention cores {counted}, want {want}")
+    if tuple(got.shape) != (CHECK_BATCH, HW, HW, 2) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"DiT int8_deep call: {tuple(got.shape)}, or "
+                             "not finite")
+    if not torch.equal(fwd(x, t), got):
+        raise AssertionError("DiT int8_deep call: two calls differ")
+    plain = int8_forward(q, device=dev, plain=True)(x, t)
+    rel = float((got - plain).norm() / plain.norm())
+    if rel >= DIT_PLAIN_REL:
+        raise AssertionError(f"DiT int8_deep call: rel L2 {rel:.4g} from the "
+                             "plain versions' call")
+    del fwd, q, got, plain, x
+    print(f"DiT int8_deep call, batch {CHECK_BATCH}: {counted[0]} A "
+          f"({counted[1]} GELU), {counted[2]} L ({counted[3]} codes), "
+          f"{counted[4]} quantizer and {counted[6]} gated E launches, "
+          f"{counted[7]} fused attention cores, the same bits twice, rel L2 "
+          f"{rel:.4g} from the plain versions' ({time.perf_counter() - t0:.1f}"
+          f" s with calibration; {card})")
+
+    n, c, grid = DDPM_BATCH, dit.HIDDEN, HW // dit.PATCH
+    m = dit.MLP_RATIO * c
+    scrub = torch.empty(16 * 2 ** 20, device=dev)
+    mods = 0.5 * torch.randn((n, 6 * c), generator=g, device=dev)
+    rows = []
+
+    def one_launch(counter, key, fn):
+        before = (counter.launches, getattr(counter, key))
+        out = fn()
+        torch.cuda.synchronize()
+        if (counter.launches - before[0],
+                getattr(counter, key) - before[1]) != (1, 1):
+            raise AssertionError(f"{counter.__name__} {key}: not one launch "
+                                 "counted")
+        return out
+
+    def timed(row, run, plain_run, ops, nbytes, peak_ops):
+        t_ops, t_bytes = ops / peak_ops * 1e3, nbytes / PEAK_BYTES * 1e3
+        row.update(ops=ops, bytes=nbytes, ops_ms=t_ops, bytes_ms=t_bytes,
+                   bound_ms=max(t_ops, t_bytes), library_ms=None,
+                   ms=cuda_ms(run, reps=10, flush=scrub.zero_),
+                   plain_ms=cuda_ms(plain_run, reps=3, flush=scrub.zero_))
+        row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+        rows.append(row)
+        print(f"{row['kernel']} DiT {row['site']:34s} x{row['dit_sites']:2d}"
+              f": {row['check']}, {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ({row['pct_of_bound']:.1f} %), plain "
+              f"{row['plain_ms']:.3f} ms")
+
+    # L: a block's LayerNorm and modulation, its (shift, scale) a strided
+    # view of the six adaLN rows
+    xb = (2 * torch.randn((n, grid, grid, c), generator=g, device=dev)
+          + 0.3).to(torch.bfloat16)
+    ss = mods[:, 3 * c:5 * c]
+    y16 = layernorm_modulate_plain(xb, ss, eps=dit.LN_EPS)
+    a = (y16.float().abs().amax() / 127.0).reshape(1)
+    for codes in (True, False):
+        kw = {"quant_scale": a} if codes else {}
+        site = (f"{n} x {grid}^2 x {c} -> "
+                f"{'codes' if codes else 'bf16'}")
+        out = one_launch(layernorm_modulate,
+                         "launches_codes" if codes else "launches",
+                         lambda: layernorm_modulate(xb, ss, eps=dit.LN_EPS,
+                                                    **kw))
+        want = layernorm_modulate_plain(xb, ss, eps=dit.LN_EPS, **kw)
+        again = layernorm_modulate(xb, ss, eps=dit.LN_EPS, **kw)
+        if codes:
+            check_exact(out, want, again, f"L DiT {site}")
+        else:
+            bits = [v.view(torch.int16) for v in (out, want, again)]
+            if not (torch.equal(bits[0], bits[1])
+                    and torch.equal(bits[2], bits[0])):
+                raise AssertionError(f"L DiT {site}: not the plain "
+                                     "version's bits, or two launches "
+                                     "differ")
+            xd = xb.double()
+            exact = ((xd - xd.mean(-1, keepdim=True)) / torch.sqrt(
+                xd.var(-1, unbiased=False, keepdim=True) + dit.LN_EPS)
+                * (1 + ss[:, None, None, c:].double())
+                + ss[:, None, None, :c].double())
+            if bool(((out.double() - exact).abs()
+                     > exact.abs() * 2.0 ** -8 + 1e-5).any()):
+                raise AssertionError(f"L DiT {site}: more than one bf16 "
+                                     "rounding from the float64 formula")
+            del xd, exact
+        del out, want, again
+        elems = xb.numel()
+        timed({"kernel": "layernorm_modulate", "site": site, "form": (
+                  "codes" if codes else "bf16"), "batch": n,
+               "dit_sites": DIT_L_CODES if codes else DIT_L - DIT_L_CODES,
+               "max_abs_err": 0.0, "check": "equal to plain"},
+              lambda: layernorm_modulate(xb, ss, eps=dit.LN_EPS, **kw),
+              lambda: layernorm_modulate_plain(xb, ss, eps=dit.LN_EPS, **kw),
+              (4 + 3 * codes) * elems,
+              (2 + (1 if codes else 2)) * elems + 8 * n * c, PEAK_FP32_OPS)
+    del y16
+
+    # A's GELU form at fc1: the codes of GELU(y) at fc2's scale
+    xq = torch.randint(-127, 128, (n, grid, grid, c), generator=g,
+                       device=dev, dtype=torch.int8)
+    wp = pack_conv(torch.randint(-127, 128, (1, 1, c, m), generator=g,
+                                 device=dev, dtype=torch.int8))
+    s = torch.rand(m, generator=g, device=dev) * 2e-5
+    b = 0.2 * torch.randn(m, generator=g, device=dev)
+    yf = conv2d_int8_plain(xq, wp, s, b, relu=False, out_float=True)
+    ga = (torch.nn.functional.gelu(yf, approximate="tanh").abs().amax()
+          / 127.0).reshape(1)
+    del yf
+    out = one_launch(conv2d_int8, "launches_gelu",
+                     lambda: conv2d_int8(xq, wp, s, b, relu=False,
+                                         gelu_scale=ga))
+    want = conv2d_int8_plain(xq, wp, s, b, relu=False, gelu_scale=ga)
+    diff = (out.int() - want.int()).abs()
+    worst, off = int(diff.max()), float((diff > 0).float().mean())
+    if worst > 1 or off >= 1e-4:
+        raise AssertionError(f"A DiT fc1 GELU form: codes differ: max "
+                             f"{worst}, {off:.4%} apart")
+    if not torch.equal(conv2d_int8(xq, wp, s, b, relu=False, gelu_scale=ga),
+                       out):
+        raise AssertionError("A DiT fc1 GELU form: two launches differ")
+    del out, want, diff
+    tokens = n * grid * grid
+    timed({"kernel": "conv_int8", "site": f"fc1 {n} x {grid}^2 x {c} -> {m}",
+           "form": "gelu", "batch": n, "dit_sites": DIT_GELU,
+           "max_abs_err": float(worst), "off_by_one": off,
+           "float_out_ms": cuda_ms(lambda: conv2d_int8(
+               xq, wp, s, b, relu=False, out_float=True), reps=10,
+               flush=scrub.zero_),
+           "check": f"max {worst} code apart ({off:.2e} of them)"},
+          lambda: conv2d_int8(xq, wp, s, b, relu=False, gelu_scale=ga),
+          lambda: conv2d_int8_plain(xq, wp, s, b, relu=False, gelu_scale=ga),
+          2 * tokens * c * m, tokens * c + c * m + tokens * m + 8 * m,
+          PEAK_INT8_OPS)
+    del xq, wp
+
+    # E's gated form: x + gate * y into the residual stream, in place
+    y = torch.randn((n, grid, grid, c), generator=g, device=dev)
+    gate = mods[:, 2 * c:3 * c]
+    want = gated_residual_plain(xb.clone(), gate, y)
+    xe = xb.clone()
+    out = one_launch(bias_residual, "launches_gate",
+                     lambda: gated_residual(xe, gate, y))
+    if out is not xe or not torch.equal(out.view(torch.int16),
+                                        want.view(torch.int16)):
+        raise AssertionError("E DiT gated: not the plain version's bits in "
+                             "place")
+    if not torch.equal(gated_residual(xb.clone(), gate, y).view(torch.int16),
+                       want.view(torch.int16)):
+        raise AssertionError("E DiT gated: two launches differ")
+    del want, out
+    elems = xb.numel()
+    # each launch writes xe in place: its sums grow from launch to launch,
+    # which costs nothing in an add
+    timed({"kernel": "bias_residual", "site": f"{n} x {grid}^2 x {c} gated",
+           "form": "gate", "batch": n, "dit_sites": DIT_GATE,
+           "max_abs_err": 0.0, "check": "equal to plain, in place"},
+          lambda: gated_residual(xe, gate, y),
+          lambda: gated_residual_plain(xe, gate, y),
+          0, 2 * 2 * elems + 4 * elems + 4 * n * c, PEAK_FP32_OPS)
+    del xb, xe, y
+    lrows = [r for r in rows if r["kernel"] == "layernorm_modulate"]
+    print(f"L a batch-{n} int8_deep DiT call: "
+          f"{sum(r['ms'] * r['dit_sites'] for r in lrows):.3f} ms (bound "
+          f"{sum(r['bound_ms'] * r['dit_sites'] for r in lrows):.3f}, plain "
+          f"{sum(r['plain_ms'] * r['dit_sites'] for r in lrows):.3f}) "
+          f"({card})")
+    return {"launches": launches, "rel_to_plain": rel, "sites": rows,
+            "wall_s": time.perf_counter() - t0}
+
+
 def quant_check(dev, g, ddpm_sites, card: str, adm_sites):
     """The quantizer at batch 32 at each distinct (H, C) of its inputs in
     one int8_deep call of the DDPM UNet (``ddpm_sites``: Counter of (H, C)),
@@ -5687,7 +5957,8 @@ def bias_check(dev, g, ddpm_sites, card: str):
 # pallas_call: XLA generated the int8 conv (_conv3x3 at :66) and its
 # requantizing epilogue (_requant_epilogue at :204) on the TPU; nor does
 # the quantizer: XLA fused _quant_input (:236) into the conv reading it;
-# nor does kernel E: XLA fused a float site's bias (:509) into its conv.
+# nor does kernel E: XLA fused a float site's bias (:509) into its conv;
+# nor does kernel L: the JAX package serves no transformer.
 SOURCES = {
     "conv_int8": ("mrisr_tpu_torch/csrc/conv_int8.cu",
                   "mrisr_tpu/serve/quant.py:66"),
@@ -5701,6 +5972,8 @@ SOURCES = {
                       "mrisr_tpu/serve/quant.py:236"),
     "bias_residual": ("mrisr_tpu_torch/csrc/bias_residual.cu",
                       "mrisr_tpu/serve/quant_diffusion.py:509"),
+    "layernorm_modulate": ("mrisr_tpu_torch/csrc/layernorm_modulate.cu",
+                           None),
 }
 
 
@@ -5777,7 +6050,9 @@ def main() -> int:
               "distill": distill_launches, "ingest": ingest_launches,
               "parallel": parallel_launches, "model_axis": tp_launches,
               "names": names_launches, "remat": remat_launches,
-              "ddpm": ddpm_launches, "adm": ddpm_result["adm"]["launches"]}
+              "ddpm": ddpm_launches, "adm": ddpm_result["adm"]["launches"],
+              "dit": ddpm_result["dit"]["launches"]}
+    dit_rows = ddpm_result["dit"]["sites"]
     for name in SOURCES:
         # A and B: all sites of one batch-8 UNet forward, summed; K1: one
         # call at N = 174, the eval's 3 mm test split; K3: the 10 sites of
@@ -5785,7 +6060,8 @@ def main() -> int:
         # the 6 bf16 sites of one batch-32 int8_deep notebook-net forward,
         # summed, checked at both nets' shapes; E: the 256^2 sites of one
         # batch-32 int8_deep DDPM UNet forward, summed, checked at all of
-        # its sites
+        # its sites; L: the 57 sites of one batch-32 int8_deep DiT forward,
+        # summed
         sel = ([r for r in rows if r["kernel"] == name] if name in
                ("conv_int8", "upconv_int8") else
                [r for r in ssim_rows if r["N"] == 174] if name == "ssim" else
@@ -5795,6 +6071,9 @@ def main() -> int:
                [r for r in bias_rows if r["H"] == HW
                 for _ in range(r["ddpm_sites"])]
                if name == "bias_residual" else
+               [r for r in dit_rows if r["kernel"] == name
+                for _ in range(r["dit_sites"])]
+               if name == "layernorm_modulate" else
                [r for r in k3_rows if r["kernel"] == name])
         checked = sel + [r for r in k3_rows + quant_rows + bias_rows
                          if r["kernel"] == name]
@@ -5805,8 +6084,8 @@ def main() -> int:
         def main_path(key):
             # the serving, eval, diffusion, training, families, bf16,
             # distillation, ingest, parallel, model-axis, names, remat,
-            # DDPM and ADM paths' runs, each counted from 0 just before it
-            # (phase 13's and 14's ranks count their own)
+            # DDPM, ADM and DiT paths' runs, each counted from 0 just
+            # before it (phase 13's and 14's ranks count their own)
             return sum(launches.get(key, 0) for launches in phases.values())
 
         entry = {
@@ -5826,6 +6105,13 @@ def main() -> int:
         if name in ("conv_int8", "upconv_int8"):
             entry["launches_by_path"] = {p: main_path(f"{name}/{p}")
                                          for p in ("tc", "dp4a")}
+        # A's GELU form and E's gated form: one launch at DiT's shape
+        for r in dit_rows:
+            if r["kernel"] == name and name != "layernorm_modulate":
+                entry.setdefault("forms", {})[r["form"]] = {
+                    "launches": main_path(f"{name}/{r['form']}"),
+                    "site": r["site"], "max_abs_err": r["max_abs_err"],
+                    **{k: r[k] for k in ("ms", "bound_ms", "plain_ms")}}
         kernels.append(entry)
     if args.sites_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.sites_json)),

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 KERNELS = ("conv_int8", "upconv_int8", "ssim", "groupnorm_silu",
-           "quantize_int8", "bias_residual")
+           "quantize_int8", "bias_residual", "layernorm_modulate")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -35,11 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_longlong
+_D = ctypes.c_double
 # C signatures of the launchers (each returns cudaGetLastError()) and of
 # their int-valued helpers
 SIGNATURES = {
     "conv_int8_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _P],
+                         _I, _P, _P],
     "upconv_int8_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _I, _P],
     "ssim_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
@@ -48,6 +49,9 @@ SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "quantize_int8_launch": [_P, _I, _P, _P, _L, _I, _P],
     "bias_residual_launch": [_P, _I, _P, _P, _P, _L, _I, _I, _P],
+    "gated_residual_launch": [_P, _I, _P, _L, _P, _L, _I, _I, _I, _P],
+    "layernorm_modulate_launch": [_P, _I, _P, _L, _P, _P, _I, _I, _I, _D,
+                                  _P],
 }
 
 

@@ -262,9 +262,11 @@ def fastddpm_state_dict_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
 
 
 def fastddpm_flax_params(model) -> Dict:
-    """A port ``FastDDPMUNet`` (or ``DDPMUNet``, ``ADMUNet``) -> the flax
-    param tree (torch tensors on the model's device, float32): the layout
-    the serving tables, bundles and ``serve/quant_diffusion.py`` read."""
+    """A port ``FastDDPMUNet`` (or ``DDPMUNet``, ``ADMUNet``, ``DiT``) ->
+    the flax param tree (torch tensors on the model's device, float32): the
+    layout the serving tables, bundles and ``serve/quant_diffusion.py``
+    read.  A top-level tensor (DiT's ``pos_embed`` table) stays a leaf of
+    its own name."""
     sd = {k: v.detach() for k, v in model.state_dict().items()}
     tree: Dict = {}
 
@@ -278,6 +280,9 @@ def fastddpm_flax_params(model) -> Dict:
              "time_emb.fc.2": ("time_emb", "Dense_1"),
              "final.0": ("final_norm",), "final.2": ("final_conv",)}
     for key, w in sd.items():
+        if "." not in key:
+            tree[key] = w
+            continue
         prefix, leaf = key.rsplit(".", 1)
         path = names.get(prefix, tuple(prefix.split(".")))
         if leaf == "bias":

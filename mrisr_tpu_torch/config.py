@@ -369,4 +369,25 @@ PRESETS = {
             learning_rate=2e-5, optimizer="adamw", grad_clip_norm=1.0, epochs=40,
         ),
     ),
+    # DiT-XL/8, the Diffusion Transformer (Peebles & Xie 2023,
+    # arXiv:2212.09748; github.com/facebookresearch/DiT models.py:DiT_XL_8:
+    # hidden 1152, 28 blocks, 16 heads, patch 8, MLP ratio 4, learn_sigma;
+    # 674.0 M params, models/dit.py) as a pixel-space denoiser of 256^2
+    # slices (1024 tokens), sampled as the fastddpm_pmub preset is: linear
+    # beta 1e-4 to 0.02 over 1000 steps, 10 steps of 'nonuniform-4060'.
+    # time_dim is the width (DiT's TimestepEmbedder is hidden wide).  The
+    # port's own.  Training settings follow the fastddpm preset's.
+    "fastddpm_dit": _preset(
+        "fastddpm_dit",
+        data=DataConfig(batch_size=4, augment=True),
+        model=ModelConfig(
+            name="fastddpm_dit", in_channels=3, base_features=1152,
+            time_dim=1152, num_timesteps=1000, num_inference_steps=10,
+            beta_schedule="linear", timestep_selection="nonuniform-4060",
+        ),
+        loss=LossConfig(kind="diffusion"),
+        train=TrainConfig(
+            learning_rate=2e-5, optimizer="adamw", grad_clip_norm=1.0, epochs=40,
+        ),
+    ),
 }

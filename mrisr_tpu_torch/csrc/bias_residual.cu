@@ -34,6 +34,17 @@
 //     once (or as the units need), striding over the map: no second wave;
 //   - a scalar loop takes every element where y or r is not 16-byte
 //     aligned.
+//
+// The gated form (gated_residual_launch), DiT's gated residual: x = t(x +
+// f32(gate[b, c] * y)) in place into the residual stream x (bfloat16 or
+// float32), y the float32 output of kernel A at a block's proj or fc2, the
+// gate a float32 row an image (a slice of the adaLN rows, ld floats
+// apart): one product and one sum an element, each rounded to float32
+// (never contracted into an fma), then t(): torch's `x + gate * y` on
+// float32 operands, bit for bit.  Its own kernel, with the same pass: a
+// block takes one image (blockIdx.y), its gate row in shared memory, and
+// strides over that image's 16-byte units of x (and 32 or 16 bytes of y);
+// bytes at 3.35 TB/s bound it: 2 + 4 + 2 bytes an element in bfloat16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -199,7 +210,134 @@ int dispatch(void* y, const void* b, const void* r, const void* rb,
   return launch<BF16, true, true>(y, b, r, rb, n, c, sms, s);
 }
 
+// The gated form.  x: B images of T * c elements (bfloat16 or float32),
+// in place; gate: B rows of c float32, ld floats apart; y: x's layout in
+// float32.  x and y 16-byte aligned, c % 8 == 0.
+template <bool BF16>
+__global__ void __launch_bounds__(THREADS)
+    gated_residual_kernel(void* __restrict__ x,
+                          const float* __restrict__ gate, long long ld,
+                          const float* __restrict__ y, int T, int c) {
+  constexpr int PER = Elem<BF16>::PER_UNIT;
+  extern __shared__ uint4 rows[];
+  float* g = reinterpret_cast<float*>(rows);
+  const int img = blockIdx.y;
+  for (int i = threadIdx.x; i < c; i += THREADS)
+    g[i] = gate[static_cast<long long>(img) * ld + i];
+  __syncthreads();
+
+  const long long units = static_cast<long long>(T) * (c / PER);
+  const long long stride = static_cast<long long>(gridDim.x) * THREADS;
+  const int row = c / PER;
+  const int step = static_cast<int>(stride % row);
+  long long u = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  int k = static_cast<int>(u % row);
+  uint4* x4 = static_cast<uint4*>(x) + img * units;
+  const float4* y4 = reinterpret_cast<const float4*>(y) +
+                     img * units * (PER / 4);
+  auto next = [&](int kk) {
+    kk += step;
+    return kk >= row ? kk - row : kk;
+  };
+  auto gated = [&](float xv, float yv, int ch) {
+    return __fadd_rn(xv, __fmul_rn(g[ch], yv));
+  };
+  auto finish = [&](uint4 xv, const float4 (&yv)[PER / 4], int kk) {
+    const int c0 = kk * PER;
+    if constexpr (BF16) {
+      const uint32_t w[4] = {xv.x, xv.y, xv.z, xv.w};
+      uint32_t o[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4& q = yv[j / 2];
+        const float y0 = (j & 1) ? q.z : q.x, y1 = (j & 1) ? q.w : q.y;
+        const __nv_bfloat162 p = __floats2bfloat162_rn(
+            gated(bf_lo(w[j]), y0, c0 + 2 * j),
+            gated(bf_hi(w[j]), y1, c0 + 2 * j + 1));
+        o[j] = *reinterpret_cast<const uint32_t*>(&p);
+      }
+      return make_uint4(o[0], o[1], o[2], o[3]);
+    } else {
+      const float4& q = yv[0];
+      return make_uint4(
+          __float_as_uint(gated(__uint_as_float(xv.x), q.x, c0)),
+          __float_as_uint(gated(__uint_as_float(xv.y), q.y, c0 + 1)),
+          __float_as_uint(gated(__uint_as_float(xv.z), q.z, c0 + 2)),
+          __float_as_uint(gated(__uint_as_float(xv.w), q.w, c0 + 3)));
+    }
+  };
+  for (; u + (UNROLL - 1) * stride < units; u += UNROLL * stride) {
+    uint4 v[UNROLL];
+    float4 w[UNROLL][PER / 4];
+    int kk[UNROLL];
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j) {
+      kk[j] = k;
+      k = next(k);
+      v[j] = x4[u + j * stride];
+#pragma unroll
+      for (int h = 0; h < PER / 4; ++h)
+        w[j][h] = __ldcs(y4 + (u + j * stride) * (PER / 4) + h);
+    }
+#pragma unroll
+    for (int j = 0; j < UNROLL; ++j)
+      x4[u + j * stride] = finish(v[j], w[j], kk[j]);
+  }
+  for (; u < units; u += stride) {
+    float4 w[PER / 4];
+#pragma unroll
+    for (int h = 0; h < PER / 4; ++h) w[h] = __ldcs(y4 + u * (PER / 4) + h);
+    x4[u] = finish(x4[u], w, k);
+    k = next(k);
+  }
+}
+
+template <bool BF16>
+int launch_gated(void* x, const float* gate, long long ld, const float* y,
+                 int B, int T, int c, int sms, cudaStream_t s) {
+  static int per_sm = 0;  // blocks an SM holds at once, asked once
+  if (per_sm < 1) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, gated_residual_kernel<BF16>, THREADS, MAX_C * 4);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const long long units =
+      static_cast<long long>(T) * (c / Elem<BF16>::PER_UNIT);
+  const long long need = (units + THREADS - 1) / THREADS;
+  long long per_img = static_cast<long long>(sms) * per_sm / B;
+  if (per_img < 1) per_img = 1;
+  const dim3 grid(static_cast<unsigned>(need < per_img ? need : per_img), B);
+  gated_residual_kernel<BF16><<<grid, THREADS, c * sizeof(float), s>>>(
+      x, gate, ld, y, T, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The gated form: x (B images of T * c contiguous bfloat16 (bf16 = 1) or
+// float32 elements) = x + gate[img] * y in place; gate: B rows of c
+// float32, row i at gate + i * ld; y: x's layout in float32; x and y
+// 16-byte aligned, c a multiple of 8 up to 4096; sms: the device's SM
+// count.  Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int gated_residual_launch(void* x, int bf16, const void* gate,
+                                     long long ld, const void* y, long long n,
+                                     int c, int B, int sms, void* stream) {
+  if (n < 1 || c < 8 || c % 8 != 0 || c > MAX_C || B < 1 || B > 65535 ||
+      n % (static_cast<long long>(B) * c) != 0 || ld < c || sms < 1 || !x ||
+      !gate || !y ||
+      (reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(y)) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long t = n / (static_cast<long long>(B) * c);
+  if (t > (1LL << 30)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(gate);
+  const float* yf = static_cast<const float*>(y);
+  return bf16 ? launch_gated<true>(x, g, ld, yf, B, static_cast<int>(t), c,
+                                   sms, s)
+              : launch_gated<false>(x, g, ld, yf, B, static_cast<int>(t), c,
+                                    sms, s);
+}
 
 // y: n contiguous bfloat16 (bf16 = 1) or float32 elements, rows of c
 // channels, updated in place; b: c elements of y's type; r: null or n

@@ -315,18 +315,43 @@ __device__ __forceinline__ bool mainloop(const CUtensorMap& mapA,
 // float32) into its warpgroup's 64 x BN staging tile in shared memory
 // (staging(smem), row pitch Layout<BN>::PITCH_F32 or PITCH_I8), then a
 // barrier of the warpgroup's 128 threads.  Columns at or past `ncols` stage values the
-// store skips.
+// store skips.  GELU (int8 out only): GELU's tanh form of the dequantized
+// value, then the codes of the next int8 site's input at its activation
+// scale `qa` (gelu_code), which does not commute with the GELU and so
+// cannot be folded into s and b as a ReLU's scale is.
 template <int BN>
 __device__ __forceinline__ uint8_t* staging(uint8_t* smem) {
   return smem + (threadIdx.x >> 7) * 64 * Layout<BN>::PITCH_F32;
 }
 
-template <int BN, bool OUT_FLOAT>
+// GELU's tanh form, 0.5 y (1 + tanh(k (y + 0.044715 y^3))), written as
+// y / (1 + exp(-2 k (y + 0.044715 y^3))) (the same function: 1 + tanh(u)
+// = 2 / (1 + exp(-2 u))) with the fast exponential and division: two
+// special-function operations an element, about 1e-6 relative of
+// torch's, so a code lies a boundary apart from the plain version's (the
+// codes of torch's GELU) a few times in 1e5.  Where exp overflows the
+// fast division gives 0, GELU's limit there.
+__device__ __forceinline__ float gelu_tanh(float y) {
+  constexpr float K2 = -2.0f * 0.7978845608028654f;  // -2 sqrt(2 / pi)
+  const float u = K2 * fmaf(0.044715f * y, y * y, y);
+  return __fdividef(y, 1.0f + __expf(u));
+}
+
+// The quantizer's code (csrc/quantize_int8.cu): true division by the
+// activation scale, round half to even, clip to +-127; NaN -> 0.
+__device__ __forceinline__ int8_t gelu_code(float g, float qa) {
+  const float q = __fdiv_rn(g, qa);
+  return isnan(q) ? (int8_t)0 : igemm::requant(q);
+}
+
+template <int BN, bool OUT_FLOAT, bool GELU = false>
 __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
                                            uint8_t* stg,
                                            const float* __restrict__ s,
                                            const float* __restrict__ b,
-                                           int n0, int ncols, bool relu) {
+                                           int n0, int ncols, bool relu,
+                                           float qa = 0.f) {
+  static_assert(!(GELU && OUT_FLOAT), "the GELU form emits codes");
   using L = Layout<BN>;
   const int t = threadIdx.x & 127, w = t >> 5, l = t & 31;
 #pragma unroll
@@ -346,8 +371,14 @@ __device__ __forceinline__ void stage_tile(const int (&acc)[BN / 2],
       *reinterpret_cast<float2*>(stg + row * L::PITCH_F32 + col * 4) =
           make_float2(y[0], y[1]);
     } else {
-      const unsigned q0 = (uint8_t)igemm::requant(y[0]);
-      const unsigned q1 = (uint8_t)igemm::requant(y[1]);
+      unsigned q0, q1;
+      if constexpr (GELU) {
+        q0 = (uint8_t)gelu_code(gelu_tanh(y[0]), qa);
+        q1 = (uint8_t)gelu_code(gelu_tanh(y[1]), qa);
+      } else {
+        q0 = (uint8_t)igemm::requant(y[0]);
+        q1 = (uint8_t)igemm::requant(y[1]);
+      }
       *reinterpret_cast<uint16_t*>(stg + row * L::PITCH_I8 + col) =
           (uint16_t)(q0 | (q1 << 8));
     }

@@ -234,11 +234,13 @@ def fused_attention_takes(q: torch.Tensor) -> bool:
             and q.shape[-1] % 8 == 0 and q.shape[-1] <= 256)
 
 
-def qkv_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
+def qkv_attention(qkv: torch.Tensor, heads: int,
+                  order: str = "legacy") -> torch.Tensor:
     """guided-diffusion's ``QKVAttentionLegacy`` on tokens: ``qkv`` ``(B,
     T, 3 C)`` (the 1x1 ``qkv`` conv's channels in its order: head by head,
     each head's q, k and v of ``C / heads`` channels) -> ``(B, T, C)``,
-    head by head.  ``softmax(q k^T / sqrt(ch))`` over the keys (the legacy
+    head by head.  ``order='timm'`` reads timm's ``Attention`` order (DiT's
+    ``qkv`` Linear): every head's q, then every head's k, then v.  ``softmax(q k^T / sqrt(ch))`` over the keys (the legacy
     code scales q and k by ``ch^-1/4`` each), times v.  Through torch's
     fused SDPA where it takes the heads (:func:`fused_attention_takes`:
     float32 softmax inside, counted in ``calls_fused``), else the float32
@@ -246,7 +248,15 @@ def qkv_attention(qkv: torch.Tensor, heads: int) -> torch.Tensor:
     in ``calls_float``)."""
     b, t, w = qkv.shape
     ch = w // (3 * heads)
-    q, k, v = qkv.reshape(b, t, heads, 3, ch).permute(3, 0, 2, 1, 4).unbind(0)
+    if order == "legacy":
+        q, k, v = qkv.reshape(b, t, heads, 3, ch).permute(3, 0, 2, 1,
+                                                          4).unbind(0)
+    elif order == "timm":
+        q, k, v = qkv.reshape(b, t, 3, heads, ch).permute(2, 0, 3, 1,
+                                                          4).unbind(0)
+    else:
+        raise ValueError(f"qkv_attention: order must be 'legacy' or 'timm', "
+                         f"got {order!r}")
     if fused_attention_takes(q):
         from torch.nn.attention import SDPBackend, sdpa_kernel
 

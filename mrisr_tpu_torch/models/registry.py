@@ -28,13 +28,16 @@ from mrisr_tpu_torch.models.adm_unet import ADMUNet
 from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
 from mrisr_tpu_torch.models.deepcnn import DeepCNN
 from mrisr_tpu_torch.models.diffusion import FastDDPMUNet, SimpleDiffusionUNet
+from mrisr_tpu_torch.models.dit import DiT
 from mrisr_tpu_torch.models.discriminator import PatchGAN
 from mrisr_tpu_torch.models.progressive import ProgressiveUNet
 from mrisr_tpu_torch.models.unet import UNet
 
 # a state dict's buffers: BatchNorm's running statistics and counter (flax's
-# batch_stats, which the JAX package's param_count leaves out)
-_BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
+# batch_stats, which the JAX package's param_count leaves out), and DiT's
+# fixed position table
+_BUFFERS = ("running_mean", "running_var", "num_batches_tracked",
+            "pos_embed")
 # truncated-normal stddev correction of flax's variance_scaling: the
 # standard deviation of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -42,15 +45,15 @@ _TRUNC_STD = 0.87962566103423978
 # name -> input kind: 'pair' (B, H, W, 2) [pre, post] (PatchGAN: the
 # (B, H, W, 3) [pre, post, candidate]), 'window' (B, H, W, 5) [i .. i+4],
 # 'diffusion' (B, H, W, 3) + (B,) t.  'fastddpm_pmub' (the DDPM UNet that
-# Fast-DDPM publishes, models/ddpm_unet.py) and 'fastddpm_adm' (ADM's
-# UNet, models/adm_unet.py) are the port's own: the JAX package has no
-# such models
+# Fast-DDPM publishes, models/ddpm_unet.py), 'fastddpm_adm' (ADM's UNet,
+# models/adm_unet.py) and 'fastddpm_dit' (DiT-XL/8, models/dit.py) are the
+# port's own: the JAX package has no such models
 TRAINABLE = {"unet": "pair", "unet_combined": "pair",
              "unet_distilled": "pair", "unet_gan": "pair",
              "deepcnn": "pair", "progressive_unet": "window",
              "fastddpm": "diffusion", "fastddpm_simple": "diffusion",
              "patchgan": "pair", "fastddpm_pmub": "diffusion",
-             "fastddpm_adm": "diffusion"}
+             "fastddpm_adm": "diffusion", "fastddpm_dit": "diffusion"}
 
 
 def lecun_normal_(weight: torch.Tensor, fan_in: int,
@@ -109,8 +112,9 @@ def create_model(name: str, cfg: ModelConfig,
     builds it: the GAN generator and the progressive stages bias-free,
     Fast-DDPM's input [pre, post, x_noisy] whatever ``cfg.in_channels``
     says, the simple lineage's time_dim 256, ADM's two outputs a channel
-    (the noise, then the learned variance), and ``cfg.remat`` read by the
-    four UNets only."""
+    (the noise, then the learned variance) and DiT's (``base_features`` its
+    width, the rest DiT-XL/8's), and ``cfg.remat`` read by the four UNets
+    only."""
     f = cfg.base_features
     if name in ("unet", "unet_combined", "unet_distilled", "unet_gan"):
         return UNet(features=f, use_bias=name != "unet_gan",
@@ -134,6 +138,8 @@ def create_model(name: str, cfg: ModelConfig,
     if name == "fastddpm_adm":  # learn_sigma: the noise and a variance
         return ADMUNet(base_features=f, time_dim=cfg.time_dim,
                        out_channels=2 * cfg.out_channels, dtype=dtype)
+    if name == "fastddpm_dit":  # learn_sigma, as ADM's
+        return DiT(hidden=f, out_channels=2 * cfg.out_channels, dtype=dtype)
     if name == "patchgan":
         return PatchGAN(base_features=f, dtype=dtype)
     raise ValueError(f"Unknown model: {name}. Choose from: "

@@ -13,6 +13,14 @@ writes y once; it says what bounds the kernel on the card.
 :func:`bias_residual_plain` for a CPU tensor; it never falls back.  Each
 launch adds one to ``bias_residual.launches``, and one that takes an ``r``
 to ``bias_residual.launches_residual`` too.
+
+The gated form, :func:`gated_residual` (plain version
+:func:`gated_residual_plain`), is DiT's gated residual ``x + gate[b] *
+y``: y the float32 output of a block's ``proj`` or ``fc2`` (kernel A's
+float epilogue), the gate a float32 adaLN row an image, written in place
+into the residual stream x, as one pass of the same file's own kernel.
+Each of its launches adds one to ``bias_residual.launches`` and to
+``bias_residual.launches_gate``.
 """
 
 from __future__ import annotations
@@ -98,5 +106,63 @@ def bias_residual(y: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def gated_residual_plain(x: torch.Tensor, gate: torch.Tensor,
+                         y: torch.Tensor) -> torch.Tensor:
+    """Plain version, in place into ``x``: ``x.float() + gate * y`` in
+    float32 (the product rounded, then the sum), rounded to x's type.
+    Returns x."""
+    view = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    return x.copy_(x.float() + gate.reshape(view) * y)
+
+
+def gated_residual(x: torch.Tensor, gate: torch.Tensor, y: torch.Tensor
+                   ) -> torch.Tensor:
+    """``x + gate[b, c] * y`` written in place into ``x``; returns x, the
+    plain version's bits.  ``x``: contiguous bfloat16 or float32 ``(B,
+    ..., C)`` (B images of tokens), ``C`` a multiple of 8 up to
+    :data:`MAX_C`; ``gate``: ``(B, C)`` float32 whose rows may lie apart
+    (stride 1 along a row: a slice of the adaLN rows); ``y``: contiguous
+    float32 of x's shape, not overlapping x; all on x's device."""
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"gated_residual: x must be bfloat16 or float32, "
+                         f"got {x.dtype}")
+    if x.dim() < 2:
+        raise ValueError("gated_residual: x must be (B, ..., C)")
+    b, c = x.shape[0], x.shape[-1]
+    if c % 8 or not 8 <= c <= MAX_C:
+        raise ValueError(f"gated_residual: C must be a multiple of 8 in "
+                         f"[8, {MAX_C}], got {c}")
+    if (gate.dtype != torch.float32 or tuple(gate.shape) != (b, c)
+            or gate.stride(1) != 1 or gate.device != x.device):
+        raise ValueError(f"gated_residual: gate must be ({b}, {c}) float32 "
+                         f"on {x.device}, its rows contiguous")
+    if (y.dtype != torch.float32 or y.shape != x.shape
+            or y.device != x.device):
+        raise ValueError(f"gated_residual: y must be float32 of x's shape "
+                         f"{tuple(x.shape)} on {x.device}")
+    if not (x.is_contiguous() and y.is_contiguous()):
+        raise ValueError("gated_residual: x and y must be contiguous")
+    if x.device.type == "cpu":
+        return gated_residual_plain(x, gate, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"gated_residual: unsupported device {x.device}")
+    if x.numel() == 0:
+        return x
+    if (x.data_ptr() | y.data_ptr()) % 16:
+        raise ValueError("gated_residual: x and y must be 16-byte aligned")
+    lib = _build.library("bias_residual")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    with torch.cuda.device(x.device):
+        err = lib.gated_residual_launch(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), gate.data_ptr(),
+            gate.stride(0), y.data_ptr(), x.numel(), c, b, sm_count(x.device),
+            stream)
+    _build.check(err, "gated_residual")
+    bias_residual.launches += 1
+    bias_residual.launches_gate += 1
+    return x
+
+
 bias_residual.launches = 0
 bias_residual.launches_residual = 0
+bias_residual.launches_gate = 0

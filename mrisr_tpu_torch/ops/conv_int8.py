@@ -7,15 +7,22 @@ final layer's ``acc * scale + qbias`` (float32 out).  The CUDA source is
 
     y = f32(conv(x, w)) * s + b ;  relu ;  int8: clip(round(y), +-127)
 
+or, with ``gelu_scale`` (DiT's fc1, whose codes fc2 reads), the codes of
+GELU's tanh form at the next site's activation scale:
+``clip(round(gelu(y) / gelu_scale), +-127)``.
+
 :func:`conv2d_int8` launches the kernel for a CUDA tensor and runs
 :func:`conv2d_int8_plain` for a CPU tensor; it never falls back.  The
 kernel has two main loops, picked by :func:`conv_path` from the shape
 alone: ``"tc"`` (wgmma on the tensor cores, fed by TMA) and ``"dp4a"``.
 Each launch adds one to ``conv2d_int8.launches`` and to the count of its
-path, ``conv2d_int8.launches_tc`` or ``conv2d_int8.launches_dp4a``.
+path, ``conv2d_int8.launches_tc`` or ``conv2d_int8.launches_dp4a``, and a
+GELU launch to ``conv2d_int8.launches_gelu`` too.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,9 +55,12 @@ def count_launch(fn, path: str) -> None:
 
 
 def reset_launches(*fns) -> None:
-    """Set the launch counts of the given wrappers, every path's, to 0."""
+    """Set the launch counts of the given wrappers, every path's (and every
+    other ``launches_*`` count they keep), to 0."""
     for fn in fns:
         fn.launches = 0
+        for name in [n for n in vars(fn) if n.startswith("launches_")]:
+            setattr(fn, name, 0)
         for path in PATHS:
             setattr(fn, f"launches_{path}", 0)
 
@@ -82,27 +92,57 @@ def epilogue_plain(acc: torch.Tensor, s: torch.Tensor, b: torch.Tensor, *,
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
 
+def gelu_codes_plain(y: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The GELU form's codes of the float32 epilogue ``y``: torch's GELU
+    (tanh form), then the quantizer (true division by ``a``, round half to
+    even, clamp)."""
+    g = F.gelu(y, approximate="tanh")
+    return torch.clamp(torch.round(g / a), -127, 127).to(torch.int8)
+
+
 def conv2d_int8_plain(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
                       b: torch.Tensor, *, relu: bool = True,
-                      out_float: bool = False) -> torch.Tensor:
+                      out_float: bool = False,
+                      gelu_scale: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Plain version of kernel A.  The conv runs on float64 copies of the
     codes: exact, since |acc| <= 127 * 127 * 9 * 1024 ~ 1.5e8 is past
     float32's 2^24 but far inside float64's 2^53."""
     k = wp.shape[1]
     acc = F.conv2d(x.permute(0, 3, 1, 2).double(),
                    wp.permute(0, 3, 1, 2).double(), padding=k // 2)
-    return epilogue_plain(acc.permute(0, 2, 3, 1), s, b, relu=relu,
+    acc = acc.permute(0, 2, 3, 1)
+    if gelu_scale is not None:
+        y = epilogue_plain(acc, s, b, relu=False, out_float=True)
+        return gelu_codes_plain(y, gelu_scale).contiguous()
+    return epilogue_plain(acc, s, b, relu=relu,
                           out_float=out_float).contiguous()
 
 
 def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
                 b: torch.Tensor, *, relu: bool = True,
-                out_float: bool = False) -> torch.Tensor:
+                out_float: bool = False,
+                gelu_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x ``(N, H, W, Ci)`` int8 codes, wp ``(Co, k, k, Ci)`` int8 from
     :func:`pack_conv` (k = 1 or 3), s/b ``(Co,)`` float32.  Returns
-    ``(N, H, W, Co)`` int8 codes, or float32 with ``out_float``."""
+    ``(N, H, W, Co)`` int8 codes, or float32 with ``out_float``.
+    ``gelu_scale``: one float32 value on x's device (the next int8 site's
+    per-step activation scale): the codes of GELU(y) at that scale, on the
+    tensor-core path, with ``relu`` and ``out_float`` False; the kernel's
+    fast exponential puts a few codes in 1e5 a boundary apart from the
+    plain version's."""
+    if gelu_scale is not None:
+        if relu or out_float:
+            raise ValueError("conv2d_int8: the GELU form emits codes, with "
+                             "no ReLU")
+        if (not isinstance(gelu_scale, torch.Tensor)
+                or gelu_scale.dtype != torch.float32
+                or gelu_scale.numel() != 1 or gelu_scale.device != x.device):
+            raise ValueError(f"conv2d_int8: gelu_scale must be one float32 "
+                             f"value on {x.device}")
     if x.device.type == "cpu":
-        return conv2d_int8_plain(x, wp, s, b, relu=relu, out_float=out_float)
+        return conv2d_int8_plain(x, wp, s, b, relu=relu, out_float=out_float,
+                                 gelu_scale=gelu_scale)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_int8: unsupported device {x.device}")
     n, h, w, ci = x.shape
@@ -118,6 +158,9 @@ def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
     if s.numel() != co or b.numel() != co:
         raise ValueError("conv2d_int8: s and b need one value per channel")
     path = conv_path(ci, co, k)
+    if gelu_scale is not None and path != "tc":
+        raise ValueError(f"conv2d_int8: the GELU form runs on the tensor-core "
+                         f"path only (Ci {ci} a multiple of 16, Co {co} >= 8)")
     if path == "tc":
         check_tc_aligned("conv2d_int8", x, wp)
     out = torch.empty((n, h, w, co), device=x.device,
@@ -128,11 +171,14 @@ def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
         err = lib.conv_int8_launch(
             x.data_ptr(), wp.data_ptr(), s.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, w, ci, co, k, int(relu), int(out_float),
-            int(path == "tc"), stream,
+            int(path == "tc"),
+            None if gelu_scale is None else gelu_scale.data_ptr(), stream,
         )
     _build.check(err, "conv2d_int8")
     count_launch(conv2d_int8, path)
+    conv2d_int8.launches_gelu += gelu_scale is not None
     return out
 
 
+conv2d_int8.launches_gelu = 0
 reset_launches(conv2d_int8)

@@ -280,8 +280,8 @@ def export_serving_bundle(
     computed on ``device`` (``None``: the card).  A checkpoint is required,
     as in the JAX package.  Pair UNets export quant int8_fused, int8 (the
     same tables) or none (the folded parameters in bf16); the ``fastddpm``
-    family, ``fastddpm_pmub`` and ``fastddpm_adm`` export their sampler
-    with quant none, int8 or int8_deep."""
+    family, ``fastddpm_pmub``, ``fastddpm_adm`` and ``fastddpm_dit`` export
+    their sampler with quant none, int8 or int8_deep."""
     from mrisr_tpu_torch.api import load_model
 
     loaded = load_model(model_name, models_dir=models_dir,
@@ -291,8 +291,8 @@ def export_serving_bundle(
         # M10's SimpleDiffusionUNet is another topology than the two the
         # int8/float sampler walks
         raise ValueError("diffusion bundles cover the fastddpm (M11) family, "
-                         "fastddpm_pmub and fastddpm_adm; fastddpm_simple "
-                         "has no bundle path")
+                         "fastddpm_pmub, fastddpm_adm and fastddpm_dit; "
+                         "fastddpm_simple has no bundle path")
     if loaded.kind == "diffusion":
         return _export_diffusion_bundle(
             out_path, loaded, quant=quant,
@@ -340,7 +340,7 @@ def _export_diffusion_bundle(out_path: str, loaded, *, quant: str,
                              image_size: Tuple[int, int],
                              percentile: Optional[float] = None) -> str:
     """Fast-DDPM serving bundle: the T-step sampler of ``loaded`` (the
-    notebook's FastDDPMUNet, the published DDPM UNet or ADM's UNet; the
+    notebook's FastDDPMUNet, the published DDPM UNet, ADM's UNet or DiT; the
     ancestral chain, or DDIM over the grid of a step-distilled student) as
     one artifact, quant 'none' (bf16), 'int8' (every conv kernel A runs:
     all but the DDPM UNet's stride-2 downsamples) or 'int8_deep' (the

@@ -14,7 +14,10 @@ bundles that carry them move between the packages:
   quantizes the sites at <= 128^2 (``int8_deep``): the notebook net's 16
   (:data:`DEEP_SITES`), the DDPM UNet's 99 (its stride-2 downsamples
   stay float, with the full-size level), ADM's every conv whose input,
-  after any pool or repeat, is at 128^2 or less.
+  after any pool or repeat, is at 128^2 or less; DiT's 112 block linears
+  (every block's ``qkv``, ``proj``, ``fc1`` and ``fc2``: dense layers of
+  the tree, whose int8 tables are 1x1 conv tables that kernel A runs over
+  the token map).
 
 Three networks: the notebook's FastDDPMUNet, the DDPM UNet that Fast-DDPM
 publishes (``models/ddpm_unet.py``: 32 GroupNorm groups, self-attention at
@@ -22,8 +25,10 @@ publishes (``models/ddpm_unet.py``: 32 GroupNorm groups, self-attention at
 UNet (``models/adm_unet.py``: the time projection as a scale and shift
 after a ResBlock's second GroupNorm, resampling inside the ResBlocks,
 multi-head attention at 32^2, 16^2 and 8^2, two outputs, of which the
-sampler reads the first).  One forward, :class:`FastDDPMForward`, serves
-each tree.
+sampler reads the first) and DiT-XL/8 (``models/dit.py``: a transformer
+over 8 x 8 patches, adaLN-Zero blocks with a token-wise LayerNorm,
+modulation and gated residuals).  One forward, :class:`FastDDPMForward`,
+serves each tree.
 
 The forward works on the flax-layout param tree (the bundle's), keeps
 activations NHWC (channels_last for the float convs) and runs every int8
@@ -54,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from mrisr_tpu_torch.device import DeviceLike, fp32_reference, resolve_device
-from mrisr_tpu_torch.models import adm_unet
+from mrisr_tpu_torch.models import adm_unet, dit
 from mrisr_tpu_torch.models.ddpm_unet import CH_MULT, NUM_RES_BLOCKS
 from mrisr_tpu_torch.models.ddpm_unet import GN_EPS as DDPM_GN_EPS
 from mrisr_tpu_torch.models.ddpm_unet import GN_GROUPS as DDPM_GN_GROUPS
@@ -69,6 +74,8 @@ from mrisr_tpu_torch.ops.bias_residual import (
     MAX_C,
     bias_residual,
     bias_residual_plain,
+    gated_residual,
+    gated_residual_plain,
 )
 from mrisr_tpu_torch.ops.conv_int8 import (
     conv2d_int8,
@@ -76,6 +83,10 @@ from mrisr_tpu_torch.ops.conv_int8 import (
     pack_conv,
 )
 from mrisr_tpu_torch.ops.groupnorm import groupnorm_silu, groupnorm_silu_plain
+from mrisr_tpu_torch.ops.layernorm import (
+    layernorm_modulate,
+    layernorm_modulate_plain,
+)
 from mrisr_tpu_torch.ops.quantize import quantize_int8, quantize_int8_plain
 from mrisr_tpu_torch.ops.upconv import (
     pack_upconv,
@@ -256,7 +267,16 @@ class Network(NamedTuple):
     projection and shortcut leaves; the first conv; GroupNorm's eps and
     groups at ``c`` channels; the ConvTranspose upconvs; whether a stride-1
     conv site is ``int8_deep``'s (:func:`deep_sites`); the forward's walk;
-    the time sinusoids' variant (``models/diffusion.py:timestep_embedding``)."""
+    the time sinusoids' variant (``models/diffusion.py:timestep_embedding``);
+    the conv sites kernel A does not run, stride 2 or more (``strided``:
+    they stay float in every int8 tree); whether A runs the network's deep
+    dense layers as 1x1 convs over its token map (``dense_on_a``: DiT's
+    block linears); what the forward prepares beyond the layers
+    (``prepare``: DiT's adaLN GEMM and position table).
+
+    DiT (:data:`DIT`) has no GroupNorm, no residual-block shortcut and no
+    upconv: its ``gn_eps`` is its LayerNorms' eps, ``groups`` and ``skip``
+    mean nothing, and ``temb`` names its blocks' adaLN linear."""
 
     time_mlp: Tuple[str, str]
     time_swish: bool
@@ -269,6 +289,10 @@ class Network(NamedTuple):
     deep: Callable[[str], bool]
     walk: Callable
     t_embed: str = "ddpm"
+    strided: Callable[[str], bool] = lambda site: site.endswith(
+        "downsample/conv")
+    dense_on_a: bool = False
+    prepare: Callable = lambda fwd, params: None
 
     def time_dim(self, params: Dict) -> int:
         """The width of the time MLP's output."""
@@ -296,10 +320,23 @@ def _ddpm_level(site: str) -> int:
 _ADM_LEVELS = adm_unet.conv_levels()
 
 
-def _strided(site: str) -> bool:
-    """Whether a conv site is one of the DDPM UNet's stride-2 downsamples,
-    which kernel A does not run: they stay float in every int8 tree."""
-    return site.endswith("downsample/conv")
+def _dit_linear(site: str) -> bool:
+    """Whether a layer is one of DiT's block linears (``blocks/<i>/attn/qkv``,
+    ``.../attn/proj``, ``.../mlp/fc1``, ``.../mlp/fc2``)."""
+    parts = site.split("/")
+    return (len(parts) == 4 and parts[0] == "blocks"
+            and f"{parts[2]}.{parts[3]}" in dit.BLOCK_LINEARS)
+
+
+def _a_site(net: "Network", name: str, layer: Dict) -> bool:
+    """Whether kernel A can run layer ``name``: a stride-1 conv or upconv,
+    or a deep dense layer of a network that runs those on A (a 1x1 conv
+    of the token map)."""
+    k = layer.get("kernel")
+    if k is None:
+        return False
+    return (k.dim() == 4 and not net.strided(name)
+            or k.dim() == 2 and net.dense_on_a and net.deep(name))
 
 
 def deep_sites(params: Dict) -> Tuple[str, ...]:
@@ -311,11 +348,12 @@ def deep_sites(params: Dict) -> Tuple[str, ...]:
     full-size level, conv_in, conv_out and the stride-2 downsamples stay
     float.  ADM: every conv whose input, after a down-ResBlock's pool or an
     up-ResBlock's repeat, is below the full-size level (the 1x1 ``qkv``,
-    ``proj_out`` and skips too)."""
-    deep = network(params).deep
+    ``proj_out`` and skips too).  DiT: its 112 block linears (the patch
+    embedding, the time MLP, the adaLN linears and the final layer stay
+    float)."""
+    net = network(params)
     return tuple(name for name, p in _layers(params)
-                 if "kernel" in p and p["kernel"].dim() == 4
-                 and not _strided(name) and deep(name))
+                 if _a_site(net, name, p) and net.deep(name))
 
 
 class FastDDPMForward:
@@ -323,11 +361,12 @@ class FastDDPMForward:
     once for ``device``: ``(B, H, W, 3) + (B,) t -> (B, H, W, 1)`` float32.
     The tree is a network the port serves: the notebook's FastDDPMUNet
     (``models/diffusion.py``), the DDPM UNet that Fast-DDPM publishes
-    (``models/ddpm_unet.py``) or ADM's UNet (``models/adm_unet.py``);
-    one set of layers (:meth:`_conv`, :meth:`_act`, :meth:`_block`,
-    :meth:`_record`, the per-step scale rows) runs them, reading the tree's
-    :class:`Network` (:func:`network`), whose walk (:meth:`_notebook`,
-    :meth:`_ddpm` or :meth:`_adm`) goes through the network.  A call
+    (``models/ddpm_unet.py``), ADM's UNet (``models/adm_unet.py``) or
+    DiT-XL/8 (``models/dit.py``); one set of layers (:meth:`_conv`,
+    :meth:`_act`, :meth:`_block`, :meth:`_record`, the per-step scale
+    rows) runs them, reading the tree's :class:`Network` (:func:`network`),
+    whose walk (:meth:`_notebook`, :meth:`_ddpm`, :meth:`_adm` or
+    :meth:`_dit`) goes through the network.  A call
     returns every output channel: the noise estimate first (ADM's second
     is its learned variance, which the samplers do not read).
 
@@ -362,7 +401,18 @@ class FastDDPMForward:
     that resamples into it), and ``ddpm.updown`` (device time, id ``dir``:
     'down' or 'up') around each resampling ResBlock; its attention core
     counts its path in ``adm_unet.qkv_attention.calls_fused`` or
-    ``.calls_float``."""
+    ``.calls_float``.
+
+    DiT (:meth:`_dit`) reads no ``gn_impl``: kernel L (``ops/layernorm.py``,
+    its LayerNorm and modulation, int8 codes where the next linear is
+    int8), kernel A's GELU form (``fc1`` emitting ``fc2``'s codes) and
+    kernel E's gated form (``ops/bias_residual.py:gated_residual``) run as
+    kernels on the card and as their plain versions on the CPU (or with
+    ``plain``); it runs :data:`dit.HEADS` heads (the tree does not say how
+    many).  Its spans: ``ddpm.attn`` (device time) around each block's
+    attention half, from L to the gated residual; ``dit.mlp`` (device
+    time) around each MLP half; ``dit.modulate`` (device time) around each
+    L launch and each gated residual."""
 
     def __init__(self, params: Dict, sites: Optional[Dict] = None,
                  timesteps=None, *, dtype=torch.bfloat16,
@@ -380,6 +430,8 @@ class FastDDPMForward:
         self._gn8 = groupnorm_silu_plain if plain else groupnorm_silu
         self._q8 = quantize_int8_plain if plain else quantize_int8
         self._bias = bias_residual_plain if plain else bias_residual
+        self._ln8 = layernorm_modulate_plain if plain else layernorm_modulate
+        self._gate8 = gated_residual_plain if plain else gated_residual
         # cuDNN runs a conv without its bias and torch adds it after, in a
         # broadcast add of its own; 'fused' on the card leaves it out and
         # kernel E adds it (with the block's residual, :meth:`_residual`).
@@ -397,9 +449,9 @@ class FastDDPMForward:
         self.timesteps = (None if timesteps is None else torch.as_tensor(
             timesteps).to(device=device, dtype=torch.int64))
         for name in sites:
-            if _strided(name):
+            if net.strided(name):
                 raise ValueError(f"{name}: kernel A runs stride 1 only; the "
-                                 "stride-2 downsamples stay float")
+                                 "strided convs stay float")
             block, _, leaf = name.rpartition("/")
             if leaf in ("q", "k", "v") and "attn" in block:
                 self._check_shared_scale(block, sites)
@@ -416,7 +468,8 @@ class FastDDPMForward:
                 self.norms[name] = (f(p["scale"], torch.float32),
                                     f(p["bias"], torch.float32))
             elif p["kernel"].dim() == 2:
-                self.dense[name] = (f(p["kernel"]).t(), f(p["bias"]))
+                if name not in self.q:
+                    self.dense[name] = (f(p["kernel"]).t(), f(p["bias"]))
             elif name in net.upconvs:
                 if name not in self.q:
                     k = p["kernel"]
@@ -429,6 +482,7 @@ class FastDDPMForward:
                 self.convs[name] = (w, f(p["bias"]), w.shape[-1] // 2)
         # the sinusoids' width
         self.emb_dim = int(self.dense[net.time_mlp[0]][0].shape[1])
+        net.prepare(self, params)
 
     @staticmethod
     def _check_shared_scale(block: str, sites: Dict) -> None:
@@ -470,12 +524,16 @@ class FastDDPMForward:
         return self._bias(y.contiguous(), b,
                           None if r is None else r.contiguous(), rb)
 
-    def _conv(self, st: _Step, name: str, h, bias: bool = True
-              ) -> torch.Tensor:
+    def _conv(self, st: _Step, name: str, h, bias: bool = True,
+              keep_float: bool = False, gelu_to: Optional[str] = None):
         """Conv ``name`` of ``h`` (or of K3's codes): kernel A where the
         site is int8, else cuDNN in ``dtype`` (its bias added by kernel E
         where :meth:`_e_bias` gives it); ``bias=False`` leaves a float
-        conv's bias out (its caller adds it)."""
+        conv's bias out (its caller adds it).  A network's dense site (a
+        DiT block linear) that is not int8 is ``F.linear`` in ``dtype``.
+        ``keep_float``: A's float32 output as it is (else cast to
+        ``dtype``); ``gelu_to`` (an int8 site): A's GELU form, the codes of
+        that site's input."""
         lq = self.q.get(name)
         if isinstance(h, _PreQuant):  # K3 (or _upsample) emitted the codes
             self._record(st, name, h.q)
@@ -484,12 +542,15 @@ class FastDDPMForward:
         else:
             self._record(st, name, h)
             if lq is None:  # not quantized: a float conv in dtype
+                if name in self.dense:  # a token linear of DiT's
+                    w, b = self.dense[name]
+                    return F.linear(h.to(self.dtype), w, b)
                 w, b, pad = self.convs[name]
                 e = self._e_bias(name) if bias else None
                 b = b if bias and e is None else None
                 with span("ddpm.conv_float"):
                     x = _nchw(h.to(self.dtype))
-                    if _strided(name):  # TF's "SAME"
+                    if self.net.strided(name):  # TF's "SAME"
                         y = F.conv2d(F.pad(x, (0, 1, 0, 1)), w, b, stride=2)
                     else:
                         y = F.conv2d(x, w, b, padding=pad)
@@ -497,9 +558,13 @@ class FastDDPMForward:
             a, s = lq.scales(st.row, st.zero)
             q = self._quant(h, a)
         with span("ddpm.conv_int8"):
+            if gelu_to is not None:
+                a = self.q[gelu_to].scales(st.row, st.zero)[0]
+                return _PreQuant(self._conv8(q.contiguous(), lq.w, s, lq.b,
+                                             relu=False, gelu_scale=a))
             y = self._conv8(q.contiguous(), lq.w, s, lq.b, relu=False,
                             out_float=True)
-            return y.to(self.dtype)
+            return y if keep_float else y.to(self.dtype)
 
     def _quant(self, h: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
         """The int8 codes of an int8 conv's input that no K3 emitted."""
@@ -796,6 +861,97 @@ class FastDDPMForward:
         return h
 
 
+    # ---------------------------------------------------------------- DiT
+    def _dit_prepare(self, params: Dict) -> None:
+        """DiT's serving constants: the 29 adaLN linears (every block's and
+        the final layer's, which all read ``SiLU(c)``) as one GEMM's
+        weights, and each one's column offset in its output; the fixed
+        position table in float32; the patch and the heads."""
+        names = [n for n in self.dense if n.endswith("adaLN_modulation/1")]
+        ws, bs, self.ada_at, at = [], [], {}, 0
+        for n in names:
+            w, b = self.dense.pop(n)
+            self.ada_at[n.rsplit("/", 2)[0]] = at
+            at += w.shape[0]
+            ws.append(w)
+            bs.append(b)
+        self.ada = (torch.cat(ws).contiguous(), torch.cat(bs))
+        pos = params.get("pos_embed")
+        self.pos = (None if pos is None else pos.to(
+            device=self.device, dtype=torch.float32).reshape(
+                -1, pos.shape[-1]))
+        self.patch = int(self.convs["x_embedder/proj"][0].shape[-1])
+        self.heads = dit.HEADS
+        self.depth = sum(1 for n in self.ada_at if n.startswith("blocks/"))
+
+    def _dit(self, st: _Step, x: torch.Tensor) -> torch.Tensor:
+        """DiT's ``forward`` on NHWC maps of tokens (``(B, H / p, W / p,
+        C)``, row-major: DiT's token order): the patch embedding and the
+        position table, the adaLN rows of every block in one GEMM, the
+        blocks (:meth:`_dit_block`), the final layer and the unpatchify."""
+        w, b, _ = self.convs["x_embedder/proj"]
+        h = _nhwc(F.conv2d(_nchw(x.to(self.dtype)), w, b, stride=self.patch))
+        _, gh, gw, c = h.shape
+        pos = (self.pos if self.pos is not None and self.pos.shape[0] ==
+               gh * gw else dit.pos_embed_table(c, gh).to(self.device))
+        h = (h.float() + pos.reshape(gh, gw, c)).to(self.dtype)
+        mods = F.linear(st.t_emb, *self.ada).float()
+        for i in range(self.depth):
+            h = self._dit_block(st, f"blocks/{i}", h, mods,
+                                self.ada_at[f"blocks/{i}"])
+        o = self.ada_at["final_layer"]
+        h = self._modulate(st, "final_layer/linear", h, mods[:, o:o + 2 * c])
+        h = F.linear(h, *self.dense["final_layer/linear"])
+        return dit.unpatchify(h.reshape(h.shape[0], gh * gw, -1), gh, gw,
+                              self.patch)
+
+    def _dit_block(self, st: _Step, name: str, x: torch.Tensor,
+                   mods: torch.Tensor, o: int) -> torch.Tensor:
+        """One adaLN-Zero block.  ``mods[:, o:o + 6 C]`` is its (shift1,
+        scale1, gate1, shift2, scale2, gate2), float32.  Attention: L (codes
+        at ``qkv``'s scale), ``qkv`` (A, float32 out, cast to ``dtype``),
+        fused SDPA on timm's qkv order, ``proj`` (A's codes from the
+        quantizer; float32 out), E's gated residual into x.  MLP: L (codes
+        at ``fc1``'s), ``fc1`` (A's GELU form: ``fc2``'s codes), ``fc2``
+        (float32 out), E's gated residual."""
+        b, gh, gw, c = x.shape
+        with span("ddpm.attn", device_time=True):
+            h = self._modulate(st, f"{name}/attn/qkv", x, mods[:, o:o + 2 * c])
+            qkv = self._conv(st, f"{name}/attn/qkv", h)
+            a = adm_unet.qkv_attention(qkv.reshape(b, gh * gw, 3 * c),
+                                       self.heads, "timm")
+            y = self._conv(st, f"{name}/attn/proj", a.reshape(b, gh, gw, c),
+                           keep_float=True)
+            x = self._gated(x, mods[:, o + 2 * c:o + 3 * c], y)
+        with span("dit.mlp", device_time=True):
+            fc1, fc2 = f"{name}/mlp/fc1", f"{name}/mlp/fc2"
+            h = self._modulate(st, fc1, x, mods[:, o + 3 * c:o + 5 * c])
+            if fc1 in self.q and fc2 in self.q:
+                h = self._conv(st, fc1, h, gelu_to=fc2)
+            else:
+                h = F.gelu(self._conv(st, fc1, h), approximate="tanh")
+            y = self._conv(st, fc2, h, keep_float=True)
+            return self._gated(x, mods[:, o + 5 * c:o + 6 * c], y)
+
+    def _modulate(self, st: _Step, site: str, x: torch.Tensor,
+                  shift_scale: torch.Tensor):
+        """Kernel L before ``site``: LayerNorm, then ``(1 + scale) +
+        shift``; the int8 codes of ``site``'s input where it is int8, else
+        x's type."""
+        lq = self.q.get(site)
+        kw = {} if lq is None else {
+            "quant_scale": lq.scales(st.row, st.zero)[0]}
+        with span("dit.modulate", device_time=True):
+            y = self._ln8(x, shift_scale, eps=self.net.gn_eps, **kw)
+        return y if lq is None else _PreQuant(y)
+
+    def _gated(self, x: torch.Tensor, gate: torch.Tensor, y: torch.Tensor
+               ) -> torch.Tensor:
+        """Kernel E's gated residual, ``x + gate * y`` in place into x."""
+        with span("dit.modulate", device_time=True):
+            return self._gate8(x, gate, y.float())
+
+
 NOTEBOOK = Network(
     time_mlp=("time_emb/Dense_0", "time_emb/Dense_1"), time_swish=False,
     temb="time_fc", skip="skip", first_conv="init_conv", gn_eps=GN_EPS,
@@ -813,13 +969,23 @@ ADM = Network(
     groups=lambda c: adm_unet.GN_GROUPS, upconvs=(),
     deep=lambda site: _ADM_LEVELS[site] > 0, walk=FastDDPMForward._adm,
     t_embed="adm")
+DIT = Network(
+    time_mlp=("t_embedder/mlp/0", "t_embedder/mlp/2"), time_swish=True,
+    temb="adaLN_modulation/1", skip="", first_conv="x_embedder/proj",
+    gn_eps=dit.LN_EPS, groups=lambda c: 1, upconvs=(), deep=_dit_linear,
+    walk=FastDDPMForward._dit, t_embed="adm",
+    strided=lambda site: site == "x_embedder/proj", dense_on_a=True,
+    prepare=FastDDPMForward._dit_prepare)
 
 
 def network(params: Dict) -> Network:
-    """The network of a flax-layout tree: :data:`ADM`, ADM's UNet's
+    """The network of a flax-layout tree: :data:`DIT`, DiT's
+    (``models/dit.py``), :data:`ADM`, ADM's UNet's
     (``models/adm_unet.py``), :data:`DDPM`, the DDPM UNet's
     (``models/ddpm_unet.py``), or :data:`NOTEBOOK`, the notebook
     FastDDPMUNet's (``models/diffusion.py``)."""
+    if "x_embedder" in params:
+        return DIT
     if "input_blocks" in params:
         return ADM
     return DDPM if "conv_in" in params else NOTEBOOK
@@ -1000,9 +1166,11 @@ def quantize_fastddpm(variables: Dict, calib: Dict, only=None) -> Dict:
     ``{"params": bf16 copy of the whole tree, "int8": {site: tables},
     ["timesteps": (T,) int32]}``.  ``only``: quantize just these sites
     (:func:`deep_sites`: ``int8_deep``); None: every conv kernel A runs
-    (``int8``: all but the DDPM UNet's stride-2 downsamples).  The forward
-    runs the rest in float."""
+    (``int8``: all but the DDPM UNet's stride-2 downsamples and DiT's
+    patch embedding; DiT's block linears).  A dense site's tables are a
+    1x1 conv's.  The forward runs the rest in float."""
     params = variables["params"]
+    net = network(params)
     sites: Dict[str, Dict] = {}
     only_set = None if only is None else set(only)
 
@@ -1013,12 +1181,19 @@ def quantize_fastddpm(variables: Dict, calib: Dict, only=None) -> Dict:
             raise KeyError(
                 f"calibration is missing conv site {name!r}: calibrate "
                 "with calibrate_fastddpm on the same topology")
-        sites[name] = _quantize_site(sub["kernel"], sub["bias"], calib[name])
+        kernel = sub["kernel"]
+        if kernel.dim() == 2:  # a dense site: a 1x1 conv's (1, 1, I, O)
+            kernel = kernel[None, None]
+        sites[name] = _quantize_site(kernel, sub["bias"], calib[name])
 
     for name, sub in _layers(params):
-        if "kernel" in sub and sub["kernel"].dim() == 4:  # a conv, an upconv
-            if only_set is not None or not _strided(name):
-                grab(name, sub)
+        k = sub.get("kernel")
+        if k is None:
+            continue
+        if k.dim() == 4 and (only_set is not None or not net.strided(name)):
+            grab(name, sub)  # a conv, an upconv
+        elif k.dim() == 2 and _a_site(net, name, sub):
+            grab(name, sub)
 
     out = {"params": bf16_params(params), "int8": sites}
     timesteps = calib.get("__timesteps__")

@@ -1555,3 +1555,292 @@ def test_bias_residual_in_an_int8_deep_call(cuda, net):
     assert counts[True][0] == 1
     assert counts[False][1] - counts[True][1] == sum(
         r for _, _, r in sites)
+
+
+# DiT-XL/8 (models/dit.py) at its published widths: batch 32 of 1024
+# tokens (32^2 of a 256^2 slice), 1152 channels; a small width and a
+# ragged token count besides
+LN_SHAPES = [(32, 1024, 1152), (2, 1024, 1152), (3, 100, 64), (2, 37, 2048)]
+
+
+def _ln_case(cuda, b, t, c, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(b * t + c)
+    x = (torch.randn((b, t, c), generator=g, device=cuda) * 2 + 0.3).to(dtype)
+    mods = 0.5 * torch.randn((b, 6 * c), generator=g, device=cuda)
+    return x, mods
+
+
+@pytest.mark.parametrize("b,t,c", LN_SHAPES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_layernorm_kernel_matches_plain(cuda, b, t, c, dtype):
+    """Kernel L against its plain version at DiT's shape and others, the
+    (shift, scale) rows read through a strided view of all six adaLN rows
+    (a block's second half): int8 codes equal, the float output equal bit
+    for bit (within one rounding of the float64 formula), the same bits
+    twice; one launch each, counted in ``launches`` and, with codes, in
+    ``launches_codes``."""
+    from mrisr_tpu_torch.ops.layernorm import (
+        layernorm_modulate,
+        layernorm_modulate_plain,
+    )
+
+    if dtype == torch.float32 and c > 2048:
+        pytest.skip("the float32 form holds rows of 2048 channels at most")
+    x, mods = _ln_case(cuda, b, t, c, dtype)
+    ss = mods[:, 3 * c:5 * c]
+    want = layernorm_modulate_plain(x, ss, eps=1e-6)
+    scale = (want.float().abs().amax() / 127.0).reshape(1)
+    before = (layernorm_modulate.launches, layernorm_modulate.launches_codes)
+    q = layernorm_modulate(x, ss, eps=1e-6, quant_scale=scale)
+    y = layernorm_modulate(x, ss, eps=1e-6)
+    torch.cuda.synchronize()
+    assert (layernorm_modulate.launches - before[0],
+            layernorm_modulate.launches_codes - before[1]) == (2, 1)
+    assert torch.equal(q, layernorm_modulate_plain(x, ss, eps=1e-6,
+                                                   quant_scale=scale))
+    assert torch.equal(y, want) and y.dtype == dtype
+    assert torch.equal(layernorm_modulate(x, ss, eps=1e-6,
+                                          quant_scale=scale), q)
+    xd = x.double()
+    norm = (xd - xd.mean(-1, keepdim=True)) / torch.sqrt(
+        xd.var(-1, unbiased=False, keepdim=True) + 1e-6)
+    exact = norm * (1 + ss[:, None, c:].double()) + ss[:, None, :c].double()
+    ulp = 2.0 ** -8 if dtype == torch.bfloat16 else 2.0 ** -21
+    assert bool(((y.double() - exact).abs() <= exact.abs() * ulp + 1e-5)
+                .all())
+
+
+def test_layernorm_kernel_refuses_what_it_does_not_take(cuda):
+    from mrisr_tpu_torch.ops.layernorm import layernorm_modulate
+
+    x, mods = _ln_case(cuda, 2, 16, 64)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        layernorm_modulate(x[..., :60].contiguous(), mods[:, :120])
+    with pytest.raises(ValueError, match="shift_scale"):
+        layernorm_modulate(x, mods[:, :128].to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        layernorm_modulate(x.transpose(0, 1), mods[:, :128])
+
+
+# DiT's four block linears as 1x1 convs of its 32^2 token map: (Ci, Co)
+DIT_LINEARS = [(1152, 3456), (1152, 1152), (1152, 4608), (4608, 1152)]
+
+
+@pytest.mark.parametrize("n", [4, 1])
+def test_conv_int8_gelu_form_matches_plain(cuda, n):
+    """Kernel A's GELU form at DiT's fc1 (1152 -> 4608 over 32^2 tokens,
+    batch 4, and batch 1): the codes of GELU(y) at the next site's scale
+    against the plain version's (torch's GELU, then the quantizer): none
+    more than one code apart, and fewer than 1e-4 of them apart at all
+    (the kernel's fast exponential, about 1e-6 relative); the same bits
+    twice; one launch, counted in ``launches_gelu`` and on the
+    tensor-core path."""
+    g = torch.Generator().manual_seed(n)
+    ci, co = 1152, 4608
+    x = _codes(g, (n, 32, 32, ci), cuda)
+    wp = pack_conv(_codes(g, (1, 1, ci, co), cuda))
+    s = (torch.rand(co, generator=g) * 2e-5).to(cuda)
+    b = (torch.randn(co, generator=g) * 0.2).to(cuda)
+    y = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
+    a = (torch.nn.functional.gelu(y, approximate="tanh").abs().amax()
+         / 127.0).reshape(1)
+    before = (_path_counts(conv2d_int8), conv2d_int8.launches_gelu)
+    got = conv2d_int8(x, wp, s, b, relu=False, gelu_scale=a)
+    torch.cuda.synchronize()
+    assert_launched(conv2d_int8, before[0], "tc")
+    assert conv2d_int8.launches_gelu == before[1] + 1
+    want = conv2d_int8_plain(x, wp, s, b, relu=False, gelu_scale=a)
+    diff = (got.int() - want.int()).abs()
+    assert int(diff.max()) <= 1
+    assert float((diff > 0).float().mean()) < 1e-4, float(
+        (diff > 0).float().mean())
+    assert torch.equal(conv2d_int8(x, wp, s, b, relu=False, gelu_scale=a),
+                       got)
+    with pytest.raises(ValueError, match="tensor-core"):
+        conv2d_int8(_codes(g, (1, 4, 4, 8), cuda),
+                    pack_conv(_codes(g, (1, 1, 8, 16), cuda)), s[:16], b[:16],
+                    relu=False, gelu_scale=a)
+
+
+@pytest.mark.parametrize("ci,co", DIT_LINEARS, ids=str)
+def test_conv_int8_float_form_at_dit_linears(cuda, ci, co):
+    """Kernel A's float epilogue at DiT's four linear shapes (batch 2 of
+    32^2 tokens): the plain version's float32 bit for bit."""
+    g = torch.Generator().manual_seed(ci + co)
+    x = _codes(g, (2, 32, 32, ci), cuda)
+    wp = pack_conv(_codes(g, (1, 1, ci, co), cuda))
+    s = (torch.rand(co, generator=g) * 1e-4).to(cuda)
+    b = torch.randn(co, generator=g).to(cuda)
+    got = conv2d_int8(x, wp, s, b, relu=False, out_float=True)
+    assert torch.equal(got, conv2d_int8_plain(x, wp, s, b, relu=False,
+                                              out_float=True))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("shape", [(32, 32, 32, 1152), (3, 5, 7, 64)],
+                         ids=str)
+def test_gated_residual_kernel_matches_plain(cuda, dtype, shape):
+    """Kernel E's gated form at DiT's residual stream (batch 32 of 32^2
+    tokens, 1152 channels) and a small ragged map, the gate a strided view
+    of the adaLN rows: the plain version's bits, in place; one launch,
+    counted in ``launches`` and ``launches_gate``, not in
+    ``launches_residual``."""
+    from mrisr_tpu_torch.ops.bias_residual import (
+        gated_residual,
+        gated_residual_plain,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    c = shape[-1]
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    y = torch.randn(shape, generator=g, device=cuda)
+    gate = torch.randn((shape[0], 6 * c), generator=g,
+                       device=cuda)[:, 2 * c:3 * c]
+    want = gated_residual_plain(x.clone(), gate, y)
+    before = (bias_residual.launches, bias_residual.launches_residual,
+              bias_residual.launches_gate)
+    got = gated_residual(x, gate, y)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == x.data_ptr() and torch.equal(x, want)
+    assert (bias_residual.launches - before[0],
+            bias_residual.launches_residual - before[1],
+            bias_residual.launches_gate - before[2]) == (1, 0, 1)
+
+
+def _dit_tables(cuda, steps, batch=2):
+    """DiT-XL/8 at its published widths with the registry's seeded init,
+    its int8_deep tables calibrated over a ``steps``-step trajectory of
+    one seeded batch, and that schedule."""
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+    from mrisr_tpu_torch.models.dit import DiT
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm,
+        deep_sites,
+        quantize_fastddpm,
+    )
+
+    torch.manual_seed(0)
+    # torch's default init: the adaLN linears and the final layer are not
+    # zeroed (DiT's adaLN-Zero would make every block the identity)
+    params = fastddpm_flax_params(DiT().to(cuda))
+    sched = DiffusionSchedule.create(1000, steps, "linear",
+                                     "nonuniform-4060")
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((batch, 256, 256, 2), generator=g).to(cuda)
+    q = quantize_fastddpm({"params": params},
+                          calibrate_fastddpm({"params": params}, sched,
+                                             [cond]),
+                          only=deep_sites(params))
+    return q, sched, cond
+
+
+def _dit_counts():
+    from mrisr_tpu_torch.models.adm_unet import qkv_attention
+    from mrisr_tpu_torch.ops.layernorm import layernorm_modulate
+
+    return (conv2d_int8.launches, conv2d_int8.launches_gelu,
+            layernorm_modulate.launches, layernorm_modulate.launches_codes,
+            quantize_int8.launches, bias_residual.launches_gate,
+            bias_residual.launches, qkv_attention.calls_fused,
+            qkv_attention.calls_float)
+
+
+def test_dit_int8_deep_call_on_card(cuda):
+    """One int8_deep denoiser call of DiT-XL/8 (256^2, 1024 tokens, batch
+    2) through kernels L, A, Q and E and torch's fused attention: A 112
+    (28 in the GELU form), L 57 (56 emitting codes), Q 28, E 56 (all
+    gated), the 28 attention cores on the fused path and none on the
+    float one; both channels out, the same bits twice, and within 2 %
+    (rel L2) of the same tables through the kernels' plain versions.
+    Then the 10-step sampler call: ten times each."""
+    from mrisr_tpu_torch.models.diffusion import sample_ancestral
+    from mrisr_tpu_torch.serve.quant_diffusion import int8_forward
+
+    q, sched, cond = _dit_tables(cuda, 10)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 256, 256, 3), generator=g).to(cuda)
+    t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
+    fwd = int8_forward(q, device=cuda)
+    before = _dit_counts()
+    got = fwd(x, t)
+    torch.cuda.synchronize()
+    one = tuple(a - b for a, b in zip(_dit_counts(), before))
+    assert one == (112, 28, 57, 56, 28, 56, 56, 28, 0), one
+    from portbench.reference.counts_dit import kernel_sites
+
+    sites = kernel_sites(2)  # the benchmark's counts: one call's launches
+    assert (len(sites["kernel_a"]), len(sites["kernel_l"])) == (one[0],
+                                                                one[2])
+    assert torch.equal(fwd(x, t), got)
+    want = int8_forward(q, device=cuda, plain=True)(x, t)
+    assert got.shape == (2, 256, 256, 2) and bool(torch.isfinite(got).all())
+    rel = float((got - want).norm() / want.norm())
+    assert rel < 0.02, rel
+    before = _dit_counts()
+    y = sample_ancestral(fwd, cond, None, sched)
+    torch.cuda.synchronize()
+    ten = tuple(a - b for a, b in zip(_dit_counts(), before))
+    assert ten == tuple(10 * n for n in one), ten
+    assert y.shape == (2, 256, 256, 1) and bool(torch.isfinite(y).all())
+
+
+@pytest.mark.parametrize("net", ["notebook", "ddpm", "adm"])
+def test_existing_networks_keep_their_bits_around_a_dit_call(cuda, net):
+    """One int8_deep denoiser call of each earlier network at its
+    published width (256^2, batch 2) gives the same bits before and after
+    a DiT call has launched kernel A's GELU form, L and E's gated form in
+    the same process, with the same launches of A, K3, Q and E, and
+    none of the new forms."""
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.adm_unet import ADMUNet
+    from mrisr_tpu_torch.models.ddpm_unet import DDPMUNet
+    from mrisr_tpu_torch.models.diffusion import (
+        DiffusionSchedule,
+        FastDDPMUNet,
+    )
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm,
+        deep_sites,
+        int8_forward,
+        quantize_fastddpm,
+    )
+
+    torch.manual_seed(0)
+    model = {"notebook": lambda: FastDDPMUNet(base_features=64),
+             "ddpm": lambda: DDPMUNet(base_features=128),
+             "adm": lambda: ADMUNet(base_features=256)}[net]()
+    params = fastddpm_flax_params(model.to(cuda))
+    del model
+    sched = DiffusionSchedule.create(1000, 2, "linear", "nonuniform-4060")
+    g = torch.Generator().manual_seed(1)
+    cond = torch.randn((2, 256, 256, 2), generator=g).to(cuda)
+    q = quantize_fastddpm({"params": params},
+                          calibrate_fastddpm({"params": params}, sched,
+                                             [cond]),
+                          only=deep_sites(params))
+    del params
+    x = torch.randn((2, 256, 256, 3), generator=g).to(cuda)
+    t = torch.full((2,), int(sched.timesteps[-1]), device=cuda)
+    fwd = int8_forward(q, device=cuda)
+
+    def launches():
+        return (conv2d_int8.launches, groupnorm_silu.launches,
+                quantize_int8.launches, bias_residual.launches)
+
+    def call():
+        before = launches(), _dit_counts()
+        out = fwd(x, t)
+        torch.cuda.synchronize()
+        new = tuple(a - b for a, b in zip(_dit_counts(), before[1]))
+        assert new[1] == new[2] == new[5] == 0  # GELU, L, gated
+        return out, tuple(a - b for a, b in zip(launches(), before[0]))
+
+    first, n_first = call()
+    dq, _, _ = _dit_tables(cuda, 2)
+    dit_fwd = int8_forward(dq, device=cuda)
+    dit_fwd(x, t)
+    torch.cuda.synchronize()
+    del dit_fwd, dq
+    again, n_again = call()
+    assert torch.equal(again, first) and n_again == n_first

@@ -11,6 +11,7 @@ come from its 8-device CPU mesh (``tests/test_distributed.py``)."""
 
 import json
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -50,12 +51,28 @@ CLI_RUNS = {"cli_host": [], "cli_scan": ["--backend", "device",
 
 
 def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("localhost", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
+    """``n`` distinct ports that bind now, drawn below the kernel's
+    ephemeral range.  The ranks bind them up to minutes later (the CLI
+    runs come last); a port of that range may meanwhile be handed to any
+    connection or ``bind(0)`` on the host, gloo's among them, and the
+    rank that then cannot bind it leaves the others waiting."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()  # the OS's entropy, not a test's seed
+    ports = []
+    while len(ports) < n:
+        port = rng.randrange(10000, max(low, 20000))
+        if port in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        ports.append(port)
     return ports
 
 

@@ -24,6 +24,7 @@ UNet (CPU, FEAT 4, 32^2, batch 2).
 import dataclasses
 import json
 import os
+import random
 import socket
 import subprocess
 import sys
@@ -278,12 +279,28 @@ def test_trainer_step_from_json_config_equals_plain(seeded, tmp_path):
 
 
 def _free_ports(n):
-    socks = [socket.socket() for _ in range(n)]
-    for s in socks:
-        s.bind(("localhost", 0))
-    ports = [s.getsockname()[1] for s in socks]
-    for s in socks:
-        s.close()
+    """``n`` distinct ports that bind now, drawn below the kernel's
+    ephemeral range.  The ranks bind them up to minutes later (the CLI
+    runs come last); a port of that range may meanwhile be handed to any
+    connection or ``bind(0)`` on the host, gloo's among them, and the
+    rank that then cannot bind it leaves the others waiting."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()  # the OS's entropy, not a test's seed
+    ports = []
+    while len(ports) < n:
+        port = rng.randrange(10000, max(low, 20000))
+        if port in ports:
+            continue
+        with socket.socket() as s:
+            try:
+                s.bind(("localhost", port))
+            except OSError:
+                continue
+        ports.append(port)
     return ports
 
 
