@@ -326,20 +326,30 @@
    Then DiT-XL/8 (``models/dit.py``, 256^2: 1024 tokens of 1152
    channels), seeded with torch's default init, calibrated and quantized
    int8_deep: one denoiser call at batch 2 with the counts set to 0 just
-   before it: 112 A (28 in the GELU form), 57 kernel L (56 emitting
-   codes), 28 quantizer and 56 gated kernel E launches, the 28 attention
-   cores on torch's fused path and none on the float one, the same bits
-   twice, within 2 % (rel L2) of the plain versions'.  At batch 32 at
-   DiT's shapes, one launch counted each: L emitting codes and bf16 (the
-   plain version's bits, bf16 within one rounding of the float64
-   formula), A's GELU form at fc1 (1152 -> 4608; within one code of the
-   plain version's, fewer than 1e-4 apart) and E's gated form (the plain
-   version's bits, in place), each the same bits twice, timed against its
-   bound and the plain version.
+   before it: 112 A (28 in the GELU form, all 112 in the GEMM form), 57
+   kernel L (56 emitting codes), 28 quantizer and 56 gated kernel E
+   launches, the 28 attention cores on torch's fused path and none on the
+   float one, the same bits twice, within 2 % (rel L2) of the plain
+   versions'.  At batch 32 at DiT's shapes, one launch counted each: L
+   emitting codes and bf16 (the plain version's bits, bf16 within one
+   rounding of the float64 formula), A's GELU form at fc1 (1152 -> 4608;
+   within one code of the plain version's, fewer than 1e-4 apart) and E's
+   gated form (the plain version's bits, in place), each the same bits
+   twice, timed against its bound and the plain version.
+   Last, kernel A at every 1x1 site of the DiT, ADM and DDPM calls above
+   and of one int8_deep call of the notebook net (its 4 skips), each
+   recorded during its call, at batch 32, on both tensor-core forms (the
+   GELU sites on the GEMM form alone): the GEMM form's bits equal to the
+   conv form's and to the plain version's (GELU within one code), each
+   form's time with
+   the L2 flushed, the bound and the plain version's time, the form
+   ``conv_form`` picks, and the sites where it is the slower: the table
+   behind the routing rule.
 
 Prints the whole script's wall time, the kernels' JSON line (A and B with
-their launches by path; A's GELU and E's gated form at DiT's shape under
-``forms``; L over the 57 sites of a batch-32 DiT call) and the card's name and power limit before the
+their launches by path; A's GELU and E's gated form at DiT's shape, and
+A's GEMM form over DiT's 1x1 sites, under ``forms``; L over the 57 sites
+of a batch-32 DiT call) and the card's name and power limit before the
 last line, which is {"ok": true, "device": {...}}.  With
 ``--sites-json PATH`` the per-site numbers also go to PATH.  Exits non-zero
 on any failure.
@@ -683,8 +693,8 @@ def reset_counts(conv, up):
 def launch_counts(conv, up):
     """Launches of kernels A (``conv``) and B (``up``) since
     ``reset_counts``: all, and by path (``"conv_int8/tc"``, ...), A's GELU
-    form; the quantizer's; kernel E's, all, with a residual and gated;
-    kernel L's, all and emitting codes."""
+    and GEMM forms; the quantizer's; kernel E's, all, with a residual and
+    gated; kernel L's, all and emitting codes."""
     from mrisr_tpu_torch.ops.bias_residual import bias_residual
     from mrisr_tpu_torch.ops.layernorm import layernorm_modulate
     from mrisr_tpu_torch.ops.quantize import quantize_int8
@@ -695,7 +705,8 @@ def launch_counts(conv, up):
            "bias_residual/gate": bias_residual.launches_gate,
            "layernorm_modulate": layernorm_modulate.launches,
            "layernorm_modulate/codes": layernorm_modulate.launches_codes,
-           "conv_int8/gelu": conv.launches_gelu}
+           "conv_int8/gelu": conv.launches_gelu,
+           "conv_int8/gemm": conv.launches_gemm}
     for name, fn in (("conv_int8", conv), ("upconv_int8", up)):
         out[name] = fn.launches
         for p in ("tc", "dp4a"):
@@ -5219,8 +5230,9 @@ def ddpm_phase(dev, card: str):
     then K3 against its plain version at every distinct site of that call;
     then ADM's call and shapes (:func:`adm_check`), the quantizer's and
     E's sites (:func:`quant_check`, :func:`bias_check`) and DiT's call and
-    new kernel forms (:func:`dit_check`).  Returns (launches of the call,
-    results)."""
+    new kernel forms (:func:`dit_check`), and kernel A's 1x1 sites of all
+    four nets on both tensor-core forms (:func:`gemm_check`).  Returns
+    (launches of the call, results)."""
     from collections import Counter
 
     from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
@@ -5264,6 +5276,8 @@ def ddpm_phase(dev, card: str):
         return e(y, b, r, rb)
 
     fwd._gn8, fwd._q8, fwd._bias = record, record_quant, record_bias
+    a_1x1 = Counter()
+    conv8 = record_1x1(fwd, a_1x1)
     x = torch.randn((DDPM_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((DDPM_BATCH,), int(sched.timesteps[-1]), device=dev)
     reset_counts(conv2d_int8, upconv2x2_int8)
@@ -5288,7 +5302,7 @@ def ddpm_phase(dev, card: str):
             torch.isfinite(got).all()):
         raise AssertionError(f"DDPM int8_deep call: {tuple(got.shape)}, "
                              "or not finite")
-    fwd._gn8, fwd._q8, fwd._bias = gn8, q8, e
+    fwd._gn8, fwd._q8, fwd._bias, fwd._conv8 = gn8, q8, e, conv8
     if not torch.equal(fwd(x, t), got):
         raise AssertionError("DDPM int8_deep call: two calls differ")
     call_ms = cuda_ms(lambda: fwd(x, t), reps=3, warmup=1)
@@ -5382,9 +5396,13 @@ def ddpm_phase(dev, card: str):
                              adm.pop("quant_sites"))
     bias_rows = bias_check(dev, g, Counter(bias_sites), card)
     dit_result = dit_check(dev, g, card)
+    gemm_rows = gemm_check(dev, g, card, {
+        "dit": dit_result.pop("a_1x1"), "adm": adm.pop("a_1x1"),
+        "ddpm": a_1x1, "notebook": notebook_1x1(dev, g)})
     return launches, {"call_ms": call_ms, "k3_ms": k3_ms, "sites": rows,
                       "shifted_ms": shift_ms, "quant_sites": quant_rows,
                       "bias_sites": bias_rows, "adm": adm, "dit": dit_result,
+                      "gemm_sites": gemm_rows,
                       "wall_s": time.perf_counter() - t_phase}
 
 
@@ -5412,8 +5430,9 @@ def adm_check(dev, g, sms, card: str):
     32 channels (1536 in groups of 48, 2048 in 64): int8 codes equal to
     the plain version's, bf16 within one rounding step, the same bits
     twice, one launch counted a call, its time against its bound (the
-    rows' 8 n C bytes counted).  Returns the call's launches, the K3 rows
-    and the quantizer's (H, C) sites (a Counter) for :func:`quant_check`."""
+    rows' 8 n C bytes counted).  Returns the call's launches, the K3 rows,
+    the quantizer's (H, C) sites (a Counter) for :func:`quant_check` and
+    kernel A's 1x1 sites (:func:`record_1x1`) for :func:`gemm_check`."""
     from collections import Counter
 
     from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
@@ -5451,6 +5470,8 @@ def adm_check(dev, g, sms, card: str):
         return q8(x, a)
 
     fwd._gn8, fwd._q8 = record, record_quant
+    a_1x1 = Counter()
+    conv8 = record_1x1(fwd, a_1x1)
     x = torch.randn((CHECK_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((CHECK_BATCH,), int(sched.timesteps[-1]), device=dev)
     reset_counts(conv2d_int8, upconv2x2_int8)
@@ -5474,7 +5495,7 @@ def adm_check(dev, g, sms, card: str):
                              f"and float attention cores, E launches and "
                              f"those with a residual {counted}, want "
                              f"{want}")
-    fwd._gn8, fwd._q8 = gn8, q8
+    fwd._gn8, fwd._q8, fwd._conv8 = gn8, q8, conv8
     if tuple(got.shape) != (CHECK_BATCH, HW, HW, 2) or not bool(
             torch.isfinite(got).all()):
         raise AssertionError(f"ADM int8_deep call: {tuple(got.shape)}, or "
@@ -5575,7 +5596,8 @@ def adm_check(dev, g, sms, card: str):
           f"sites, bound {sum(r['bound_ms'] * r['sites'] for r in rows):.3f} "
           f"ms ({card})")
     return {"launches": launches, "rel_to_plain": rel, "sites": rows,
-            "quant_sites": quant_sites, "wall_s": time.perf_counter() - t0}
+            "quant_sites": quant_sites, "a_1x1": a_1x1,
+            "wall_s": time.perf_counter() - t0}
 
 
 def dit_check(dev, g, card: str):
@@ -5596,7 +5618,9 @@ def dit_check(dev, g, card: str):
     codes apart; E's gated form the plain version's bits, in place.  Each
     the same bits twice, its time (the L2 flushed before each launch)
     against its bound and the plain version's.  Returns the call's
-    launches and the rows."""
+    launches, the rows and kernel A's 1x1 sites (:func:`record_1x1`)."""
+    from collections import Counter
+
     from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
     from mrisr_tpu_torch.models import dit
     from mrisr_tpu_torch.models.adm_unet import qkv_attention
@@ -5622,25 +5646,30 @@ def dit_check(dev, g, card: str):
     q = quantize_fastddpm({"params": params}, calib, only=deep_sites(params))
     del params, calib
     fwd = int8_forward(q, device=dev)
+    a_1x1 = Counter()
+    conv8 = record_1x1(fwd, a_1x1)
     x = torch.randn((CHECK_BATCH, HW, HW, 3), generator=g, device=dev)
     t = torch.full((CHECK_BATCH,), int(sched.timesteps[-1]), device=dev)
     reset_counts(conv2d_int8, upconv2x2_int8)
     attn = (qkv_attention.calls_fused, qkv_attention.calls_float)
     got = fwd(x, t)
     torch.cuda.synchronize()
+    fwd._conv8 = conv8
     launches = launch_counts(conv2d_int8, upconv2x2_int8)
     counted = (launches["conv_int8"], launches["conv_int8/gelu"],
+               launches["conv_int8/gemm"],
                launches["layernorm_modulate"],
                launches["layernorm_modulate/codes"],
                launches["quantize_int8"], launches["bias_residual"],
                launches["bias_residual/gate"],
                qkv_attention.calls_fused - attn[0],
                qkv_attention.calls_float - attn[1])
-    want = (DIT_A, DIT_GELU, DIT_L, DIT_L_CODES, DIT_QUANT, DIT_GATE,
+    want = (DIT_A, DIT_GELU, DIT_A, DIT_L, DIT_L_CODES, DIT_QUANT, DIT_GATE,
             DIT_GATE, DIT_ATTN, 0)
     if counted != want:
         raise AssertionError(f"DiT int8_deep call: A launches, in the GELU "
-                             f"form, L launches, emitting codes, quantizer "
+                             f"form, in the GEMM form, L launches, emitting "
+                             f"codes, quantizer "
                              f"launches, E launches, gated, fused and float "
                              f"attention cores {counted}, want {want}")
     if tuple(got.shape) != (CHECK_BATCH, HW, HW, 2) or not bool(
@@ -5656,9 +5685,10 @@ def dit_check(dev, g, card: str):
                              "plain versions' call")
     del fwd, q, got, plain, x
     print(f"DiT int8_deep call, batch {CHECK_BATCH}: {counted[0]} A "
-          f"({counted[1]} GELU), {counted[2]} L ({counted[3]} codes), "
-          f"{counted[4]} quantizer and {counted[6]} gated E launches, "
-          f"{counted[7]} fused attention cores, the same bits twice, rel L2 "
+          f"({counted[1]} GELU, {counted[2]} GEMM form), {counted[3]} L "
+          f"({counted[4]} codes), {counted[5]} quantizer and {counted[7]} "
+          f"gated E launches, {counted[8]} fused attention cores, the same "
+          f"bits twice, rel L2 "
           f"{rel:.4g} from the plain versions' ({time.perf_counter() - t0:.1f}"
           f" s with calibration; {card})")
 
@@ -5809,7 +5839,160 @@ def dit_check(dev, g, card: str):
           f"{sum(r['plain_ms'] * r['dit_sites'] for r in lrows):.3f}) "
           f"({card})")
     return {"launches": launches, "rel_to_plain": rel, "sites": rows,
-            "wall_s": time.perf_counter() - t0}
+            "a_1x1": a_1x1, "wall_s": time.perf_counter() - t0}
+
+
+def notebook_1x1(dev, g):
+    """Kernel A's 1x1 sites (:func:`record_1x1`) of one int8_deep call of
+    the notebook net (``seeded_fastddpm``, calibrated on one batch over the
+    10-step sampler) at batch CHECK_BATCH, for :func:`gemm_check`: its
+    four skips, as many as ``diffusion_conv_sites`` lists."""
+    from collections import Counter
+
+    from mrisr_tpu_torch.ckpt.from_jax import fastddpm_flax_params
+    from mrisr_tpu_torch.models.diffusion import DiffusionSchedule
+    from mrisr_tpu_torch.serve.quant_diffusion import (
+        calibrate_fastddpm, deep_sites, int8_forward, quantize_fastddpm)
+
+    params = fastddpm_flax_params(seeded_fastddpm(0).to(dev))
+    sched = DiffusionSchedule.create(1000, 10, "linear", "nonuniform-4060")
+    cond = torch.randn((CHECK_BATCH, HW, HW, 2), generator=g, device=dev)
+    calib = calibrate_fastddpm({"params": params}, sched, [cond])
+    fwd = int8_forward(quantize_fastddpm({"params": params}, calib,
+                                         only=deep_sites(params)), device=dev)
+    a_1x1 = Counter()
+    record_1x1(fwd, a_1x1)
+    x = torch.randn((CHECK_BATCH, HW, HW, 3), generator=g, device=dev)
+    fwd(x, torch.full((CHECK_BATCH,), int(sched.timesteps[-1]), device=dev))
+    torch.cuda.synchronize()
+    want = sum(k == 1 for *_, k in diffusion_conv_sites())
+    if sum(a_1x1.values()) != want:
+        raise AssertionError(f"notebook int8_deep call: {dict(a_1x1)} 1x1 "
+                             f"sites of A, want {want}")
+    return a_1x1
+
+
+def record_1x1(fwd, into):
+    """Counts each 1x1 site of kernel A that ``fwd`` (an ``int8_forward``)
+    launches into ``into``, a Counter of (H, W, Ci, Co, mode, relu) with
+    mode ``"f32"``, ``"codes"`` or ``"gelu"``.  Returns the wrapped conv,
+    for the caller to put back as ``fwd._conv8``."""
+    conv8 = fwd._conv8
+
+    def record(x, wp, s, b, **kw):
+        if wp.shape[1] == 1:
+            mode = ("gelu" if kw.get("gelu_scale") is not None else
+                    "f32" if kw.get("out_float") else "codes")
+            into[(x.shape[1], x.shape[2], x.shape[3], wp.shape[0], mode,
+                  bool(kw.get("relu", True)))] += 1
+        return conv8(x, wp, s, b, **kw)
+
+    fwd._conv8 = record
+    return conv8
+
+
+def gemm_check(dev, g, card: str, nets):
+    """Kernel A's 1x1 sites (``nets``: {net: Counter from
+    :func:`record_1x1`}) at batch DDPM_BATCH on both tensor-core forms, the
+    GEMM form and the conv form (a GELU site on the GEMM form alone, the
+    only form with that epilogue): the same bits (float32, or codes), equal
+    to the plain version's (the GELU form within one code of it, fewer than
+    1e-4 of the codes apart), each form's time with the L2 flushed, the
+    bound and the plain version's time; the form ``conv_form`` gives each
+    and the sites where it is the slower.  The table behind the routing
+    rule.  Returns the rows."""
+    from mrisr_tpu_torch.ops.conv_int8 import (
+        conv2d_int8, conv2d_int8_plain, conv_form, pack_conv)
+
+    t0 = time.perf_counter()
+    n, rows = DDPM_BATCH, []
+    scrub = torch.empty(16 * 2 ** 20, device=dev)
+    for net, sites in nets.items():
+        for (h, w, ci, co, mode, relu), count in sorted(sites.items()):
+            m = n * h * w
+            x = torch.randint(-127, 128, (n, h, w, ci), generator=g,
+                              device=dev, dtype=torch.int8)
+            wp = pack_conv(torch.randint(-127, 128, (1, 1, ci, co),
+                                         generator=g, device=dev,
+                                         dtype=torch.int8))
+            acc_std = 127 * 127 / 3 * ci ** 0.5
+            s = (torch.rand(co, generator=g, device=dev) + 0.3) * 3 / acc_std
+            b = 0.2 * torch.randn(co, generator=g, device=dev)
+            kw = {"relu": relu, "out_float": mode == "f32"}
+            if mode == "gelu":
+                y = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
+                kw = {"relu": False, "gelu_scale": (torch.nn.functional.gelu(
+                    y, approximate="tanh").abs().amax() / 127.0).reshape(1)}
+                del y
+            forms = ("gemm",) if mode == "gelu" else ("gemm", "tc")
+            # the rule's form is the GEMM form; "tc" forces the conv form
+            force = {"gemm": None, "tc": "tc"}
+            got = {f: conv2d_int8(x, wp, s, b, _form=force[f], **kw)
+                   for f in forms}
+            want = conv2d_int8_plain(x, wp, s, b, **kw)
+            if not torch.equal(got["gemm"], got.get("tc", got["gemm"])):
+                raise AssertionError(f"A {net} 1x1 {h}x{w} {ci}->{co} "
+                                     f"{mode}: the two forms differ")
+            if mode == "gelu":
+                diff = (got["gemm"].int() - want.int()).abs()
+                ok = int(diff.max()) <= 1 and float(
+                    (diff > 0).float().mean()) < 1e-4
+            else:
+                ok = torch.equal(got["gemm"], want)
+            if not ok:
+                raise AssertionError(f"A {net} 1x1 {h}x{w} {ci}->{co} "
+                                     f"{mode}: not the plain version's")
+            del got, want
+            ops = 2.0 * m * ci * co
+            nbytes = m * ci + ci * co + 8 * co + m * co * (
+                4 if mode == "f32" else 1)
+            row = {"kernel": "conv_int8", "net": net, "site":
+                   f"{n} x {h}x{w} x {ci} -> {co} {mode}", "sites": count,
+                   # the GEMM form's 128 x 128 output tiles
+                   "batch": n, "tiles": -(-m // 128) * -(-co // 128),
+                   "form": conv_form(m, ci, co, 1), "ops": ops,
+                   "bytes": nbytes, "ops_ms": ops / PEAK_INT8_OPS * 1e3,
+                   "bytes_ms": nbytes / PEAK_BYTES * 1e3}
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            row["tc_ms"] = None  # the conv form has no GELU epilogue
+            for f in forms:
+                row[f"{f}_ms"] = cuda_ms(
+                    lambda: conv2d_int8(x, wp, s, b, _form=force[f], **kw),
+                    reps=10, flush=scrub.zero_)
+            row["plain_ms"] = cuda_ms(
+                lambda: conv2d_int8_plain(x, wp, s, b, **kw), reps=1,
+                warmup=1)
+            row["ms"] = row[f"{row['form']}_ms"]
+            row["pct_of_bound"] = 100.0 * row["bound_ms"] / row["ms"]
+            rows.append(row)
+            del x, wp
+            tc = row["tc_ms"]
+            print(f"A {net:8s} 1x1 {row['site']:34s} x{count:2d}: "
+                  f"{row['tiles']:5d} tiles, gemm {row['gemm_ms']:.4f} ms, "
+                  + ("tc -, " if tc is None else f"tc {tc:.4f} ms, ")
+                  + f"bound {row['bound_ms']:.4f}, "
+                  f"plain {row['plain_ms']:.3f}; takes {row['form']} "
+                  f"({row['pct_of_bound']:.1f} % of bound"
+                  + (", SLOWER than the other form)" if tc is not None
+                     and row["ms"] > min(row["gemm_ms"], tc) else ")"),
+                  flush=True)
+    for net in nets:
+        sel = [r for r in rows if r["net"] == net]
+        both = [r for r in sel if r["tc_ms"] is not None]
+        took, gemm, tc = (sum(r[k] * r["sites"] for r in rs) for rs, k in (
+            (sel, "ms"), (both, "gemm_ms"), (both, "tc_ms")))
+        print(f"A 1x1 sites of a batch-{n} {net} call: "
+              f"{sum(r['sites'] for r in sel)} sites, {took:.3f} ms as routed "
+              f"({sum(r['sites'] for r in sel if r['form'] == 'gemm')} in "
+              f"the GEMM form); the {sum(r['sites'] for r in both)} with "
+              f"both forms {gemm:.3f} ms in the GEMM form, {tc:.3f} ms in "
+              f"the conv form; bound "
+              f"{sum(r['bound_ms'] * r['sites'] for r in sel):.3f} ms")
+    slower = [r for r in rows if r["tc_ms"] is not None
+              and r["ms"] > min(r["gemm_ms"], r["tc_ms"])]
+    print(f"A 1x1: {len(rows)} distinct sites, the rule's form the slower "
+          f"at {len(slower)} ({time.perf_counter() - t0:.1f} s; {card})")
+    return rows
 
 
 def quant_check(dev, g, ddpm_sites, card: str, adm_sites):
@@ -6053,6 +6236,7 @@ def main() -> int:
               "ddpm": ddpm_launches, "adm": ddpm_result["adm"]["launches"],
               "dit": ddpm_result["dit"]["launches"]}
     dit_rows = ddpm_result["dit"]["sites"]
+    gemm_rows = ddpm_result["gemm_sites"]
     for name in SOURCES:
         # A and B: all sites of one batch-8 UNet forward, summed; K1: one
         # call at N = 174, the eval's 3 mm test split; K3: the 10 sites of
@@ -6112,6 +6296,19 @@ def main() -> int:
                     "launches": main_path(f"{name}/{r['form']}"),
                     "site": r["site"], "max_abs_err": r["max_abs_err"],
                     **{k: r[k] for k in ("ms", "bound_ms", "plain_ms")}}
+        # A's GEMM form: the 112 1x1 sites of a batch-32 DiT call, summed
+        if name == "conv_int8":
+            sel = [r for r in gemm_rows if r["net"] == "dit"]
+            both = [r for r in sel if r["tc_ms"] is not None]
+            entry.setdefault("forms", {})["gemm"] = {
+                "launches": main_path("conv_int8/gemm"),
+                "site": "the 1x1 sites of a batch-32 DiT call",
+                **{k: sum(r[k] * r["sites"] for r in sel) for k in (
+                    "ms", "bound_ms", "plain_ms")},
+                # the float32 sites, which the conv form takes too
+                "both_forms_sites": sum(r["sites"] for r in both),
+                **{k: sum(r[k] * r["sites"] for r in both) for k in (
+                    "gemm_ms", "tc_ms")}}
         kernels.append(entry)
     if args.sites_json:
         os.makedirs(os.path.dirname(os.path.abspath(args.sites_json)),

@@ -15,9 +15,12 @@ GELU's tanh form at the next site's activation scale:
 :func:`conv2d_int8_plain` for a CPU tensor; it never falls back.  The
 kernel has two main loops, picked by :func:`conv_path` from the shape
 alone: ``"tc"`` (wgmma on the tensor cores, fed by TMA) and ``"dp4a"``.
-Each launch adds one to ``conv2d_int8.launches`` and to the count of its
-path, ``conv2d_int8.launches_tc`` or ``conv2d_int8.launches_dp4a``, and a
-GELU launch to ``conv2d_int8.launches_gelu`` too.
+On the tensor cores a 1x1 site takes the GEMM form (:func:`conv_form`): a
+persistent GEMM over the (N H W, Ci) codes in 128 x 128 tiles.  Each
+launch adds one to ``conv2d_int8.launches`` and to the count of its path,
+``conv2d_int8.launches_tc`` or ``conv2d_int8.launches_dp4a``; a launch of
+the GEMM form to ``conv2d_int8.launches_gemm`` too (inside
+``launches_tc``), and a GELU launch to ``conv2d_int8.launches_gelu``.
 """
 
 from __future__ import annotations
@@ -46,6 +49,25 @@ def conv_path(ci: int, co: int, k: int) -> str:
     if ci % TC_CI_MULTIPLE == 0 and co >= TC_MIN_COLS:
         return "tc"
     return "dp4a"
+
+
+# the GEMM form indexes output rows in 32 bits (its tiles are 128 rows)
+GEMM_MAX_ROWS = 2 ** 31 - 128
+_FORM_CODE = {"dp4a": 0, "tc": 1, "gemm": 2}
+
+
+def conv_form(m: int, ci: int, co: int, k: int) -> str:
+    """The form kernel A takes for a ``k``x``k`` conv of ``ci`` -> ``co``
+    channels over ``m`` = N H W pixels: ``"gemm"`` (the tensor cores'
+    persistent GEMM) for a 1x1 site on the tensor-core path with fewer than
+    :data:`GEMM_MAX_ROWS` pixels, else :func:`conv_path`'s path.  On the
+    card the GEMM form timed faster than the conv form at every 1x1 site of
+    the benchmark's networks at batch 32, down to 64 output tiles (half
+    the SMs), and at 2 tiles in the card tests' shapes (PERF.md)."""
+    path = conv_path(ci, co, k)
+    if path == "tc" and k == 1 and m < GEMM_MAX_ROWS:
+        return "gemm"
+    return path
 
 
 def count_launch(fn, path: str) -> None:
@@ -122,15 +144,20 @@ def conv2d_int8_plain(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
 def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
                 b: torch.Tensor, *, relu: bool = True,
                 out_float: bool = False,
-                gelu_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                gelu_scale: Optional[torch.Tensor] = None,
+                _form: Optional[str] = None) -> torch.Tensor:
     """x ``(N, H, W, Ci)`` int8 codes, wp ``(Co, k, k, Ci)`` int8 from
     :func:`pack_conv` (k = 1 or 3), s/b ``(Co,)`` float32.  Returns
     ``(N, H, W, Co)`` int8 codes, or float32 with ``out_float``.
     ``gelu_scale``: one float32 value on x's device (the next int8 site's
-    per-step activation scale): the codes of GELU(y) at that scale, on the
-    tensor-core path, with ``relu`` and ``out_float`` False; the kernel's
-    fast exponential puts a few codes in 1e5 a boundary apart from the
-    plain version's."""
+    per-step activation scale): the codes of GELU(y) at that scale, in the
+    GEMM form (a 1x1 site on the tensor-core path), with ``relu`` and
+    ``out_float`` False; the kernel's fast exponential puts a few codes in
+    1e5 a boundary apart from the plain version's.  The form is
+    :func:`conv_form`'s.  ``_form`` is for tests only: ``"tc"`` runs a
+    site of the GEMM form in the conv form, for the card tests and
+    ``chip_smoke.py``'s per-site table, which hold the two forms to each
+    other."""
     if gelu_scale is not None:
         if relu or out_float:
             raise ValueError("conv2d_int8: the GELU form emits codes, with "
@@ -157,10 +184,18 @@ def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
                              f"{dt} tensor on {x.device}")
     if s.numel() != co or b.numel() != co:
         raise ValueError("conv2d_int8: s and b need one value per channel")
-    path = conv_path(ci, co, k)
-    if gelu_scale is not None and path != "tc":
-        raise ValueError(f"conv2d_int8: the GELU form runs on the tensor-core "
-                         f"path only (Ci {ci} a multiple of 16, Co {co} >= 8)")
+    form = conv_form(n * h * w, ci, co, k)
+    if _form is not None:
+        if _form != "tc" or form != "gemm":
+            raise ValueError(f"conv2d_int8: _form='tc' moves a GEMM-form site "
+                             f"to the conv form; not _form={_form!r} at a "
+                             f"{k}x{k} conv of {ci} -> {co} channels")
+        form = _form
+    path = "dp4a" if form == "dp4a" else "tc"
+    if gelu_scale is not None and form != "gemm":
+        raise ValueError(f"conv2d_int8: the GELU form runs in the tensor-core "
+                         f"path's GEMM form only (a 1x1 conv, Ci {ci} a "
+                         f"multiple of 16, Co {co} >= 8)")
     if path == "tc":
         check_tc_aligned("conv2d_int8", x, wp)
     out = torch.empty((n, h, w, co), device=x.device,
@@ -171,14 +206,15 @@ def conv2d_int8(x: torch.Tensor, wp: torch.Tensor, s: torch.Tensor,
         err = lib.conv_int8_launch(
             x.data_ptr(), wp.data_ptr(), s.data_ptr(), b.data_ptr(),
             out.data_ptr(), n, h, w, ci, co, k, int(relu), int(out_float),
-            int(path == "tc"),
+            _FORM_CODE[form],
             None if gelu_scale is None else gelu_scale.data_ptr(), stream,
         )
     _build.check(err, "conv2d_int8")
     count_launch(conv2d_int8, path)
+    conv2d_int8.launches_gemm += form == "gemm"
     conv2d_int8.launches_gelu += gelu_scale is not None
     return out
 
 
-conv2d_int8.launches_gelu = 0
+conv2d_int8.launches_gelu = conv2d_int8.launches_gemm = 0
 reset_launches(conv2d_int8)

@@ -1,12 +1,17 @@
 """Which main loop kernels A and B run at each site (CPU).
 
 ``conv_path`` / ``upconv_path`` pick the tensor-core loop (wgmma fed by TMA)
-or the __dp4a loop from the shape alone.  The sites are read from the
+or the __dp4a loop from the shape alone, and ``conv_form`` kernel A's
+persistent GEMM form for the 1x1 sites that fill the card.  The sites are read from the
 full-width models themselves: the pair UNet (features 64: 19 convs, 4
 upconvs, all int8 in int8_fused serving) and the Fast-DDPM UNet (base 64:
 the 14 convs and 2 upconvs of ``DEEP_SITES``, int8_deep serving).
 ``chip_smoke.py`` keeps its own site lists for the card; they must name the
 same shapes."""
+
+import re
+from pathlib import Path
+from unittest import mock
 
 import pytest
 import torch
@@ -16,11 +21,15 @@ import chip_smoke
 from mrisr_tpu_torch.models import UNet
 from mrisr_tpu_torch.models.diffusion import FastDDPMUNet
 from mrisr_tpu_torch.ops.conv_int8 import (
+    GEMM_MAX_ROWS,
     conv2d_int8,
+    conv_form,
     conv_path,
     pack_conv,
     reset_launches,
 )
+from portbench.core import reader
+from portbench.reference import counts, counts_adm, counts_dit, counts_pmub
 from mrisr_tpu_torch.ops.upconv import pack_upconv, upconv2x2_int8, upconv_path
 from mrisr_tpu_torch.serve.quant_diffusion import DEEP_SITES
 
@@ -135,3 +144,88 @@ def test_cpu_calls_count_no_launch():
     upconv2x2_int8(x, w2, s4, b4)
     for fn in (conv2d_int8, upconv2x2_int8):
         assert (fn.launches, fn.launches_tc, fn.launches_dp4a) == (0, 0, 0)
+    assert (conv2d_int8.launches_gemm, conv2d_int8.launches_gelu) == (0, 0)
+
+
+def _benchmark_1x1_sites(batch=32):
+    """{"<config> <site>": (M, Ci, Co)} of every 1x1 kernel-A site of the
+    benchmark's five configurations at ``batch``, as
+    ``portbench/reference/counts*.py`` count them (each conv_site call)."""
+    calls = []
+
+    def capture(mod):
+        real = mod.conv_site
+
+        def conv_site(name, n, h, ci, co, k, out_bytes):
+            calls.append((name, n * h * h, ci, co, k))
+            return real(name, n, h, ci, co, k, out_bytes)
+        return mock.patch.object(mod, "conv_site", conv_site)
+
+    sites = {}
+    for config, mod, fn in (
+            ("unet_m2", counts, counts.unet_kernel_sites),
+            ("fastddpm", counts, counts.fastddpm_kernel_sites),
+            ("fastddpm_pmub", counts_pmub, counts_pmub.kernel_sites),
+            ("fastddpm_adm", counts_adm, counts_adm.kernel_sites),
+            ("fastddpm_dit", counts_dit, counts_dit.kernel_sites)):
+        calls.clear()
+        with capture(mod):
+            fn(batch)
+        for name, m, ci, co, k in calls:
+            if k == 1:
+                sites[f"{config} {name}"] = (m, ci, co)
+    return sites
+
+
+A_1X1 = _benchmark_1x1_sites()
+
+
+def test_benchmark_1x1_site_counts():
+    """DiT's 112 block linears, ADM's 17 skips and 16 attention pairs,
+    PMUB's 17 shortcuts and 6 attention blocks' four projections, the
+    notebook net's 4 skips and the UNet's head."""
+    by = {}
+    for key in A_1X1:
+        by[key.split()[0]] = by.get(key.split()[0], 0) + 1
+    assert by == {"fastddpm_dit": 112, "fastddpm_adm": 49,
+                  "fastddpm_pmub": 41, "fastddpm": 4, "unet_m2": 1}
+
+
+@pytest.mark.parametrize("site", sorted(A_1X1))
+def test_benchmark_1x1_site_form(site):
+    """The form kernel A takes at each 1x1 site of the benchmark's cells
+    (batch 32): every tensor-core site the GEMM form, DiT's 112 block
+    linears among them, the UNet's head (Co = 1) the dp4a loop."""
+    m, ci, co = A_1X1[site]
+    want = "dp4a" if site == "unet_m2 final" else "gemm"
+    assert conv_form(m, ci, co, 1) == want
+
+
+@pytest.mark.parametrize("m,ci,co,k,form", [
+    (32768, 1152, 4608, 1, "gemm"), (2048, 1152, 1152, 1, "gemm"),
+    (63, 192, 200, 1, "gemm"), (GEMM_MAX_ROWS - 1, 64, 64, 1, "gemm"),
+    (GEMM_MAX_ROWS, 64, 64, 1, "tc"), (2048, 1024, 1024, 3, "tc"),
+    (524288, 64, 64, 3, "tc"), (32768, 8, 64, 1, "dp4a"),
+    (65536, 64, 1, 1, "dp4a")])
+def test_conv_form_by_shape(m, ci, co, k, form):
+    """The GEMM form at every 1x1 site on the tensor-core path whose rows
+    it can index; every 3x3 site keeps the conv form, and the dp4a sites
+    their loop."""
+    assert conv_form(m, ci, co, k) == form
+
+
+def test_every_kernel_a_symbol_matches_the_roofline_pattern():
+    """Every __global__ kernel of csrc/conv_int8.cu is one that the
+    benchmark's kernel_a_roofline counts as kernel A (its PATTERN, matched
+    against the demangled name a profiler shows)."""
+    src = (Path(__file__).resolve().parent.parent / "mrisr_tpu_torch" /
+           "csrc" / "conv_int8.cu").read_text()
+    names = re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+        src)
+    assert {"conv_int8_tc_kernel_gemm", "conv_int8_tc_kernel_gemm_gelu",
+            "conv_int8_tc_kernel", "conv1x1_to1_kernel"} <= set(names)
+    pattern = reader("kernel_a_roofline").PATTERN
+    for name in names:
+        assert re.search(pattern, f"void {name}<128, true>(CUtensorMap)"), \
+            name

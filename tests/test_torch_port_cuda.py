@@ -6,6 +6,8 @@ imports neither jax nor mrisr_tpu, so it runs on a machine with the card
 and no JAX:  python -m pytest --noconftest -m gpu tests/test_torch_port_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -729,7 +731,8 @@ def test_engine_on_card(cuda):
 @pytest.mark.parametrize("skip_emit", ["shared", "dual"])
 def test_fused_unet_on_card_equals_plain(cuda, skip_emit):
     """The kernels round their epilogue as the plain versions do, so the
-    whole int8_fused forward on the card equals the plain one exactly."""
+    whole int8_fused forward on the card equals the plain one exactly; no
+    launch takes kernel A's GEMM form."""
     from mrisr_tpu_torch.ckpt import fold_unet_batchnorm
     from mrisr_tpu_torch.models import UNet
     from mrisr_tpu_torch.serve import (
@@ -740,10 +743,12 @@ def test_fused_unet_on_card_equals_plain(cuda, skip_emit):
     g = torch.Generator().manual_seed(1)
     x = torch.randn((4, 32, 32, 2), generator=g).to(cuda)
     q = quantize_unet(folded, calibrate_unet(folded, [x]))
+    gemm = conv2d_int8.launches_gemm
     got = Int8FusedUNet(q, skip_emit, device=cuda)(x)
     want = Int8FusedUNet(q, skip_emit, device=cuda, plain=True)(x)
     assert got.shape == (4, 32, 32, 1)
     assert torch.equal(got, want)
+    assert conv2d_int8.launches_gemm == gemm  # its one 1x1 site has Co = 1
 
 
 # the 18 kernel-A sites of the full-width unet_int8_apply forward (features
@@ -1662,6 +1667,102 @@ def test_conv_int8_gelu_form_matches_plain(cuda, n):
                     relu=False, gelu_scale=a)
 
 
+# Kernel A's GEMM form (1x1 sites): DiT's four linears at batch 2, and
+# ragged shapes: M not a multiple of its 128-row tiles (63, 429, 800
+# pixels), Co not a multiple of its 128 columns (200, 72, 8, 1000), Ci 64 x
+# an odd number (192, 320) and 16 (one TMA row a fifth full)
+GEMM_CASES = [(2, 32, 32, 1152, 3456), (2, 32, 32, 1152, 1152),
+              (2, 32, 32, 1152, 4608), (2, 32, 32, 4608, 1152),
+              (1, 9, 7, 192, 200), (3, 11, 13, 64, 72), (3, 11, 13, 16, 8),
+              (2, 20, 20, 320, 1000)]
+
+
+def _gemm_case(cuda, n, h, w, ci, co, seed):
+    g = torch.Generator().manual_seed(seed)
+    x = _codes(g, (n, h, w, ci), cuda)
+    wp = pack_conv(_codes(g, (1, 1, ci, co), cuda))
+    acc_std = 127 * 127 / 3 * ci ** 0.5
+    s = ((torch.rand(co, generator=g) * 2 + 0.3) * 60 / acc_std).to(cuda)
+    b = (torch.rand(co, generator=g) * 4 - 2).to(cuda)
+    return x, wp, s, b
+
+
+@pytest.mark.parametrize("n,h,w,ci,co", GEMM_CASES, ids=str)
+@pytest.mark.parametrize("out_float,relu", [(True, False), (False, False),
+                                            (False, True)])
+def test_conv_int8_gemm_form_matches_plain(cuda, n, h, w, ci, co, out_float,
+                                           relu):
+    """The GEMM form: the plain version's float32 or codes bit for bit, the
+    conv form's bits (the same exact sums through the same epilogue), the
+    same bits twice; one launch, counted in ``launches_gemm`` and on the
+    tensor-core path."""
+    from mrisr_tpu_torch.ops.conv_int8 import conv_form
+
+    assert conv_form(n * h * w, ci, co, 1) == "gemm"
+    x, wp, s, b = _gemm_case(cuda, n, h, w, ci, co, ci + co + n)
+    kw = dict(relu=relu, out_float=out_float)
+    before = (_path_counts(conv2d_int8), conv2d_int8.launches_gemm)
+    got = conv2d_int8(x, wp, s, b, **kw)
+    torch.cuda.synchronize()
+    assert_launched(conv2d_int8, before[0], "tc")
+    assert conv2d_int8.launches_gemm == before[1] + 1
+    assert torch.equal(got, conv2d_int8_plain(x, wp, s, b, **kw))
+    assert torch.equal(conv2d_int8(x, wp, s, b, _form="tc", **kw), got)
+    assert torch.equal(conv2d_int8(x, wp, s, b, **kw), got)
+
+
+def _gelu_codes_direct(y, a):
+    """The codes of GELU's tanh form at scale ``a``, in float64 and in the
+    form the kernel computes, ``y / (1 + exp(-2 sqrt(2 / pi) (y + 0.044715
+    y^3)))``, which keeps the far negative tail that torch's float32 GELU
+    rounds to 0."""
+    y, a = y.double(), float(a)
+    u = -2 * math.sqrt(2 / math.pi) * (y + 0.044715 * y ** 3)
+    g = y / (1 + torch.exp(u))
+    return torch.clamp(torch.round(g / a), -127, 127).to(torch.int8)
+
+
+@pytest.mark.parametrize("n,h,w,ci,co,shift,scale,gain", [
+    (4, 32, 32, 1152, 4608, 0.0, 1.0, 1.0),
+    (1, 9, 7, 192, 200, 0.0, 1.0, 1.0),
+    (2, 16, 16, 192, 256, -9.0, 1.0, 1.0),
+    (2, 16, 16, 192, 256, 1e19, 1.0, 1.0),
+    (2, 16, 16, 192, 256, 0.0, 1e-20, 1.0),
+    (2, 16, 16, 192, 256, 0.0, 1.0, 1e21)], ids=str)
+def test_conv_int8_gemm_gelu_form_at_its_edges(cuda, n, h, w, ci, co, shift,
+                                               scale, gain):
+    """The GEMM form's GELU epilogue against GELU's formula in float64 at
+    the next site's scale: none more than one code apart, fewer than 1e-4
+    of them apart at all, and so against the plain version (torch's GELU)
+    at unshifted values; at DiT's fc1 (batch 4) and a ragged shape; with
+    the pre-activations shifted to GELU's far negative tail (values under
+    2^-60, which the fast division takes), past 2^60 (which it leaves to
+    __fdiv_rn), at a scale under 2^-60 and, with the values scaled up, one
+    over 2^60 (likewise).  One launch, counted in ``launches_gemm`` and
+    ``launches_gelu``; the same bits twice; the conv form refuses it."""
+    x, wp, s, b = _gemm_case(cuda, n, h, w, ci, co, ci + co)
+    s, b = s / 30 * gain, b + shift
+    y = conv2d_int8_plain(x, wp, s, b, relu=False, out_float=True)
+    a = (torch.nn.functional.gelu(y.double(), approximate="tanh").abs()
+         .amax() / 127.0 * scale).float().reshape(1)
+    before = (conv2d_int8.launches_gemm, conv2d_int8.launches_gelu)
+    got = conv2d_int8(x, wp, s, b, relu=False, gelu_scale=a)
+    torch.cuda.synchronize()
+    assert (conv2d_int8.launches_gemm, conv2d_int8.launches_gelu) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(conv2d_int8(x, wp, s, b, relu=False, gelu_scale=a),
+                       got)
+    wants = [_gelu_codes_direct(y, a)]
+    if shift == 0.0 and scale == 1.0 and gain == 1.0:
+        wants.append(conv2d_int8_plain(x, wp, s, b, relu=False, gelu_scale=a))
+    for want in wants:
+        diff = (got.int().cpu() - want.int().cpu()).abs()
+        assert int(diff.max()) <= 1
+        assert float((diff > 0).float().mean()) < 1e-4
+    with pytest.raises(ValueError, match="GEMM form"):
+        conv2d_int8(x, wp, s, b, relu=False, gelu_scale=a, _form="tc")
+
+
 @pytest.mark.parametrize("ci,co", DIT_LINEARS, ids=str)
 def test_conv_int8_float_form_at_dit_linears(cuda, ci, co):
     """Kernel A's float epilogue at DiT's four linear shapes (batch 2 of
@@ -1743,13 +1844,13 @@ def _dit_counts():
             layernorm_modulate.launches, layernorm_modulate.launches_codes,
             quantize_int8.launches, bias_residual.launches_gate,
             bias_residual.launches, qkv_attention.calls_fused,
-            qkv_attention.calls_float)
+            qkv_attention.calls_float, conv2d_int8.launches_gemm)
 
 
 def test_dit_int8_deep_call_on_card(cuda):
     """One int8_deep denoiser call of DiT-XL/8 (256^2, 1024 tokens, batch
-    2) through kernels L, A, Q and E and torch's fused attention: A 112
-    (28 in the GELU form), L 57 (56 emitting codes), Q 28, E 56 (all
+    2) through kernels L, A, Q and E and torch's fused attention: A 112,
+    all in the GEMM form (28 of them GELU), L 57 (56 emitting codes), Q 28, E 56 (all
     gated), the 28 attention cores on the fused path and none on the
     float one; both channels out, the same bits twice, and within 2 %
     (rel L2) of the same tables through the kernels' plain versions.
@@ -1766,7 +1867,7 @@ def test_dit_int8_deep_call_on_card(cuda):
     got = fwd(x, t)
     torch.cuda.synchronize()
     one = tuple(a - b for a, b in zip(_dit_counts(), before))
-    assert one == (112, 28, 57, 56, 28, 56, 56, 28, 0), one
+    assert one == (112, 28, 57, 56, 28, 56, 56, 28, 0, 112), one
     from portbench.reference.counts_dit import kernel_sites
 
     sites = kernel_sites(2)  # the benchmark's counts: one call's launches

@@ -16,14 +16,16 @@ SHA-256 of ``FastDDPMForward``'s bf16 output for gn_impl 'chain' and
 names, ids and parents of the spans one ``int8_deep`` call records under a
 profiler, for each gn_impl.
 
-With ``--card`` (one CUDA card; the ``fastddpm``, ``fastddpm_pmub`` and
-``fastddpm_adm`` presets' networks at full width, the registry's seeded
-init, 256^2): one ``int8_deep`` sampler call of each (the preset's
-schedule, batch 32, 'fused', calibrated on 4 of the conds), run twice: the
-digests of its output and of the calibration tables, and the launches of
-kernels A, B and K3 (and K3's shifted launches), of the quantizer kernel
-and of kernel E (all, and with a residual), where DIR's package has them,
-in one call.
+With ``--card`` (one CUDA card; the ``fastddpm``, ``fastddpm_pmub``,
+``fastddpm_adm`` and ``fastddpm_dit`` presets' networks at full width, the
+registry's seeded init, 256^2): one ``int8_deep`` sampler call of each (the
+preset's schedule, batch 32, 'fused', calibrated on 4 of the conds), run
+twice: the digests of its output and of the calibration tables, and the
+launches of kernels A, B and K3 (and K3's shifted launches), of the
+quantizer kernel and of kernel E (all, and with a residual), and kernel A's
+GEMM-form launches, where DIR's package has them, in one call.  Then the
+pair UNet at features 64 served ``int8_fused`` (BN folded, calibrated on 8
+of the pairs): the digest of one forward of 32 seeded 256^2 pairs, twice.
 
 Prints one JSON line; two checkouts compute the same when their lines are
 equal.
@@ -165,13 +167,15 @@ def card_digests() -> dict:
         from mrisr_tpu_torch.ops.quantize import quantize_int8
 
         counters["quantize_int8.launches"] = (quantize_int8, "launches")
+    if hasattr(conv2d_int8, "launches_gemm"):
+        counters["conv2d_int8.launches_gemm"] = (conv2d_int8, "launches_gemm")
     if importlib.util.find_spec("mrisr_tpu_torch.ops.bias_residual"):
         from mrisr_tpu_torch.ops.bias_residual import bias_residual
 
         for a in ("launches", "launches_residual"):
             counters[f"bias_residual.{a}"] = (bias_residual, a)
     out = {"card": torch.cuda.get_device_name(0)}
-    for name in ("fastddpm", "fastddpm_pmub", "fastddpm_adm"):
+    for name in ("fastddpm", "fastddpm_pmub", "fastddpm_adm", "fastddpm_dit"):
         mcfg = PRESETS[name].model
         model, _ = init_model(name, mcfg, seed=6)
         params = fastddpm_flax_params(model.to(dev))
@@ -196,6 +200,29 @@ def card_digests() -> dict:
             out[f"{name}.launches.{run}"] = {
                 k: getattr(f, a) - before[k]
                 for k, (f, a) in counters.items()}
+        del model, params, calib, q, fwd, y
+    from mrisr_tpu_torch.ckpt import fold_unet_batchnorm
+    from mrisr_tpu_torch.models import UNet
+    from mrisr_tpu_torch.serve import (
+        Int8FusedUNet,
+        calibrate_unet,
+        quantize_unet,
+    )
+
+    with torch.random.fork_rng(devices=[dev]):
+        torch.manual_seed(6)
+        folded = fold_unet_batchnorm(UNet(features=64).eval().to(dev))
+    x = torch.rand((32, 256, 256, 2), device=dev,
+                   generator=torch.Generator(dev).manual_seed(3))
+    fwd = Int8FusedUNet(quantize_unet(folded, calibrate_unet(folded, [x[:8]])),
+                        "shared", device=dev)
+    for run in (0, 1):
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        y = fwd(x)
+        torch.cuda.synchronize()
+        out[f"unet_m2.forward.{run}"] = digest(y)
+        out[f"unet_m2.launches.{run}"] = {
+            k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
     return out
 
 
